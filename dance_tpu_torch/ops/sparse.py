@@ -1,0 +1,71 @@
+"""Sparse tensor containers (counterpart: dance_tpu/ops/sparse.py:18-121,177-210).
+
+The JAX package registers these as pytrees so that ``jit`` sees static
+shapes; here they are plain dataclasses of tensors with a ``.to(device)``.
+``DenseAdj`` (sparse.py:124-168) is not part of this slice (ROADMAP Queue 1).
+"""
+
+from dataclasses import dataclass, replace
+from typing import Tuple
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from dance_tpu_torch.ops.bsr import BSRMatrix
+
+
+@dataclass
+class CSRMatrix:
+    """CSR sparse matrix as tensors (counterpart: sparse.py:18-59)."""
+
+    data: torch.Tensor     # (nnz,) f32
+    indices: torch.Tensor  # (nnz,) int64 column index per entry
+    indptr: torch.Tensor   # (n_rows + 1,) int64
+    shape: Tuple[int, int]
+
+    def row_ids(self) -> torch.Tensor:
+        """Per-entry row id (counterpart: ``CSRMatrix.row_ids``, sparse.py:49)."""
+        counts = self.indptr[1:] - self.indptr[:-1]
+        return torch.repeat_interleave(
+            torch.arange(self.shape[0], device=self.indptr.device), counts)
+
+    def to(self, device) -> "CSRMatrix":
+        return replace(self, data=self.data.to(device), indices=self.indices.to(device),
+                       indptr=self.indptr.to(device))
+
+
+def csr_from_scipy(mat: sp.spmatrix) -> CSRMatrix:
+    """Counterpart: ``csr_from_scipy`` (sparse.py:62). Indices are int64,
+    torch's index type."""
+    mat = sp.csr_matrix(mat)
+    return CSRMatrix(torch.from_numpy(np.asarray(mat.data, np.float32)),
+                     torch.from_numpy(np.asarray(mat.indices, np.int64)),
+                     torch.from_numpy(np.asarray(mat.indptr, np.int64)), mat.shape)
+
+
+@dataclass
+class AdaptiveBSR:
+    """AdaptiveSAGE's message passing as one SpMM over a constant off-diagonal
+    BSR matrix plus per-node terms (counterpart: sparse.py:177-210).
+
+    With node scale ``s[v] = alpha[gene_idx[v]]`` for genes and 1 for cells,
+    ``sum_e w_e * alpha_e * h_src == s * (A_off @ (s * h)) + w_diag * alpha_self * h``.
+    """
+
+    bsr: BSRMatrix
+    w_diag: torch.Tensor    # (n,) self-loop weight per node (0 if absent)
+    gene_idx: torch.Tensor  # (n,) int64 gene index per node, -1 for cells
+    deg: torch.Tensor       # (n,) incoming edge counts incl. self-loops
+    n_genes: int
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.w_diag.shape[0], self.w_diag.shape[0])
+
+    def to(self, device) -> "AdaptiveBSR":
+        return replace(self, bsr=self.bsr.to(device), w_diag=self.w_diag.to(device),
+                       gene_idx=self.gene_idx.to(device), deg=self.deg.to(device))
+
+
+__all__ = ["AdaptiveBSR", "CSRMatrix", "csr_from_scipy"]

@@ -1,0 +1,45 @@
+"""Gene PCA and expression-weighted cell features, scDeepSort's preprocessing
+(counterpart: the array core of ``WeightedFeaturePCA.__call__``,
+dance_tpu/transforms/cell_feature.py:51-67).
+
+The JAX transform reads and writes a ``Data`` container and registers itself
+in ``dance_tpu.registry``. The port works on arrays and registers nothing,
+so its name cannot collide with the JAX registry in a process that imports
+both packages. ``feat_norm_mode`` and ``save_info`` are not ported yet.
+"""
+
+from typing import Tuple
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from dance_tpu_torch.ops.linalg import pca
+from dance_tpu_torch.settings import logger
+
+
+def _dense(x, device) -> torch.Tensor:
+    x = x.toarray() if sp.issparse(x) else np.asarray(x)
+    return torch.from_numpy(np.asarray(x, np.float32)).to(device)
+
+
+def weighted_feature_pca(x_split, x_all, n_components: int,
+                         device="cpu") -> Tuple[np.ndarray, np.ndarray]:
+    """PCA over genes on ``x_split`` (cells x genes, e.g. the training cells),
+    then each cell of ``x_all`` is its row-normalized expression times the
+    gene embedding. Returns ``(cell_feat, gene_feat)`` as float32 arrays of
+    shapes (n_cells, k) and (n_genes, k); ``k`` is clipped to the matrix size.
+    The arithmetic runs on ``device``."""
+    feat = _dense(x_split, device)
+    k = int(min(n_components, min(feat.shape)))
+    if k < n_components:
+        logger.warning("n_components=%s > min(n_samples, n_features)=%s; clipping",
+                       n_components, k)
+    gene_feat = pca(feat.T, k).embedding
+    x = _dense(x_all, device)
+    denom = x.sum(dim=1, keepdim=True)
+    cell_feat = (x / torch.where(denom == 0, 1.0, denom)) @ gene_feat
+    return cell_feat.cpu().numpy(), gene_feat.cpu().numpy()
+
+
+__all__ = ["weighted_feature_pca"]
