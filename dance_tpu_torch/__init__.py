@@ -12,7 +12,17 @@ library only: never JAX, flax, optax, scikit-learn, pandas, h5py, yaml or
 Counterpart: dance_tpu/__init__.py:15-19.
 """
 
+import torch
+
 from dance_tpu_torch.settings import logger
+
+# PyTorch's CPU math sets up its vectorised transcendental functions at their
+# first use. When that first use is a call split over several threads, some
+# elements of that one call have come out ~1e-4 off (seen for torch.exp of a
+# (13, 128, 128) tensor in about one test process of six; every later call is
+# right to an ulp). One small call on one thread settles it before the plain
+# versions of the kernels run on the CPU (ROADMAP Queue 3).
+torch.exp(torch.zeros(8))
 
 __version__ = "0.1.0"
 

@@ -3,10 +3,12 @@
 The JAX package needs no build: Pallas kernels are traced by ``jax.jit``
 (dance_tpu/ops/pallas_kernels.py:101,159). Here the kernels are CUDA C++ for
 Hopper (``sm_90a``), compiled by ``nvcc`` into one shared library with a plain
-C interface and loaded with ``ctypes``:
+C interface and loaded with ``ctypes``. Each source is compiled on its own,
+all of them at once, then the objects are linked:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o build/dance_tpu_torch/lib....so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
+         -Xptxas -v -c -o build/dance_tpu_torch/<hash>.<pid>.objs/<name>.o csrc/<name>.cu
+    nvcc -shared -o build/dance_tpu_torch/libdance_tpu_torch_<hash>.so <objects>  # once
 
 The build happens at first use, under ``build/dance_tpu_torch/`` at the root
 of the checkout, in a file keyed by a hash of the sources and flags, so a
@@ -27,14 +29,17 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dance_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C symbol -> argument types (pointers and the stream as c_void_p, or ctypes
 # would pass them as 32-bit ints)
 SIGNATURES = {
     "dtt_bsr_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "dtt_bsr_sddmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "dtt_bsr_gat_f32": (_P,) * 7 + (_I, _I, _I, _F, _I, _P),
+    "dtt_bsr_gat_stats_f32": (_P,) * 9 + (_I, _I, _I, _F, _I, _P),
+    "dtt_bsr_gat_grads_f32": (_P,) * 17 + (_I, _I, _I, _I, _I, _F, _I, _P),
 }
 
 
@@ -69,22 +74,48 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def compile_commands(nvcc: str, obj_dir: Path):
+    """One ``nvcc -c`` per source, and the objects they write."""
+    objs = [obj_dir / f"{src.stem}.o" for src in sources()]
+    return [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources(), objs)], objs
+
+
+def _run_all(cmds):
+    """Run the commands at once; return each one's (returncode, output)."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    return [(proc.returncode, out) for proc, out in
+            ((proc, proc.communicate()[0]) for proc in procs)]
+
+
 def build(build_dir: Path = BUILD_DIR) -> Kernels:
     """Compile ``csrc/*.cu`` unless a build of the same sources exists; load it."""
-    path = build_dir / f"libdance_tpu_torch_{source_hash()}.so"
+    key = source_hash()
+    path = build_dir / f"libdance_tpu_torch_{key}.so"
     seconds, log = 0.0, ""
     if not path.exists():
         nvcc = find_nvcc()
-        build_dir.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+        obj_dir = build_dir / f"{key}.{os.getpid()}.objs"
+        obj_dir.mkdir(parents=True, exist_ok=True)
+        cmds, objs = compile_commands(nvcc, obj_dir)
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        results = _run_all(cmds)
+        log = "".join(out for _, out in results)
+        failed = [(cmd, rc) for cmd, (rc, _) in zip(cmds, results) if rc != 0]
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        if not failed:
+            link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+            (rc, out), = _run_all([link])
+            log += out
+            if rc != 0:
+                failed = [(link, rc)]
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        shutil.rmtree(obj_dir, ignore_errors=True)
+        if failed:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+            cmd, rc = failed[0]
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{log}")
         os.replace(tmp, path)  # atomic: a concurrent build never loads half a file
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
@@ -100,4 +131,4 @@ def load_kernels() -> Kernels:
     return build()
 
 
-__all__ = ["Kernels", "build", "find_nvcc", "load_kernels", "source_hash"]
+__all__ = ["Kernels", "build", "compile_commands", "find_nvcc", "load_kernels", "source_hash"]

@@ -1,9 +1,11 @@
-"""Message-passing ops over a CSR adjacency, the part AdaptiveSAGE's CSR branch
-needs (counterpart: dance_tpu/ops/segment.py:14-32).
+"""Message-passing ops over a CSR adjacency, the part AdaptiveSAGE's and the
+GAT layers' CSR branches need (counterpart: dance_tpu/ops/segment.py:14-32,
+88-98).
 
-Rows are destinations. ``jax.ops.segment_sum`` becomes ``index_add_``. The
-rest of the JAX module (``spmm`` dispatch, ``edge_softmax``, ``sddmm_dot``,
-max aggregation, degrees) waits for later slices (ROADMAP Queue 1).
+Rows are destinations. ``jax.ops.segment_sum`` becomes ``index_add_`` and
+``segment_max`` ``scatter_reduce(amax)``. The rest of the JAX module (``spmm``
+dispatch, ``sddmm_dot``, max aggregation, degrees) waits for later slices
+(ROADMAP Queue 1).
 """
 
 import torch
@@ -31,4 +33,20 @@ def aggregate(adj: CSRMatrix, messages: torch.Tensor, op: str = "sum") -> torch.
                               f"(ROADMAP Queue 1, 'left out of slice 1')")
 
 
-__all__ = ["aggregate", "gather_src"]
+def edge_softmax(adj: CSRMatrix, logits: torch.Tensor) -> torch.Tensor:
+    """Softmax of per-edge logits, (nnz,) or (nnz, heads), over each
+    destination's incoming edges (counterpart: segment.py:88).
+
+    The per-row max is taken out of the graph: the softmax does not depend on
+    it, so its gradient is zero in exact arithmetic."""
+    rows = adj.row_ids()
+    index = rows.view(-1, *([1] * (logits.dim() - 1))).expand_as(logits)
+    maxes = logits.new_full((adj.shape[0],) + logits.shape[1:], -torch.inf)
+    maxes = maxes.scatter_reduce(0, index, logits.detach(), "amax")
+    maxes = torch.where(torch.isfinite(maxes), maxes, 0.0)
+    exp = torch.exp(logits - maxes.index_select(0, rows))
+    denom = torch.zeros_like(maxes).index_add_(0, rows, exp)
+    return exp / denom.index_select(0, rows).clamp(min=1e-12)
+
+
+__all__ = ["aggregate", "edge_softmax", "gather_src"]

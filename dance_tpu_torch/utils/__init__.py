@@ -1,8 +1,8 @@
-"""Seeding, device resolution and accuracy.
+"""Seeding, device resolution, accuracy and the adjusted Rand index.
 
 Counterparts: ``set_seed`` dance_tpu/utils/__init__.py:99, ``get_device``
 dance_tpu/utils/__init__.py:23 (here :func:`resolve_device`, over torch
-devices), ``acc`` dance_tpu/utils/metrics.py:36.
+devices), ``acc`` dance_tpu/utils/metrics.py:36, ``ari`` metrics.py:55.
 """
 
 import random
@@ -48,4 +48,29 @@ def acc(true, pred) -> float:
     return float((true.ravel() == pred).mean())
 
 
-__all__ = ["acc", "resolve_device", "set_seed"]
+def ari(true, pred) -> float:
+    """Adjusted Rand index of two labelings (counterpart: metrics.py:55, which
+    calls sklearn's ``adjusted_rand_score``; the same pair-counting formula,
+    in exact integers, in numpy)."""
+    true, pred = np.asarray(true).ravel(), np.asarray(pred).ravel()
+    if true.shape != pred.shape:
+        raise ValueError(f"ari: labelings of different lengths {true.shape} and {pred.shape}")
+    n = true.shape[0]
+    if n == 0:
+        return 1.0
+    _, ti = np.unique(true, return_inverse=True)
+    _, pi = np.unique(pred, return_inverse=True)
+    n_p = int(pi.max()) + 1
+    cont = np.bincount(ti * n_p + pi, minlength=(int(ti.max()) + 1) * n_p)
+    cont = cont.reshape(-1, n_p).astype(np.int64)
+    sum_squares = int((cont ** 2).sum())
+    fp = int((cont @ cont.sum(0)).sum()) - sum_squares  # pairs split by pred only
+    fn = int((cont.T @ cont.sum(1)).sum()) - sum_squares  # pairs split by true only
+    tp = sum_squares - n
+    tn = n * n - fp - fn - sum_squares
+    if fn == 0 and fp == 0:
+        return 1.0
+    return 2.0 * (tp * tn - fn * fp) / ((tp + fn) * (fn + tn) + (tp + fp) * (fp + tn))
+
+
+__all__ = ["acc", "ari", "resolve_device", "set_seed"]

@@ -1,4 +1,5 @@
-"""flax -> torch parameter transfer for the scDeepSort ``GNN``.
+"""flax -> torch parameter transfer for the scDeepSort ``GNN``, STAGATE's
+net and ``GATConv``.
 
 Parity between the two packages is checked by copying the flax parameters
 into the torch module, since the two frameworks' generators and initializers
@@ -11,6 +12,12 @@ differ. Counterpart of the flax tree made by ``GNN.init``
     Dense_0/{kernel,bias}                   -> head.{weight,bias}
 
 flax ``Dense.kernel`` is (in, out); torch ``Linear.weight`` is (out, in).
+
+STAGATE's ``_StagateNet`` (stagate.py:57-87) keeps ``w1``, ``w2``, ``a1l`` and
+``a1r`` as raw parameters used as ``x @ w1``; they map onto
+:class:`~dance_tpu_torch.modules.spatial.spatial_domain.stagate.StagateNet`
+as they are. ``GATConv`` (dance_tpu/nn/gnn.py:166): ``Dense_0/kernel`` ->
+``linear.weight`` (transposed), ``attn_l`` and ``attn_r`` as they are.
 """
 
 from typing import Dict, Mapping
@@ -40,4 +47,15 @@ def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
-__all__ = ["flax_to_torch"]
+def stagate_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``_StagateNet`` tree -> ``StagateNet.state_dict()``."""
+    return {k: _t(params[k]) for k in ("w1", "w2", "a1l", "a1r")}
+
+
+def gatconv_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``GATConv`` tree -> ``GATConv.state_dict()``."""
+    return {"linear.weight": _t(np.asarray(params["Dense_0"]["kernel"]).T),
+            "attn_l": _t(params["attn_l"]), "attn_r": _t(params["attn_r"])}
+
+
+__all__ = ["flax_to_torch", "gatconv_flax_to_torch", "stagate_flax_to_torch"]

@@ -171,7 +171,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_build_key_covers_every_kernel_source():
     from dance_tpu_torch.ops import _build
 
-    assert {p.name for p in _build.sources()} == {"bsr_spmm.cu", "bsr_sddmm.cu"}
+    assert {p.name for p in _build.sources()} == {"bsr_spmm.cu", "bsr_sddmm.cu", "bsr_gat.cu",
+                                                  "bsr_gat_bwd.cu"}
     text = "".join(p.read_text() for p in _build.sources())
     for symbol in _build.SIGNATURES:
         assert f'extern "C" int {symbol}(' in text

@@ -317,7 +317,7 @@ def test_save_load_score_and_unsure_predict(tmp_path):
     unsure = m.predict(t, unsure_rate=3.0 * 0.99)
     np.testing.assert_array_equal(unsure == -1, probs.max(1) < 0.99)
     with pytest.raises(NotImplementedError, match="acc"):
-        m.score(t, labels, score_func="ari")
+        m.score(t, labels, score_func="nmi")
 
 
 def test_acc_matches_jax():
@@ -344,10 +344,26 @@ def test_port_imports_no_jax():
         "import sys, dance_tpu_torch\n"
         "import dance_tpu_torch.modules.single_modality.cell_type_annotation.scdeepsort\n"
         "import dance_tpu_torch.transforms, dance_tpu_torch.utils.params\n"
-        "import dance_tpu_torch.ops._build\n"
+        "import dance_tpu_torch.ops._build, dance_tpu_torch.ops.cluster\n"
+        "import dance_tpu_torch.modules.spatial.spatial_domain.stagate\n"
         "bad = {'jax', 'flax', 'optax', 'sklearn', 'pandas', 'h5py', 'yaml', 'dance_tpu'}\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, check=True, env={**os.environ, "PYTHONPATH": REPO})
     assert out.stdout.strip() == "[]"
+
+
+def test_import_settles_first_multithreaded_exp():
+    # A fresh interpreter on several threads: after ``import dance_tpu_torch``
+    # the first large torch.exp is right to float32 rounding (ROADMAP Queue 3).
+    code = (
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(4)\n"
+        "import dance_tpu_torch\n"
+        "x = np.random.default_rng(0).standard_normal((13, 128, 128)).astype(np.float32) * 5\n"
+        "got = torch.exp(torch.from_numpy(x)).numpy()\n"
+        "print(float((np.abs(got - np.exp(x.astype(np.float64))) / np.exp(x)).max()))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, check=True, env={**os.environ, "PYTHONPATH": REPO})
+    assert float(out.stdout.strip()) < 1e-6
 

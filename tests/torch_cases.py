@@ -34,6 +34,28 @@ def no_pad(bsr: tbsr.BSRMatrix) -> tbsr.BSRMatrix:
                           tbsr._rowptr(rows, bsr.shape[0] // bsr.block), bsr.shape)
 
 
+def gat_inputs(bsr: tbsr.BSRMatrix, d: int, seed: int):
+    """er, el, h and an output cotangent g for the GAT ops on ``bsr``, unpadded
+    (er and g one row short of the tiling, el and h two short)."""
+    rng = np.random.default_rng(seed)
+    n_rows, n_cols = bsr.shape[0] - 1, bsr.shape[1] - 2
+    return tuple(torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.normal(0, 1, n_rows), rng.normal(0, 1, n_cols),
+        rng.standard_normal((n_cols, d)), rng.standard_normal((n_rows, d))))
+
+
+def spatial_case(n: int, d: int, seed: int, k: int = 3):
+    """Structured spatial data: ``k`` domains, each a cluster of spots and a
+    gene profile; returns (features, radius graph, domain labels)."""
+    from dance_tpu_torch.ops.neighbors import radius_graph
+
+    rng = np.random.default_rng(seed)
+    dom = rng.integers(0, k, n)
+    xy = (rng.random((n, 2)) + dom[:, None] * 2).astype(np.float32)
+    x = (np.eye(k)[dom] @ rng.random((k, d)) * 4 + rng.random((n, d))).astype(np.float32)
+    return x, radius_graph(xy, 0.6), dom
+
+
 def dense(bsr: tbsr.BSRMatrix) -> np.ndarray:
     out = np.zeros(bsr.shape, np.float64)
     blk = bsr.block
