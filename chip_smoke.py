@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: scDeepSort
-training and STAGATE training.
+training, STAGATE training, graph-sc training and graph-sc's max
+aggregation over BSR tiles.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -38,6 +39,34 @@ printed only when every phase passed):
    and median times as in phase 3.
 7. STAGATE on a few hundred spots, fitted on the card and on the CPU from
    the same seed: losses and embeddings must agree.
+8. graph-sc at its published width, counts set to 0 just before it: raw
+   counts of 10,000 cells x 5,000 genes in 8 types -> ``graphsc_preprocess``
+   (gene and cell filters, normalize_total, log1p, 3,000 cell_ranger HVGs,
+   log1p, per-cell normalization, standardized 50-d weighted PCA, the
+   cell-gene graph: ~13,000 nodes) -> ``GraphSC(n_clusters=8)`` with the
+   defaults (agg sum, 50 -> 200 -> 300, dropout 0.1) ``.fit(epochs=30,
+   use_bsr=True)`` on cuda -> ``predict``. Checks finite losses, the shapes
+   of ``z`` and the labels, and that ``bsr_spmm`` ran at least 2 x epochs
+   times; prints epoch and stage times, peak memory and the ARI against the
+   generating types.
+9. graph-sc's max aggregation: ``GraphSC(agg="max")`` fitted 5 epochs on the
+   CSR adjacency (segment max, the JAX route); its trained layer run forward
+   over the BSR tiling of the same graph through ``spmm(op="max")``, counts
+   set to 0 just before it, must launch ``bsr_spmm_max`` and match the CSR
+   output. Then ``bsr_spmm_max`` against its plain version on that tiling at
+   d = 200, weighted and unweighted (equal, as both take the max of the
+   same float32 products), a small tiling with empty rows, pad tiles, a NaN
+   weight and NaN and infinities in h, and ``bsr_spmm`` on the tiling.
+10. graph-sc on a few hundred cells (dropout 0), fitted on the card and on
+   the CPU from the same seed: losses and embeddings must agree.
+
+Each kernel's bound is the larger of its operations over the FP32 peak (67
+TFLOP/s, IEEE float32 outside the tensor cores) and the bytes of its inputs
+and outputs, each counted once, over 3.35 TB/s (H100 SXM data sheet), for
+the inputs of its timing. ``library_ms`` times one PyTorch call that
+computes the same function where there is one (BSR ``@`` for the SpMM,
+``sampled_addmm`` over the tiles' pattern for the SDDMM); the port never
+calls them.
 
 TF32 is off for every phase. The line before the last is a JSON object
 with one entry per kernel; the last line is
@@ -67,12 +96,20 @@ REL_BOUND = 1e-5
 # size, so its float32 rounding, relative to the largest gradient, is ~1e-5;
 # TF32 would still show as ~1e-3.
 GRAD_REL_BOUND = 1e-4
+# graph-sc: cells, raw genes, types, HVGs kept, epochs of the sum fit, epochs
+# of the max fit, and the small card-against-CPU fit
+GSC_CELLS, GSC_GENES, GSC_TYPES, GSC_HVG = 10000, 5000, 8, 3000
+GSC_EPOCHS, GSC_MAX_EPOCHS, GSC_HIDDEN = 30, 5, 200
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: FP32 outside the tensor cores, HBM3
 PALLAS = "dance_tpu/ops/pallas_kernels.py"
+KERNELS = ("bsr_spmm", "bsr_sddmm", "bsr_gat", "bsr_gat_stats", "bsr_gat_grads",
+           "bsr_spmm_max")
 REPLACES = {"bsr_spmm": f"{PALLAS}:101", "bsr_sddmm": f"{PALLAS}:159",
             "bsr_gat": f"{PALLAS}:354", "bsr_gat_stats": f"{PALLAS}:426",
-            "bsr_gat_grads": f"{PALLAS}:507"}
+            "bsr_gat_grads": f"{PALLAS}:507", "bsr_spmm_max": f"{PALLAS}:826"}
 SOURCES = {"bsr_spmm": "bsr_spmm.cu", "bsr_sddmm": "bsr_sddmm.cu", "bsr_gat": "bsr_gat.cu",
-           "bsr_gat_stats": "bsr_gat.cu", "bsr_gat_grads": "bsr_gat_bwd.cu"}
+           "bsr_gat_stats": "bsr_gat.cu", "bsr_gat_grads": "bsr_gat_bwd.cu",
+           "bsr_spmm_max": "bsr_spmm_max.cu"}
 
 
 def card_line() -> str:
@@ -133,6 +170,54 @@ def compare(name: str, kernel, plain, bound: float = REL_BOUND) -> dict:
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
 
 
+def reset_launches():
+    from dance_tpu_torch.ops import bsr
+
+    for name in KERNELS:
+        getattr(bsr, name).launches = 0
+
+
+def read_launches() -> dict:
+    from dance_tpu_torch.ops import bsr
+
+    return {name: getattr(bsr, name).launches for name in KERNELS}
+
+
+def roofline(flop: float, tensors) -> dict:
+    """The least time for ``flop`` operations on ``tensors`` (the inputs and
+    outputs, each moved once): the larger of flop over the FP32 peak and
+    bytes over the HBM rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    ops_ms, bytes_ms = flop / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    print(f"  bound: {flop / 1e9:.3f} GFLOP -> {ops_ms!r} ms, {nbytes / 1e6:.1f} MB -> "
+          f"{bytes_ms!r} ms", flush=True)
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def tile_pattern_csr(a):
+    """The full pattern of BSR ``a``'s tiles as a torch CSR tensor of ones,
+    and a function that puts values in that CSR order back into (nb, 128,
+    128) tile order; for timing ``sampled_addmm`` against the SDDMM."""
+    import torch
+
+    blk, dev = a.block, a.tiles.device
+    col_tile = a.block_cols.long()[:, None] * blk + torch.arange(blk, device=dev)
+    rp = a.rowptr.tolist()
+    cols = torch.cat([col_tile[rp[r]:rp[r + 1]].reshape(-1).repeat(blk)
+                      for r in range(len(rp) - 1)])
+    crow = torch.zeros(a.shape[0] + 1, dtype=torch.long, device=dev)
+    crow[1:] = torch.cumsum(torch.repeat_interleave(torch.diff(a.rowptr.long()) * blk, blk), 0)
+    pattern = torch.sparse_csr_tensor(crow, cols, torch.ones(cols.shape[0], device=dev),
+                                      size=a.shape)
+
+    def to_tiles(values):
+        return torch.cat([values[crow[r * blk]:crow[(r + 1) * blk]]
+                          .view(blk, rp[r + 1] - rp[r], blk).transpose(0, 1)
+                          for r in range(len(rp) - 1)])
+    return pattern, to_tiles
+
+
 def spatial_counts(n_spots: int, n_genes: int, n_domains: int, seed: int):
     """Raw counts of spots in spatial domains: coordinates uniform in
     [0, 100)^2, domains the Voronoi cells of random centres, and per gene a
@@ -152,6 +237,24 @@ def spatial_counts(n_spots: int, n_genes: int, n_domains: int, seed: int):
     return rng.poisson(rates).astype(np.float32), xy, dom
 
 
+def clustered_counts(n_cells: int, n_genes: int, n_types: int, seed: int):
+    """Raw counts of cells in types: per gene a baseline Poisson rate that a
+    fifth of the genes scale up or down in each type; cells differ in depth.
+    About 16 % of the entries are nonzero, the density graph-sc's graph has
+    after its filters (dance_tpu/ops/sparse.py:133). Returns (CSR float32
+    counts, types)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    types = rng.integers(0, n_types, n_cells)
+    base = rng.gamma(0.4, 0.5, n_genes)
+    fold = np.exp(rng.normal(0, 1.0, (n_types, n_genes))
+                  * (rng.random((n_types, n_genes)) < 0.2))
+    depth = rng.gamma(4.0, 0.25, (n_cells, 1))
+    return sp.csr_matrix(rng.poisson(fold[types] * base[None] * depth).astype(np.float32)), types
+
+
 def scdeepsort_phases(cuda) -> dict:
     """Phases 2-4; returns the kernel entries' numbers and launch counts."""
     import numpy as np
@@ -168,9 +271,7 @@ def scdeepsort_phases(cuda) -> dict:
     expr = sp.random(N_CELLS, N_GENES, density=DENSITY, random_state=0, dtype=np.float32,
                      format="csr")
     labels = rng.integers(0, N_LABELS, N_CELLS)
-    for kernel in (bsr.bsr_spmm, bsr.bsr_sddmm, bsr.bsr_gat, bsr.bsr_gat_stats,
-                   bsr.bsr_gat_grads):
-        kernel.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cell_feat, gene_feat = weighted_feature_pca(expr, expr, DIM, device=cuda)
@@ -187,7 +288,7 @@ def scdeepsort_phases(cuda) -> dict:
     pred = model.predict(graph)
     probs = model.predict_proba(graph)
     t_pred = time.perf_counter() - t0
-    launches = {"bsr_spmm": bsr.bsr_spmm.launches, "bsr_sddmm": bsr.bsr_sddmm.launches}
+    launches = read_launches()
 
     losses = [h["loss"] for h in model.history]
     epoch_s = [h["seconds"] for h in model.history]
@@ -232,6 +333,21 @@ def scdeepsort_phases(cuda) -> dict:
     sddmm = compare("bsr_sddmm", lambda: bsr.bsr_sddmm(a.block_rows, a.block_cols, g, b),
                     lambda: bsr.bsr_sddmm_reference(a.block_rows, a.block_cols, g, b))
     spmm["max_abs_err"] = max(spmm["max_abs_err"], spmm_t["max_abs_err"])
+    flop = 2 * a.nb * a.block ** 2 * DIM
+    out = bsr.bsr_spmm(a, b)
+    spmm.update(roofline(flop, (a.tiles, a.block_cols, a.rowptr, b, out)))
+    spmm["library_ms"] = library("bsr_spmm: torch.sparse_bsr_tensor @ b", a, b, out)
+    dtiles = bsr.bsr_sddmm(a.block_rows, a.block_cols, g, b)
+    sddmm.update(roofline(flop, (a.block_rows, a.block_cols, g, b, dtiles)))
+    pattern, to_tiles = tile_pattern_csr(a)
+    bt = b.T.contiguous()
+    sampled = to_tiles(torch.sparse.sampled_addmm(pattern, g, bt, beta=0.0).values())
+    print(f"library bsr_sddmm: torch.sparse.sampled_addmm over the tiles' pattern "
+          f"({pattern._nnz()} entries), max |sampled - kernel| "
+          f"{float((sampled - dtiles).abs().max())!r}", flush=True)
+    sddmm["library_ms"] = median_ms(lambda: torch.sparse.sampled_addmm(pattern, g, bt, beta=0.0))
+    print(f"time bsr_sddmm library: {sddmm['library_ms']!r} ms", flush=True)
+    del pattern, sampled
 
     # -- 4. a small graph: the card against the CPU's plain versions --------
     srng = np.random.default_rng(1)
@@ -256,6 +372,18 @@ def scdeepsort_phases(cuda) -> dict:
             "bsr_sddmm": (sddmm, launches["bsr_sddmm"])}
 
 
+def library(name: str, a, b, out) -> float:
+    """Time ``torch.sparse_bsr_tensor(...) @ b``, the PyTorch call that
+    computes ``bsr_spmm``'s function, after checking it against ``out``."""
+    import torch
+
+    mat = torch.sparse_bsr_tensor(a.rowptr, a.block_cols, a.tiles, size=a.shape)
+    err = float((mat @ b - out).abs().max())
+    ms = median_ms(lambda: mat @ b)
+    print(f"library {name}: max |library - kernel| {err!r}; {ms!r} ms", flush=True)
+    return ms
+
+
 def stagate_phases(cuda) -> dict:
     """Phases 5-7; returns the GAT kernels' numbers and launch counts."""
     import numpy as np
@@ -273,9 +401,7 @@ def stagate_phases(cuda) -> dict:
     print(f"STAGATE data: {counts.shape} raw counts (mean {counts.mean():.3f}, "
           f"{(counts > 0).mean():.3f} nonzero), made in {time.perf_counter() - t0:.3f} s",
           flush=True)
-    gat_kernels = (bsr.bsr_gat, bsr.bsr_gat_stats, bsr.bsr_gat_grads)
-    for kernel in (bsr.bsr_spmm, bsr.bsr_sddmm, *gat_kernels):
-        kernel.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     x, adj = stagate_preprocess(counts, xy, n_top_genes=N_HVG, model_name="knn",
@@ -289,7 +415,7 @@ def stagate_phases(cuda) -> dict:
     t0 = time.perf_counter()
     labels = model.predict()
     t_pred = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in gat_kernels}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
 
     # host pieces of the path, timed on their own (they launch no kernel)
@@ -337,6 +463,19 @@ def stagate_phases(cuda) -> dict:
     h, g = torch.randn((n_cols, d), generator=gen), torch.randn((n_rows, d), generator=gen)
     er, el, h, g = (t.to(cuda) for t in (er, el, h, g))
     results = {"bsr_gat": {}, "bsr_gat_stats": {}, "bsr_gat_grads": {}}
+    # the p @ h product (and for the backward also ḡhᵀ); the per-slot logits
+    # and exps add under 1 %
+    flop = 2 * tiling.nb * tiling.block ** 2 * d
+    out, m, l = bsr.bsr_gat_stats(tiling, er, el, h, act="sigmoid")
+    r_sum = (g * out).sum(1)
+    der, del_, dh = bsr.bsr_gat_grads(tiling, er, el, h, g, out, m, l, act="sigmoid")
+    ins = (tiling.tiles, tiling.block_cols, tiling.rowptr, er, el, h)
+    results["bsr_gat"].update(roofline(flop, ins + (out,)))
+    results["bsr_gat_stats"].update(roofline(flop, ins + (out, m, l)))
+    results["bsr_gat_grads"].update(roofline(2 * flop, ins + (tiling.block_rows, g, out, m, l,
+                                                           r_sum, der, del_, dh)))
+    for res in results.values():
+        res["library_ms"] = None  # no single PyTorch call computes a fused GAT
     for act in ("sigmoid", "leaky_relu"):  # STAGATE's first, then GATConv's
         out, m, l = bsr.bsr_gat_reference(tiling, er, el, h, act=act, return_stats=True)
         live = l > 0  # rows with an edge; the others hold m = -1e30 on both sides
@@ -391,6 +530,208 @@ def stagate_phases(cuda) -> dict:
     return {name: (res, launches[name]) for name, res in results.items()}
 
 
+def check_max(name: str, out, ref, bound: float = 0.0) -> float:
+    """Hold a max aggregation against the plain version's: the same -inf and
+    NaN entries, and max |out - ref| over the finite ones relative to max
+    |ref| under ``bound``; return that max absolute error."""
+    import torch
+
+    torch.cuda.synchronize()
+    if out.shape != ref.shape:
+        raise AssertionError(f"{name}: shape {tuple(out.shape)} (plain {tuple(ref.shape)})")
+    same_nan = torch.equal(torch.isnan(out), torch.isnan(ref))
+    fin = torch.isfinite(ref)
+    same_inf = torch.equal(out[~fin & ~torch.isnan(ref)], ref[~fin & ~torch.isnan(ref)])
+    max_abs = float((out[fin] - ref[fin]).abs().max()) if fin.any() else 0.0
+    scale = float(ref[fin].abs().max()) if fin.any() else 0.0
+    rel = max_abs / scale if scale else max_abs
+    print(f"check {name}: shape {tuple(out.shape)}, {int((~fin).sum())} non-finite entries "
+          f"(same NaN {same_nan}, same infinities {same_inf}), max_abs_err {max_abs!r} "
+          f"max|plain| {scale!r} rel {rel!r} (bound {bound})", flush=True)
+    if not (same_nan and same_inf and rel <= bound):
+        raise AssertionError(f"{name}: disagrees with its plain version")
+    return max_abs
+
+
+def max_edge_tiling():
+    """A 300 x 260 signed adjacency with empty rows and an empty block-row,
+    bsr_from_scipy's pad tiles, a NaN weight, and NaN, +inf and -inf in h:
+    the max aggregation's edge semantics. Returns (bsr, h) on the CPU."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from dance_tpu_torch.ops import bsr
+
+    rng = np.random.default_rng(7)
+    adj = sp.random(300, 260, density=0.05, random_state=7, format="lil", dtype=np.float32)
+    adj[128:256] = 0
+    adj[10:12] = 0
+    adj = sp.csr_matrix(adj)
+    adj.data -= np.float32(0.5)
+    adj = sp.lil_matrix(adj)
+    adj[5, 3] = np.nan
+    tiles = bsr.bsr_from_scipy(sp.csr_matrix(adj))
+    h = rng.standard_normal((tiles.shape[1], 9)).astype(np.float32)
+    h[7, 0], h[8, 1], h[9, 2] = np.nan, np.inf, -np.inf
+    h[:, 3] = np.inf
+    return tiles, torch.from_numpy(h)
+
+
+def graphsc_phases(cuda) -> dict:
+    """Phases 8-10; returns the max kernel's numbers and launch count, and
+    the graph-sc path's launches and SpMM numbers."""
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.graph import Graph
+    from dance_tpu_torch.modules.single_modality.clustering import GraphSC, graphsc_preprocess
+    from dance_tpu_torch.ops import bsr
+    from dance_tpu_torch.ops.sparse import csr_from_scipy
+    from dance_tpu_torch.utils import ari
+
+    # -- 8. graph-sc at its published width --------------------------------
+    t0 = time.perf_counter()
+    counts, types = clustered_counts(GSC_CELLS, GSC_GENES, GSC_TYPES, seed=0)
+    print(f"graph-sc data: {counts.shape} raw counts, {counts.nnz / np.prod(counts.shape):.4f} "
+          f"nonzero, made in {time.perf_counter() - t0:.3f} s", flush=True)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g, cells = graphsc_preprocess(counts, n_top_genes=GSC_HVG, device=cuda)
+    t_pre = time.perf_counter() - t0
+    model = GraphSC(n_clusters=GSC_TYPES, device=cuda, seed=0)
+    t0 = time.perf_counter()
+    model.fit(g, epochs=GSC_EPOCHS, use_bsr=True)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    labels = model.predict()
+    t_pred = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    # host and tiling pieces of the path, timed on their own
+    n_genes, n_cells = g.info["num_genes"], g.info["num_cells"]
+    kept = g.adj[n_genes:, :n_genes]
+    t0 = time.perf_counter()
+    Graph.from_cell_feature_matrix(kept, g.ndata["features"][n_genes:],
+                                   g.ndata["features"][:n_genes], normalize_edges=False)
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tiling = g.to_bsr(device=cuda)
+    torch.cuda.synchronize()
+    t_tile = time.perf_counter() - t0
+    losses = [h["loss"] for h in model.history]
+    epoch_s = [h["seconds"] for h in model.history]
+    d = GSC_HIDDEN
+    print(f"graph-sc: preprocess {t_pre:.3f} s (of which graph {t_graph:.3f} s), BSR tiling "
+          f"{t_tile:.3f} s, fit {t_fit:.3f} s, predict {t_pred:.3f} s, peak device memory "
+          f"{peak / 2**20:.1f} MiB; {g.num_nodes} nodes ({n_cells} cells, {n_genes} genes), "
+          f"{g.num_edges} edges, kept matrix density {kept.nnz / (n_cells * n_genes):.4f}; "
+          f"tiling {tiling.nb} tiles over {tiling.shape[0] // tiling.block} block-rows "
+          f"({tiling.nb * tiling.block ** 2 * 4 / 1e6:.1f} MB), "
+          f"{2 * tiling.nb * tiling.block ** 2 * d / 1e9:.2f} GFLOP per SpMM at d={d}",
+          flush=True)
+    print(f"graph-sc losses {losses}", flush=True)
+    print(f"graph-sc epoch seconds {epoch_s}; after the first epoch: median "
+          f"{statistics.median(epoch_s[1:])!r} s/epoch", flush=True)
+    print(f"graph-sc ARI against the generating types {ari(types[cells], labels)!r}",
+          flush=True)
+    print(f"launches in the graph-sc path: {launches}", flush=True)
+    if len(losses) != GSC_EPOCHS or not np.isfinite(losses).all():
+        raise AssertionError(f"graph-sc losses non-finite or missing: {losses}")
+    if model.z.shape != (n_cells, 300) or not np.isfinite(model.z).all():
+        raise AssertionError(f"graph-sc embedding {model.z.shape} or non-finite")
+    if labels.shape != (n_cells,) or not ((labels >= 0) & (labels < GSC_TYPES)).all():
+        raise AssertionError("graph-sc labels out of range")
+    if launches["bsr_spmm"] < 2 * GSC_EPOCHS:
+        raise AssertionError(f"bsr_spmm launched {launches['bsr_spmm']} times in graph-sc, "
+                             f"fewer than 2 x {GSC_EPOCHS} epochs")
+
+    # -- 9. max aggregation: CSR training, the trained layer over BSR ------
+    t0 = time.perf_counter()
+    mmax = GraphSC(agg="max", n_clusters=GSC_TYPES, device=cuda, seed=0)
+    mmax.fit(g, epochs=GSC_MAX_EPOCHS, use_bsr=False)
+    torch.cuda.synchronize()
+    print(f"graph-sc agg=max on CSR: fit {time.perf_counter() - t0:.3f} s, losses "
+          f"{[h['loss'] for h in mmax.history]}, epoch seconds "
+          f"{[h['seconds'] for h in mmax.history]}", flush=True)
+    conv = mmax.model.convs[0].eval()
+    feats = torch.from_numpy(g.ndata["features"]).to(cuda)
+    with torch.no_grad():
+        want = conv(csr_from_scipy(g.adj).to(cuda), feats, agg="max")
+        reset_launches()
+        got = conv(tiling, feats, agg="max")
+        torch.cuda.synchronize()
+        max_launches = read_launches()["bsr_spmm_max"]
+    print(f"launches of the BSR max layer: {read_launches()}", flush=True)
+    if max_launches < 1:
+        raise AssertionError("spmm(op='max') over BSR did not launch bsr_spmm_max")
+    layer_err = check_max("graph-sc max layer BSR vs CSR", got, want, bound=1e-6)
+
+    gen = torch.Generator().manual_seed(3)
+    h = torch.randn((tiling.shape[1], d), generator=gen).to(cuda)
+    result = {"max_abs_err": layer_err}
+    for weighted in (True, False):
+        name = f"bsr_spmm_max weighted={weighted}"
+        err = check_max(name, bsr.bsr_spmm_max(tiling, h, weighted=weighted),
+                        bsr.bsr_spmm_max_reference(tiling, h, weighted=weighted))
+        ms = median_ms(lambda: bsr.bsr_spmm_max(tiling, h, weighted=weighted))
+        plain_ms = median_ms(lambda: bsr.bsr_spmm_max_reference(tiling, h, weighted=weighted))
+        print(f"time {name}: kernel {ms!r} ms, plain {plain_ms!r} ms (median of {REPS})",
+              flush=True)
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+        if weighted:  # the layer's form gives the entry's times
+            out = bsr.bsr_spmm_max(tiling, h)
+            result.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                          **roofline(2 * tiling.nb * tiling.block ** 2 * d,
+                                  (tiling.tiles, tiling.block_cols, tiling.rowptr, h, out)))
+        else:
+            result["unweighted_ms"], result["unweighted_plain_ms"] = ms, plain_ms
+    edge, eh = max_edge_tiling()
+    for weighted in (True, False):
+        result["max_abs_err"] = max(result["max_abs_err"], check_max(
+            f"bsr_spmm_max edge cases weighted={weighted}",
+            bsr.bsr_spmm_max(edge.to(cuda), eh.to(cuda), weighted=weighted),
+            bsr.bsr_spmm_max_reference(edge, eh, weighted=weighted).to(cuda)))
+
+    # the SpMM of the graph-sc path on its tiling (forward A@H, backward Aᵀ@G)
+    at = bsr.bsr_transpose(tiling)
+    spmm = compare("bsr_spmm graph-sc A@H", lambda: bsr.bsr_spmm(tiling, h),
+                   lambda: bsr.bsr_spmm_reference(tiling, h))
+    spmm_t = compare("bsr_spmm graph-sc At@G", lambda: bsr.bsr_spmm(at, h),
+                     lambda: bsr.bsr_spmm_reference(at, h))
+    out = bsr.bsr_spmm(tiling, h)
+    spmm.update(roofline(2 * tiling.nb * tiling.block ** 2 * d,
+                      (tiling.tiles, tiling.block_cols, tiling.rowptr, h, out)))
+    spmm["library_ms"] = library("bsr_spmm graph-sc: torch.sparse_bsr_tensor @ h", tiling, h,
+                                 out)
+    spmm["transpose_ms"] = spmm_t["ms"]
+    del tiling, at, mmax, model
+
+    # -- 10. a few hundred cells: the card against the CPU -----------------
+    small_counts, _ = clustered_counts(400, 600, 4, seed=1)
+    small, _ = graphsc_preprocess(small_counts, n_top_genes=200, n_components=16,
+                                  device=torch.device("cpu"))
+    runs = {}
+    for label, device in (("cpu", torch.device("cpu")), ("cuda", cuda)):
+        m = GraphSC(n_clusters=4, hidden_dim=64, hidden_1=32, dropout=0.0, device=device,
+                    seed=0)
+        m.fit(small, epochs=5, lr=1e-3, use_bsr=True)
+        runs[label] = (np.array([h["loss"] for h in m.history]), m.get_latent())
+    loss_gap = float(np.max(np.abs(runs["cuda"][0] / runs["cpu"][0] - 1)))
+    z_gap = float(np.max(np.abs(runs["cuda"][1] - runs["cpu"][1])))
+    z_scale = float(np.max(np.abs(runs["cpu"][1])))
+    print(f"small graph-sc ({small.num_nodes} nodes), card vs CPU: max relative loss gap "
+          f"{loss_gap!r}, max z gap {z_gap!r} (max |z| {z_scale!r}; bounds 1e-4 and 1e-4 x "
+          f"max |z|)", flush=True)
+    if not (loss_gap <= 1e-4 and z_gap <= 1e-4 * z_scale):
+        raise AssertionError("the card disagrees with the CPU on the small graph-sc fit")
+    return {"bsr_spmm_max": (result, max_launches),
+            "graphsc_launches": launches["bsr_spmm"], "graphsc_spmm": spmm}
+
+
 def main() -> int:
     import torch
 
@@ -418,6 +759,8 @@ def main() -> int:
 
     measured = scdeepsort_phases(cuda)
     measured.update(stagate_phases(cuda))
+    gsc = graphsc_phases(cuda)
+    measured["bsr_spmm_max"] = gsc["bsr_spmm_max"]
 
     def entry(name):
         result, launched = measured[name]
@@ -425,12 +768,16 @@ def main() -> int:
                 "source": f"dance_tpu_torch/csrc/{SOURCES[name]}", "replaces": REPLACES[name],
                 "launches": launched, **result}
 
-    print(json.dumps({
-        "kernels": [entry(name) for name in
-                    ("bsr_spmm", "bsr_gat", "bsr_gat_stats", "bsr_gat_grads")],
-        # the dA kernel is not on a main path: AdaptiveBSR's tiles are constants
-        "off_path_kernels": [entry("bsr_sddmm")],
-    }), flush=True)
+    entries = {name: entry(name) for name in KERNELS}
+    # the SpMM runs on two main paths: its times are scDeepSort's tiling at
+    # d = 256; graph-sc's tiling at d = 200 rides beside them. The SDDMM is on
+    # no main path (the tiles of both paths are constants): 0 launches.
+    spmm = entries["bsr_spmm"]
+    spmm["launches_by_path"] = {"scdeepsort": spmm["launches"],
+                                "graphsc": gsc["graphsc_launches"]}
+    spmm["launches"] += gsc["graphsc_launches"]
+    spmm["graphsc"] = gsc["graphsc_spmm"]
+    print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

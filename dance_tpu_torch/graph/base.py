@@ -4,8 +4,10 @@
 The host side is the JAX package's numpy/scipy code, so adjacencies come out
 bit-identical; ``dance_tpu.graph`` itself cannot be imported here because it
 pulls in JAX. The bipartite cell-gene graph is homogeneous: gene nodes first
-(0..n_genes-1), then cell nodes. Left out of this slice: ``from_adjacency``,
-the symmetric/row normalizations, ``to_bsr`` and ``to_dense_adj``.
+(0..n_genes-1), then cell nodes. The device forms (``to_device``, ``to_bsr``,
+``to_dense_adj``, ``to_adaptive_bsr``) go to the CUDA card unless the caller
+names the CPU. Not ported yet: ``from_adjacency``, the symmetric/row
+normalizations and ``to_adaptive_bsr(dense=True)``.
 """
 
 from typing import Dict, NamedTuple, Optional
@@ -14,8 +16,10 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from dance_tpu_torch.ops.bsr import bsr_from_scipy
-from dance_tpu_torch.ops.sparse import AdaptiveBSR, CSRMatrix, csr_from_scipy
+from dance_tpu_torch.ops.bsr import BSRMatrix, bsr_from_scipy
+from dance_tpu_torch.ops.sparse import (AdaptiveBSR, CSRMatrix, DenseAdj, csr_from_scipy,
+                                        dense_adj_from_scipy)
+from dance_tpu_torch.utils import resolve_device
 
 
 class DeviceGraph(NamedTuple):
@@ -97,9 +101,10 @@ class Graph:
         return Graph(self.adj[node_idx][:, node_idx],
                      {k: v[node_idx] for k, v in self.ndata.items()}, dict(self.info))
 
-    def to_device(self, device="cpu") -> DeviceGraph:
+    def to_device(self, device="auto") -> DeviceGraph:
         """CSR adjacency and numeric node data as tensors on ``device``
         (counterpart: base.py:132; integer labels become int64, torch's index type)."""
+        device = resolve_device(device)
         ndata = {}
         for k, v in self.ndata.items():
             v = np.asarray(v)
@@ -109,11 +114,22 @@ class Graph:
                 ndata[k] = torch.from_numpy(v.astype(np.float32)).to(device)
         return DeviceGraph(csr_from_scipy(self.adj).to(device), ndata)
 
-    def to_adaptive_bsr(self, block: int = 128, device="cpu") -> AdaptiveBSR:
+    def to_bsr(self, block: int = 128, device="auto") -> BSRMatrix:
+        """The adjacency as BSR tiles on ``device``, for weighted sum, mean
+        (with the row degrees) and max aggregation through
+        :func:`~dance_tpu_torch.ops.segment.spmm` (counterpart: base.py:143)."""
+        return bsr_from_scipy(self.adj, block=block).to(resolve_device(device))
+
+    def to_dense_adj(self, device="auto") -> DenseAdj:
+        """The adjacency as one dense matrix on ``device`` (counterpart: base.py:153)."""
+        return dense_adj_from_scipy(self.adj).to(resolve_device(device))
+
+    def to_adaptive_bsr(self, block: int = 128, device="auto") -> AdaptiveBSR:
         """AdaptiveSAGE's decomposed form: one SpMM over the off-diagonal
         adjacency, per-node alpha scales and self-loop terms (counterpart:
         base.py:160-179; its ``dense=True`` option is not in this slice).
         Needs the bipartite ``cell_id`` node labels (gene index or -1)."""
+        device = resolve_device(device)
         gene_idx = np.asarray(self.ndata["cell_id"], np.int64)
         adj = self.adj.tocsr()
         w_diag = np.asarray(adj.diagonal(), np.float32)

@@ -1,0 +1,304 @@
+"""graph-sc: a graph-convolution autoencoder on the cell-gene graph, then
+k-means of the cell embeddings.
+
+Counterpart: dance_tpu/modules/single_modality/clustering/graphsc.py
+(``GCNAE`` :29-57, ``GraphSC`` :60-263, ``InnerProductDecoder`` :277-282,
+``preprocessing_pipeline`` :79-108). Full-graph training: every epoch encodes
+all nodes with ``WeightedGraphConv`` layers, reconstructs the whole dense
+adjacency as ``emb @ embᵀ`` and takes one Adam step on its pos-weighted
+BCE. With ``use_bsr=True`` each layer's sum or mean aggregation is one
+block-sparse SpMM (the CUDA kernel on the card, forward and on the
+transposed tiles backward). Max aggregation trains on the CSR adjacency
+(``scatter_reduce`` amax), as in JAX; its BSR form, the forward-only max
+kernel, serves a layer run without gradients (:func:`spmm` ``op="max"``).
+
+Where this differs from the JAX package:
+
+- ``use_bsr`` defaults to True, as for the port's ScDeepSort and STAGATE.
+  ``"auto"`` with max aggregation takes the CSR adjacency, as in JAX; with
+  sum or mean it raises ``NotImplementedError`` (the v5e crossovers are not
+  H100 facts). The dense adjacency (``DenseAdj``) is not chosen by ``fit``,
+  since only ``"auto"`` chose it.
+- Dropout draws its mask from a ``torch.Generator`` on the model's device
+  seeded with ``seed``, not from ``jax.random``; weights are drawn from a
+  CPU ``torch.Generator``. Parity tests copy the flax weights in
+  (:func:`dance_tpu_torch.utils.params.graphsc_flax_to_torch`) and run with
+  ``dropout=0``.
+- ``fit`` records each epoch's loss and seconds (and ARI with
+  ``eval_epoch``) in ``history``, and defines ``z`` after ``epochs=0`` too.
+- ``cluster_method="leiden"``, the multi-chip ``ShardedCSR`` adjacency and
+  the Data-container ``preprocessing_pipeline`` are not ported yet
+  (ROADMAP Queue 1); :func:`graphsc_preprocess` is the pipeline's array core.
+"""
+
+import math
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+from torch import nn
+
+from dance_tpu_torch.graph import Graph
+from dance_tpu_torch.modules.base import BaseClusteringMethod
+from dance_tpu_torch.nn.gnn import WeightedGraphConv
+from dance_tpu_torch.ops.cluster import kmeans
+from dance_tpu_torch.ops.segment import AGGREGATIONS
+from dance_tpu_torch.ops.sparse import csr_from_scipy
+from dance_tpu_torch.sc.pp import (filter_cells, filter_genes, highly_variable_genes, log1p,
+                                   normalize_total)
+from dance_tpu_torch.settings import logger
+from dance_tpu_torch.transforms.cell_feature import weighted_feature_pca
+from dance_tpu_torch.utils import ari, resolve_device
+from dance_tpu_torch.utils.loss import binary_ce_logits
+
+
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``Dropout``: keep with probability ``1 - rate`` and scale by its
+    inverse; the uniforms come from ``generator`` on ``x``'s device."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+class InnerProductDecoder(nn.Module):
+    """``sigmoid(z zᵀ)`` adjacency decoder (counterpart: graphsc.py:277)."""
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(z @ z.T)
+
+
+class GCNAE(nn.Module):
+    """Graph-convolution encoder and inner-product decoder (counterpart:
+    graphsc.py:29): dropout on the input features, ``n_layers`` x
+    (``WeightedGraphConv(norm="none")`` -> ReLU), then ``Dense(hidden_1)``
+    and, with ``hidden_2``, ReLU -> ``Dense(hidden_2)``. flax infers the input
+    width; torch takes it as ``in_dim``. ``denses`` holds the dense layers in
+    the order flax names them (``Dense_0``, ``Dense_1``)."""
+
+    def __init__(self, in_dim: int, agg: str = "sum", hidden_dim: int = 200,
+                 hidden_1: int = 300, hidden_2: int = 0, dropout: float = 0.1,
+                 n_layers: int = 1):
+        super().__init__()
+        if agg not in AGGREGATIONS:
+            raise ValueError(f"agg must be one of {AGGREGATIONS}, got {agg!r}")
+        self.agg, self.dropout = agg, dropout
+        self.hidden_1, self.hidden_2 = hidden_1, hidden_2
+        self.convs = nn.ModuleList(
+            WeightedGraphConv(in_dim if i == 0 else hidden_dim, hidden_dim, norm="none")
+            for i in range(n_layers))
+        widths = [hidden_dim] + [w for w in (hidden_1, hidden_2) if w]
+        self.denses = nn.ModuleList(nn.Linear(a, b) for a, b in zip(widths[:-1], widths[1:]))
+        self.decoder = InnerProductDecoder()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """flax's init: glorot-uniform conv kernels, lecun-normal (truncated
+        at two standard deviations) dense kernels, zero biases."""
+        for conv in self.convs:
+            conv.reset_parameters(generator)
+        for dense in self.denses:
+            # flax's truncated normal has unit variance after the cut
+            std = math.sqrt(1.0 / dense.in_features) / 0.87962566103423978
+            nn.init.trunc_normal_(dense.weight, std=std, a=-2 * std, b=2 * std,
+                                  generator=generator)
+            nn.init.zeros_(dense.bias)
+
+    def encode(self, adj, feats: torch.Tensor, degrees: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The node embeddings; dropout only in training mode."""
+        h = _dropout(feats, self.dropout, generator) if self.training and self.dropout else feats
+        for conv in self.convs:
+            h = torch.relu(conv(adj, h, agg=self.agg, degrees=degrees))
+        if self.hidden_1:
+            h = self.denses[0](h)
+        if self.hidden_2:
+            h = self.denses[-1](torch.relu(h))
+        return h
+
+    def forward(self, adj, feats: torch.Tensor, degrees: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """``(sigmoid(emb embᵀ), emb)``, as the flax module returns them."""
+        emb = self.encode(adj, feats, degrees, generator)
+        return self.decoder(emb), emb
+
+
+class GraphSC(BaseClusteringMethod):
+    """graph-sc (counterpart: graphsc.py:60). ``fit(g)`` trains on a cell-gene
+    :class:`~dance_tpu_torch.graph.Graph` (genes first, then cells);
+    ``predict`` clusters the cell embeddings with k-means. ``activation``,
+    ``in_feats``, ``n_hidden``, ``hidden_relu``, ``hidden_bn`` and
+    ``num_workers`` are kept for the signature and unused, as in JAX."""
+
+    _DISPLAY_ATTRS = ("agg", "hidden_dim", "hidden_1", "hidden_2", "n_layers", "n_clusters")
+
+    def __init__(self, agg: str = "sum", activation: str = "relu", in_feats: int = 50,
+                 n_hidden: int = 1, hidden_dim: int = 200, hidden_1: int = 300,
+                 hidden_2: int = 0, dropout: float = 0.1, n_layers: int = 1,
+                 hidden_relu: bool = False, hidden_bn: bool = False, n_clusters: int = 10,
+                 cluster_method: str = "kmeans", num_workers: int = 1, device="auto",
+                 seed: int = 0):
+        if agg not in AGGREGATIONS:
+            raise ValueError(f"agg must be one of {AGGREGATIONS}, got {agg!r}")
+        if cluster_method not in ("kmeans", "leiden"):
+            raise ValueError(f"Unknown clustering {cluster_method!r}")
+        self.agg, self.hidden_dim, self.hidden_1, self.hidden_2 = agg, hidden_dim, hidden_1, hidden_2
+        self.dropout, self.n_layers = dropout, n_layers
+        self.n_clusters, self.cluster_method, self.seed = n_clusters, cluster_method, seed
+        self.device = resolve_device(device)
+        self.model: Optional[GCNAE] = None
+        self.z: Optional[np.ndarray] = None
+        self.history: List[Dict[str, float]] = []  # per epoch: epoch, loss, seconds (ari)
+
+    def _fit_inputs(self, g: Graph, fmt: str, bsr_block: int):
+        """Adjacency, features, dense reconstruction target, its BCE weights
+        and the BSR mean degrees on the device, cached across fits on the same
+        graph (counterpart: graphsc.py:167-207)."""
+        key = (id(g), g.adj.shape, g.adj.nnz, fmt, bsr_block)
+        if getattr(self, "_fit_cache_key", None) == key:
+            return self._fit_cache
+        dev = self.device
+        degrees = None
+        if fmt == "bsr":
+            adj = g.to_bsr(block=bsr_block, device=dev)
+            if self.agg == "mean":
+                degrees = torch.from_numpy(np.diff(g.adj.indptr).astype(np.float32)).to(dev)
+        else:
+            adj = csr_from_scipy(g.adj).to(dev)
+        feats = g.ndata.get("features")
+        if feats is None:
+            # adjacency rows against the gene nodes as features (graphsc.py:198-201)
+            feats = g.adj[:, :g.info["num_genes"]].toarray()
+        feats = torch.from_numpy(np.asarray(feats, np.float32)).to(dev)
+        # the whole (n, n) pattern of positive weights, as the reference's
+        # sampled block adjacency spans both node types (graphsc.py:204-205)
+        coo = g.adj.tocoo()
+        pos = coo.data > 0
+        n = g.num_nodes
+        target = torch.zeros((n, n), dtype=torch.float32, device=dev)
+        target[torch.from_numpy(coo.row[pos]).to(dev), torch.from_numpy(coo.col[pos]).to(dev)] = 1.0
+        n_pos = target.sum()
+        total = float(n * n)
+        pos_weight = (total - n_pos) / n_pos.clamp(min=1.0)
+        norm = total / ((total - n_pos) * 2).clamp(min=1.0)
+        self._fit_cache_key = key
+        self._fit_cache = (adj, feats, target, pos_weight, norm, degrees)
+        return self._fit_cache
+
+    def fit(self, g: Graph, y=None, *, epochs: int = 100, lr: float = 1e-5,
+            batch_size: int = 128, show_epoch_ari: bool = False, eval_epoch: bool = False,
+            use_bsr=True, bsr_block: int = 128):
+        """Train from the current weights with a new Adam (counterpart:
+        graphsc.py:139-249). ``use_bsr=True`` aggregates sums and means
+        through the block-sparse SpMM, ``False`` on the CSR adjacency. With
+        ``eval_epoch`` and labels ``y``, every epoch clusters the cell
+        embeddings (k-means on the device) and ``z`` is the embedding of the
+        best ARI; otherwise the last one. ``batch_size`` is unused: training
+        is full-graph, as in JAX."""
+        if not isinstance(g, Graph):
+            raise TypeError(f"expected a dance_tpu_torch Graph, got {type(g)}")
+        if use_bsr == "auto":
+            if self.agg in ("sum", "mean"):
+                raise NotImplementedError("use_bsr='auto' needs H100 crossovers that are not "
+                                          "measured yet (ROADMAP Queue 1); pass use_bsr=True "
+                                          "or False")
+            # max-of-products has no matrix-product form: the JAX package
+            # sends it to the segment path (graphsc.py:152-160)
+            logger.info("agg=%r: using the CSR segment-max path", self.agg)
+            use_bsr = False
+        fmt = "bsr" if use_bsr else "csr"
+        if fmt == "bsr" and self.agg not in ("sum", "mean"):
+            raise ValueError("use_bsr supports agg='sum' or 'mean'")
+        if eval_epoch and y is not None and self.cluster_method != "kmeans":
+            raise NotImplementedError("Leiden is not ported yet (ROADMAP Queue 1, slice 5)")
+        n_genes = int(g.info["num_genes"])
+        adj, feats, target, pos_weight, norm, degrees = self._fit_inputs(g, fmt, bsr_block)
+        if self.model is None:
+            self.model = GCNAE(feats.shape[1], agg=self.agg, hidden_dim=self.hidden_dim,
+                               hidden_1=self.hidden_1, hidden_2=self.hidden_2,
+                               dropout=self.dropout, n_layers=self.n_layers)
+            self.model.reset_parameters(torch.Generator().manual_seed(self.seed))
+            self.model.to(self.device)
+        opt = torch.optim.Adam(self.model.parameters(), lr=lr)
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        y_true = None if y is None else np.asarray(y).ravel()
+        aris, zs = [], []
+        self.history = []
+        for epoch in range(epochs):
+            t0 = time.perf_counter()
+            self.model.train()
+            opt.zero_grad(set_to_none=True)
+            emb = self.model.encode(adj, feats, degrees, generator=gen)
+            # the whole graph's Gram matrix: every node is a "cell" of the
+            # reconstruction (graphsc.py:120-128, 208)
+            loss = norm * binary_ce_logits(emb @ emb.T, target, pos_weight=pos_weight)
+            loss.backward()
+            opt.step()
+            record = {"epoch": epoch, "loss": float(loss.detach())}
+            if eval_epoch and y_true is not None:
+                z_dev = self._embed(adj, feats, degrees)[n_genes:]
+                labels = kmeans(z_dev, self.n_clusters, n_init=10, seed=5).labels
+                record["ari"] = ari(y_true, labels.cpu().numpy())
+                aris.append(record["ari"])
+                zs.append(z_dev)
+                if show_epoch_ari:
+                    logger.info("epoch %4d, ARI %.4f", epoch, record["ari"])
+            record["seconds"] = time.perf_counter() - t0
+            self.history.append(record)
+        z = zs[int(np.argmax(aris))] if aris else self._embed(adj, feats, degrees)[n_genes:]
+        self.z = z.cpu().numpy()
+        return self
+
+    @torch.no_grad()
+    def _embed(self, adj, feats, degrees=None) -> torch.Tensor:
+        self.model.eval()
+        return self.model.encode(adj, feats, degrees)
+
+    def predict(self, x=None) -> np.ndarray:
+        """k-means of the cell embeddings, best of 10 restarts (counterpart:
+        graphsc.py:251)."""
+        if self.cluster_method == "leiden":
+            raise NotImplementedError("Leiden is not ported yet (ROADMAP Queue 1, slice 5)")
+        return kmeans(self.z, self.n_clusters, n_init=10, seed=5,
+                      device=self.device).labels.cpu().numpy()
+
+    def get_latent(self) -> np.ndarray:
+        return self.z
+
+
+def graphsc_preprocess(counts, *, n_top_genes: int = 3000,
+                       normalize_weights: str = "log_per_cell", n_components: int = 50,
+                       normalize_edges: bool = False, device="auto"):
+    """Array counterpart of ``GraphSC.preprocessing_pipeline`` (graphsc.py:79-108)
+    on raw ``counts`` (cells x genes, numpy or scipy): genes with fewer than 3
+    counts and cells without counts are dropped; ``normalize_total`` and
+    ``log1p``; the ``n_top_genes`` cell_ranger HVGs kept; then ``log1p`` and
+    ``normalize_total(target_sum=1)`` (``"log_per_cell"``; ``"per_cell"``
+    only the latter; ``"none"`` neither); gene PCA of the standardized
+    matrix and expression-weighted cell features (on ``device``); the
+    cell-gene graph of the result. Returns ``(graph, cells)``, ``cells`` the
+    indices of the kept cells, so that labels can follow them."""
+    if normalize_weights not in ("log_per_cell", "per_cell", "none"):
+        raise ValueError(f"Unknown normalization option {normalize_weights!r}")
+    device = resolve_device(device)
+    x = sp.csr_matrix(counts, dtype=np.float32) if sp.issparse(counts) \
+        else np.asarray(counts, np.float32)
+    genes, _ = filter_genes(x, min_counts=3)
+    x = x[:, np.nonzero(genes)[0]]
+    cells, _ = filter_cells(x, min_counts=1)
+    x = x[np.nonzero(cells)[0]]
+    x = log1p(normalize_total(x))
+    hv = highly_variable_genes(x, flavor="cell_ranger", n_top_genes=n_top_genes,
+                               min_mean=0.0125, max_mean=4, min_disp=0.5)["highly_variable"]
+    x = x[:, np.nonzero(hv)[0]]
+    if normalize_weights == "log_per_cell":
+        x = log1p(x)
+    if normalize_weights != "none":
+        x = normalize_total(x, target_sum=1)
+    cell_feat, gene_feat = weighted_feature_pca(x, x, n_components,
+                                                feat_norm_mode="standardize", device=device)
+    graph = Graph.from_cell_feature_matrix(x, cell_feat, gene_feat,
+                                           normalize_edges=normalize_edges)
+    return graph, np.nonzero(cells)[0]
+
+
+__all__ = ["GCNAE", "GraphSC", "InnerProductDecoder", "graphsc_preprocess"]

@@ -1,5 +1,5 @@
 """Graph neural layers (counterpart: dance_tpu/nn/__init__.py)."""
 
-from dance_tpu_torch.nn.gnn import AdaptiveSAGE, GATConv
+from dance_tpu_torch.nn.gnn import AdaptiveSAGE, GATConv, WeightedGraphConv
 
-__all__ = ["AdaptiveSAGE", "GATConv"]
+__all__ = ["AdaptiveSAGE", "GATConv", "WeightedGraphConv"]

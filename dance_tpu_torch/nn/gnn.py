@@ -1,5 +1,9 @@
-"""Graph layers: scDeepSort's AdaptiveSAGE and the GAT convolution
-(counterparts: dance_tpu/nn/gnn.py:75-163, 166-203).
+"""Graph layers: graph-sc's WeightedGraphConv, scDeepSort's AdaptiveSAGE and
+the GAT convolution (counterparts: dance_tpu/nn/gnn.py:35-61, 75-163, 166-203).
+
+WeightedGraphConv aggregates through :func:`~dance_tpu_torch.ops.segment.spmm`,
+so its adjacency may be CSR, dense or BSR: on a BSR adjacency a sum or mean
+is the SpMM kernel and a max the forward-only max kernel.
 
 AdaptiveSAGE has two branches, as in the JAX package:
 
@@ -26,8 +30,50 @@ import torch
 from torch import nn
 
 from dance_tpu_torch.ops.bsr import BSRMatrix, bsr_gat_ad, bsr_spmm_ad
-from dance_tpu_torch.ops.segment import aggregate, edge_softmax, gather_src
+from dance_tpu_torch.ops.segment import (aggregate, edge_softmax, gather_src, in_degrees,
+                                         out_degrees, spmm)
 from dance_tpu_torch.ops.sparse import AdaptiveBSR, CSRMatrix
+
+GRAPH_CONV_NORMS = ("none", "both", "right")
+
+
+class WeightedGraphConv(nn.Module):
+    """DGL's GraphConv with edge weights (counterpart: gnn.py:35, parity with
+    graph-sc's WeightedGraphConv): ``h -> linear(h)`` without bias, aggregated
+    over the weighted in-edges by ``agg`` (sum, mean or max), plus a bias.
+    ``norm="both"`` scales by out-degree^-1/2 before and in-degree^-1/2
+    after, ``"right"`` divides by the in-degree after; both need the CSR
+    adjacency's degrees. flax infers the input width; torch takes it."""
+
+    def __init__(self, in_dim: int, out_dim: int, norm: str = "both", use_bias: bool = True):
+        super().__init__()
+        if norm not in GRAPH_CONV_NORMS:
+            raise ValueError(f"norm must be one of {GRAPH_CONV_NORMS}, got {norm!r}")
+        self.norm = norm
+        self.linear = nn.Linear(in_dim, out_dim, bias=False)
+        self.bias = nn.Parameter(torch.zeros(out_dim)) if use_bias else None
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """flax's init: glorot-uniform kernel, zero bias."""
+        nn.init.xavier_uniform_(self.linear.weight, generator=generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, adj, h: torch.Tensor, agg: str = "sum",
+                degrees: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.norm != "none" and not isinstance(adj, CSRMatrix):
+            raise TypeError(f"WeightedGraphConv(norm={self.norm!r}) needs the CSR "
+                            f"adjacency's degrees, got {type(adj).__name__}")
+        if self.norm == "both":
+            h = h * torch.rsqrt(out_degrees(adj).clamp(min=1.0))[:, None]
+        # BSR mean aggregation needs the per-row edge counts from the builder
+        out = spmm(adj, self.linear(h), op=agg, degrees=degrees)
+        if self.norm == "both":
+            out = out * torch.rsqrt(in_degrees(adj).clamp(min=1.0))[:, None]
+        elif self.norm == "right":
+            out = out / in_degrees(adj).clamp(min=1.0)[:, None]
+        return out + self.bias if self.bias is not None else out
 
 
 class AdaptiveSAGE(nn.Module):
@@ -142,4 +188,4 @@ class GATConv(nn.Module):
         return (out, att) if return_attention else out
 
 
-__all__ = ["AdaptiveSAGE", "GATConv"]
+__all__ = ["AdaptiveSAGE", "GATConv", "GRAPH_CONV_NORMS", "WeightedGraphConv"]

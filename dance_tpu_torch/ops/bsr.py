@@ -5,8 +5,8 @@ dance_tpu/ops/pallas_kernels.py — ``BSRMatrix`` (:29), ``bsr_from_scipy``
 (:53), ``bsr_spmm`` (:101), ``bsr_sddmm`` (:159), ``bsr_transpose`` (:207),
 ``bsr_spmm_ad`` (:219-270), the fused GAT ``bsr_gat`` (:354),
 ``bsr_gat_stats`` (:426), ``bsr_gat_grads`` (:507) and ``bsr_gat_ad``
-(:615-650), ``rcm_reorder``/``bsr_with_rcm`` (:653-674) and ``unpermute``
-(:775).
+(:615-650), ``rcm_reorder``/``bsr_with_rcm`` (:653-674), ``unpermute``
+(:775) and the max aggregation ``bsr_spmm_max`` (:786-863).
 
 A BSR matrix here is the same list of dense 128 x 128 tiles sorted by
 block-row, plus a tile-row pointer ``rowptr`` (tiles of block-row ``r`` are
@@ -15,15 +15,17 @@ GAT backward also walks the tiles by block-column, through a column order
 computed once per matrix (:func:`bsr_col_order`).
 
 Each kernel has a wrapper and a plain PyTorch version of the same math
-(gathers, ``bmm``, ``scatter_reduce`` and ``index_add_``). The wrapper takes
-the plain version only for tensors on the CPU; for CUDA tensors it launches
-the kernel (``csrc/bsr_spmm.cu``, ``csrc/bsr_sddmm.cu``, ``csrc/bsr_gat.cu``,
-``csrc/bsr_gat_bwd.cu``) or raises. Each wrapper counts its launches in a
-plain int attribute, e.g. ``bsr_spmm.launches``.
+(gathers, ``bmm``, ``scatter_reduce``, ``index_add_`` and ``amax``). The
+wrapper takes the plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel (``csrc/bsr_spmm.cu``, ``csrc/bsr_sddmm.cu``,
+``csrc/bsr_gat.cu``, ``csrc/bsr_gat_bwd.cu``, ``csrc/bsr_spmm_max.cu``) or
+raises. Each wrapper counts its launches in a plain int attribute, e.g.
+``bsr_spmm.launches``. The max aggregation ``bsr_spmm_max`` (:826) is
+forward-only, as in JAX: differentiating through it raises.
 
-Not ported yet (ROADMAP Queue 1/2): ``compute_dtype`` bf16 streaming,
-``tile_expansion``, ``bipartite_bsr``, the pure-XLA ``bsr_gat_scan`` (the
-GAT plain versions take its place as the oracle) and the max kernel.
+Not ported yet (ROADMAP Queue 1): ``compute_dtype`` bf16 streaming,
+``tile_expansion``, ``bipartite_bsr`` and the pure-XLA ``bsr_gat_scan`` (the
+GAT plain versions take its place as the oracle).
 """
 
 from dataclasses import dataclass, field
@@ -184,6 +186,46 @@ def bsr_spmm_reference(bsr: BSRMatrix, b: torch.Tensor) -> torch.Tensor:
     prod = torch.bmm(bsr.tiles, b3[bsr.block_cols.long()])
     out = torch.zeros((n_rows // blk, blk, d), dtype=prod.dtype, device=prod.device)
     return out.index_add_(0, bsr.block_rows.long(), prod).reshape(n_rows, d)
+
+
+# tile-slot columns per step of the max plain version, as the TPU kernel's
+# _MAX_CHUNK (pallas_kernels.py:801), and the most message elements it holds
+_MAX_CHUNK = 8
+_MAX_MSG_ELEMS = 1 << 25
+
+
+def bsr_spmm_max_reference(bsr: BSRMatrix, b: torch.Tensor, *,
+                           weighted: bool = True) -> torch.Tensor:
+    """``out[i, k] = max_j a_ij * b[j, k]`` over the nonzero tile slots (or
+    of ``b[j, k]`` with ``weighted=False``); rows without a nonzero slot give
+    ``-inf``, and a NaN message gives NaN, as ``jnp.maximum`` does.
+
+    Chunked as the TPU kernel is (pallas_kernels.py:815-821): per group of
+    tiles and per 8 tile columns the (tiles, 128, 8, d) messages are masked
+    and folded into each tile's running row max, so the whole (nb, 128, 128,
+    d) message tensor never exists (51 GB at graph-sc's tiling); then each
+    block-row takes the max over its tiles."""
+    n_rows, n_cols = bsr.shape
+    blk, d = bsr.block, b.shape[1]
+    b3 = b.reshape(n_cols // blk, blk, d)
+    step = max(1, _MAX_MSG_ELEMS // (blk * _MAX_CHUNK * max(d, 1)))
+    part = b.new_empty((bsr.nb, blk, d))
+    for t0 in range(0, bsr.nb, step):
+        tiles = bsr.tiles[t0:t0 + step]
+        hb = b3[bsr.block_cols[t0:t0 + step].long()]
+        acc = b.new_full((tiles.shape[0], blk, d), -torch.inf)
+        for c0 in range(0, blk, _MAX_CHUNK):
+            a = tiles[:, :, c0:c0 + _MAX_CHUNK, None]   # (t, 128, CH, 1)
+            h = hb[:, None, c0:c0 + _MAX_CHUNK, :]      # (t, 1, CH, d)
+            msg = torch.where(a != 0, a * h if weighted else h, -torch.inf)
+            acc = torch.maximum(acc, msg.amax(2))
+        part[t0:t0 + step] = acc
+    out = b.new_full((n_rows // blk, blk, d), -torch.inf)
+    rowptr = bsr.rowptr.tolist()
+    for r in range(n_rows // blk):
+        if rowptr[r] < rowptr[r + 1]:
+            out[r] = part[rowptr[r]:rowptr[r + 1]].amax(0)
+    return out.reshape(n_rows, d)
 
 
 def bsr_sddmm_reference(block_rows: torch.Tensor, block_cols: torch.Tensor,
@@ -562,8 +604,54 @@ def bsr_spmm_ad(bsr: BSRMatrix, b: torch.Tensor) -> torch.Tensor:
     return BSRSpMM.apply(bsr.tiles, b, bsr)
 
 
-__all__ = ["BLOCK", "BSRGat", "BSRMatrix", "BSRSpMM", "GAT_ACTS", "bsr_col_order",
-           "bsr_from_scipy", "bsr_gat", "bsr_gat_ad", "bsr_gat_grads",
+class BSRSpMMMax(torch.autograd.Function):
+    """Forward-only max aggregation, as in JAX, which has no VJP for it
+    (pallas_kernels.py:831-833). Its backward raises, on the CPU as on the
+    card, so that no gradient is silently wrong or missing."""
+
+    @staticmethod
+    def forward(ctx, tiles, b, bsr, weighted):
+        # ``tiles`` is ``bsr.tiles``, passed on its own so that autograd tracks it
+        n_rows, n_cols = bsr.shape
+        if b.dim() != 2 or b.shape[0] != n_cols:
+            raise ValueError(f"bsr_spmm_max: b must be ({n_cols}, d), got {tuple(b.shape)}")
+        if _on_cpu(bsr.tiles, bsr.block_cols, bsr.rowptr, b):
+            return bsr_spmm_max_reference(bsr, b, weighted=weighted)
+        _check_tiling("bsr_spmm_max", bsr)
+        _check_cuda_args("bsr_spmm_max", (bsr.tiles, b), (bsr.block_cols, bsr.rowptr))
+        d = b.shape[1]
+        out = torch.empty((n_rows, d), dtype=torch.float32, device=b.device)
+        if n_rows == 0 or d == 0:
+            return out
+        _launch("dtt_bsr_spmm_max_f32", b.device, bsr.tiles.data_ptr(),
+                bsr.block_cols.data_ptr(), bsr.rowptr.data_ptr(), b.data_ptr(), out.data_ptr(),
+                n_rows // BLOCK, d, int(weighted))
+        bsr_spmm_max.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise RuntimeError("bsr_spmm_max (BSR max aggregation) is forward-only, as in the "
+                           "JAX package: train max aggregation on the CSR adjacency")
+
+
+def bsr_spmm_max(bsr: BSRMatrix, b: torch.Tensor, *, weighted: bool = True) -> torch.Tensor:
+    """Max aggregation over the BSR nonzero pattern, ``out[i, k] = max_j
+    a_ij * b[j, k]`` (``b[j, k]`` with ``weighted=False``), with ``b``
+    (n_cols_padded, d) float32; returns (n_rows_padded, d) float32
+    (counterpart: pallas_kernels.py:826). A zero slot means "no edge": rows
+    without one give ``-inf``, and NaN propagates. Any ``d`` is taken.
+
+    Runs through :class:`BSRSpMMMax`: where an input requires grad, so does
+    the output, and its backward raises."""
+    return BSRSpMMMax.apply(bsr.tiles, b, bsr, weighted)
+
+
+bsr_spmm_max.launches = 0
+
+__all__ = ["BLOCK", "BSRGat", "BSRMatrix", "BSRSpMM", "BSRSpMMMax", "GAT_ACTS",
+           "bsr_col_order", "bsr_from_scipy", "bsr_gat", "bsr_gat_ad", "bsr_gat_grads",
            "bsr_gat_grads_reference", "bsr_gat_reference", "bsr_gat_stats", "bsr_sddmm",
-           "bsr_sddmm_reference", "bsr_spmm", "bsr_spmm_ad", "bsr_spmm_reference",
+           "bsr_sddmm_reference", "bsr_spmm", "bsr_spmm_ad", "bsr_spmm_max",
+           "bsr_spmm_max_reference", "bsr_spmm_reference",
            "bsr_transpose", "bsr_with_rcm", "rcm_reorder", "unpermute"]

@@ -9,11 +9,13 @@ card and on the CPU draw the same numbers; they are not JAX's numbers.
 Louvain and Leiden (:126-218) are not ported yet (ROADMAP Queue 1).
 """
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from dance_tpu_torch.utils import resolve_device
 
 
 class KMeansResult(NamedTuple):
@@ -76,12 +78,14 @@ def _lloyd(x: torch.Tensor, centers: torch.Tensor, n_iter: int, tol: float = 0.0
 
 
 def kmeans(x, n_clusters: int, *, n_init: int = 5, n_iter: int = 100, seed: int = 0,
-           tol: float = 0.0, device: Optional[torch.device] = None) -> KMeansResult:
+           tol: float = 0.0, device=None) -> KMeansResult:
     """k-means, the best inertia of ``n_init`` k-means++ restarts (counterpart:
     cluster.py:110). ``x`` is a tensor (run where it lies, or on ``device``)
-    or an array (run on ``device``, default the CPU); float32."""
+    or an array (run on ``device``, default the CUDA card; the CPU only when
+    named); float32."""
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.asarray(x, np.float32))
+        device = resolve_device("auto" if device is None else device)
     x = x.to(device=device or x.device, dtype=torch.float32)
     runs = [_lloyd(x, _kmeans_pp_init(x, n_clusters, torch.Generator().manual_seed(seed + i)),
                    n_iter, tol) for i in range(n_init)]

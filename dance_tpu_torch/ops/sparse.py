@@ -1,8 +1,7 @@
-"""Sparse tensor containers (counterpart: dance_tpu/ops/sparse.py:18-121,177-210).
+"""Sparse tensor containers (counterpart: dance_tpu/ops/sparse.py:18-210).
 
 The JAX package registers these as pytrees so that ``jit`` sees static
 shapes; here they are plain dataclasses of tensors with a ``.to(device)``.
-``DenseAdj`` (sparse.py:124-168) is not part of this slice (ROADMAP Queue 1).
 """
 
 from dataclasses import dataclass, replace
@@ -45,6 +44,30 @@ def csr_from_scipy(mat: sp.spmatrix) -> CSRMatrix:
 
 
 @dataclass
+class DenseAdj:
+    """A dense adjacency, its SpMM one matrix product (counterpart:
+    sparse.py:124-159). ``degrees`` holds the nonzero count of each row, for
+    mean aggregation."""
+
+    mat: torch.Tensor      # (n, m) f32 weights, 0 = no edge
+    degrees: torch.Tensor  # (n,) f32
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return tuple(self.mat.shape)
+
+    def to(self, device) -> "DenseAdj":
+        return replace(self, mat=self.mat.to(device), degrees=self.degrees.to(device))
+
+
+def dense_adj_from_scipy(adj: sp.spmatrix) -> DenseAdj:
+    """Counterpart: ``dense_adj_from_scipy`` (sparse.py:162)."""
+    adj = sp.csr_matrix(adj)
+    return DenseAdj(torch.from_numpy(np.asarray(adj.todense(), np.float32)),
+                    torch.from_numpy(np.diff(adj.indptr).astype(np.float32)))
+
+
+@dataclass
 class AdaptiveBSR:
     """AdaptiveSAGE's message passing as one SpMM over a constant off-diagonal
     BSR matrix plus per-node terms (counterpart: sparse.py:177-210).
@@ -68,4 +91,4 @@ class AdaptiveBSR:
                        gene_idx=self.gene_idx.to(device), deg=self.deg.to(device))
 
 
-__all__ = ["AdaptiveBSR", "CSRMatrix", "csr_from_scipy"]
+__all__ = ["AdaptiveBSR", "CSRMatrix", "DenseAdj", "csr_from_scipy", "dense_adj_from_scipy"]

@@ -1,12 +1,15 @@
-"""scanpy-style preprocessing on arrays: the cores of ``normalize_total``,
-``log1p`` and ``highly_variable_genes(flavor="seurat_v3")`` with its loess
-trend (counterparts: dance_tpu/sc/pp.py:118-149, 171-185, 209-249, 347-380).
+"""scanpy-style preprocessing on arrays: the cores of ``filter_cells``,
+``filter_genes``, ``normalize_total``, ``log1p`` and ``highly_variable_genes``
+with the ``cell_ranger`` and ``seurat_v3`` flavours (counterparts:
+dance_tpu/sc/pp.py:33-92, 118-149, 171-185, 209-249, 298-380).
 
 The JAX package's versions read and write an ``AnnData`` (pandas frames);
 the card has no pandas, so these take a cells x genes numpy or scipy matrix
-and return new arrays. The arithmetic is the JAX package's, in the same
-order, so the results agree bit for bit. Other HVG flavours, batches and
-``normalize_per_cell``/``scale`` are not ported yet (ROADMAP Queue 1).
+and return masks and new arrays. The arithmetic is the JAX package's, in the
+same order, so the results agree bit for bit; ``pd.cut`` and the per-bin
+``groupby`` medians of cell_ranger are written out in numpy. The ``seurat``
+flavour, batches and ``normalize_per_cell``/``scale`` are not ported yet
+(ROADMAP Queue 1).
 """
 
 from typing import Dict, Optional
@@ -23,6 +26,54 @@ def _dense(x):
 
 def _row_sums(x) -> np.ndarray:
     return np.asarray(x.sum(axis=1)).ravel()
+
+
+def _col_sums(x) -> np.ndarray:
+    return np.asarray(x.sum(axis=0)).ravel()
+
+
+def _one_threshold(names, values):
+    if sum(v is not None for v in values) != 1:
+        raise ValueError(f"Provide exactly one of {'/'.join(names)}")
+
+
+def filter_cells(x, *, min_counts: Optional[int] = None, min_genes: Optional[int] = None,
+                 max_counts: Optional[int] = None, max_genes: Optional[int] = None):
+    """Cells passing one count or gene-number threshold (counterpart:
+    pp.py:33, ``inplace=False``). Returns ``(mask, metric)``: the kept cells
+    and each cell's total counts or number of expressed genes."""
+    _one_threshold(("min_counts", "min_genes", "max_counts", "max_genes"),
+                   (min_counts, min_genes, max_counts, max_genes))
+    if min_counts is not None or max_counts is not None:
+        metric = _row_sums(x)
+    else:
+        metric = _row_sums(x > 0) if sp.issparse(x) else (np.asarray(x) > 0).sum(1)
+    if min_counts is not None:
+        return metric >= min_counts, metric
+    if max_counts is not None:
+        return metric <= max_counts, metric
+    if min_genes is not None:
+        return metric >= min_genes, metric
+    return metric <= max_genes, metric
+
+
+def filter_genes(x, *, min_counts: Optional[int] = None, min_cells: Optional[int] = None,
+                 max_counts: Optional[int] = None, max_cells: Optional[int] = None):
+    """Genes passing one count or cell-number threshold (counterpart:
+    pp.py:65, ``inplace=False``). Returns ``(mask, metric)``."""
+    _one_threshold(("min_counts", "min_cells", "max_counts", "max_cells"),
+                   (min_counts, min_cells, max_counts, max_cells))
+    if min_counts is not None or max_counts is not None:
+        metric = _col_sums(x)
+    else:
+        metric = _col_sums(x > 0) if sp.issparse(x) else (np.asarray(x) > 0).sum(0)
+    if min_counts is not None:
+        return metric >= min_counts, metric
+    if max_counts is not None:
+        return metric <= max_counts, metric
+    if min_cells is not None:
+        return metric >= min_cells, metric
+    return metric <= max_cells, metric
 
 
 def normalize_total(x, *, target_sum: Optional[float] = None,
@@ -104,19 +155,80 @@ def _loess(x: np.ndarray, y: np.ndarray, *, span: float = 0.3, degree: int = 2,
     return res
 
 
-def highly_variable_genes(x, *, flavor: str = "seurat_v3", n_top_genes: Optional[int] = None,
-                          span: float = 0.3, check_values: bool = True) -> Dict[str, np.ndarray]:
-    """Highly variable genes of raw counts by scanpy's ``seurat_v3`` rule
-    (counterpart: pp.py:347-380): a loess trend of log10 variance on log10
-    mean, then each gene's variance of counts standardised by that trend and
-    clipped at sqrt(n); the ``n_top_genes`` largest (default 2000) are kept.
+def _group_median(values: np.ndarray, groups: np.ndarray) -> np.ndarray:
+    """Each element's group median (pandas ``groupby(...).transform("median")``
+    over the observed groups; every value here is finite)."""
+    out = np.empty_like(values)
+    for grp in np.unique(groups):
+        sel = groups == grp
+        out[sel] = np.median(values[sel])
+    return out
 
-    Returns ``highly_variable``, ``means``, ``variances`` and
-    ``variances_norm``, each (n_genes,). Densifies ``x`` in float64, as the
-    JAX package does (about 5 x 8 bytes per entry at the peak)."""
+
+def _cell_ranger(x, n_top_genes: Optional[int], min_mean: float, max_mean: float,
+                 min_disp: float, max_disp: float) -> Dict[str, np.ndarray]:
+    """cell_ranger dispersions of log data (counterpart: pp.py:298-346): the
+    dispersion var/mean of ``expm1(x)`` is normalised by the median and MAD
+    of its bin of means; the bins are the 10th, 15th, ..., 100th percentiles
+    with -inf and +inf at the ends, right-closed as ``pd.cut`` cuts them."""
+    xe = x.copy()
+    if sp.issparse(xe):
+        xe.data = np.expm1(xe.data)
+    else:
+        xe = np.expm1(np.asarray(xe, dtype=np.float64))
+    mean = np.asarray(xe.mean(axis=0)).ravel()
+    if sp.issparse(xe):
+        mean_sq = np.asarray(xe.multiply(xe).mean(axis=0)).ravel()
+    else:
+        mean_sq = np.asarray((xe ** 2).mean(axis=0)).ravel()
+    n = x.shape[0]
+    var = (mean_sq - mean ** 2) * (n / max(n - 1, 1))
+    mean[mean == 0] = 1e-12
+    dispersion = var / mean
+    edges = np.r_[-np.inf, np.percentile(mean, np.arange(10, 105, 5)), np.inf]
+    if not (np.diff(edges) > 0).all():
+        raise ValueError(f"Bin edges must be unique: {edges!r}")
+    bins = np.searchsorted(edges, mean, side="left") - 1  # (e_i, e_i+1] -> i
+    bin_median = _group_median(dispersion, bins)
+    bin_mad = _group_median(np.abs(dispersion - bin_median), bins)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        disp_norm = (dispersion - bin_median) / np.where(bin_mad == 0, np.nan, bin_mad)
+    disp_norm = np.where(np.isnan(disp_norm), 0.0, disp_norm).astype(dispersion.dtype)
+    if n_top_genes is not None:
+        cut = np.sort(disp_norm[~np.isnan(disp_norm)])[::-1][
+            min(n_top_genes, np.isfinite(disp_norm).sum()) - 1]
+        hv = disp_norm >= cut
+    else:
+        hv = ((mean > min_mean) & (mean < max_mean)
+              & (disp_norm > min_disp) & (disp_norm < max_disp))
+    return {"highly_variable": hv, "means": mean, "dispersions": dispersion,
+            "dispersions_norm": disp_norm}
+
+
+def highly_variable_genes(x, *, flavor: str = "seurat_v3", n_top_genes: Optional[int] = None,
+                          min_mean: float = 0.0125, max_mean: float = 3.0,
+                          min_disp: float = 0.5, max_disp: float = np.inf, span: float = 0.3,
+                          check_values: bool = True) -> Dict[str, np.ndarray]:
+    """Highly variable genes of a cells x genes matrix (counterpart:
+    pp.py:252-390), each result (n_genes,).
+
+    - ``seurat_v3`` (raw counts): a loess trend of log10 variance on log10
+      mean, then each gene's variance of counts standardised by that trend
+      and clipped at sqrt(n); the ``n_top_genes`` largest (default 2000) are
+      kept. Returns ``highly_variable``, ``means``, ``variances`` and
+      ``variances_norm``. Densifies ``x`` in float64, as the JAX package does
+      (about 5 x 8 bytes per entry at the peak).
+    - ``cell_ranger`` (log data): see :func:`_cell_ranger`; the genes at or
+      above the ``n_top_genes``-th normalised dispersion, or without
+      ``n_top_genes`` those inside the mean and dispersion cut-offs. Returns
+      ``highly_variable``, ``means``, ``dispersions`` and ``dispersions_norm``.
+
+    The JAX package's default flavour ``seurat`` is not ported yet."""
+    if flavor == "cell_ranger":
+        return _cell_ranger(x, n_top_genes, min_mean, max_mean, min_disp, max_disp)
     if flavor != "seurat_v3":
         raise NotImplementedError(f"HVG flavor {flavor!r} is not ported yet; only "
-                                  f"'seurat_v3' (ROADMAP Queue 1)")
+                                  f"'seurat_v3' and 'cell_ranger' (ROADMAP Queue 1)")
     if n_top_genes is None:
         n_top_genes = 2000
     if check_values:
@@ -147,4 +259,5 @@ def highly_variable_genes(x, *, flavor: str = "seurat_v3", n_top_genes: Optional
             "variances_norm": std_var}
 
 
-__all__ = ["highly_variable_genes", "log1p", "normalize_total"]
+__all__ = ["filter_cells", "filter_genes", "highly_variable_genes", "log1p",
+           "normalize_total"]

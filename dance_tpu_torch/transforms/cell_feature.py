@@ -5,10 +5,10 @@ dance_tpu/transforms/cell_feature.py:51-67).
 The JAX transform reads and writes a ``Data`` container and registers itself
 in ``dance_tpu.registry``. The port works on arrays and registers nothing,
 so its name cannot collide with the JAX registry in a process that imports
-both packages. ``feat_norm_mode`` and ``save_info`` are not ported yet.
+both packages. ``save_info`` is not ported yet.
 """
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -16,6 +16,8 @@ import torch
 
 from dance_tpu_torch.ops.linalg import pca
 from dance_tpu_torch.settings import logger
+from dance_tpu_torch.utils import resolve_device
+from dance_tpu_torch.utils.matrix import normalize
 
 
 def _dense(x, device) -> torch.Tensor:
@@ -23,22 +25,28 @@ def _dense(x, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(x, np.float32)).to(device)
 
 
-def weighted_feature_pca(x_split, x_all, n_components: int,
-                         device="cpu") -> Tuple[np.ndarray, np.ndarray]:
+def weighted_feature_pca(x_split, x_all, n_components: int, *,
+                         feat_norm_mode: Optional[str] = None, feat_norm_axis: int = 0,
+                         device="auto") -> Tuple[np.ndarray, np.ndarray]:
     """PCA over genes on ``x_split`` (cells x genes, e.g. the training cells),
     then each cell of ``x_all`` is its row-normalized expression times the
     gene embedding. Returns ``(cell_feat, gene_feat)`` as float32 arrays of
     shapes (n_cells, k) and (n_genes, k); ``k`` is clipped to the matrix size.
-    The arithmetic runs on ``device``."""
+
+    ``feat_norm_mode`` normalizes ``x_split`` along ``feat_norm_axis`` before
+    the PCA (:func:`~dance_tpu_torch.utils.matrix.normalize`; counterpart:
+    cell_feature.py:53-54). The arithmetic runs on ``device`` (default the
+    CUDA card; the CPU only when named)."""
+    device = resolve_device(device)
     feat = _dense(x_split, device)
+    if feat_norm_mode is not None:
+        feat = normalize(feat, mode=feat_norm_mode, axis=feat_norm_axis)
     k = int(min(n_components, min(feat.shape)))
     if k < n_components:
         logger.warning("n_components=%s > min(n_samples, n_features)=%s; clipping",
                        n_components, k)
     gene_feat = pca(feat.T, k).embedding
-    x = _dense(x_all, device)
-    denom = x.sum(dim=1, keepdim=True)
-    cell_feat = (x / torch.where(denom == 0, 1.0, denom)) @ gene_feat
+    cell_feat = normalize(_dense(x_all, device), mode="normalize", axis=1) @ gene_feat
     return cell_feat.cpu().numpy(), gene_feat.cpu().numpy()
 
 

@@ -23,10 +23,14 @@ def set_seed(seed: int):
 
 
 def resolve_device(device: Union[str, torch.device] = "auto") -> torch.device:
-    """``"auto"`` picks CUDA when present, else the CPU. Asking for CUDA
-    where there is none raises instead of falling back."""
+    """``"auto"`` is the current CUDA device. The CPU is used only when the
+    caller names it: with no card, ``"auto"`` and CUDA devices raise instead
+    of falling back."""
     if isinstance(device, str) and device == "auto":
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        if not torch.cuda.is_available():
+            raise RuntimeError("device='auto' is the CUDA card, but torch.cuda.is_available() "
+                               "is False; pass device='cpu' to run on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but torch.cuda.is_available() is False")

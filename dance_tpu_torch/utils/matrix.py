@@ -1,14 +1,51 @@
-"""Pairwise distances (counterpart: ``pairwise_distance`` and
-``_euclidean_pdist``, dance_tpu/utils/matrix.py:64-118).
+"""Matrix normalization and pairwise distances (counterpart: ``normalize``,
+``pairwise_distance`` and ``_euclidean_pdist``, dance_tpu/utils/matrix.py:19-54,
+64-118).
 
-Euclidean only: the Pearson and Spearman metrics (:75-101) are not ported
-yet and raise. Host numpy in, host numpy out, as in the JAX package, and
-computed on the CPU in float32 (the JAX package pins ``Precision.HIGHEST``
-for the same full-precision product).
+``normalize`` takes a tensor and returns one on the same device, or a numpy
+array or scipy matrix and returns a numpy array (computed on the CPU), as the
+JAX version returns what it was given. ``pairwise_distance`` is Euclidean
+only: the Pearson and Spearman metrics (:75-101) are not ported yet and
+raise. It takes and returns host numpy, as in the JAX package, computed on
+the CPU in float32 (the JAX package pins ``Precision.HIGHEST`` for the same
+full-precision product).
 """
 
 import numpy as np
+import scipy.sparse as sp
 import torch
+
+NORM_MODES = ("normalize", "standardize", "minmax", "l2")
+
+
+def normalize(mat, *, mode: str = "normalize", axis: int = 0, eps: float = -1.0):
+    """Normalize a 2-d float32 matrix along ``axis`` (counterpart: matrix.py:19):
+    ``normalize`` divides by the sum, ``standardize`` centres and divides by
+    the standard deviation (over n, as ``jnp.std``), ``minmax`` rescales to
+    [0, 1], ``l2`` divides by the L2 norm. A zero divisor becomes 1; with
+    ``eps > 0`` the divisor is at least ``eps``."""
+    if mode not in NORM_MODES:
+        raise ValueError(f"Unknown normalization mode {mode!r}")
+    as_numpy = not isinstance(mat, torch.Tensor)
+    if as_numpy:
+        mat = torch.from_numpy(np.asarray(mat.todense() if sp.issparse(mat) else mat,
+                                          np.float32))
+    mat = mat.to(torch.float32)
+    if mode == "normalize":
+        denom = mat.sum(dim=axis, keepdim=True)
+    elif mode == "standardize":
+        denom = mat.std(dim=axis, keepdim=True, correction=0)
+        mat = mat - mat.mean(dim=axis, keepdim=True)
+    elif mode == "minmax":
+        mat = mat - mat.amin(dim=axis, keepdim=True)
+        denom = mat.amax(dim=axis, keepdim=True)
+    else:
+        denom = torch.sqrt((mat ** 2).sum(dim=axis, keepdim=True))
+    denom = torch.where(denom == 0, 1.0, denom)
+    if eps > 0:
+        denom = denom.clamp(min=eps)
+    out = mat / denom
+    return out.numpy() if as_numpy else out
 
 
 def pairwise_distance(x, y=None, dist_func="euclidean") -> np.ndarray:
@@ -23,4 +60,4 @@ def pairwise_distance(x, y=None, dist_func="euclidean") -> np.ndarray:
     return torch.sqrt(d2.clamp(min=0.0)).numpy()
 
 
-__all__ = ["pairwise_distance"]
+__all__ = ["NORM_MODES", "normalize", "pairwise_distance"]

@@ -1,5 +1,5 @@
 """flax -> torch parameter transfer for the scDeepSort ``GNN``, STAGATE's
-net and ``GATConv``.
+net, ``GATConv`` and graph-sc's ``GCNAE``.
 
 Parity between the two packages is checked by copying the flax parameters
 into the torch module, since the two frameworks' generators and initializers
@@ -18,6 +18,11 @@ STAGATE's ``_StagateNet`` (stagate.py:57-87) keeps ``w1``, ``w2``, ``a1l`` and
 :class:`~dance_tpu_torch.modules.spatial.spatial_domain.stagate.StagateNet`
 as they are. ``GATConv`` (dance_tpu/nn/gnn.py:166): ``Dense_0/kernel`` ->
 ``linear.weight`` (transposed), ``attn_l`` and ``attn_r`` as they are.
+graph-sc's ``GCNAE`` (graphsc.py:29-57):
+
+    WeightedGraphConv_{i}/Dense_0/kernel -> convs.{i}.linear.weight
+    WeightedGraphConv_{i}/bias           -> convs.{i}.bias
+    Dense_{k}/{kernel,bias}              -> denses.{k}.{weight,bias}
 """
 
 from typing import Dict, Mapping
@@ -58,4 +63,21 @@ def gatconv_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
             "attn_l": _t(params["attn_l"]), "attn_r": _t(params["attn_r"])}
 
 
-__all__ = ["flax_to_torch", "gatconv_flax_to_torch", "stagate_flax_to_torch"]
+def graphsc_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``GCNAE`` tree -> ``GCNAE.state_dict()``."""
+    state = {}
+    for name, sub in params.items():
+        kind, _, idx = name.rpartition("_")
+        if kind == "WeightedGraphConv":
+            state[f"convs.{idx}.linear.weight"] = _t(np.asarray(sub["Dense_0"]["kernel"]).T)
+            state[f"convs.{idx}.bias"] = _t(sub["bias"])
+        elif kind == "Dense":
+            state[f"denses.{idx}.weight"] = _t(np.asarray(sub["kernel"]).T)
+            state[f"denses.{idx}.bias"] = _t(sub["bias"])
+        else:
+            raise KeyError(f"unexpected GCNAE parameter {name!r}")
+    return state
+
+
+__all__ = ["flax_to_torch", "gatconv_flax_to_torch", "graphsc_flax_to_torch",
+           "stagate_flax_to_torch"]

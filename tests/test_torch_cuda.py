@@ -1,6 +1,6 @@
 """dance_tpu_torch on the card: the hand-written CUDA kernels against their
-plain PyTorch versions, and the scDeepSort and STAGATE fits on the card
-against the CPU.
+plain PyTorch versions, and the scDeepSort, STAGATE and graph-sc fits on the
+card against the CPU.
 
 Every test here is marked ``cuda`` and skips where ``torch.cuda.is_available()``
 is False. This file imports no JAX, so it runs on a machine with only
@@ -12,6 +12,8 @@ Tolerances: float32 with TF32 off; kernel and plain version sum the same
 terms in another order, so outputs agree at rtol 1e-5 (atol 1e-4 for sums
 of ~100 products of unit normals). The GAT kernels use expf where the plain
 version uses torch.exp (each within an ulp or two), so the same bounds hold.
+The BSR max kernel and its plain version take the max of the same float32
+products, so they agree exactly (NaN where either has NaN).
 """
 
 import numpy as np
@@ -23,7 +25,7 @@ from dance_tpu_torch.graph import Graph
 from dance_tpu_torch.modules.single_modality.cell_type_annotation import ScDeepSort
 from dance_tpu_torch.modules.spatial.spatial_domain import Stagate
 from dance_tpu_torch.ops import bsr as tbsr
-from torch_cases import CASES, gat_inputs, no_pad, spatial_case
+from torch_cases import CASES, gat_inputs, max_edge_case, no_pad, signed, spatial_case
 
 RTOL, ATOL = 1e-5, 1e-5
 
@@ -195,3 +197,71 @@ def test_stagate_fit_matches_cpu(cuda, use_bsr):
     np.testing.assert_allclose(runs[1][1], runs[0][1], rtol=1e-4, atol=1e-4)
     assert runs[0][2] == [0, 0, 0]
     assert runs[1][2] == ([2, 10, 10] if use_bsr else [0, 0, 0])
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("d", [1, 70, 200])
+@pytest.mark.parametrize("pad_tiles", [True, False])
+@pytest.mark.parametrize("weighted", [True, False])
+def test_spmm_max_matches_plain(cuda, case, d, pad_tiles, weighted):
+    bsr = tbsr.bsr_from_scipy(signed(CASES[case]()))
+    bsr = bsr if pad_tiles else no_pad(bsr)
+    b = torch.randn((bsr.shape[1], d), generator=torch.Generator().manual_seed(d))
+    ref = tbsr.bsr_spmm_max_reference(bsr, b, weighted=weighted)
+    n = tbsr.bsr_spmm_max.launches
+    out = tbsr.bsr_spmm_max(bsr.to(cuda), b.to(cuda), weighted=weighted)
+    torch.cuda.synchronize()
+    assert tbsr.bsr_spmm_max.launches == n + 1
+    torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=0)
+
+
+def test_spmm_max_edge_semantics_match_plain(cuda):
+    bsr, h = max_edge_case()
+    for weighted in (True, False):
+        ref = tbsr.bsr_spmm_max_reference(bsr, h, weighted=weighted)
+        out = tbsr.bsr_spmm_max(bsr.to(cuda), h.to(cuda), weighted=weighted).cpu()
+        torch.testing.assert_close(out, ref, rtol=0, atol=0, equal_nan=True)
+        assert torch.isnan(out).any() and torch.isneginf(out).any() and torch.isinf(out).any()
+
+
+def test_spmm_max_backward_raises_and_segment_spmm_launches(cuda):
+    from dance_tpu_torch.ops.segment import spmm
+
+    adj = signed(CASES["square_with_empty_block_rows"]())
+    h = torch.randn((400, 16), generator=torch.Generator().manual_seed(0)).to(cuda)
+    n = tbsr.bsr_spmm_max.launches
+    out = spmm(tbsr.bsr_from_scipy(adj).to(cuda), h.requires_grad_(True), op="max")
+    assert tbsr.bsr_spmm_max.launches == n + 1 and out.shape == (400, 16)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        out[torch.isfinite(out)].sum().backward()
+
+
+def test_spmm_max_wrapper_rejects_bad_inputs(cuda):
+    bsr = tbsr.bsr_from_scipy(CASES["rectangular"]()).to(cuda)
+    with pytest.raises(TypeError, match="float32"):
+        tbsr.bsr_spmm_max(bsr, torch.zeros((bsr.shape[1], 4), device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        tbsr.bsr_spmm_max(bsr, torch.zeros((4, bsr.shape[1]), device=cuda).T)
+    with pytest.raises(ValueError, match="one CUDA device or all on the CPU"):
+        tbsr.bsr_spmm_max(bsr, torch.zeros((bsr.shape[1], 4)))
+
+
+@pytest.mark.parametrize("use_bsr,agg", [(True, "sum"), (True, "mean"), (False, "max")])
+def test_graphsc_fit_matches_cpu(cuda, use_bsr, agg):
+    from dance_tpu_torch.modules.single_modality.clustering import GraphSC
+
+    rng = np.random.default_rng(15)
+    expr = sp.random(300, 140, density=0.15, random_state=15, dtype=np.float32, format="csr")
+    graph = Graph.from_cell_feature_matrix(expr, rng.random((300, 16), dtype=np.float32),
+                                           rng.random((140, 16), dtype=np.float32),
+                                           normalize_edges=False)
+    runs = []
+    for device in (torch.device("cpu"), cuda):
+        n = tbsr.bsr_spmm.launches
+        m = GraphSC(agg=agg, hidden_dim=32, hidden_1=16, dropout=0.0, n_clusters=3,
+                    device=device, seed=0)
+        m.fit(graph, epochs=4, lr=1e-3, use_bsr=use_bsr)
+        runs.append(([h["loss"] for h in m.history], m.z, tbsr.bsr_spmm.launches - n))
+    np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=1e-4)
+    np.testing.assert_allclose(runs[1][1], runs[0][1], rtol=1e-4, atol=1e-4)
+    assert runs[0][2] == 0 and runs[1][2] == (4 * 2 + 1 if use_bsr else 0)

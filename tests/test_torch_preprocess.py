@@ -67,7 +67,7 @@ def test_weighted_feature_pca_matches_jax():
     data = Data(AnnData(X=x.copy(), obs={"cell_type": rng.choice(list("abc"), 60)}),
                 train_size=40)
     WeightedFeaturePCA(n_components=8, split_name="train")(data)
-    cell_feat, gene_feat = weighted_feature_pca(data.get_x("train"), x, 8)
+    cell_feat, gene_feat = weighted_feature_pca(data.get_x("train"), x, 8, device="cpu")
     assert cell_feat.dtype == gene_feat.dtype == np.float32
     np.testing.assert_allclose(gene_feat, data.data.varm["WeightedFeaturePCA"], rtol=1e-4,
                                atol=1e-4)
@@ -78,8 +78,8 @@ def test_weighted_feature_pca_matches_jax():
 
 def test_weighted_feature_pca_sparse_input_and_clipping():
     x = sp.random(20, 12, density=0.4, random_state=0, format="csr", dtype=np.float32)
-    cell_dense, gene_dense = weighted_feature_pca(x.toarray(), x.toarray(), 50)
-    cell_sparse, gene_sparse = weighted_feature_pca(x, x, 50)
+    cell_dense, gene_dense = weighted_feature_pca(x.toarray(), x.toarray(), 50, device="cpu")
+    cell_sparse, gene_sparse = weighted_feature_pca(x, x, 50, device="cpu")
     assert gene_dense.shape == (12, 12) and cell_dense.shape == (20, 12)
     np.testing.assert_array_equal(cell_sparse, cell_dense)
     np.testing.assert_array_equal(gene_sparse, gene_dense)

@@ -90,7 +90,7 @@ def test_subgraph_and_to_device_match_jax():
 
 def test_to_adaptive_bsr_matches_jax():
     j, t, _ = _graphs(5, n_cells=200, n_genes=90)
-    ja, ta = j.to_adaptive_bsr(), t.to_adaptive_bsr()
+    ja, ta = j.to_adaptive_bsr(), t.to_adaptive_bsr(device="cpu")
     assert isinstance(ta, AdaptiveBSR) and ta.n_genes == ja.n_genes
     assert ta.bsr.shape == ja.bsr.shape and ta.shape == ja.shape
     np.testing.assert_array_equal(ta.bsr.tiles.numpy(), np.asarray(ja.bsr.blocks))
@@ -143,7 +143,7 @@ def test_adaptive_sage_forward_and_grads_match_jax(branch):
                            "linear.bias": torch.tensor(p["Dense_0"]["bias"]),
                            "norm.weight": torch.tensor(p["LayerNorm_0"]["scale"]),
                            "norm.bias": torch.tensor(p["LayerNorm_0"]["bias"])})
-    tadj = t.to_adaptive_bsr() if branch == "bsr" else csr_from_scipy(t.adj)
+    tadj = t.to_adaptive_bsr(device="cpu") if branch == "bsr" else csr_from_scipy(t.adj)
     th = torch.from_numpy(h.copy()).requires_grad_(True)
     talpha = torch.from_numpy(alpha.copy()).requires_grad_(True)
     tgene = torch.from_numpy(t.ndata["cell_id"].astype(np.int64))
@@ -334,7 +334,8 @@ def test_resolve_device():
     if torch.cuda.is_available():
         assert resolve_device("auto").type == "cuda"
     else:
-        assert resolve_device("auto") == torch.device("cpu")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resolve_device("auto")
         with pytest.raises(RuntimeError, match="cuda"):
             resolve_device("cuda")
 
@@ -346,6 +347,8 @@ def test_port_imports_no_jax():
         "import dance_tpu_torch.transforms, dance_tpu_torch.utils.params\n"
         "import dance_tpu_torch.ops._build, dance_tpu_torch.ops.cluster\n"
         "import dance_tpu_torch.modules.spatial.spatial_domain.stagate\n"
+        "import dance_tpu_torch.modules.single_modality.clustering.graphsc\n"
+        "import dance_tpu_torch.ops.segment, dance_tpu_torch.utils.loss\n"
         "bad = {'jax', 'flax', 'optax', 'sklearn', 'pandas', 'h5py', 'yaml', 'dance_tpu'}\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -187,15 +187,16 @@ def test_lloyd_matches_jax(tol):
 
 def test_kmeans_finds_blobs_and_keeps_best_restart():
     x, truth = _blobs(seed=9)
-    res = tcluster.kmeans(x, 3, n_init=4, seed=1)
+    res = tcluster.kmeans(x, 3, n_init=4, seed=1, device="cpu")
     assert res.labels.shape == (300,) and res.centers.shape == (3, 5)
     assert ari(truth, res.labels.numpy()) == 1.0
-    singles = [float(tcluster.kmeans(x, 3, n_init=1, seed=1 + i).inertia) for i in range(4)]
+    singles = [float(tcluster.kmeans(x, 3, n_init=1, seed=1 + i, device="cpu").inertia)
+               for i in range(4)]
     assert float(res.inertia) == min(singles)
-    again = tcluster.kmeans(x, 3, n_init=4, seed=1)
+    again = tcluster.kmeans(x, 3, n_init=4, seed=1, device="cpu")
     assert torch.equal(again.labels, res.labels)
     # duplicate points leave no mass for later picks; the draw still lands
-    assert tcluster.kmeans(np.ones((20, 2)), 3, n_init=1).labels.shape == (20,)
+    assert tcluster.kmeans(np.ones((20, 2)), 3, n_init=1, device="cpu").labels.shape == (20,)
 
 
 @pytest.mark.parametrize("case", ["random", "same", "split", "single", "renamed"])

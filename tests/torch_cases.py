@@ -34,6 +34,30 @@ def no_pad(bsr: tbsr.BSRMatrix) -> tbsr.BSRMatrix:
                           tbsr._rowptr(rows, bsr.shape[0] // bsr.block), bsr.shape)
 
 
+def signed(adj: sp.csr_matrix) -> sp.csr_matrix:
+    """Weights shifted to [-0.5, 0.5), zeros dropped: negative weights make a
+    max aggregation's masking of empty slots matter."""
+    adj = adj.copy()
+    adj.data = adj.data - np.float32(0.5)
+    adj.eliminate_zeros()
+    return adj
+
+
+def max_edge_case():
+    """A 300 x 260 tiling with empty rows and a whole empty block-row, the
+    pad tiles of bsr_from_scipy, a NaN weight, and NaN, +inf and -inf in the
+    features: the max aggregation's edge semantics. Returns (bsr, h)."""
+    rng = np.random.default_rng(7)
+    adj = signed(_adj(300, 260, 0.05, 7, [(128, 256), (10, 12)]))
+    adj = sp.lil_matrix(adj)
+    adj[5, 3] = np.nan
+    bsr = tbsr.bsr_from_scipy(sp.csr_matrix(adj))
+    h = rng.standard_normal((bsr.shape[1], 9)).astype(np.float32)
+    h[7, 0], h[8, 1], h[9, 2] = np.nan, np.inf, -np.inf
+    h[:, 3] = np.inf
+    return bsr, torch.from_numpy(h)
+
+
 def gat_inputs(bsr: tbsr.BSRMatrix, d: int, seed: int):
     """er, el, h and an output cotangent g for the GAT ops on ``bsr``, unpadded
     (er and g one row short of the tiling, el and h two short)."""
