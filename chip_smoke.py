@@ -21,7 +21,9 @@ printed only when every phase passed):
 3. Each SpMM kernel against its plain PyTorch version on the bench tiling
    (d = 256): ``bsr_spmm`` on A and on its transpose, ``bsr_sddmm``; the max
    error of each under its stated bound; median times of kernel and plain
-   version (CUDA events, synchronised around each run).
+   version (CUDA events, synchronised around each run: a call's host work
+   counts), and of the kernel over 10 calls queued back to back (its
+   device time, ``stream_ms``).
 4. scDeepSort on a small graph, fitted on the card and on the CPU (the plain
    versions) from the same seed: losses and probabilities must agree.
 5. STAGATE at its published width, counts set to 0 just before it: raw
@@ -60,16 +62,30 @@ printed only when every phase passed):
 10. graph-sc on a few hundred cells (dropout 0), fitted on the card and on
    the CPU from the same seed: losses and embeddings must agree.
 
-Each kernel's bound is the larger of its operations over the FP32 peak (67
-TFLOP/s, IEEE float32 outside the tensor cores) and the bytes of its inputs
-and outputs, each counted once, over 3.35 TB/s (H100 SXM data sheet), for
-the inputs of its timing. ``library_ms`` times one PyTorch call that
-computes the same function where there is one (BSR ``@`` for the SpMM,
-``sampled_addmm`` over the tiles' pattern for the SDDMM); the port never
-calls them.
+Each kernel's bound is the larger of its operations over a compute peak and
+the bytes of its inputs and outputs, each counted once, over 3.35 TB/s, for
+the inputs of its timing (H100 SXM data sheet). For the products (#1-#5)
+the compute peak is the faster of two ways the card computes them at
+float32 accuracy: IEEE float32 on the CUDA cores (67 TFLOP/s) or 3xTF32 on
+the tensor cores (495 / 3 = 165 TFLOP/s: three TF32 products per float32
+one); the masked max (#6) has no tensor-core form and takes the CUDA cores'.
+The ``bound:`` line names the peak that set it and the CUDA-core bound
+beside it. For the two tensor-core kernels (``bsr_spmm``,
+``bsr_gat``/``bsr_gat_stats``) it also prints the launch, read from the
+work schedule the kernel kept on the tiling it was timed on: work items
+and thread blocks, the longest item in tile-steps against the mean,
+registers, shared memory and resident blocks per SM as the compiled kernel
+reports them; and it checks that two runs on the same inputs are
+bit-equal.
+``library_ms`` times one PyTorch call that computes the same function where
+there is one (BSR ``@`` for the SpMM, ``sampled_addmm`` over the tiles'
+pattern for the SDDMM); the port never calls them.
 
-TF32 is off for every phase. The line before the last is a JSON object
-with one entry per kernel; the last line is
+PyTorch's TF32 is off for every phase (the plain versions and cuBLAS run
+IEEE float32); the tensor-core kernels hold float32 accuracy by 3xTF32.
+The line before the last is a JSON object with one entry per kernel, each
+number in it measured in this run except ``bound_ms``, which is computed
+from this run's inputs; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without a result where there is no CUDA device, and where
 ``dance_tpu_torch`` is not importable next to this script.
@@ -100,7 +116,8 @@ GRAD_REL_BOUND = 1e-4
 # of the max fit, and the small card-against-CPU fit
 GSC_CELLS, GSC_GENES, GSC_TYPES, GSC_HVG = 10000, 5000, 8, 3000
 GSC_EPOCHS, GSC_MAX_EPOCHS, GSC_HIDDEN = 30, 5, 200
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: FP32 outside the tensor cores, HBM3
+# H100 SXM: FP32 outside the tensor cores, TF32 dense on the tensor cores, HBM3
+PEAK_FLOPS, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
 PALLAS = "dance_tpu/ops/pallas_kernels.py"
 KERNELS = ("bsr_spmm", "bsr_sddmm", "bsr_gat", "bsr_gat_stats", "bsr_gat_grads",
            "bsr_spmm_max")
@@ -119,7 +136,12 @@ def card_line() -> str:
     return proc.stdout.strip()
 
 
-def median_ms(fn, reps: int = REPS) -> float:
+def median_ms(fn, reps: int = REPS, inner: int = 1) -> float:
+    """Median over ``reps`` of the time of ``inner`` calls of ``fn``, per
+    call, between CUDA events around a synchronised run. With ``inner = 1``
+    a call's host work (the wrapper, allocations, the launch) counts too, as
+    in earlier PRs; with ``inner > 1`` the calls queue back to back and the
+    time is the device's."""
     import torch
 
     fn()  # warm-up
@@ -128,10 +150,11 @@ def median_ms(fn, reps: int = REPS) -> float:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -160,14 +183,19 @@ def check(name: str, outs, refs, bound: float = REL_BOUND, masks=None) -> float:
     return worst
 
 
+STREAM = 10  # calls queued back to back for a kernel's device time
+
+
 def compare(name: str, kernel, plain, bound: float = REL_BOUND) -> dict:
     """Run kernel and plain version once on the same inputs, check the error
-    bound, then time both."""
+    bound, then time both (one call at a time), and the kernel also queued
+    back to back (``stream_ms``)."""
     max_abs = check(name, [kernel()], [plain()], bound)
     ms, plain_ms = median_ms(kernel), median_ms(plain)
-    print(f"time {name}: kernel {ms!r} ms, plain {plain_ms!r} ms (median of {REPS})",
-          flush=True)
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    stream_ms = median_ms(kernel, inner=STREAM)
+    print(f"time {name}: kernel {ms!r} ms, plain {plain_ms!r} ms (median of {REPS}); kernel "
+          f"{stream_ms!r} ms per call over {STREAM} back to back", flush=True)
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "stream_ms": stream_ms}
 
 
 def reset_launches():
@@ -183,16 +211,62 @@ def read_launches() -> dict:
     return {name: getattr(bsr, name).launches for name in KERNELS}
 
 
-def roofline(flop: float, tensors) -> dict:
+def roofline(flop: float, tensors, tensor_cores: bool = True) -> dict:
     """The least time for ``flop`` operations on ``tensors`` (the inputs and
-    outputs, each moved once): the larger of flop over the FP32 peak and
-    bytes over the HBM rate."""
+    outputs, each moved once): the larger of flop over the compute peak and
+    bytes over the HBM rate. With ``tensor_cores`` (a product) the compute
+    peak is the faster of float32 on the CUDA cores and 3xTF32 on the tensor
+    cores; without (the masked max) the CUDA cores'."""
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    ops_ms, bytes_ms = flop / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    print(f"  bound: {flop / 1e9:.3f} GFLOP -> {ops_ms!r} ms, {nbytes / 1e6:.1f} MB -> "
-          f"{bytes_ms!r} ms", flush=True)
+    fp32_ms, bytes_ms = flop / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    tf32x3_ms = 3 * flop / PEAK_TF32 * 1e3
+    ops_ms = min(fp32_ms, tf32x3_ms) if tensor_cores else fp32_ms
+    peak = "tf32x3" if ops_ms < fp32_ms else "fp32"
+    print(f"  bound: {flop / 1e9:.3f} GFLOP -> fp32 {fp32_ms!r} ms"
+          + (f", tf32x3 {tf32x3_ms!r} ms" if tensor_cores else "")
+          + f"; {nbytes / 1e6:.1f} MB -> {bytes_ms!r} ms; set by "
+          + (peak if ops_ms >= bytes_ms else "bytes")
+          + f"; fp32 bound {max(fp32_ms, bytes_ms)!r} ms", flush=True)
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def work_launch(name: str, a, kernel: str, d: int):
+    """Print the work schedule that tensor-core kernel ``kernel`` (``"spmm"``
+    or ``"gat"``) ran on tiling ``a`` at width ``d``: the one kept on ``a``
+    by its last launch, with the launch geometry the compiled kernel
+    reported. Fails if no launch kept one."""
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.ops import bsr
+
+    kept = len(a._schedules)
+    sched = bsr.device_schedule(a, kernel, d, torch.device("cuda", torch.cuda.current_device()))
+    if len(a._schedules) != kept:
+        raise AssertionError(f"{name}: the kernel kept no work schedule on its tiling")
+    geo, items = sched.geometry, sched.schedule.items
+    lengths, rows = items[:, 2] - items[:, 1], np.diff(a.rowptr.cpu().numpy())
+    print(f"{name} launch: {len(items)} work items (chunk {sched.schedule.chunk} tiles, "
+          f"{len(sched.schedule.rows)} block-rows split into {sched.schedule.n_slots} partials)"
+          f" x {geo['blocks_per_item']} thread blocks ({geo['slabs']} slabs of "
+          f"{geo['slab_width']} columns) = {len(items) * geo['blocks_per_item']} thread blocks "
+          f"on {geo['sms']} SMs; longest item {int(lengths.max())} tile-steps, mean "
+          f"{float(lengths.mean())!r} (block-rows: longest {int(rows.max())}, mean "
+          f"{float(rows.mean())!r}); {geo['threads']} threads, {geo['registers']} registers, "
+          f"{geo['smem_bytes']} B dynamic shared memory, {geo['blocks_per_sm']} blocks per SM",
+          flush=True)
+
+
+def bit_equal(name: str, fn):
+    """Fail unless two runs of ``fn`` on the same inputs give equal bits."""
+    import torch
+
+    runs = [fn() for _ in range(2)]
+    runs = [r if isinstance(r, (list, tuple)) else [r] for r in runs]
+    if not all(torch.equal(x, y) for x, y in zip(*runs)):
+        raise AssertionError(f"{name}: two runs on the same inputs differ")
+    print(f"{name}: two runs bit-equal", flush=True)
 
 
 def tile_pattern_csr(a):
@@ -333,6 +407,11 @@ def scdeepsort_phases(cuda) -> dict:
     sddmm = compare("bsr_sddmm", lambda: bsr.bsr_sddmm(a.block_rows, a.block_cols, g, b),
                     lambda: bsr.bsr_sddmm_reference(a.block_rows, a.block_cols, g, b))
     spmm["max_abs_err"] = max(spmm["max_abs_err"], spmm_t["max_abs_err"])
+    work_launch("bsr_spmm A@B", a, "spmm", DIM)
+    work_launch("bsr_spmm At@G", at, "spmm", DIM)
+    bit_equal("bsr_spmm A@B", lambda: bsr.bsr_spmm(a, b))
+    bit_equal("bsr_spmm At@G", lambda: bsr.bsr_spmm(at, g))
+    spmm["transpose_ms"] = spmm_t["ms"]
     flop = 2 * a.nb * a.block ** 2 * DIM
     out = bsr.bsr_spmm(a, b)
     spmm.update(roofline(flop, (a.tiles, a.block_cols, a.rowptr, b, out)))
@@ -499,17 +578,18 @@ def stagate_phases(cuda) -> dict:
         for name, (kernel, plain, bound, masks) in runs.items():
             err = check(f"{name} {act}", kernel(), plain(), bound, masks)
             ms, plain_ms = median_ms(kernel), median_ms(plain)
+            stream_ms = median_ms(kernel, inner=STREAM)
             print(f"time {name} {act}: kernel {ms!r} ms, plain {plain_ms!r} ms "
-                  f"(median of {REPS})", flush=True)
+                  f"(median of {REPS}); kernel {stream_ms!r} ms per call over {STREAM} back "
+                  f"to back", flush=True)
             res = results[name]
             res["max_abs_err"] = max(res.get("max_abs_err", 0.0), err)
             if act == "sigmoid":  # the main path's activation gives the entry's times
-                res["ms"], res["plain_ms"] = ms, plain_ms
-    grads = [bsr.bsr_gat_grads(tiling, er, el, h, g, out, m, l, act="sigmoid")
-             for _ in range(2)]
-    if not all(torch.equal(a, b) for a, b in zip(*grads)):
-        raise AssertionError("bsr_gat_grads: two runs on the same inputs differ")
-    print("bsr_gat_grads: two runs bit-equal", flush=True)
+                res["ms"], res["plain_ms"], res["stream_ms"] = ms, plain_ms, stream_ms
+    bit_equal("bsr_gat_grads", lambda: bsr.bsr_gat_grads(tiling, er, el, h, g, out, m, l,
+                                                        act="sigmoid"))
+    bit_equal("bsr_gat_stats", lambda: bsr.bsr_gat_stats(tiling, er, el, h, act="sigmoid"))
+    work_launch("bsr_gat / bsr_gat_stats", tiling, "gat", d)
 
     # -- 7. a few hundred spots: the card against the CPU's plain versions --
     counts, xy, _ = spatial_counts(400, 800, 4, seed=1)
@@ -686,7 +766,8 @@ def graphsc_phases(cuda) -> dict:
             out = bsr.bsr_spmm_max(tiling, h)
             result.update(ms=ms, plain_ms=plain_ms, library_ms=None,
                           **roofline(2 * tiling.nb * tiling.block ** 2 * d,
-                                  (tiling.tiles, tiling.block_cols, tiling.rowptr, h, out)))
+                                     (tiling.tiles, tiling.block_cols, tiling.rowptr, h, out),
+                                     tensor_cores=False))
         else:
             result["unweighted_ms"], result["unweighted_plain_ms"] = ms, plain_ms
     edge, eh = max_edge_tiling()
@@ -702,6 +783,10 @@ def graphsc_phases(cuda) -> dict:
                    lambda: bsr.bsr_spmm_reference(tiling, h))
     spmm_t = compare("bsr_spmm graph-sc At@G", lambda: bsr.bsr_spmm(at, h),
                      lambda: bsr.bsr_spmm_reference(at, h))
+    work_launch("bsr_spmm graph-sc A@H", tiling, "spmm", d)
+    work_launch("bsr_spmm graph-sc At@G", at, "spmm", d)
+    bit_equal("bsr_spmm graph-sc A@H", lambda: bsr.bsr_spmm(tiling, h))
+    bit_equal("bsr_spmm graph-sc At@G", lambda: bsr.bsr_spmm(at, h))
     out = bsr.bsr_spmm(tiling, h)
     spmm.update(roofline(2 * tiling.nb * tiling.block ** 2 * d,
                       (tiling.tiles, tiling.block_cols, tiling.rowptr, h, out)))

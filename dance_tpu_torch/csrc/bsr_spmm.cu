@@ -5,124 +5,244 @@
 // dance_tpu/ops/pallas_kernels.py:91-143. That kernel zeroes an output
 // block-row on the first of its consecutive same-row tiles and accumulates in
 // place, which is only right because the TPU grid runs in order. Here thread
-// blocks run in no order, so each thread block owns one (block-row, 64-column
-// feature tile) of the output and walks that block-row's tiles itself through
-// the tile-row pointer `rowptr`: it keeps the sum in registers and writes the
-// output tile exactly once. An empty block-row writes zeros, the zero pad
-// tiles that bsr_from_scipy adds are not needed, no atomics are used and the
-// result is deterministic.
+// blocks run in no order, so each block owns one (work item, feature slab):
+// a run of consecutive tiles of one block-row, summed in registers and
+// written once.
 //
-// Bound on this card: scDeepSort's bench graph (12k cells x 2k genes, 3,039
-// nonzero tiles, d = 256) makes one call 2 * 3039 * 128 * 128 * 256 = 25.5
-// GFLOP over about 200 MB of tiles: ~125 FLOP per byte, so with IEEE float32
-// on the CUDA cores (67 TFLOP/s peak) it is bounded by arithmetic, not by
-// the 3.35 TB/s of HBM. The design therefore spends its effort on the FMA
-// loop: each thread keeps an 8 x 4 patch of the output in registers and does
-// 32 FMAs for every three 16-byte shared-memory loads; K-slices of the A tile
-// are staged transposed in shared memory so those loads broadcast across the
-// warp. No TF32 and no tensor cores: float32 accumulation as on the TPU
-// (wgmma / TF32 / bf16 variants are later work).
+// Bound on this card: scDeepSort's graph (3,039 tiles, d = 256) makes one
+// call 25.5 GFLOP over ~200 MB of tiles, ~125 FLOP per byte: arithmetic sets
+// the bound, 0.155 ms for float32-accurate products on the tensor cores
+// (3xTF32, 165 TFLOP/s of the TF32 peak's 495) against 0.38 ms on the CUDA
+// cores. What the design does about it:
+// - Tensor cores: mma.sync m16n8k8 in 3xTF32 (tf32x3.cuh), within float32's
+//   own rounding of the IEEE product, non-finite inputs included.
+// - Balance: the graphs are bipartite, a few gene block-rows hold ~5x the
+//   tiles of the cell block-rows. The host schedule (ops/bsr.py
+//   work_schedule) cuts long rows into chunks of at most C tiles, longest
+//   first; a row cut in k chunks writes k partial sums to `scratch`, and a
+//   second kernel adds them in chunk order, so two runs are bit-equal (no
+//   float atomics).
+// - Each tile read about once from HBM: the slabs of one item are adjacent
+//   in launch order (blockIdx.x % n_slabs), so they read its tiles together
+//   and the re-reads hit L2.
+// - Exact width: d is cut into equal slabs rounded to the 8 columns of an
+//   n-tile (d = 200 pays for 208 columns); warps skip n-tiles past the slab.
+// - Overlap: a 3-stage cp.async ring of (128 x 32 A slice, 32 x slab B
+//   slice) keeps two loads in flight behind the product.
+// What still holds it back (PERF.md): the split, the per-step float32 adds
+// and the address work cost ~11 instructions per HMMA (tools/sass_mix.py),
+// and the dependent mma chains want more warps than 2 blocks of 8 per SM;
+// a layout with fewer instructions per HMMA but 1 block per SM ran slower.
+// wgmma (both operands K-major in shared memory) is the next step.
 
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int kBlock = 128;              // tile edge (pallas_kernels.BLOCK)
-constexpr int kBN = 64;                  // output columns per thread block
-constexpr int kBK = 32;                  // K-slice of a tile staged per step
-constexpr int kThreads = 256;            // 16 x 16 threads
-constexpr int kTM = 8;                   // output rows per thread
-constexpr int kTN = 4;                   // output columns per thread
-constexpr int kAStride = kBlock + 4;     // padding spreads the transposing stores
+using tf32x3::Split;
 
-static_assert(kBlock == 16 * kTM && kBN == 16 * kTN, "thread grid must cover the tile");
+constexpr int kBlock = 128;                  // tile edge (pallas_kernels.BLOCK)
+constexpr int kBK = 32;                      // K-slice of a tile per pipeline stage
+constexpr int kSteps = kBlock / kBK;         // stages per tile
+constexpr int kThreads = 256;                // 8 warps
+constexpr int kSlab = 128;                   // feature columns of a thread block, at most
+constexpr int kWarpsM = 4;                   // warps along the rows
+constexpr int kStages = 3;
+constexpr int kMinBlocks = 2;                // thread blocks resident per SM
+constexpr int kWarpsN = kThreads / 32 / kWarpsM;  // warps along the columns
+constexpr int kMT = kBlock / 16 / kWarpsM;        // m-tiles per warp
+constexpr int kNT = kSlab / 8 / kWarpsN;          // n-tiles per warp at the widest slab
+constexpr int kAStride = kBK + 4;            // = 4 (mod 32): A fragments without conflicts
+constexpr int kBStride = kSlab + 8;          // = 8 (mod 32): B fragments likewise
+constexpr int kStageFloats = kBlock * kAStride + kBK * kBStride;
+constexpr size_t kSmemBytes = size_t(kStages) * kStageFloats * sizeof(float);
 
-__global__ void __launch_bounds__(kThreads)
+// thread blocks of one work item at width d: one per feature slab
+int blocks_per_item(int d) { return tf32x3::n_slabs(d, kSlab); }
+
+// items[i] = {block-row, first tile, end tile, scratch slot or -1}
+template <bool kVec4>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 bsr_spmm_kernel(const float* __restrict__ tiles, const int* __restrict__ bcols,
-                const int* __restrict__ rowptr, const float* __restrict__ b,
-                float* __restrict__ out, int d) {
-  __shared__ __align__(16) float as[kBK][kAStride];  // as[k][m] = A_tile[m][k0 + k]
-  __shared__ __align__(16) float bs[kBK][kBN];       // bs[k][n] = B[row(k0 + k)][n0 + n]
+                const int4* __restrict__ items, const float* __restrict__ b,
+                float* __restrict__ out, float* __restrict__ scratch, int d) {
+  extern __shared__ __align__(16) float smem[];
+  const int ns = tf32x3::n_slabs(d, kSlab), w = tf32x3::slab_width(d, kSlab);
+  const int4 item = items[blockIdx.x / ns];
+  const int n0 = (blockIdx.x % ns) * w;
+  const int nnt = (min(w, d - n0) + 7) / 8;  // live n-tiles of this slab
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wm = warp % kWarpsM, wn = warp / kWarpsM;
 
-  const int r = blockIdx.x;
-  const int n0 = blockIdx.y * kBN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  // each thread's share of a stage: A rows a_row + 32 i at column a_col, B
+  // rows b_row + 8 i at column b_col (no division in the loop)
+  const int a_row = tid / (kBK / 4), a_col = (tid % (kBK / 4)) * 4;
+  const int b_row = tid / (kSlab / 4), b_col = (tid % (kSlab / 4)) * 4;
+  const bool b_live = kVec4 && b_col < w, b_in = n0 + b_col < d;
+  auto load = [&](int step, int stage) {
+    const int t = item.y + step / kSteps, k0 = (step % kSteps) * kBK;
+    float* as = smem + stage * kStageFloats;
+    float* bs = as + kBlock * kAStride;
+    const float* a = tiles + static_cast<size_t>(t) * kBlock * kBlock + k0;
+#pragma unroll
+    for (int i = 0; i < kBlock * kBK / 4 / kThreads; ++i) {
+      const int m = a_row + i * (kThreads / (kBK / 4));
+      tf32x3::cp_async16(as + m * kAStride + a_col, a + m * kBlock + a_col, true);
+    }
+    const float* bt = b + (static_cast<size_t>(bcols[t]) * kBlock + k0) * d + n0;
+    if (kVec4) {
+      if (b_live) {
+#pragma unroll
+        for (int i = 0; i < kBK * kSlab / 4 / kThreads; ++i) {
+          const int k = b_row + i * (kThreads / (kSlab / 4));
+          tf32x3::cp_async16(bs + k * kBStride + b_col, b_in ? bt + k * d + b_col : b, b_in);
+        }
+      }
+    } else {
+#pragma unroll 4
+      for (int i = 0; i < kBK * kSlab / kThreads; ++i) {
+        const int idx = tid + i * kThreads, k = idx / kSlab;
+        const int c = idx % kSlab, col = n0 + c;
+        if (c < w)
+          tf32x3::cp_async4(bs + k * kBStride + c, col < d ? bt - n0 + k * d + col : b, col < d);
+      }
+    }
+  };
 
-  float acc[kTM][kTN];
+  float acc[kMT][kNT][4];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
+  for (int i = 0; i < kMT; ++i)
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  const int t_end = rowptr[r + 1];
-  for (int t = rowptr[r]; t < t_end; ++t) {
-    const float* a = tiles + static_cast<size_t>(t) * kBlock * kBlock;
-    const float* bt = b + static_cast<size_t>(bcols[t]) * kBlock * d;
-    for (int k0 = 0; k0 < kBlock; k0 += kBK) {
-      // A slice: 128 rows x 32 columns as float4, stored transposed.
+  const int total = (item.z - item.y) * kSteps;
 #pragma unroll
-      for (int i = 0; i < kBlock * kBK / 4 / kThreads; ++i) {
-        const int idx = tid + i * kThreads;
-        const int m = idx / (kBK / 4);
-        const int q = (idx % (kBK / 4)) * 4;
-        const float4 v = *reinterpret_cast<const float4*>(a + m * kBlock + k0 + q);
-        as[q + 0][m] = v.x;
-        as[q + 1][m] = v.y;
-        as[q + 2][m] = v.z;
-        as[q + 3][m] = v.w;
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < total) load(i, i);
+    tf32x3::cp_async_commit();
+  }
+  for (int s = 0; s < total; ++s) {
+    tf32x3::cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage s has landed; stage s - 1 is free for step s + 2
+    if (s + kStages - 1 < total) load(s + kStages - 1, (s + kStages - 1) % kStages);
+    tf32x3::cp_async_commit();
+    const float* as = smem + (s % kStages) * kStageFloats;
+    const float* bs = as + kBlock * kAStride;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 8) {
+      Split af[kMT][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        const float* ar = as + ((wm * kMT + mt) * 16 + g) * kAStride + kk + t4;
+        af[mt][0] = tf32x3::split(ar[0]);
+        af[mt][1] = tf32x3::split(ar[8 * kAStride]);
+        af[mt][2] = tf32x3::split(ar[4]);
+        af[mt][3] = tf32x3::split(ar[8 * kAStride + 4]);
       }
-      // B slice: 32 rows x 64 columns; columns past d read as zero.
 #pragma unroll
-      for (int i = 0; i < kBK * kBN / kThreads; ++i) {
-        const int idx = tid + i * kThreads;
-        const int k = idx / kBN;
-        const int n = idx % kBN;
-        const int col = n0 + n;
-        bs[k][n] = col < d ? bt[static_cast<size_t>(k0 + k) * d + col] : 0.f;
+      for (int q = 0; q < kNT; ++q) {
+        const int j = wn + kWarpsN * q;
+        if (j < nnt) {
+          const float* br = bs + (kk + t4) * kBStride + j * 8 + g;
+          const Split bf[2] = {tf32x3::split(br[0]), tf32x3::split(br[4 * kBStride])};
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) tf32x3::mma_3xtf32(acc[mt][q], af[mt], bf);
+        }
       }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kBK; ++k) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&as[k][ty * kTM]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&as[k][ty * kTM + 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&bs[k][tx * kTN]);
-        const float av[kTM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[kTN] = {b0.x, b0.y, b0.z, b0.w};
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
     }
   }
+  tf32x3::cp_async_wait<0>();
 
+  float* dst = item.w < 0 ? out + static_cast<size_t>(item.x) * kBlock * d
+                          : scratch + static_cast<size_t>(item.w) * kBlock * d;
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    float* o = out + static_cast<size_t>(r * kBlock + ty * kTM + i) * d;
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int col = n0 + tx * kTN + j;
-      if (col < d) o[col] = acc[i][j];
+    for (int q = 0; q < kNT; ++q) {
+      const int j = wn + kWarpsN * q, col = n0 + j * 8 + 2 * t4;
+      const int row = (wm * kMT + mt) * 16 + g;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row + (e / 2) * 8, c = col + e % 2;
+        if (j < nnt && c < d) dst[static_cast<size_t>(r) * d + c] = acc[mt][q][e];
+      }
     }
+}
+
+// rows[i] = {block-row, first scratch slot, chunks}: out's block-row is the
+// sum of its chunks' partials, added in chunk order.
+__global__ void __launch_bounds__(256)
+bsr_spmm_reduce_kernel(const int4* __restrict__ rows, const float4* __restrict__ scratch,
+                       float4* __restrict__ out, int d) {
+  const int4 row = rows[blockIdx.x];
+  const size_t n4 = static_cast<size_t>(kBlock) * d / 4;  // float4s in a block-row
+  const size_t e = static_cast<size_t>(blockIdx.y) * blockDim.x + threadIdx.x;
+  if (e >= n4) return;
+  float4 s = scratch[row.y * n4 + e];
+  for (int c = 1; c < row.z; ++c) {
+    const float4 v = scratch[(row.y + c) * n4 + e];
+    s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
   }
+  out[row.x * n4 + e] = s;
 }
 
 }  // namespace
 
-// C interface for ctypes. `tiles` must be 16-byte aligned; `rowptr` has
-// n_brows + 1 entries; `b` is (n_cols_padded, d) and `out` (n_brows * 128, d),
-// both row-major. Launches on `stream` of CUDA device `device` and returns
-// the first error of selecting the device or launching.
-extern "C" int dtt_bsr_spmm_f32(const float* tiles, const int* bcols, const int* rowptr,
-                                const float* b, float* out, int n_brows, int d,
-                                int device, void* stream) {
-  const cudaError_t err = cudaSetDevice(device);
+// C interface for ctypes. `tiles` (nb, 128, 128) must be 16-byte aligned;
+// `items` (n_items, 4) and `rows` (n_rows, 4) int32 come from
+// the host schedule (ops/bsr.py work_schedule), which covers every block-row;
+// `b` is (n_cols_padded, d), `out` (n_brows * 128, d) and `scratch`
+// (slots, 128, d), row-major float32. Launches on `stream` of CUDA device
+// `device` and returns the first error of selecting the device, configuring
+// or launching.
+extern "C" int dtt_bsr_spmm_f32(const float* tiles, const int* bcols, const int* items,
+                                int n_items, const int* rows, int n_rows, const float* b,
+                                float* out, float* scratch, int d, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(n_brows, (d + kBN - 1) / kBN);
-  bsr_spmm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tiles, bcols, rowptr, b, out, d);
+  if (n_items <= 0 || d <= 0) return static_cast<int>(cudaSuccess);
+  const bool vec4 = d % 4 == 0 && reinterpret_cast<size_t>(b) % 16 == 0;
+  const auto kernel = vec4 ? bsr_spmm_kernel<true> : bsr_spmm_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto s = static_cast<cudaStream_t>(stream);
+  kernel<<<n_items * blocks_per_item(d), kThreads, kSmemBytes, s>>>(
+      tiles, bcols, reinterpret_cast<const int4*>(items), b, out, scratch, d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_rows == 0) return static_cast<int>(err);
+  const dim3 grid(n_rows, (kBlock / 4 * d + 255) / 256);
+  bsr_spmm_reduce_kernel<<<grid, 256, 0, s>>>(reinterpret_cast<const int4*>(rows),
+                                              reinterpret_cast<const float4*>(scratch),
+                                              reinterpret_cast<float4*>(out), d);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What the launch at width `d` looks like on CUDA device `device`:
+// info = {threads, dynamic shared memory bytes, blocks resident per SM,
+// registers per thread, feature slabs, slab width, thread blocks per work
+// item}; the host schedule (ops/bsr.py device_schedule) is sized from it.
+// Returns the first error.
+extern "C" int dtt_bsr_spmm_info(int d, int* info, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess || d <= 0) return static_cast<int>(err ? err : cudaErrorInvalidValue);
+  const auto kernel = d % 4 == 0 ? bsr_spmm_kernel<true> : bsr_spmm_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemBytes));
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vals[7] = {kThreads, static_cast<int>(kSmemBytes), blocks, attr.numRegs,
+                       tf32x3::n_slabs(d, kSlab), tf32x3::slab_width(d, kSlab),
+                       blocks_per_item(d)};
+  for (int i = 0; i < 7; ++i) info[i] = vals[i];
+  return static_cast<int>(cudaSuccess);
 }

@@ -11,9 +11,10 @@ all of them at once, then the objects are linked:
     nvcc -shared -o build/dance_tpu_torch/libdance_tpu_torch_<hash>.so <objects>  # once
 
 The build happens at first use, under ``build/dance_tpu_torch/`` at the root
-of the checkout, in a file keyed by a hash of the sources and flags, so a
-changed source rebuilds and an unchanged one loads at once. There is no
-fallback: a missing ``nvcc`` or a failed build raises.
+of the checkout, in a file keyed by a hash of the flags, the sources and the
+headers they share (``csrc/*.cuh``), so a changed source or header rebuilds
+and an unchanged one loads at once. There is no fallback: a missing ``nvcc``
+or a failed build raises.
 """
 
 import ctypes
@@ -35,12 +36,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C symbol -> argument types (pointers and the stream as c_void_p, or ctypes
 # would pass them as 32-bit ints)
 SIGNATURES = {
-    "dtt_bsr_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "dtt_bsr_spmm_f32": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P),
     "dtt_bsr_sddmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "dtt_bsr_spmm_max_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "dtt_bsr_gat_f32": (_P,) * 7 + (_I, _I, _I, _F, _I, _P),
-    "dtt_bsr_gat_stats_f32": (_P,) * 9 + (_I, _I, _I, _F, _I, _P),
+    "dtt_bsr_gat_f32": (_P, _P, _P, _I, _P, _I) + (_P,) * 7 + (_I, _I, _F, _I, _P),
+    "dtt_bsr_gat_stats_f32": (_P, _P, _P, _I, _P, _I) + (_P,) * 9 + (_I, _I, _F, _I, _P),
     "dtt_bsr_gat_grads_f32": (_P,) * 17 + (_I, _I, _I, _I, _I, _F, _I, _P),
+    "dtt_bsr_spmm_info": (_I, _P, _I),
+    "dtt_bsr_gat_info": (_I, _P, _I),
 }
 
 
@@ -67,9 +70,16 @@ def sources():
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def headers():
+    """The shared headers the sources include (``tf32x3.cuh``)."""
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def source_hash() -> str:
+    """Key of a build: the flags, every source and every shared header, so
+    that an edited header rebuilds too."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -132,4 +142,5 @@ def load_kernels() -> Kernels:
     return build()
 
 
-__all__ = ["Kernels", "build", "compile_commands", "find_nvcc", "load_kernels", "source_hash"]
+__all__ = ["Kernels", "build", "compile_commands", "find_nvcc", "headers", "load_kernels",
+           "source_hash"]

@@ -28,6 +28,7 @@ Not ported yet (ROADMAP Queue 1): ``compute_dtype`` bf16 streaming,
 GAT plain versions take its place as the oracle).
 """
 
+import functools
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -48,7 +49,8 @@ class BSRMatrix:
     ``shape`` is the padded (n_rows, n_cols), multiples of the tile edge. The
     tiles are treated as constants unless they require grad: the transposed
     tiling is then computed once and kept (:func:`bsr_transpose`), as is the
-    column order of the tiles (:func:`bsr_col_order`)."""
+    column order of the tiles (:func:`bsr_col_order`), the kernels' work
+    schedules (:func:`device_schedule`) and the edge bits (:func:`bsr_edge_mask`)."""
 
     tiles: torch.Tensor       # (nb, block, block) f32
     block_rows: torch.Tensor  # (nb,) int32, sorted
@@ -58,6 +60,9 @@ class BSRMatrix:
     _transpose: Optional["BSRMatrix"] = field(default=None, repr=False, compare=False)
     _col_order: Optional[Tuple[torch.Tensor, torch.Tensor]] = field(
         default=None, repr=False, compare=False)
+    # the kernels' work schedules (DeviceSchedule), by (resident blocks, blocks per item)
+    _schedules: dict = field(default_factory=dict, repr=False, compare=False)
+    _edge_mask: Optional[torch.Tensor] = field(default=None, repr=False, compare=False)
 
     @property
     def nb(self) -> int:
@@ -143,6 +148,127 @@ def bsr_col_order(bsr: BSRMatrix) -> Tuple[torch.Tensor, torch.Tensor]:
         colptr = _rowptr(bsr.block_cols[perm], bsr.shape[1] // bsr.block)
         bsr._col_order = (colptr, perm.to(torch.int32))
     return bsr._col_order
+
+
+# A split block-row's chunks hold at least this many tiles.
+MIN_CHUNK = 4
+ITEMS_PER_SLOT = 3  # work items each resident thread block takes, about
+
+
+@dataclass(frozen=True)
+class WorkSchedule:
+    """Work items of the SpMM and GAT kernels (:func:`work_schedule`)."""
+
+    items: np.ndarray  # (n_items, 4) int32: block-row, first tile, end tile, slot or -1
+    rows: np.ndarray   # (n_split, 4) int32: block-row, first slot, chunks, 0
+    n_slots: int       # partial results in the scratch buffers
+    chunk: int         # most tiles in an item
+
+
+def work_schedule(rowptr, slots: int, blocks_per_item: int = 1) -> WorkSchedule:
+    """Split the block-rows of a tiling into work items of about equal size
+    for a kernel that runs ``blocks_per_item`` thread blocks on each item
+    (feature slabs, row halves), on a card where ``slots`` thread blocks of
+    it are resident at once (blocks per SM x SMs).
+
+    ``per_slot = nb * blocks_per_item / slots`` is the tile-steps each
+    resident block would take if the work were even; the chunk size is
+    ``C = max(MIN_CHUNK, ceil(per_slot / ITEMS_PER_SLOT))``, so that each
+    block slot takes about three items. A block-row of ``n > C`` tiles
+    becomes ``ceil(n / C)`` consecutive chunks whose sizes differ by at most
+    one, each writing a partial result to its own scratch slot; a shorter
+    row (an empty one too) is one item that writes the output itself.
+    ``rows`` lists the split rows with their slots, which the kernels
+    combine in chunk order, so the result does not depend on the order in
+    which items run.
+    Items are sorted longest first (stable), so the long ones start in the
+    first wave."""
+    rowptr = np.asarray(rowptr, np.int64)
+    counts = np.diff(rowptr)
+    per_slot = -(-int(rowptr[-1]) * blocks_per_item // slots)
+    chunk = max(MIN_CHUNK, -(-per_slot // ITEMS_PER_SLOT))
+    items, rows, slot = [], [], 0
+    for r, (start, n) in enumerate(zip(rowptr[:-1].tolist(), counts.tolist())):
+        k = max(1, -(-n // chunk))
+        if k == 1:
+            items.append((r, start, start + n, -1))
+            continue
+        bounds = [start + n * c // k for c in range(k + 1)]
+        items += [(r, bounds[c], bounds[c + 1], slot + c) for c in range(k)]
+        rows.append((r, slot, k, 0))
+        slot += k
+    items = np.asarray(items, np.int32).reshape(-1, 4)
+    items = items[np.argsort(items[:, 1] - items[:, 2], kind="stable")]
+    return WorkSchedule(items, np.asarray(rows, np.int32).reshape(-1, 4), slot, chunk)
+
+
+# the tensor-core kernels, by the C symbol that reports their launch
+_INFO_SYMBOLS = {"spmm": "dtt_bsr_spmm_info", "gat": "dtt_bsr_gat_info"}
+_INFO_FIELDS = ("threads", "smem_bytes", "blocks_per_sm", "registers", "slabs", "slab_width",
+                "blocks_per_item")
+
+
+@functools.lru_cache(maxsize=None)
+def launch_geometry(kernel: str, d: int, device_index: int) -> dict:
+    """How the tensor-core kernel ``kernel`` (``"spmm"`` or ``"gat"``)
+    launches at width ``d`` on CUDA device ``device_index``, as the compiled
+    kernel reports it (``dtt_bsr_{spmm,gat}_info``): threads, dynamic shared
+    memory, thread blocks resident per SM, registers, feature slabs and
+    their width, thread blocks per work item; and the card's SMs. Kept per
+    (kernel, d, device)."""
+    import ctypes
+
+    from dance_tpu_torch.ops._build import load_kernels
+
+    info = (ctypes.c_int * len(_INFO_FIELDS))()
+    err = getattr(load_kernels().lib, _INFO_SYMBOLS[kernel])(d, ctypes.addressof(info),
+                                                           device_index)
+    if err:
+        raise RuntimeError(f"{_INFO_SYMBOLS[kernel]}: cudaError {err}")
+    geo = dict(zip(_INFO_FIELDS, info))
+    geo["sms"] = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return geo
+
+
+@dataclass(frozen=True)
+class DeviceSchedule:
+    """A :class:`WorkSchedule` as a kernel runs it on one card."""
+
+    schedule: WorkSchedule
+    items: torch.Tensor  # schedule.items on the card
+    rows: torch.Tensor   # schedule.rows on the card
+    geometry: dict       # :func:`launch_geometry` it was made for
+
+
+def device_schedule(bsr: BSRMatrix, kernel: str, d: int, device: torch.device) -> DeviceSchedule:
+    """The work schedule that ``kernel`` (``"spmm"`` or ``"gat"``) runs on
+    ``bsr`` at width ``d`` on ``device``: :func:`work_schedule` for the
+    card's resident thread blocks and the kernel's blocks per item, from
+    :func:`launch_geometry`. Computed once per matrix and kept."""
+    geo = launch_geometry(kernel, d, device.index)
+    key = (geo["blocks_per_sm"] * geo["sms"], geo["blocks_per_item"])
+    if key not in bsr._schedules:
+        sched = work_schedule(bsr.rowptr.cpu().numpy(), *key)
+        bsr._schedules[key] = DeviceSchedule(sched, torch.from_numpy(sched.items).to(device),
+                                             torch.from_numpy(sched.rows).to(device), geo)
+    return bsr._schedules[key]
+
+
+def bsr_edge_mask(bsr: BSRMatrix) -> torch.Tensor:
+    """The edges ``tiles != 0`` as bits, (nb, 128, 4) int32: bit ``j`` of word
+    ``w`` of row ``i`` is column ``32 w + j`` (NaN counts as an edge). The GAT
+    kernels read it instead of the tiles, 1/32 of their bytes. Computed once
+    per matrix and kept, unless the tiles require grad."""
+    if bsr._edge_mask is not None:
+        return bsr._edge_mask
+    nb, blk = bsr.nb, bsr.block
+    edges = (bsr.tiles.detach() != 0).reshape(nb, blk, blk // 32, 32).to(torch.int32)
+    # distinct bits add without carries: the sum is the word (bit 31 wraps)
+    shift = torch.arange(32, dtype=torch.int32, device=edges.device)
+    mask = (edges << shift).sum(-1, dtype=torch.int32).contiguous()
+    if not bsr.tiles.requires_grad:
+        bsr._edge_mask = mask
+    return mask
 
 
 def rcm_reorder(adj: sp.spmatrix):
@@ -399,7 +525,10 @@ def bsr_spmm(bsr: BSRMatrix, b: torch.Tensor) -> torch.Tensor:
     """``out = A @ B`` with A in BSR form and B (n_cols_padded, d) float32;
     returns (n_rows_padded, d) float32 (counterpart: pallas_kernels.py:101).
 
-    Any ``d`` is taken; the kernel masks the ragged feature tile itself."""
+    Any ``d`` is taken; the kernel masks the ragged feature slab itself. On
+    the card it runs the work items of :func:`device_schedule` (kept on the
+    matrix) and needs a (slots, 128, d) float32 scratch buffer for the
+    partial sums of split block-rows, allocated here."""
     n_rows, n_cols = bsr.shape
     if b.dim() != 2 or b.shape[0] != n_cols:
         raise ValueError(f"bsr_spmm: b must be ({n_cols}, d), got {tuple(b.shape)}")
@@ -411,8 +540,12 @@ def bsr_spmm(bsr: BSRMatrix, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n_rows, d), dtype=torch.float32, device=b.device)
     if n_rows == 0 or d == 0:
         return out
+    sched = device_schedule(bsr, "spmm", d, b.device)
+    scratch = torch.empty((sched.schedule.n_slots, BLOCK, d), dtype=torch.float32,
+                          device=b.device)
     _launch("dtt_bsr_spmm_f32", b.device, bsr.tiles.data_ptr(), bsr.block_cols.data_ptr(),
-            bsr.rowptr.data_ptr(), b.data_ptr(), out.data_ptr(), n_rows // BLOCK, d)
+            sched.items.data_ptr(), sched.items.shape[0], sched.rows.data_ptr(),
+            sched.rows.shape[0], b.data_ptr(), out.data_ptr(), scratch.data_ptr(), d)
     bsr_spmm.launches += 1
     return out
 
@@ -455,16 +588,26 @@ def _gat_forward(name: str, bsr: BSRMatrix, er, el, h, negative_slope: float, ac
                                  return_stats=stats)
     _check_tiling(name, bsr)
     _check_cuda_args(name, (bsr.tiles, erp, elp, hp), (bsr.block_cols, bsr.rowptr))
-    n_rows, d = bsr.shape[0], hp.shape[1]
-    out = torch.empty((n_rows, d), dtype=torch.float32, device=hp.device)
-    m = torch.empty(n_rows, dtype=torch.float32, device=hp.device)
+    if elp.data_ptr() % 16:  # the kernel copies el in 16-byte pieces
+        elp = elp.clone()
+    n_rows, d, dev = bsr.shape[0], hp.shape[1], hp.device
+    sched = device_schedule(bsr, "gat", d, dev)
+    n_slots = sched.schedule.n_slots
+    mask = bsr_edge_mask(bsr)
+    out = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
+    m = torch.empty(n_rows, dtype=torch.float32, device=dev)
     l = torch.empty_like(m)
-    ptrs = [bsr.tiles.data_ptr(), bsr.block_cols.data_ptr(), bsr.rowptr.data_ptr(),
-            erp.data_ptr(), elp.data_ptr(), hp.data_ptr(), out.data_ptr()]
+    part = torch.empty((n_slots, BLOCK, d), dtype=torch.float32, device=dev)
+    part_m = torch.empty((n_slots, BLOCK), dtype=torch.float32, device=dev)
+    part_l = torch.empty_like(part_m)
+    ptrs = [mask.data_ptr(), bsr.block_cols.data_ptr(), sched.items.data_ptr(),
+            sched.items.shape[0], sched.rows.data_ptr(), sched.rows.shape[0], erp.data_ptr(),
+            elp.data_ptr(), hp.data_ptr(), out.data_ptr()]
     if stats:
         ptrs += [m.data_ptr(), l.data_ptr()]
-    _launch("dtt_bsr_gat_stats_f32" if stats else "dtt_bsr_gat_f32", hp.device, *ptrs,
-            n_rows // BLOCK, d, GAT_ACTS[act], negative_slope)
+    _launch("dtt_bsr_gat_stats_f32" if stats else "dtt_bsr_gat_f32", dev, *ptrs,
+            part.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), d, GAT_ACTS[act],
+            negative_slope)
     (bsr_gat_stats if stats else bsr_gat).launches += 1
     return (out, m, l) if stats else out
 
@@ -649,9 +792,10 @@ def bsr_spmm_max(bsr: BSRMatrix, b: torch.Tensor, *, weighted: bool = True) -> t
 
 bsr_spmm_max.launches = 0
 
-__all__ = ["BLOCK", "BSRGat", "BSRMatrix", "BSRSpMM", "BSRSpMMMax", "GAT_ACTS",
-           "bsr_col_order", "bsr_from_scipy", "bsr_gat", "bsr_gat_ad", "bsr_gat_grads",
-           "bsr_gat_grads_reference", "bsr_gat_reference", "bsr_gat_stats", "bsr_sddmm",
-           "bsr_sddmm_reference", "bsr_spmm", "bsr_spmm_ad", "bsr_spmm_max",
-           "bsr_spmm_max_reference", "bsr_spmm_reference",
-           "bsr_transpose", "bsr_with_rcm", "rcm_reorder", "unpermute"]
+__all__ = ["BLOCK", "BSRGat", "BSRMatrix", "BSRSpMM", "BSRSpMMMax", "DeviceSchedule",
+           "GAT_ACTS", "WorkSchedule", "bsr_col_order", "bsr_edge_mask", "bsr_from_scipy",
+           "bsr_gat", "bsr_gat_ad", "bsr_gat_grads", "bsr_gat_grads_reference",
+           "bsr_gat_reference", "bsr_gat_stats", "bsr_sddmm", "bsr_sddmm_reference", "bsr_spmm",
+           "bsr_spmm_ad", "bsr_spmm_max", "bsr_spmm_max_reference", "bsr_spmm_reference",
+           "bsr_transpose", "bsr_with_rcm", "device_schedule", "launch_geometry", "rcm_reorder",
+           "unpermute", "work_schedule"]

@@ -8,9 +8,11 @@ PyTorch and the CUDA toolkit:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Tolerances: float32 with TF32 off; kernel and plain version sum the same
-terms in another order, so outputs agree at rtol 1e-5 (atol 1e-4 for sums
-of ~100 products of unit normals). The GAT kernels use expf where the plain
+Tolerances: float32 with TF32 off; the SpMM and GAT kernels take their
+products on the tensor cores in 3xTF32, within float32's own rounding of the
+IEEE products (tests/test_torch_schedule.py), and sum the same terms in
+another order, so outputs agree at rtol 1e-5 (atol 1e-4 for sums of ~100 to
+~1,400 products of unit normals). The GAT kernels use expf where the plain
 version uses torch.exp (each within an ulp or two), so the same bounds hold.
 The BSR max kernel and its plain version take the max of the same float32
 products, so they agree exactly (NaN where either has NaN).
@@ -25,7 +27,8 @@ from dance_tpu_torch.graph import Graph
 from dance_tpu_torch.modules.single_modality.cell_type_annotation import ScDeepSort
 from dance_tpu_torch.modules.spatial.spatial_domain import Stagate
 from dance_tpu_torch.ops import bsr as tbsr
-from torch_cases import CASES, gat_inputs, max_edge_case, no_pad, signed, spatial_case
+from torch_cases import (CASES, gat_inputs, max_edge_case, no_pad, signed, skewed_bsr,
+                         spatial_case)
 
 RTOL, ATOL = 1e-5, 1e-5
 
@@ -82,6 +85,43 @@ def test_spmm_ad_grads_match_cpu(cuda):
         grads.append((b.grad.cpu(), bsr.tiles.grad.cpu()))
     for got, want in zip(grads[1], grads[0]):
         torch.testing.assert_close(got, want, rtol=RTOL, atol=1e-4)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("d", [1, 8, 200, 257, 512])
+def test_spmm_skewed_matches_plain_and_repeats_bit_equal(cuda, d, transposed):
+    """One block-row of 110 tiles (cut into chunks whose partial sums a
+    second pass adds), the others 0-2 tiles, empty block-rows, no pad tiles;
+    transposed, 120 block-rows of 0-2 tiles."""
+    bsr = skewed_bsr(seed=d)
+    bsr = tbsr.bsr_transpose(bsr) if transposed else bsr
+    b = torch.randn((bsr.shape[1], d), generator=torch.Generator().manual_seed(d))
+    ref = tbsr.bsr_spmm_reference(bsr, b)
+    dev, bd = bsr.to(cuda), b.to(cuda)
+    n = tbsr.bsr_spmm.launches
+    runs = [tbsr.bsr_spmm(dev, bd) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tbsr.bsr_spmm.launches == n + 2
+    assert torch.equal(runs[0], runs[1])
+    torch.testing.assert_close(runs[0].cpu(), ref, rtol=RTOL, atol=1e-4)
+
+
+def test_spmm_nonfinite_inputs_match_plain(cuda):
+    """±inf and NaN in B, over a tiling with pad tiles and empty rows: the
+    3xTF32 product gives what the float32 product gives (0 * inf = NaN).
+    Finite values within half a TF32 ulp of FLT_MAX, which round to ±inf,
+    stay finite."""
+    bsr = tbsr.bsr_from_scipy(CASES["square_with_empty_block_rows"]())
+    b = torch.randn((bsr.shape[1], 40), generator=torch.Generator().manual_seed(4))
+    b[3, 0], b[130, 1], b[5, 2] = torch.inf, -torch.inf, torch.nan
+    b[:, 3] = torch.inf
+    b[7, 4] = 3e38
+    b.view(torch.int32)[9, 5] = 0x7FFFFFFF  # the card's own NaN: a full payload
+    b[11, 6], b[20, 7] = 3.4028e38, -torch.finfo(torch.float32).max
+    ref = tbsr.bsr_spmm_reference(bsr, b)
+    out = tbsr.bsr_spmm(bsr.to(cuda), b.to(cuda)).cpu()
+    assert torch.isinf(ref).any() and torch.isnan(ref).any()
+    torch.testing.assert_close(out, ref, rtol=RTOL, atol=1e-4, equal_nan=True)
 
 
 def test_wrappers_reject_bad_inputs(cuda):
@@ -147,6 +187,41 @@ def test_gat_grads_match_plain(cuda, act, case, d):
     assert tbsr.bsr_gat_grads.launches == n + 1
     for a, b in zip(got, ref):
         torch.testing.assert_close(a.cpu(), b, rtol=RTOL, atol=1e-4)
+
+
+@pytest.mark.parametrize("act", ["leaky_relu", "sigmoid"])
+@pytest.mark.parametrize("d", [1, 8, 200, 257, 512])
+def test_gat_skewed_matches_plain_and_repeats_bit_equal(cuda, act, d):
+    bsr = skewed_bsr(seed=d)
+    er, el, h, _ = gat_inputs(bsr, d, seed=d)
+    ref = tbsr.bsr_gat_reference(bsr, er, el, h, act=act, return_stats=True)
+    dev = bsr.to(cuda)
+    args = [t.to(cuda) for t in (er, el, h)]
+    n_gat, n_stats = tbsr.bsr_gat.launches, tbsr.bsr_gat_stats.launches
+    outs = [tbsr.bsr_gat(dev, *args, act=act) for _ in range(2)]
+    stats = [tbsr.bsr_gat_stats(dev, *args, act=act) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (tbsr.bsr_gat.launches, tbsr.bsr_gat_stats.launches) == (n_gat + 2, n_stats + 2)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], stats[0][0])
+    assert all(torch.equal(a, b) for a, b in zip(*stats))
+    torch.testing.assert_close(outs[0].cpu(), ref[0], rtol=RTOL, atol=ATOL)
+    for got, want in zip(stats[0], ref):
+        torch.testing.assert_close(got.cpu(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("act", ["leaky_relu", "sigmoid"])
+def test_gat_nonfinite_features_match_plain(cuda, act):
+    bsr = tbsr.bsr_from_scipy(CASES["square_with_empty_block_rows"]())
+    er, el, h, _ = gat_inputs(bsr, 40, seed=4)
+    h[3, 0], h[130, 1], h[5, 2] = torch.inf, -torch.inf, torch.nan
+    h[:, 3] = torch.inf
+    h.view(torch.int32)[9, 4] = 0x7FFFFFFF  # the card's own NaN: a full payload
+    h[11, 5], h[20, 6] = 3.4028e38, -torch.finfo(torch.float32).max  # round past FLT_MAX
+    ref = tbsr.bsr_gat_reference(bsr, er, el, h, act=act, return_stats=True)
+    got = tbsr.bsr_gat_stats(bsr.to(cuda), er.to(cuda), el.to(cuda), h.to(cuda), act=act)
+    assert torch.isnan(ref[0]).any()
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a.cpu(), b, rtol=RTOL, atol=ATOL, equal_nan=True)
 
 
 def test_gat_grads_deterministic(cuda):

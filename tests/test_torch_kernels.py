@@ -168,15 +168,25 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
-def test_build_key_covers_every_kernel_source():
+def test_build_key_covers_every_kernel_source(monkeypatch, tmp_path):
     from dance_tpu_torch.ops import _build
 
     assert {p.name for p in _build.sources()} == {"bsr_spmm.cu", "bsr_sddmm.cu", "bsr_gat.cu",
                                                   "bsr_gat_bwd.cu", "bsr_spmm_max.cu"}
+    assert {p.name for p in _build.headers()} == {"tf32x3.cuh"}
     text = "".join(p.read_text() for p in _build.sources())
     for symbol in _build.SIGNATURES:
         assert f'extern "C" int {symbol}(' in text
     assert len(_build.source_hash()) == 16
+    # an edited shared header must rebuild: it enters the key
+    import shutil
+
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, copy)
+    monkeypatch.setattr(_build, "CSRC_DIR", copy)
+    key = _build.source_hash()
+    (copy / "tf32x3.cuh").write_text((copy / "tf32x3.cuh").read_text() + "\n// edited\n")
+    assert _build.source_hash() != key
 
 
 def test_unpermute_matches_jax():

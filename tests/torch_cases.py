@@ -34,6 +34,28 @@ def no_pad(bsr: tbsr.BSRMatrix) -> tbsr.BSRMatrix:
                           tbsr._rowptr(rows, bsr.shape[0] // bsr.block), bsr.shape)
 
 
+# tiles of each block-row of skewed_bsr: one long row, short ones, empty ones
+SKEWED_ROW_TILES = (2, 110, 0, 1, 2, 0, 1)
+
+
+def skewed_bsr(seed: int = 0, n_bcols: int = 120) -> tbsr.BSRMatrix:
+    """A tiling as skewed as a bipartite cell-gene graph's: one block-row of
+    110 tiles, the others 0-2, and no pad tiles. Tiles are 10 % dense with
+    standard-normal values; each row's block-columns are distinct and
+    sorted."""
+    rng = np.random.default_rng(seed)
+    blk = tbsr.BLOCK
+    rows = np.repeat(np.arange(len(SKEWED_ROW_TILES)), SKEWED_ROW_TILES)
+    cols = np.concatenate([np.sort(rng.choice(n_bcols, n, replace=False))
+                           for n in SKEWED_ROW_TILES])
+    tiles = rng.standard_normal((len(rows), blk, blk)) * (rng.random((len(rows), blk, blk)) < 0.1)
+    rows_t = torch.from_numpy(rows.astype(np.int32))
+    return tbsr.BSRMatrix(torch.from_numpy(tiles.astype(np.float32)), rows_t,
+                          torch.from_numpy(cols.astype(np.int32)),
+                          tbsr._rowptr(rows_t, len(SKEWED_ROW_TILES)),
+                          (len(SKEWED_ROW_TILES) * blk, n_bcols * blk))
+
+
 def signed(adj: sp.csr_matrix) -> sp.csr_matrix:
     """Weights shifted to [-0.5, 0.5), zeros dropped: negative weights make a
     max aggregation's masking of empty slots matter."""

@@ -77,7 +77,7 @@ lines = [cs.card_line(),
 
 def layer(name):
     n = name.lower()
-    if "bsr_gat_kernel" in n:
+    if "bsr_gat_kernel" in n or "bsr_gat_combine" in n:
         return "GAT forward (bsr_gat.cu)"
     if "gat_bwd" in n:
         return "GAT backward (bsr_gat_bwd.cu)"
