@@ -38,7 +38,8 @@ printed only when every phase passed):
 6. Each fused GAT kernel against its plain version on that RCM tiling at
    d = 512, for both attention activations: ``bsr_gat`` (out),
    ``bsr_gat_stats`` (out, m, l), ``bsr_gat_grads`` (der, del, dh); bounds
-   and median times as in phase 3.
+   and median times as in phase 3; two runs of ``bsr_gat_grads`` (both
+   activations) and of ``bsr_gat_stats`` bit-equal.
 7. STAGATE on a few hundred spots, fitted on the card and on the CPU from
    the same seed: losses and embeddings must agree.
 8. graph-sc at its published width, counts set to 0 just before it: raw
@@ -57,26 +58,36 @@ printed only when every phase passed):
    set to 0 just before it, must launch ``bsr_spmm_max`` and match the CSR
    output. Then ``bsr_spmm_max`` against its plain version on that tiling at
    d = 200, weighted and unweighted (equal, as both take the max of the
-   same float32 products), a small tiling with empty rows, pad tiles, a NaN
+   same float32 products; times as in phase 3, two runs bit-equal, its work
+   schedule printed), a small tiling with empty rows, pad tiles, a NaN
    weight and NaN and infinities in h, and ``bsr_spmm`` on the tiling.
 10. graph-sc on a few hundred cells (dropout 0), fitted on the card and on
    the CPU from the same seed: losses and embeddings must agree.
 
 Each kernel's bound is the larger of its operations over a compute peak and
 the bytes of its inputs and outputs, each counted once, over 3.35 TB/s, for
-the inputs of its timing (H100 SXM data sheet). For the products (#1-#5)
-the compute peak is the faster of two ways the card computes them at
-float32 accuracy: IEEE float32 on the CUDA cores (67 TFLOP/s) or 3xTF32 on
-the tensor cores (495 / 3 = 165 TFLOP/s: three TF32 products per float32
-one); the masked max (#6) has no tensor-core form and takes the CUDA cores'.
-The ``bound:`` line names the peak that set it and the CUDA-core bound
-beside it. For the two tensor-core kernels (``bsr_spmm``,
-``bsr_gat``/``bsr_gat_stats``) it also prints the launch, read from the
-work schedule the kernel kept on the tiling it was timed on: work items
-and thread blocks, the longest item in tile-steps against the mean,
-registers, shared memory and resident blocks per SM as the compiled kernel
-reports them; and it checks that two runs on the same inputs are
-bit-equal.
+the inputs of its timing (H100 SXM data sheet). The operations are counted
+on the edges (the nonzero slots), not on the stored tiles' slots, which are
+mostly empty: 2 per multiply-add (or multiply-max) of an edge and a feature
+column, so 2 nnz d for #1-#4 and #6 and 4 nnz d for #5 (two products). The
+bytes are what the call must move: the tiles for a kernel that reads them
+(#1, #6; #2 writes tiles), the edge bits (#3/#4) or edge lists (#5) for one
+that reads those instead, and the features in and out. The ``bound:`` line
+prints the edge count it was computed from. For the products (#1-#5) the
+compute peak is the faster of two ways the card computes them at float32
+accuracy: IEEE float32 on the CUDA cores (67 TFLOP/s) or 3xTF32 on the
+tensor cores (495 / 3 = 165 TFLOP/s: three TF32 products per float32 one);
+the masked max (#6) has no tensor-core form and takes the CUDA cores'. The
+``bound:`` line names the peak that set it and the CUDA-core bound beside
+it. For the kernels that run a work schedule (``bsr_spmm``,
+``bsr_gat``/``bsr_gat_stats``, ``bsr_spmm_max``) it also prints the
+launch, read from the schedule the kernel kept on the tiling it was timed
+on: work items and thread blocks, the longest item in tile-steps against
+the mean, registers, shared memory and resident blocks per SM as the
+compiled kernel reports them; and it checks that two runs on the same
+inputs are bit-equal. For ``bsr_gat_grads`` and ``bsr_spmm_max`` it also
+prints the device time of the kernel's own launches (torch.profiler), as
+#5's wrapper work outlasts its kernels when calls queue back to back.
 ``library_ms`` times one PyTorch call that computes the same function where
 there is one (BSR ``@`` for the SpMM, ``sampled_addmm`` over the tiles'
 pattern for the SDDMM); the port never calls them.
@@ -101,6 +112,7 @@ N_CELLS, N_GENES, DIM, DENSITY, N_LABELS, EPOCHS = 12000, 2000, 256, 0.025, 8, 5
 N_SPOTS, N_RAW_GENES, N_HVG, N_DOMAINS, N_NEIGHBORS = 10000, 5000, 3000, 7, 6
 STAGATE_DIMS, STAGATE_EPOCHS = (N_HVG, 512, 30), 50
 REPS = 20
+STREAM = 10  # calls queued back to back for a kernel's device time
 # Max |kernel - plain| relative to max |plain|. Both sides sum in IEEE float32
 # in another order (the plain SpMM through index_add_), over up to ~12k terms:
 # the expected gap is ~1e-6; TF32 anywhere would show as ~1e-3. The same holds
@@ -158,6 +170,26 @@ def median_ms(fn, reps: int = REPS, inner: int = 1) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, kernels, calls: int = STREAM) -> float:
+    """The device time per call of ``fn``'s own launches: the kernels whose
+    names hold one of ``kernels``, summed by torch.profiler over ``calls``
+    calls after a warm-up. Where the wrapper's host work outlasts the
+    kernel's, calls queued back to back time the host; this does not."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and any(k in e.key for k in kernels))
+    return total / calls / 1e3
+
+
 def check(name: str, outs, refs, bound: float = REL_BOUND, masks=None) -> float:
     """Hold each kernel output against the plain version's under ``bound``
     (max |kernel - plain| relative to max |plain|, over ``masks`` where given);
@@ -181,9 +213,6 @@ def check(name: str, outs, refs, bound: float = REL_BOUND, masks=None) -> float:
             raise AssertionError(f"{name}[{i}]: relative error {rel} above {bound}")
         worst = max(worst, max_abs)
     return worst
-
-
-STREAM = 10  # calls queued back to back for a kernel's device time
 
 
 def compare(name: str, kernel, plain, bound: float = REL_BOUND) -> dict:
@@ -211,18 +240,30 @@ def read_launches() -> dict:
     return {name: getattr(bsr, name).launches for name in KERNELS}
 
 
-def roofline(flop: float, tensors, tensor_cores: bool = True) -> dict:
-    """The least time for ``flop`` operations on ``tensors`` (the inputs and
-    outputs, each moved once): the larger of flop over the compute peak and
-    bytes over the HBM rate. With ``tensor_cores`` (a product) the compute
-    peak is the faster of float32 on the CUDA cores and 3xTF32 on the tensor
-    cores; without (the masked max) the CUDA cores'."""
+def edge_count(a) -> int:
+    """The edges of BSR ``a``: its nonzero slots (NaN counts)."""
+    import torch
+
+    return int(torch.count_nonzero(a.tiles))
+
+
+def roofline(edges: int, ops_per_edge_column: int, d: int, tensors,
+             tensor_cores: bool = True) -> dict:
+    """The least time for ``ops_per_edge_column`` operations per edge and
+    feature column of ``edges`` edges at width ``d``, on ``tensors`` (the
+    inputs and outputs, each moved once): the larger of the operations over
+    the compute peak and the bytes over the HBM rate. With ``tensor_cores``
+    (a product) the compute peak is the faster of float32 on the CUDA cores
+    and 3xTF32 on the tensor cores; without (the masked max) the CUDA
+    cores'."""
+    flop = ops_per_edge_column * edges * d
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     fp32_ms, bytes_ms = flop / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     tf32x3_ms = 3 * flop / PEAK_TF32 * 1e3
     ops_ms = min(fp32_ms, tf32x3_ms) if tensor_cores else fp32_ms
     peak = "tf32x3" if ops_ms < fp32_ms else "fp32"
-    print(f"  bound: {flop / 1e9:.3f} GFLOP -> fp32 {fp32_ms!r} ms"
+    print(f"  bound: {edges} edges x {ops_per_edge_column} x d={d} = {flop / 1e9:.4f} GFLOP "
+          f"-> fp32 {fp32_ms!r} ms"
           + (f", tf32x3 {tf32x3_ms!r} ms" if tensor_cores else "")
           + f"; {nbytes / 1e6:.1f} MB -> {bytes_ms!r} ms; set by "
           + (peak if ops_ms >= bytes_ms else "bytes")
@@ -232,8 +273,8 @@ def roofline(flop: float, tensors, tensor_cores: bool = True) -> dict:
 
 
 def work_launch(name: str, a, kernel: str, d: int):
-    """Print the work schedule that tensor-core kernel ``kernel`` (``"spmm"``
-    or ``"gat"``) ran on tiling ``a`` at width ``d``: the one kept on ``a``
+    """Print the work schedule that kernel ``kernel`` (``"spmm"``, ``"gat"``
+    or ``"max"``) ran on tiling ``a`` at width ``d``: the one kept on ``a``
     by its last launch, with the launch geometry the compiled kernel
     reported. Fails if no launch kept one."""
     import numpy as np
@@ -259,12 +300,14 @@ def work_launch(name: str, a, kernel: str, d: int):
 
 
 def bit_equal(name: str, fn):
-    """Fail unless two runs of ``fn`` on the same inputs give equal bits."""
+    """Fail unless two runs of ``fn`` on the same inputs give equal bits
+    (NaN included)."""
     import torch
 
     runs = [fn() for _ in range(2)]
     runs = [r if isinstance(r, (list, tuple)) else [r] for r in runs]
-    if not all(torch.equal(x, y) for x, y in zip(*runs)):
+    if not all(torch.equal(x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))
+               for x, y in zip(*runs)):
         raise AssertionError(f"{name}: two runs on the same inputs differ")
     print(f"{name}: two runs bit-equal", flush=True)
 
@@ -412,12 +455,12 @@ def scdeepsort_phases(cuda) -> dict:
     bit_equal("bsr_spmm A@B", lambda: bsr.bsr_spmm(a, b))
     bit_equal("bsr_spmm At@G", lambda: bsr.bsr_spmm(at, g))
     spmm["transpose_ms"] = spmm_t["ms"]
-    flop = 2 * a.nb * a.block ** 2 * DIM
+    nnz = edge_count(a)
     out = bsr.bsr_spmm(a, b)
-    spmm.update(roofline(flop, (a.tiles, a.block_cols, a.rowptr, b, out)))
+    spmm.update(roofline(nnz, 2, DIM, (a.tiles, a.block_cols, a.rowptr, b, out)))
     spmm["library_ms"] = library("bsr_spmm: torch.sparse_bsr_tensor @ b", a, b, out)
     dtiles = bsr.bsr_sddmm(a.block_rows, a.block_cols, g, b)
-    sddmm.update(roofline(flop, (a.block_rows, a.block_cols, g, b, dtiles)))
+    sddmm.update(roofline(nnz, 2, DIM, (a.block_rows, a.block_cols, g, b, dtiles)))
     pattern, to_tiles = tile_pattern_csr(a)
     bt = b.T.contiguous()
     sampled = to_tiles(torch.sparse.sampled_addmm(pattern, g, bt, beta=0.0).values())
@@ -542,17 +585,20 @@ def stagate_phases(cuda) -> dict:
     h, g = torch.randn((n_cols, d), generator=gen), torch.randn((n_rows, d), generator=gen)
     er, el, h, g = (t.to(cuda) for t in (er, el, h, g))
     results = {"bsr_gat": {}, "bsr_gat_stats": {}, "bsr_gat_grads": {}}
-    # the p @ h product (and for the backward also ḡhᵀ); the per-slot logits
-    # and exps add under 1 %
-    flop = 2 * tiling.nb * tiling.block ** 2 * d
+    # operations: p @ h on the edges (the backward also ḡ·h_j per edge); the
+    # per-edge logits and exps add under 1 %. Bytes: the forward reads the
+    # edge bits, the backward the edge lists, neither the tiles
+    nnz = edge_count(tiling)
     out, m, l = bsr.bsr_gat_stats(tiling, er, el, h, act="sigmoid")
     r_sum = (g * out).sum(1)
     der, del_, dh = bsr.bsr_gat_grads(tiling, er, el, h, g, out, m, l, act="sigmoid")
-    ins = (tiling.tiles, tiling.block_cols, tiling.rowptr, er, el, h)
-    results["bsr_gat"].update(roofline(flop, ins + (out,)))
-    results["bsr_gat_stats"].update(roofline(flop, ins + (out, m, l)))
-    results["bsr_gat_grads"].update(roofline(2 * flop, ins + (tiling.block_rows, g, out, m, l,
-                                                           r_sum, der, del_, dh)))
+    ins = (bsr.bsr_edge_mask(tiling), tiling.block_cols, tiling.rowptr, er, el, h)
+    results["bsr_gat"].update(roofline(nnz, 2, d, ins + (out,)))
+    results["bsr_gat_stats"].update(roofline(nnz, 2, d, ins + (out, m, l)))
+    e = bsr.bsr_edges(tiling)
+    results["bsr_gat_grads"].update(roofline(
+        nnz, 4, d, (e.rowptr, e.cols, e.rows, e.colptr, e.colperm, er, el, h, g, m, l, r_sum,
+                    der, del_, dh)))
     for res in results.values():
         res["library_ms"] = None  # no single PyTorch call computes a fused GAT
     for act in ("sigmoid", "leaky_relu"):  # STAGATE's first, then GATConv's
@@ -584,10 +630,17 @@ def stagate_phases(cuda) -> dict:
                   f"to back", flush=True)
             res = results[name]
             res["max_abs_err"] = max(res.get("max_abs_err", 0.0), err)
+            if name == "bsr_gat_grads":  # its host work outlasts its kernels
+                res[f"device_ms_{act}"] = device_ms(kernel, ("gat_bwd", "Memset"))
+                print(f"device time {name} {act}: {res[f'device_ms_{act}']!r} ms per call "
+                      f"(its kernels and memset, torch.profiler over {STREAM} calls)",
+                      flush=True)
             if act == "sigmoid":  # the main path's activation gives the entry's times
                 res["ms"], res["plain_ms"], res["stream_ms"] = ms, plain_ms, stream_ms
-    bit_equal("bsr_gat_grads", lambda: bsr.bsr_gat_grads(tiling, er, el, h, g, out, m, l,
-                                                        act="sigmoid"))
+    for act in ("sigmoid", "leaky_relu"):
+        out_a, m_a, l_a = bsr.bsr_gat_stats(tiling, er, el, h, act=act)
+        bit_equal(f"bsr_gat_grads {act}", lambda: bsr.bsr_gat_grads(
+            tiling, er, el, h, g, out_a, m_a, l_a, act=act))
     bit_equal("bsr_gat_stats", lambda: bsr.bsr_gat_stats(tiling, er, el, h, act="sigmoid"))
     work_launch("bsr_gat / bsr_gat_stats", tiling, "gat", d)
 
@@ -753,29 +806,42 @@ def graphsc_phases(cuda) -> dict:
     gen = torch.Generator().manual_seed(3)
     h = torch.randn((tiling.shape[1], d), generator=gen).to(cuda)
     result = {"max_abs_err": layer_err}
+    nnz = edge_count(tiling)
     for weighted in (True, False):
         name = f"bsr_spmm_max weighted={weighted}"
         err = check_max(name, bsr.bsr_spmm_max(tiling, h, weighted=weighted),
                         bsr.bsr_spmm_max_reference(tiling, h, weighted=weighted))
         ms = median_ms(lambda: bsr.bsr_spmm_max(tiling, h, weighted=weighted))
         plain_ms = median_ms(lambda: bsr.bsr_spmm_max_reference(tiling, h, weighted=weighted))
-        print(f"time {name}: kernel {ms!r} ms, plain {plain_ms!r} ms (median of {REPS})",
-              flush=True)
+        stream_ms = median_ms(lambda: bsr.bsr_spmm_max(tiling, h, weighted=weighted),
+                              inner=STREAM)
+        dev_ms = device_ms(lambda: bsr.bsr_spmm_max(tiling, h, weighted=weighted),
+                           ("bsr_spmm_max",))
+        print(f"time {name}: kernel {ms!r} ms, plain {plain_ms!r} ms (median of {REPS}); kernel "
+              f"{stream_ms!r} ms per call over {STREAM} back to back; device time {dev_ms!r} ms "
+              f"per call (torch.profiler)", flush=True)
+        bit_equal(name, lambda: bsr.bsr_spmm_max(tiling, h, weighted=weighted))
         result["max_abs_err"] = max(result["max_abs_err"], err)
+        out = bsr.bsr_spmm_max(tiling, h, weighted=weighted)
+        # the weighted form reads the tiles, the unweighted one the edge bits
+        edges = tiling.tiles if weighted else bsr.bsr_edge_mask(tiling)
+        bound = roofline(nnz, 2, d, (edges, tiling.block_cols, tiling.rowptr, h, out),
+                         tensor_cores=False)
         if weighted:  # the layer's form gives the entry's times
-            out = bsr.bsr_spmm_max(tiling, h)
-            result.update(ms=ms, plain_ms=plain_ms, library_ms=None,
-                          **roofline(2 * tiling.nb * tiling.block ** 2 * d,
-                                     (tiling.tiles, tiling.block_cols, tiling.rowptr, h, out),
-                                     tensor_cores=False))
+            result.update(ms=ms, plain_ms=plain_ms, stream_ms=stream_ms, device_ms=dev_ms,
+                          library_ms=None, **bound)
         else:
-            result["unweighted_ms"], result["unweighted_plain_ms"] = ms, plain_ms
+            result["unweighted"] = dict(ms=ms, plain_ms=plain_ms, stream_ms=stream_ms,
+                                        device_ms=dev_ms, **bound)
+    work_launch("bsr_spmm_max graph-sc", tiling, "max", d)
     edge, eh = max_edge_tiling()
+    edge_cuda, eh_cuda = edge.to(cuda), eh.to(cuda)
     for weighted in (True, False):
+        name = f"bsr_spmm_max edge cases weighted={weighted}"
         result["max_abs_err"] = max(result["max_abs_err"], check_max(
-            f"bsr_spmm_max edge cases weighted={weighted}",
-            bsr.bsr_spmm_max(edge.to(cuda), eh.to(cuda), weighted=weighted),
+            name, bsr.bsr_spmm_max(edge_cuda, eh_cuda, weighted=weighted),
             bsr.bsr_spmm_max_reference(edge, eh, weighted=weighted).to(cuda)))
+        bit_equal(name, lambda: bsr.bsr_spmm_max(edge_cuda, eh_cuda, weighted=weighted))
 
     # the SpMM of the graph-sc path on its tiling (forward A@H, backward Aᵀ@G)
     at = bsr.bsr_transpose(tiling)
@@ -788,8 +854,7 @@ def graphsc_phases(cuda) -> dict:
     bit_equal("bsr_spmm graph-sc A@H", lambda: bsr.bsr_spmm(tiling, h))
     bit_equal("bsr_spmm graph-sc At@G", lambda: bsr.bsr_spmm(at, h))
     out = bsr.bsr_spmm(tiling, h)
-    spmm.update(roofline(2 * tiling.nb * tiling.block ** 2 * d,
-                      (tiling.tiles, tiling.block_cols, tiling.rowptr, h, out)))
+    spmm.update(roofline(nnz, 2, d, (tiling.tiles, tiling.block_cols, tiling.rowptr, h, out)))
     spmm["library_ms"] = library("bsr_spmm graph-sc: torch.sparse_bsr_tensor @ h", tiling, h,
                                  out)
     spmm["transpose_ms"] = spmm_t["ms"]

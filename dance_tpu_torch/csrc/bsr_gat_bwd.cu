@@ -1,54 +1,60 @@
-// Flash backward of the fused single-head GAT (bsr_gat.cu) on Hopper,
-// float32. From the forward's row stats (m, l), the output cotangent g and
-// r_i = g_i . out_i (computed by the caller), per nonzero tile (R, C):
-//   p  = exp(act(er_i + el_j) - m_i) / max(l_i, 1e-12)   on the edges tile != 0
-//   s  = g_R h_C^T
-//   da = p * (s - r_i) * act'(er_i + el_j)
-// and der sums da over each row, del over each column, dh_C = sum_R p^T g_R.
+// Flash backward of the fused single-head GAT (bsr_gat.cu) on Hopper, float32,
+// over the edges. From the forward's row stats (m, l), the output cotangent g
+// and r_i = g_i . out_i (computed by the caller), for each edge (i, j):
+//   p_ij  = exp(act(er_i + el_j) - m_i) / max(l_i, 1e-12)
+//   s_ij  = g_i . h_j
+//   da_ij = p_ij (s_ij - r_i) act'(er_i + el_j)
+// and der_i = sum_j da_ij, del_j = sum_i da_ij, dh_j = sum_i p_ij g_i.
 //
 // Replaces the TPU kernel `_gat_bwd_kernel` / `bsr_gat_grads` in
-// dance_tpu/ops/pallas_kernels.py:471-566. That kernel makes one pass over
-// the row-sorted tiles and accumulates del and dh into output blocks indexed
-// by block-column, zeroing them from first-visit flags (:530-535); the visits
-// of a column are not consecutive, so the sums rest on the TPU's in-order grid
-// (and on its reloading a revisited output block). Thread blocks here run in
-// no order and float atomics would make the sums change from run to run, so
-// the work is split into three passes whose summation order is fixed:
-//   (a) one thread block per nonzero tile computes s (an SDDMM, as in
-//       bsr_sddmm.cu), then p and da, and writes both tiles to a scratch
-//       buffer (2, nb, 128, 128) that the caller allocates;
-//   (b) one thread block per block-row walks its tiles through `rowptr` and
-//       sums the da rows into der;
-//   (c) one thread block per (block-column, 64-column feature tile) walks the
-//       column's tiles through the column order (`colptr`, `colperm`) and
-//       accumulates dh_C = sum p^T g_R as the SpMM does; the blocks of
-//       feature tile 0 also sum the da columns into del.
-// Every output element is written once by one thread, in a fixed order: no
-// atomics, and the result is the same on every run.
+// dance_tpu/ops/pallas_kernels.py:471-566. That kernel makes one pass over the
+// row-sorted tiles, computing s = g_R h_C^T and p^T g over all 128 x 128 slots
+// of each tile, and accumulates del and dh into output blocks zeroed from
+// first-visit flags (:530-535), which rests on the TPU's in-order grid.
 //
-// Bound on this card: at STAGATE's size (~554 tiles, d = 512) passes (a) and
-// (c) are each 2 * 554 * 128 * 128 * 512 = 9.3 GFLOP of float32 FMA, so the
-// whole is bounded by CUDA-core float32 throughput, as the forward is; the
-// scratch round trip (~73 MB written, read back by (b) and (c), largely from
-// the 50 MB L2) costs a few tens of microseconds at 3.35 TB/s. Both products
-// keep 8 x 8 (a) or 8 x 4 (c) output patches in registers and read shared
-// memory as float4. IEEE float32 with expf (no fast math, no TF32).
+// Bound on this card: the tiles are nearly empty (STAGATE's kNN graph puts
+// ~94 edges in each tile's 16,384 slots), so the work is set by the edges:
+// 4 nnz d operations (60,000 edges, d = 512: 0.12 GFLOP) against the bytes of
+// g, h and dh (20.7 MB each), so bytes set it, ~0.02 ms at 3.35 TB/s. Thread
+// blocks run in no order and float atomics would make sums change from run to
+// run, so the design is two passes over edge lists built once per matrix
+// (ops/bsr.py bsr_edges), each sum in edge order:
+//   (1) one warp per row i holds g_i in registers and walks the row's edges:
+//       h_j gathered (h stays in the 50 MB L2), s_ij by a warp reduction, then
+//       p_ij and da_ij, written per edge (2 nnz floats, not a scratch of
+//       (2, nb, 128, 128) slots), and der_i as their sum;
+//   (2) one warp per column j walks the column's edges: del_j sums da_ij and
+//       dh_j = sum p_ij g_i, g_i gathered from L2, written once.
+// Every output element is written once by one warp, in a fixed order: no
+// atomics, and the result is the same on every run. IEEE float32 with expf
+// (no fast math, no TF32).
+//
+// Non-finite inputs. The plain version (and the TPU kernel) take s = g h^T and
+// p^T g over whole tiles, so an off-edge slot of a stored tile adds
+// 0 (s_ij - r_i) act' to der_i and del_j and 0 g_ik to dh_jk: NaN where
+// s_ij - r_i is not finite (inf or NaN in g_i or h_j, r_i not finite, an
+// overflowing dot), where act' is NaN (sigmoid of NaN logits), where p is NaN
+// (l_i NaN, which clamp keeps), or where g_ik is not finite. The passes mark
+// every row and column that could do so: g_i, h_j or r_i not finite or huge
+// (|g_ik|, |h_jk| >= 2^40 or |r_i| >= 2^126; below those a dot of d < 2^31
+// terms and s - r stay under FLT_MAX), l_i NaN, or for the sigmoid er_i,
+// el_j not finite; and set a flag. (3) A third kernel always launches, returns
+// at once when the flag is clear, and otherwise walks the off-edge slots of
+// the marked rows and columns in their stored tiles and writes NaN where the
+// plain version has it. It reads no flag on the host.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kBlock = 128;           // tile edge (pallas_kernels.BLOCK)
-constexpr int kThreads = 256;         // 16 x 16 threads
-constexpr int kBK = 32;               // feature (a) or tile-row (c) slice per step
-constexpr int kStride = kBlock + 4;   // padding spreads the transposing stores
-constexpr int kBN = 64;               // dh columns per thread block in (c)
-constexpr int kT = 8;                 // (a): 8 x 8 entries of s per thread
-constexpr int kTM = 8;                // (c): 8 x 4 entries of dh per thread
-constexpr int kTN = 4;
-
-static_assert(kBlock == 16 * kT && kBN == 16 * kTN, "thread grid must cover the tile");
+constexpr int kBlock = 128;               // tile edge (pallas_kernels.BLOCK)
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;      // rows (1), columns (2), slot pairs (3) at once
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kPer = 16;                   // g_i / dh_j columns a lane holds: one chunk is 512
+constexpr float kHuge = 1099511627776.f;   // 2^40: |g_ik|, |h_jk| at or past it are marked
+constexpr float kHugeR = 8.507059173023462e37f;  // 2^126: |r_i| at or past it is marked
 
 enum Act { kLeakyRelu = 0, kSigmoid = 1 };  // ops/bsr.py GAT_ACTS
 
@@ -67,249 +73,273 @@ __device__ __forceinline__ float activation_grad(float raw, float slope) {
   return raw >= 0.f ? 1.f : slope;
 }
 
-// (a) s = g_R h_C^T, then p and da of tile t into the scratch buffer.
+// the butterfly leaves the same bits in every lane (each step adds x + y and
+// y + x)
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+__device__ __forceinline__ bool huge(float x) { return !(fabsf(x) < kHuge); }  // NaN too
+
+// Pass 1: der, da and p per edge, and the row marks. kPer columns of g_i a
+// lane: one chunk of 32 kPer columns stays in registers; wider rows reload
+// each chunk per edge. Narrower rows leave the lanes' top columns idle.
 template <int ACT>
 __global__ void __launch_bounds__(kThreads)
-gat_bwd_tile_kernel(const float* __restrict__ tiles, const int* __restrict__ brows,
-                    const int* __restrict__ bcols, const float* __restrict__ er,
-                    const float* __restrict__ el, const float* __restrict__ h,
-                    const float* __restrict__ g, const float* __restrict__ m,
-                    const float* __restrict__ l, const float* __restrict__ r,
-                    float* __restrict__ da_out, float* __restrict__ p_out, int d,
-                    float slope) {
-  __shared__ __align__(16) float gs[kBK][kStride];  // gs[k][i] = g[R * 128 + i][d0 + k]
-  __shared__ __align__(16) float hs[kBK][kStride];  // hs[k][j] = h[C * 128 + j][d0 + k]
-  __shared__ float er_s[kBlock], m_s[kBlock], l_s[kBlock], r_s[kBlock], el_s[kBlock];
-
-  const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const size_t row0 = static_cast<size_t>(brows[t]) * kBlock;
-  const size_t col0 = static_cast<size_t>(bcols[t]) * kBlock;
-  if (tid < kBlock) {
-    er_s[tid] = er[row0 + tid];
-    m_s[tid] = m[row0 + tid];
-    l_s[tid] = fmaxf(l[row0 + tid], 1e-12f);
-    r_s[tid] = r[row0 + tid];
-    el_s[tid] = el[col0 + tid];
-  }
-  __syncthreads();
-  const float* gr = g + row0 * d;
-  const float* hc = h + col0 * d;
-
-  float acc[kT][kT];
-#pragma unroll
-  for (int i = 0; i < kT; ++i)
-#pragma unroll
-    for (int j = 0; j < kT; ++j) acc[i][j] = 0.f;
-
-  for (int d0 = 0; d0 < d; d0 += kBK) {
-    // 128 rows x 32 feature columns of each operand; columns past d read as zero.
-#pragma unroll
-    for (int i = 0; i < kBlock * kBK / kThreads; ++i) {
-      const int idx = tid + i * kThreads;
-      const int row = idx / kBK;
-      const int k = idx % kBK;
-      const int col = d0 + k;
-      const bool in = col < d;
-      gs[k][row] = in ? gr[static_cast<size_t>(row) * d + col] : 0.f;
-      hs[k][row] = in ? hc[static_cast<size_t>(row) * d + col] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&gs[k][ty * kT]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&gs[k][ty * kT + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&hs[k][tx * kT]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&hs[k][tx * kT + 4]);
-      const float av[kT] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[kT] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < kT; ++i)
-#pragma unroll
-        for (int j = 0; j < kT; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  const float* a = tiles + static_cast<size_t>(t) * kBlock * kBlock;
-  float* dat = da_out + static_cast<size_t>(t) * kBlock * kBlock;
-  float* pt = p_out + static_cast<size_t>(t) * kBlock * kBlock;
-#pragma unroll
-  for (int i = 0; i < kT; ++i) {
-    const int row = ty * kT + i;
-    const float4 t0 = *reinterpret_cast<const float4*>(a + row * kBlock + tx * kT);
-    const float4 t1 = *reinterpret_cast<const float4*>(a + row * kBlock + tx * kT + 4);
-    const float tv[kT] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
-    float pv[kT], dv[kT];
-#pragma unroll
-    for (int j = 0; j < kT; ++j) {
-      const float raw = er_s[row] + el_s[tx * kT + j];
-      const float p = tv[j] != 0.f
-          ? expf(activation<ACT>(raw, slope) - m_s[row]) / l_s[row] : 0.f;
-      pv[j] = p;
-      dv[j] = p * (acc[i][j] - r_s[row]) * activation_grad<ACT>(raw, slope);
-    }
-    float4* prow = reinterpret_cast<float4*>(pt + row * kBlock + tx * kT);
-    float4* drow = reinterpret_cast<float4*>(dat + row * kBlock + tx * kT);
-    prow[0] = make_float4(pv[0], pv[1], pv[2], pv[3]);
-    prow[1] = make_float4(pv[4], pv[5], pv[6], pv[7]);
-    drow[0] = make_float4(dv[0], dv[1], dv[2], dv[3]);
-    drow[1] = make_float4(dv[4], dv[5], dv[6], dv[7]);
-  }
-}
-
-// (b) der[R * 128 + i] = sum over the block-row's tiles of sum_j da[t][i][j].
-__global__ void __launch_bounds__(kThreads)
-gat_bwd_row_kernel(const int* __restrict__ rowptr, const float* __restrict__ da,
-                   float* __restrict__ der) {
-  const int rb = blockIdx.x;
+gat_bwd_row_kernel(const int* __restrict__ rowptr, const int* __restrict__ cols,
+                   const float* __restrict__ er, const float* __restrict__ el,
+                   const float* __restrict__ h, const float* __restrict__ g,
+                   const float* __restrict__ m, const float* __restrict__ l,
+                   const float* __restrict__ r, float* __restrict__ da_out,
+                   float* __restrict__ p_out, float* __restrict__ der, int* __restrict__ marks,
+                   int n_rows, int d, float slope) {
+  constexpr int kChunk = 32 * kPer;
   const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  constexpr int kRowsPerWarp = kBlock / (kThreads / 32);
-  float part[kRowsPerWarp];
+  const int i = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (i >= n_rows) return;
+  const float* gi = g + static_cast<size_t>(i) * d;
+  float gv[kPer];
+  bool big = false;
+  for (int c0 = 0; c0 < d; c0 += kChunk) {
 #pragma unroll
-  for (int q = 0; q < kRowsPerWarp; ++q) part[q] = 0.f;
-  const int t_end = rowptr[rb + 1];
-  for (int t = rowptr[rb]; t < t_end; ++t) {
-    const float* dat = da + static_cast<size_t>(t) * kBlock * kBlock;
-#pragma unroll
-    for (int q = 0; q < kRowsPerWarp; ++q) {
-      const int i = warp * kRowsPerWarp + q;
-      const float4 v = *reinterpret_cast<const float4*>(dat + i * kBlock + lane * 4);
-      part[q] += (v.x + v.y) + (v.z + v.w);
+    for (int k = 0; k < kPer; ++k) {
+      const int c = c0 + lane + 32 * k;
+      const float x = c < d ? gi[c] : 0.f;
+      big |= huge(x);
+      if (c0 == 0) gv[k] = x;
     }
   }
+  const float er_i = er[i], m_i = m[i], l_i = l[i], r_i = r[i];
+  const float lc = l_i != l_i ? l_i : fmaxf(l_i, 1e-12f);  // clamp(min=1e-12) keeps NaN
+  const bool mark = __any_sync(kFull, big) || !(fabsf(r_i) < kHugeR) || l_i != l_i ||
+                    (ACT == kSigmoid && !isfinite(er_i));
+  if (lane == 0) {
+    marks[1 + i] = mark;
+    if (mark) marks[0] = 1;
+  }
+
+  const bool resident = d <= kChunk;
+  const int e0 = rowptr[i], e1 = rowptr[i + 1];
+  float acc = 0.f;
+  for (int b0 = e0; b0 < e1; b0 += 32) {
+    const int n = min(32, e1 - b0);
+    int j_l = 0;
+    float el_l = 0.f;
+    if (lane < n) {
+      j_l = cols[b0 + lane];
+      el_l = el[j_l];
+    }
+    float da_l = 0.f, p_l = 0.f;
+    for (int q = 0; q < n; ++q) {
+      const int j = __shfl_sync(kFull, j_l, q);
+      const float el_j = __shfl_sync(kFull, el_l, q);
+      const float* hj = h + static_cast<size_t>(j) * d;
+      float s = 0.f;
+      for (int c0 = 0; c0 < d; c0 += kChunk) {
+        if (!resident) {
 #pragma unroll
-  for (int q = 0; q < kRowsPerWarp; ++q) {
-    float sum = part[q];
+          for (int k = 0; k < kPer; ++k) {
+            const int c = c0 + lane + 32 * k;
+            gv[k] = c < d ? gi[c] : 0.f;
+          }
+        }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (lane == 0) der[static_cast<size_t>(rb) * kBlock + warp * kRowsPerWarp + q] = sum;
+        for (int k = 0; k < kPer; ++k) {
+          const int c = c0 + lane + 32 * k;
+          if (c < d) s = fmaf(gv[k], hj[c], s);
+        }
+      }
+      s = warp_sum(s);
+      const float raw = er_i + el_j;
+      const float p = expf(activation<ACT>(raw, slope) - m_i) / lc;
+      const float da = p * (s - r_i) * activation_grad<ACT>(raw, slope);
+      acc += da;
+      if (lane == q) {
+        da_l = da;
+        p_l = p;
+      }
+    }
+    if (lane < n) {
+      da_out[b0 + lane] = da_l;
+      p_out[b0 + lane] = p_l;
+    }
+  }
+  if (lane == 0) der[i] = acc;
+}
+
+// Pass 2: del, dh and the column marks; kPer columns of dh_j a lane per chunk.
+__global__ void __launch_bounds__(kThreads)
+gat_bwd_col_kernel(const int* __restrict__ colptr, const int* __restrict__ colperm,
+                   const int* __restrict__ rows, const float* __restrict__ da,
+                   const float* __restrict__ p, const float* __restrict__ g,
+                   const float* __restrict__ h, const float* __restrict__ el,
+                   float* __restrict__ del, float* __restrict__ dh, int* __restrict__ marks,
+                   int n_rows, int n_cols, int d, int sigmoid) {
+  constexpr int kChunk = 32 * kPer;
+  const int lane = threadIdx.x % 32;
+  const int j = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (j >= n_cols) return;
+  const float* hj = h + static_cast<size_t>(j) * d;
+  bool big = false;
+  for (int c = lane; c < d; c += 32) big |= huge(hj[c]);
+  const bool mark = __any_sync(kFull, big) || (sigmoid && !isfinite(el[j]));
+  if (lane == 0) {
+    marks[1 + n_rows + j] = mark;
+    if (mark) marks[0] = 1;
+  }
+
+  const int q0 = colptr[j], q1 = colptr[j + 1];
+  float dl = 0.f;
+  float* dhj = dh + static_cast<size_t>(j) * d;
+  for (int c0 = 0; c0 < d; c0 += kChunk) {
+    float acc[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) acc[k] = 0.f;
+    for (int b0 = q0; b0 < q1; b0 += 32) {
+      const int n = min(32, q1 - b0);
+      int i_l = 0;
+      float p_l = 0.f, da_l = 0.f;
+      if (lane < n) {
+        const int e = colperm[b0 + lane];
+        i_l = rows[e];
+        p_l = p[e];
+        da_l = da[e];
+      }
+      if (c0 == 0) dl += warp_sum(da_l);  // lanes past n add 0
+      for (int q = 0; q < n; ++q) {
+        const int i = __shfl_sync(kFull, i_l, q);
+        const float pv = __shfl_sync(kFull, p_l, q);
+        const float* gi = g + static_cast<size_t>(i) * d;
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) {
+          const int c = c0 + lane + 32 * k;
+          if (c < d) acc[k] = fmaf(pv, gi[c], acc[k]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int c = c0 + lane + 32 * k;
+      if (c < d) dhj[c] = acc[k];
+    }
+  }
+  if (lane == 0) del[j] = dl;
+}
+
+// Pass 3: NaN where the plain version's off-edge terms are NaN (see the top
+// of the file). One thread block per stored tile; returns at once unless a
+// row or column of the tile is marked.
+template <int ACT>
+__global__ void __launch_bounds__(kThreads)
+gat_bwd_repair_kernel(const float* __restrict__ tiles, const int* __restrict__ brows,
+                      const int* __restrict__ bcols, const float* __restrict__ er,
+                      const float* __restrict__ el, const float* __restrict__ h,
+                      const float* __restrict__ g, const float* __restrict__ l,
+                      const float* __restrict__ r, const int* __restrict__ marks,
+                      float* __restrict__ der, float* __restrict__ del, float* __restrict__ dh,
+                      int n_rows, int d, float slope) {
+  if (marks[0] == 0) return;
+  __shared__ int row_mark[kBlock], col_mark[kBlock];
+  const int t = blockIdx.x, tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int row0 = brows[t] * kBlock, col0 = bcols[t] * kBlock;
+  static_assert(kThreads == 2 * kBlock, "one thread per row and column mark");
+  const int mk = tid < kBlock ? marks[1 + row0 + tid] : marks[1 + n_rows + col0 + tid - kBlock];
+  if (tid < kBlock) row_mark[tid] = mk;
+  else col_mark[tid - kBlock] = mk;
+  if (!__syncthreads_or(mk)) return;
+
+  const float nan = __int_as_float(0x7fffffff);
+  const float* a = tiles + static_cast<size_t>(t) * kBlock * kBlock;
+  for (int slot = warp; slot < kBlock * kBlock; slot += kWarps) {
+    const int ii = slot / kBlock, jj = slot % kBlock;
+    if (!(row_mark[ii] || col_mark[jj]) || a[slot] != 0.f) continue;  // warp-uniform
+    const int i = row0 + ii, j = col0 + jj;
+    const float* gi = g + static_cast<size_t>(i) * d;
+    const float* hj = h + static_cast<size_t>(j) * d;
+    float s = 0.f;
+    for (int c = lane; c < d; c += 32) s = fmaf(gi[c], hj[c], s);
+    s = warp_sum(s);
+    const float l_i = l[i];
+    const float raw = er[i] + el[j];
+    const bool bad = l_i != l_i || !isfinite(s - r[i]) || isnan(activation_grad<ACT>(raw, slope));
+    if (bad && lane == 0) {  // 0 (s - r) act' or NaN (s - r) act'
+      der[i] = nan;
+      del[j] = nan;
+    }
+    if (row_mark[ii]) {  // 0 g_ik or NaN g_ik
+      float* dhj = dh + static_cast<size_t>(j) * d;
+      for (int c = lane; c < d; c += 32)
+        if (l_i != l_i || !isfinite(gi[c])) dhj[c] = nan;
+    }
   }
 }
 
-// (c) dh_C[:, n0:n0+64] = sum over the column's tiles of p_t^T g_R, and (feature
-// tile 0) del[C * 128 + j] = sum over the column's tiles of sum_i da[t][i][j].
-__global__ void __launch_bounds__(kThreads)
-gat_bwd_col_kernel(const int* __restrict__ brows, const int* __restrict__ colptr,
-                   const int* __restrict__ colperm, const float* __restrict__ da,
-                   const float* __restrict__ p, const float* __restrict__ g,
-                   float* __restrict__ del, float* __restrict__ dh, int d) {
-  __shared__ __align__(16) float as[kBK][kStride];  // as[k][j] = p_t[k0 + k][j]
-  __shared__ __align__(16) float bs[kBK][kBN];      // bs[k][n] = g[R * 128 + k0 + k][n0 + n]
-
-  const int cb = blockIdx.x;
-  const int n0 = blockIdx.y * kBN;
-  const bool sum_del = blockIdx.y == 0;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-  float col_sum = 0.f;
-
-  const int q_end = colptr[cb + 1];
-  for (int q = colptr[cb]; q < q_end; ++q) {
-    const int t = colperm[q];
-    const float* pt = p + static_cast<size_t>(t) * kBlock * kBlock;
-    const float* gr = g + static_cast<size_t>(brows[t]) * kBlock * d;
-    if (sum_del && tid < kBlock) {
-      const float* dat = da + static_cast<size_t>(t) * kBlock * kBlock;
-      float s = 0.f;
-      for (int i = 0; i < kBlock; ++i) s += dat[i * kBlock + tid];
-      col_sum += s;
-    }
-    for (int k0 = 0; k0 < kBlock; k0 += kBK) {
-      // p rows k0 .. k0 + 31 are A^T's columns: copied as they are.
-#pragma unroll
-      for (int i = 0; i < kBlock * kBK / 4 / kThreads; ++i) {
-        const int idx = tid + i * kThreads;
-        const int k = idx / (kBlock / 4);
-        const int j = (idx % (kBlock / 4)) * 4;
-        *reinterpret_cast<float4*>(&as[k][j]) =
-            *reinterpret_cast<const float4*>(pt + (k0 + k) * kBlock + j);
-      }
-      // g slice: 32 rows x 64 columns; columns past d read as zero.
-#pragma unroll
-      for (int i = 0; i < kBK * kBN / kThreads; ++i) {
-        const int idx = tid + i * kThreads;
-        const int k = idx / kBN;
-        const int n = idx % kBN;
-        const int col = n0 + n;
-        bs[k][n] = col < d ? gr[static_cast<size_t>(k0 + k) * d + col] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kBK; ++k) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&as[k][ty * kTM]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&as[k][ty * kTM + 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&bs[k][tx * kTN]);
-        const float av[kTM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[kTN] = {b0.x, b0.y, b0.z, b0.w};
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
+cudaError_t launch_passes(const float* tiles, const int* brows, const int* bcols,
+                          const int* rowptr, const int* cols, const int* rows,
+                          const int* colptr, const int* colperm, const float* er,
+                          const float* el, const float* h, const float* g, const float* m,
+                          const float* l, const float* r, float* da, float* p, int* marks,
+                          float* der, float* del, float* dh, int nb, int n_rows, int n_cols,
+                          int d, int act, float slope, cudaStream_t st) {
+  cudaError_t err = cudaMemsetAsync(marks, 0, sizeof(int), st);  // the flag
+  if (err != cudaSuccess) return err;
+  const int row_blocks = (n_rows + kWarps - 1) / kWarps;
+  const int col_blocks = (n_cols + kWarps - 1) / kWarps;
+  if (row_blocks > 0) {
+    if (act == kSigmoid)
+      gat_bwd_row_kernel<kSigmoid><<<row_blocks, kThreads, 0, st>>>(
+          rowptr, cols, er, el, h, g, m, l, r, da, p, der, marks, n_rows, d, slope);
+    else
+      gat_bwd_row_kernel<kLeakyRelu><<<row_blocks, kThreads, 0, st>>>(
+          rowptr, cols, er, el, h, g, m, l, r, da, p, der, marks, n_rows, d, slope);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    float* o = dh + (static_cast<size_t>(cb) * kBlock + ty * kTM + i) * d;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int col = n0 + tx * kTN + j;
-      if (col < d) o[col] = acc[i][j];
-    }
+  if (col_blocks > 0) {
+    gat_bwd_col_kernel<<<col_blocks, kThreads, 0, st>>>(
+        colptr, colperm, rows, da, p, g, h, el, del, dh, marks, n_rows, n_cols, d,
+        act == kSigmoid);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  if (sum_del && tid < kBlock) del[static_cast<size_t>(cb) * kBlock + tid] = col_sum;
+  if (nb > 0) {
+    if (act == kSigmoid)
+      gat_bwd_repair_kernel<kSigmoid><<<nb, kThreads, 0, st>>>(
+          tiles, brows, bcols, er, el, h, g, l, r, marks, der, del, dh, n_rows, d, slope);
+    else
+      gat_bwd_repair_kernel<kLeakyRelu><<<nb, kThreads, 0, st>>>(
+          tiles, brows, bcols, er, el, h, g, l, r, marks, der, del, dh, n_rows, d, slope);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 }  // namespace
 
-// C interface for ctypes. `tiles` (nb, 128, 128) and `scratch` (2, nb, 128,
-// 128) must be 16-byte aligned; `brows`, `bcols` (nb,), `rowptr` (n_brows + 1),
-// `colptr` (n_bcols + 1) and `colperm` (nb,) int32, the tiles of block-column c
-// being colperm[colptr[c]:colptr[c + 1]]; `er`, `m`, `l`, `r`, `der` are
-// (n_brows * 128,), `el`, `del` (n_bcols * 128,), `g` (n_brows * 128, d), `h`
-// and `dh` (n_bcols * 128, d), all row-major float32; `act` is 0 (leaky-ReLU
-// with `slope`) or 1 (sigmoid). Launches the three passes in order on `stream`
-// of CUDA device `device` and returns the first error.
+// C interface for ctypes. `tiles` (nb, 128, 128) with `brows`, `bcols` (nb,);
+// the edge lists of ops/bsr.py bsr_edges, int32: `rowptr` (n_rows + 1),
+// `cols`, `rows`, `colperm` (nnz,) and `colptr` (n_cols + 1); `er`, `m`, `l`,
+// `r`, `der` (n_rows,), `el`, `del` (n_cols,), `g` (n_rows, d), `h` and `dh`
+// (n_cols, d), row-major float32; `per_edge` (2, nnz) float32 scratch (da,
+// p) and `marks` (1 + n_rows + n_cols) int32 scratch. `act` is 0 (leaky-ReLU
+// with `slope`) or 1 (sigmoid). Launches the three passes in order on
+// `stream` of CUDA device `device` and returns the first error.
 extern "C" int dtt_bsr_gat_grads_f32(const float* tiles, const int* brows, const int* bcols,
-                                     const int* rowptr, const int* colptr, const int* colperm,
-                                     const float* er, const float* el, const float* h,
-                                     const float* g, const float* m, const float* l,
-                                     const float* r, float* scratch, float* der, float* del,
-                                     float* dh, int nb, int n_brows, int n_bcols, int d,
+                                     const int* rowptr, const int* cols, const int* rows,
+                                     const int* colptr, const int* colperm, const float* er,
+                                     const float* el, const float* h, const float* g,
+                                     const float* m, const float* l, const float* r,
+                                     float* per_edge, int* marks, float* der, float* del,
+                                     float* dh, int nb, int nnz, int n_rows, int n_cols, int d,
                                      int act, float slope, int device, void* stream) {
-  if (act != kLeakyRelu && act != kSigmoid) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  if ((act != kLeakyRelu && act != kSigmoid) || d <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* da = scratch;
-  float* p = scratch + static_cast<size_t>(nb) * kBlock * kBlock;
-  if (nb > 0) {
-    if (act == kSigmoid)
-      gat_bwd_tile_kernel<kSigmoid><<<nb, kThreads, 0, st>>>(
-          tiles, brows, bcols, er, el, h, g, m, l, r, da, p, d, slope);
-    else
-      gat_bwd_tile_kernel<kLeakyRelu><<<nb, kThreads, 0, st>>>(
-          tiles, brows, bcols, er, el, h, g, m, l, r, da, p, d, slope);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  gat_bwd_row_kernel<<<n_brows, kThreads, 0, st>>>(rowptr, da, der);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(n_bcols, (d + kBN - 1) / kBN);
-  gat_bwd_col_kernel<<<grid, kThreads, 0, st>>>(brows, colptr, colperm, da, p, g, del, dh, d);
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  float* da = per_edge;
+  float* p = per_edge + nnz;
+  return static_cast<int>(launch_passes(tiles, brows, bcols, rowptr, cols, rows, colptr,
+                                        colperm, er, el, h, g, m, l, r, da, p, marks, der, del,
+                                        dh, nb, n_rows, n_cols, d, act, slope, st));
 }

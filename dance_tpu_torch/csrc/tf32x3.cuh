@@ -1,5 +1,6 @@
 // Float32-accurate products on Hopper's tensor cores ("3xTF32"), and the
-// cp.async copies that feed them; shared by bsr_spmm.cu and bsr_gat.cu.
+// cp.async copies that feed them; shared by bsr_spmm.cu and bsr_gat.cu
+// (bsr_spmm_max.cu takes the copies and the feature slabs).
 //
 // A TF32 operand keeps 10 of float32's 23 mantissa bits, so one TF32 product
 // is ~3e-4 off an IEEE float32 one. Each float32 x is split into two TF32

@@ -10,9 +10,7 @@ dance_tpu/ops/pallas_kernels.py — ``BSRMatrix`` (:29), ``bsr_from_scipy``
 
 A BSR matrix here is the same list of dense 128 x 128 tiles sorted by
 block-row, plus a tile-row pointer ``rowptr`` (tiles of block-row ``r`` are
-``rowptr[r]:rowptr[r + 1]``), which the CUDA kernels walk per block-row. The
-GAT backward also walks the tiles by block-column, through a column order
-computed once per matrix (:func:`bsr_col_order`).
+``rowptr[r]:rowptr[r + 1]``), which the CUDA kernels walk per block-row.
 
 Each kernel has a wrapper and a plain PyTorch version of the same math
 (gathers, ``bmm``, ``scatter_reduce``, ``index_add_`` and ``amax``). The
@@ -48,9 +46,9 @@ class BSRMatrix:
 
     ``shape`` is the padded (n_rows, n_cols), multiples of the tile edge. The
     tiles are treated as constants unless they require grad: the transposed
-    tiling is then computed once and kept (:func:`bsr_transpose`), as is the
-    column order of the tiles (:func:`bsr_col_order`), the kernels' work
-    schedules (:func:`device_schedule`) and the edge bits (:func:`bsr_edge_mask`)."""
+    tiling is then computed once and kept (:func:`bsr_transpose`), as are the
+    kernels' work schedules (:func:`device_schedule`), the edge bits
+    (:func:`bsr_edge_mask`) and the edge lists (:func:`bsr_edges`)."""
 
     tiles: torch.Tensor       # (nb, block, block) f32
     block_rows: torch.Tensor  # (nb,) int32, sorted
@@ -58,11 +56,10 @@ class BSRMatrix:
     rowptr: torch.Tensor      # (n_rows // block + 1,) int32
     shape: Tuple[int, int]
     _transpose: Optional["BSRMatrix"] = field(default=None, repr=False, compare=False)
-    _col_order: Optional[Tuple[torch.Tensor, torch.Tensor]] = field(
-        default=None, repr=False, compare=False)
     # the kernels' work schedules (DeviceSchedule), by (resident blocks, blocks per item)
     _schedules: dict = field(default_factory=dict, repr=False, compare=False)
     _edge_mask: Optional[torch.Tensor] = field(default=None, repr=False, compare=False)
+    _edges: Optional["BSREdges"] = field(default=None, repr=False, compare=False)
 
     @property
     def nb(self) -> int:
@@ -138,18 +135,6 @@ def bsr_transpose(bsr: BSRMatrix) -> BSRMatrix:
     return at
 
 
-def bsr_col_order(bsr: BSRMatrix) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(colptr, col_perm)``, both int32: the tiles of block-column ``c`` are
-    ``col_perm[colptr[c]:colptr[c + 1]]``, in row order. The GAT backward sums
-    by column through it in a fixed order, where the TPU kernel relied on its
-    grid order (pallas_kernels.py:530-535). Computed once per matrix and kept."""
-    if bsr._col_order is None:
-        perm = torch.argsort(bsr.block_cols, stable=True)
-        colptr = _rowptr(bsr.block_cols[perm], bsr.shape[1] // bsr.block)
-        bsr._col_order = (colptr, perm.to(torch.int32))
-    return bsr._col_order
-
-
 # A split block-row's chunks hold at least this many tiles.
 MIN_CHUNK = 4
 ITEMS_PER_SLOT = 3  # work items each resident thread block takes, about
@@ -202,17 +187,18 @@ def work_schedule(rowptr, slots: int, blocks_per_item: int = 1) -> WorkSchedule:
     return WorkSchedule(items, np.asarray(rows, np.int32).reshape(-1, 4), slot, chunk)
 
 
-# the tensor-core kernels, by the C symbol that reports their launch
-_INFO_SYMBOLS = {"spmm": "dtt_bsr_spmm_info", "gat": "dtt_bsr_gat_info"}
+# the kernels that run a work schedule, by the C symbol that reports their launch
+_INFO_SYMBOLS = {"spmm": "dtt_bsr_spmm_info", "gat": "dtt_bsr_gat_info",
+                 "max": "dtt_bsr_spmm_max_info"}
 _INFO_FIELDS = ("threads", "smem_bytes", "blocks_per_sm", "registers", "slabs", "slab_width",
                 "blocks_per_item")
 
 
 @functools.lru_cache(maxsize=None)
 def launch_geometry(kernel: str, d: int, device_index: int) -> dict:
-    """How the tensor-core kernel ``kernel`` (``"spmm"`` or ``"gat"``)
-    launches at width ``d`` on CUDA device ``device_index``, as the compiled
-    kernel reports it (``dtt_bsr_{spmm,gat}_info``): threads, dynamic shared
+    """How the scheduled kernel ``kernel`` (``"spmm"``, ``"gat"`` or
+    ``"max"``) launches at width ``d`` on CUDA device ``device_index``, as the
+    compiled kernel reports it (``dtt_bsr_{spmm,gat,spmm_max}_info``): threads, dynamic shared
     memory, thread blocks resident per SM, registers, feature slabs and
     their width, thread blocks per work item; and the card's SMs. Kept per
     (kernel, d, device)."""
@@ -241,7 +227,7 @@ class DeviceSchedule:
 
 
 def device_schedule(bsr: BSRMatrix, kernel: str, d: int, device: torch.device) -> DeviceSchedule:
-    """The work schedule that ``kernel`` (``"spmm"`` or ``"gat"``) runs on
+    """The work schedule that ``kernel`` (``"spmm"``, ``"gat"`` or ``"max"``) runs on
     ``bsr`` at width ``d`` on ``device``: :func:`work_schedule` for the
     card's resident thread blocks and the kernel's blocks per item, from
     :func:`launch_geometry`. Computed once per matrix and kept."""
@@ -269,6 +255,51 @@ def bsr_edge_mask(bsr: BSRMatrix) -> torch.Tensor:
     if not bsr.tiles.requires_grad:
         bsr._edge_mask = mask
     return mask
+
+
+@dataclass(frozen=True)
+class BSREdges:
+    """The edges of a BSR matrix (the slots ``!= 0``) as lists, from
+    :func:`bsr_edges`; all int32, over the padded rows and columns."""
+
+    rowptr: torch.Tensor   # (n_rows + 1,): the edges of row i are rowptr[i]:rowptr[i + 1]
+    cols: torch.Tensor     # (nnz,): each edge's column
+    rows: torch.Tensor     # (nnz,): each edge's row
+    colptr: torch.Tensor   # (n_cols + 1,): column j's edges are colperm[colptr[j]:colptr[j + 1]]
+    colperm: torch.Tensor  # (nnz,): edge ids in column order, ascending within a column
+
+    @property
+    def nnz(self) -> int:
+        return self.cols.shape[0]
+
+
+def bsr_edges(bsr: BSRMatrix) -> BSREdges:
+    """The edges of ``bsr`` as row and column lists (:class:`BSREdges`).
+
+    An edge is a slot ``!= 0``, so NaN counts as one, as in
+    :func:`bsr_edge_mask` and the plain versions; pad tiles give none. Edge
+    ids run by row, and within a row in tile order, then slot order; each
+    column lists its edges in id order. Building them synchronises once
+    (``torch.nonzero``); they are kept on the matrix unless its tiles
+    require grad, so later calls read nothing back to the host."""
+    if bsr._edges is not None:
+        return bsr._edges
+    blk, (n_rows, n_cols) = bsr.block, bsr.shape
+    t, i, j = torch.nonzero(bsr.tiles.detach() != 0, as_tuple=True)  # by tile, row, slot
+    rows = bsr.block_rows.long()[t] * blk + i
+    order = torch.argsort(rows, stable=True)  # tiles of a block-row stay in order
+    rows, cols = rows[order], (bsr.block_cols.long()[t] * blk + j)[order]
+    colperm = torch.argsort(cols, stable=True)
+
+    def ptr(sorted_idx, n):  # searchsorted, where bincount would synchronise again
+        bounds = torch.arange(n + 1, dtype=torch.int64, device=sorted_idx.device)
+        return torch.searchsorted(sorted_idx, bounds).to(torch.int32)
+
+    edges = BSREdges(ptr(rows, n_rows), cols.to(torch.int32), rows.to(torch.int32),
+                     ptr(cols[colperm], n_cols), colperm.to(torch.int32))
+    if not bsr.tiles.requires_grad:
+        bsr._edges = edges
+    return edges
 
 
 def rcm_reorder(adj: sp.spmatrix):
@@ -379,6 +410,13 @@ def _att_activation_grad(raw: torch.Tensor, negative_slope: float, act: str) -> 
     return torch.where(raw >= 0, 1.0, negative_slope)
 
 
+def _pad_rows(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t`` zero-padded to ``n`` rows, contiguous; no copy when it is both."""
+    if t.shape[0] != n:
+        t = F.pad(t, (0, 0) * (t.dim() - 1) + (0, n - t.shape[0]))
+    return t.contiguous()
+
+
 def _gat_inputs(name: str, bsr: BSRMatrix, er: torch.Tensor, el: torch.Tensor,
                 h: torch.Tensor, act: str):
     """Check the GAT inputs and zero-pad them to the tiling, as the JAX
@@ -391,9 +429,7 @@ def _gat_inputs(name: str, bsr: BSRMatrix, er: torch.Tensor, el: torch.Tensor,
         raise ValueError(f"{name}: need er (<= {n_rows},), el (<= {n_cols},) and h "
                          f"(<= {n_cols}, d >= 1); got {tuple(er.shape)}, {tuple(el.shape)}, "
                          f"{tuple(h.shape)}")
-    return (F.pad(er, (0, n_rows - er.shape[0])).contiguous(),
-            F.pad(el, (0, n_cols - el.shape[0])).contiguous(),
-            F.pad(h, (0, 0, 0, n_cols - h.shape[0])).contiguous())
+    return _pad_rows(er, n_rows), _pad_rows(el, n_cols), _pad_rows(h, n_cols)
 
 
 def _tile_raw_logits(bsr: BSRMatrix, er: torch.Tensor, el: torch.Tensor):
@@ -434,8 +470,7 @@ def _gat_grad_inputs(bsr: BSRMatrix, g, out, m, l):
         raise ValueError(f"bsr_gat_grads: need g, out (<= {n_rows}, d) and m, l "
                          f"(<= {n_rows},); got {tuple(g.shape)}, {tuple(out.shape)}, "
                          f"{tuple(m.shape)}, {tuple(l.shape)}")
-    return [F.pad(t, (0, 0) * (t.dim() - 1) + (0, n_rows - t.shape[0])).contiguous()
-            for t in (g, out, m, l)]
+    return [_pad_rows(t, n_rows) for t in (g, out, m, l)]
 
 
 def bsr_gat_grads_reference(bsr: BSRMatrix, er: torch.Tensor, el: torch.Tensor,
@@ -645,9 +680,12 @@ def bsr_gat_grads(bsr: BSRMatrix, er: torch.Tensor, el: torch.Tensor, h: torch.T
     ``out, m, l`` and the output cotangent ``g`` (counterpart:
     pallas_kernels.py:507); shaped like ``er``, ``el`` and ``h``.
 
-    The CUDA kernel sums columns through :func:`bsr_col_order` in a fixed
-    order and uses no atomics, so its result is the same on every run. It
-    needs a (2, nb, 128, 128) float32 scratch buffer, allocated here."""
+    The CUDA kernel walks the edge lists of :func:`bsr_edges` (kept on the
+    matrix): by row for ``da`` and ``der``, then by column for ``del`` and
+    ``dh``, each sum in edge order and without atomics, so its result is the
+    same on every run. It needs ``da`` and ``p`` per edge and a mark per row
+    and column (non-finite or huge values, which can make the plain
+    version's off-edge terms NaN), allocated here."""
     n_er, n_el, n_src = er.shape[0], el.shape[0], h.shape[0]
     erp, elp, hp = _gat_inputs("bsr_gat_grads", bsr, er, el, h, act)
     gp, outp, mp, lp = _gat_grad_inputs(bsr, g, out, m, l)
@@ -656,22 +694,25 @@ def bsr_gat_grads(bsr: BSRMatrix, er: torch.Tensor, el: torch.Tensor, h: torch.T
                                        negative_slope=negative_slope, act=act)
     _check_tiling("bsr_gat_grads", bsr)
     n_rows, n_cols = bsr.shape
-    d = hp.shape[1]
+    d, dev = hp.shape[1], hp.device
     if gp.shape[1] != d or outp.shape[1] != d:
         raise ValueError(f"bsr_gat_grads: g and out must have d = {d} columns")
-    colptr, colperm = bsr_col_order(bsr)
+    edges = bsr_edges(bsr)
     _check_cuda_args("bsr_gat_grads", (bsr.tiles, erp, elp, hp, gp, outp, mp, lp),
-                     (bsr.block_rows, bsr.block_cols, bsr.rowptr, colptr, colperm))
+                     (bsr.block_rows, bsr.block_cols, edges.rowptr, edges.cols, edges.rows,
+                      edges.colptr, edges.colperm))
     r = (gp * outp).sum(1)  # r_i = ḡ_i·out_i, outside the kernel as in JAX (:528)
-    scratch = torch.empty((2, bsr.nb, BLOCK, BLOCK), dtype=torch.float32, device=hp.device)
-    der = torch.empty(n_rows, dtype=torch.float32, device=hp.device)
-    del_ = torch.empty(n_cols, dtype=torch.float32, device=hp.device)
-    dh = torch.empty((n_cols, d), dtype=torch.float32, device=hp.device)
-    _launch("dtt_bsr_gat_grads_f32", hp.device, bsr.tiles.data_ptr(), bsr.block_rows.data_ptr(),
-            bsr.block_cols.data_ptr(), bsr.rowptr.data_ptr(), colptr.data_ptr(),
-            colperm.data_ptr(), erp.data_ptr(), elp.data_ptr(), hp.data_ptr(), gp.data_ptr(),
-            mp.data_ptr(), lp.data_ptr(), r.data_ptr(), scratch.data_ptr(), der.data_ptr(),
-            del_.data_ptr(), dh.data_ptr(), bsr.nb, n_rows // BLOCK, n_cols // BLOCK, d,
+    per_edge = torch.empty((2, edges.nnz), dtype=torch.float32, device=dev)  # da, p
+    marks = torch.empty(1 + n_rows + n_cols, dtype=torch.int32, device=dev)
+    der = torch.empty(n_rows, dtype=torch.float32, device=dev)
+    del_ = torch.empty(n_cols, dtype=torch.float32, device=dev)
+    dh = torch.empty((n_cols, d), dtype=torch.float32, device=dev)
+    _launch("dtt_bsr_gat_grads_f32", dev, bsr.tiles.data_ptr(), bsr.block_rows.data_ptr(),
+            bsr.block_cols.data_ptr(), edges.rowptr.data_ptr(), edges.cols.data_ptr(),
+            edges.rows.data_ptr(), edges.colptr.data_ptr(), edges.colperm.data_ptr(),
+            erp.data_ptr(), elp.data_ptr(), hp.data_ptr(), gp.data_ptr(), mp.data_ptr(),
+            lp.data_ptr(), r.data_ptr(), per_edge.data_ptr(), marks.data_ptr(), der.data_ptr(),
+            del_.data_ptr(), dh.data_ptr(), bsr.nb, edges.nnz, n_rows, n_cols, d,
             GAT_ACTS[act], negative_slope)
     bsr_gat_grads.launches += 1
     return der[:n_er], del_[:n_el], dh[:n_src]
@@ -766,9 +807,16 @@ class BSRSpMMMax(torch.autograd.Function):
         out = torch.empty((n_rows, d), dtype=torch.float32, device=b.device)
         if n_rows == 0 or d == 0:
             return out
-        _launch("dtt_bsr_spmm_max_f32", b.device, bsr.tiles.data_ptr(),
-                bsr.block_cols.data_ptr(), bsr.rowptr.data_ptr(), b.data_ptr(), out.data_ptr(),
-                n_rows // BLOCK, d, int(weighted))
+        sched = device_schedule(bsr, "max", d, b.device)
+        # the weighted form reads the tile rows (a_ij and the edges); the
+        # unweighted one only the edge bits, 1/32 of the bytes
+        edges = bsr.tiles if weighted else bsr_edge_mask(bsr)
+        scratch = torch.empty((sched.schedule.n_slots, BLOCK, d), dtype=torch.float32,
+                              device=b.device)
+        _launch("dtt_bsr_spmm_max_f32", b.device, edges.data_ptr(), bsr.block_cols.data_ptr(),
+                sched.items.data_ptr(), sched.items.shape[0], sched.rows.data_ptr(),
+                sched.rows.shape[0], b.data_ptr(), out.data_ptr(), scratch.data_ptr(), d,
+                int(weighted))
         bsr_spmm_max.launches += 1
         return out
 
@@ -783,7 +831,10 @@ def bsr_spmm_max(bsr: BSRMatrix, b: torch.Tensor, *, weighted: bool = True) -> t
     a_ij * b[j, k]`` (``b[j, k]`` with ``weighted=False``), with ``b``
     (n_cols_padded, d) float32; returns (n_rows_padded, d) float32
     (counterpart: pallas_kernels.py:826). A zero slot means "no edge": rows
-    without one give ``-inf``, and NaN propagates. Any ``d`` is taken.
+    without one give ``-inf``, and NaN propagates. Any ``d`` is taken. On the
+    card it runs the work items of :func:`device_schedule` (kept on the
+    matrix) and needs a (slots, 128, d) float32 scratch buffer for the
+    partial maxima of split block-rows, allocated here.
 
     Runs through :class:`BSRSpMMMax`: where an input requires grad, so does
     the output, and its backward raises."""
@@ -792,8 +843,9 @@ def bsr_spmm_max(bsr: BSRMatrix, b: torch.Tensor, *, weighted: bool = True) -> t
 
 bsr_spmm_max.launches = 0
 
-__all__ = ["BLOCK", "BSRGat", "BSRMatrix", "BSRSpMM", "BSRSpMMMax", "DeviceSchedule",
-           "GAT_ACTS", "WorkSchedule", "bsr_col_order", "bsr_edge_mask", "bsr_from_scipy",
+__all__ = ["BLOCK", "BSREdges", "BSRGat", "BSRMatrix", "BSRSpMM", "BSRSpMMMax", "DeviceSchedule",
+           "GAT_ACTS", "WorkSchedule", "bsr_edge_mask", "bsr_edges",
+           "bsr_from_scipy",
            "bsr_gat", "bsr_gat_ad", "bsr_gat_grads", "bsr_gat_grads_reference",
            "bsr_gat_reference", "bsr_gat_stats", "bsr_sddmm", "bsr_sddmm_reference", "bsr_spmm",
            "bsr_spmm_ad", "bsr_spmm_max", "bsr_spmm_max_reference", "bsr_spmm_reference",

@@ -14,7 +14,9 @@ IEEE products (tests/test_torch_schedule.py), and sum the same terms in
 another order, so outputs agree at rtol 1e-5 (atol 1e-4 for sums of ~100 to
 ~1,400 products of unit normals). The GAT kernels use expf where the plain
 version uses torch.exp (each within an ulp or two), so the same bounds hold.
-The BSR max kernel and its plain version take the max of the same float32
+The GAT backward walks the edges (dot products by warp reductions, sums in
+edge order), so it sums in another order still: atol 1e-4 as before. The
+BSR max kernel and its plain version take the max of the same float32
 products, so they agree exactly (NaN where either has NaN).
 """
 
@@ -27,8 +29,8 @@ from dance_tpu_torch.graph import Graph
 from dance_tpu_torch.modules.single_modality.cell_type_annotation import ScDeepSort
 from dance_tpu_torch.modules.spatial.spatial_domain import Stagate
 from dance_tpu_torch.ops import bsr as tbsr
-from torch_cases import (CASES, gat_inputs, max_edge_case, no_pad, signed, skewed_bsr,
-                         spatial_case)
+from torch_cases import (CASES, NONFINITE_WIDTHS, gat_inputs, gat_nonfinite_case, knn_bsr,
+                         max_edge_case, no_pad, signed, skewed_bsr, spatial_case)
 
 RTOL, ATOL = 1e-5, 1e-5
 
@@ -172,11 +174,24 @@ def test_gat_matches_plain(cuda, act, case, d, pad_tiles):
         torch.testing.assert_close(got.cpu(), want, rtol=RTOL, atol=ATOL)
 
 
+def _edge_tilings():
+    tilings = {"knn": lambda: knn_bsr(), "skewed": lambda: skewed_bsr(seed=5)}
+    tilings.update({case: (lambda make=make: tbsr.bsr_from_scipy(make()))
+                    for case, make in CASES.items()})
+    return tilings
+
+
+EDGE_TILINGS = _edge_tilings()
+
+
 @pytest.mark.parametrize("act", ["leaky_relu", "sigmoid"])
-@pytest.mark.parametrize("case", sorted(CASES))
-@pytest.mark.parametrize("d", [1, 130, 512])
+@pytest.mark.parametrize("case", sorted(EDGE_TILINGS))
+@pytest.mark.parametrize("d", [1, 30, 130, 512, 513])
 def test_gat_grads_match_plain(cuda, act, case, d):
-    bsr = tbsr.bsr_from_scipy(CASES[case]())
+    """The dense cases, a kNN tiling of ~1 % density and the skewed one, at
+    widths within one lane's columns (1, 30), one register chunk (130, 512)
+    and past it (513)."""
+    bsr = EDGE_TILINGS[case]()
     er, el, h, g = gat_inputs(bsr, d, seed=d)
     out, m, l = tbsr.bsr_gat_reference(bsr, er, el, h, act=act, return_stats=True)
     ref = tbsr.bsr_gat_grads_reference(bsr, er, el, h, g, out, m, l, act=act)
@@ -224,13 +239,38 @@ def test_gat_nonfinite_features_match_plain(cuda, act):
         torch.testing.assert_close(a.cpu(), b, rtol=RTOL, atol=ATOL, equal_nan=True)
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
+
+
 def test_gat_grads_deterministic(cuda):
-    bsr = tbsr.bsr_from_scipy(CASES["exact_blocks_dense"]()).to(cuda)
-    er, el, h, g = (t.to(cuda) for t in gat_inputs(bsr, 512, seed=3))
-    out, m, l = tbsr.bsr_gat_stats(bsr, er, el, h, act="sigmoid")
-    runs = [tbsr.bsr_gat_grads(bsr, er, el, h, g, out, m, l, act="sigmoid") for _ in range(2)]
-    for a, b in zip(*runs):
-        assert torch.equal(a, b)
+    """Two runs give equal bits: both activations, a dense tiling and a
+    kNN one of ~1 % density."""
+    for tiling in (tbsr.bsr_from_scipy(CASES["exact_blocks_dense"]()), knn_bsr()):
+        bsr = tiling.to(cuda)
+        er, el, h, g = (t.to(cuda) for t in gat_inputs(bsr, 512, seed=3))
+        for act in ("sigmoid", "leaky_relu"):
+            out, m, l = tbsr.bsr_gat_stats(bsr, er, el, h, act=act)
+            runs = [tbsr.bsr_gat_grads(bsr, er, el, h, g, out, m, l, act=act) for _ in range(2)]
+            for a, b in zip(*runs):
+                assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("act", ["leaky_relu", "sigmoid"])
+@pytest.mark.parametrize("d", NONFINITE_WIDTHS)
+def test_gat_grads_nonfinite_inputs_match_plain(cuda, d, act):
+    """±inf, NaN, 0x7fffffff and ±3.4e38 in h and ḡ, some in rows and columns
+    without edges: the repair pass puts NaN where the plain version's off-edge
+    terms do, at widths of one chunk of the passes' registers or less (d up
+    to 512, STAGATE's) and past it (513)."""
+    bsr, er, el, h, g = gat_nonfinite_case(d)
+    out, m, l = tbsr.bsr_gat_reference(bsr, er, el, h, act=act, return_stats=True)
+    args = (er, el, h, g, out[:g.shape[0]], m, l)
+    ref = tbsr.bsr_gat_grads_reference(bsr, *args, act=act)
+    got = tbsr.bsr_gat_grads(bsr.to(cuda), *(t.to(cuda) for t in args), act=act)
+    for a, b in zip(got, ref):
+        assert torch.isnan(b).any()
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-4, equal_nan=True)
 
 
 def test_gat_ad_grads_match_cpu(cuda):
@@ -297,6 +337,26 @@ def test_spmm_max_edge_semantics_match_plain(cuda):
         out = tbsr.bsr_spmm_max(bsr.to(cuda), h.to(cuda), weighted=weighted).cpu()
         torch.testing.assert_close(out, ref, rtol=0, atol=0, equal_nan=True)
         assert torch.isnan(out).any() and torch.isneginf(out).any() and torch.isinf(out).any()
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("d", [1, 9, 200, 257])
+def test_spmm_max_skewed_split_rows_match_plain_bit_equal(cuda, d, weighted):
+    """One block-row of 110 tiles, cut into chunks whose partial maxima a
+    second kernel combines; NaN and ±inf in h; two runs give equal bits."""
+    bsr = skewed_bsr(seed=d)
+    b = torch.randn((bsr.shape[1], d), generator=torch.Generator().manual_seed(d))
+    b[3, 0], b[300, d // 2], b[301, d - 1] = torch.nan, torch.inf, -torch.inf
+    ref = tbsr.bsr_spmm_max_reference(bsr, b, weighted=weighted)
+    dev, bd = bsr.to(cuda), b.to(cuda)
+    n = tbsr.bsr_spmm_max.launches
+    runs = [tbsr.bsr_spmm_max(dev, bd, weighted=weighted) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tbsr.bsr_spmm_max.launches == n + 2
+    (sched,) = dev._schedules.values()
+    assert len(sched.schedule.rows) > 0  # the long block-row was split
+    assert torch.equal(_bits(runs[0]), _bits(runs[1]))
+    torch.testing.assert_close(runs[0].cpu(), ref, rtol=0, atol=0, equal_nan=True)
 
 
 def test_spmm_max_backward_raises_and_segment_spmm_launches(cuda):

@@ -143,20 +143,6 @@ def test_gat_cpu_wrappers_count_nothing_and_reject_bad_inputs():
         tbsr.bsr_gat(bsr, er, el, h.to("meta"))
 
 
-def test_bsr_col_order():
-    bsr = tbsr.bsr_from_scipy(CASES["exact_blocks_dense"]())
-    colptr, perm = tbsr.bsr_col_order(bsr)
-    assert colptr.dtype == perm.dtype == torch.int32
-    assert tbsr.bsr_col_order(bsr)[1] is perm  # kept on the matrix
-    cols = bsr.block_cols[perm.long()]
-    assert (cols[1:] >= cols[:-1]).all()
-    np.testing.assert_array_equal(np.diff(colptr.numpy()),
-                                  np.bincount(bsr.block_cols.numpy(), minlength=3))
-    for c in range(bsr.shape[1] // 128):
-        tiles = perm[colptr[c]:colptr[c + 1]].long()
-        assert (bsr.block_cols[tiles] == c).all() and (tiles[1:] > tiles[:-1]).all()
-
-
 @pytest.mark.parametrize("seed", [0, 1])
 def test_rcm_reorder_matches_jax(seed):
     adj = _graph(seed=seed, n=500, density=0.01)

@@ -108,3 +108,55 @@ def dense(bsr: tbsr.BSRMatrix) -> np.ndarray:
     for t, r, c in zip(bsr.tiles.numpy(), bsr.block_rows.numpy(), bsr.block_cols.numpy()):
         out[r * blk:(r + 1) * blk, c * blk:(c + 1) * blk] += t
     return out
+
+
+def knn_bsr(n: int = 1280, k: int = 12, seed: int = 0) -> tbsr.BSRMatrix:
+    """A kNN graph as STAGATE tiles one (self-loops included, RCM-banded):
+    ``n`` points uniform in the unit square, each joined to its ``k`` nearest
+    (itself first), so the density is k / n, ~1 % by default."""
+    rng = np.random.default_rng(seed)
+    xy = rng.random((n, 2))
+    d2 = ((xy[:, None, :] - xy[None]) ** 2).sum(-1)
+    nbrs = np.argsort(d2, axis=1, kind="stable")[:, :k]
+    adj = sp.csr_matrix((np.ones(n * k, np.float32), nbrs.ravel(), np.arange(0, n * k + 1, k)),
+                        shape=(n, n))
+    return tbsr.bsr_with_rcm(adj)[1]
+
+
+# slots of gat_nonfinite_case's features and cotangent that hold each kind of
+# value: ±inf, NaN, the card's full-payload NaN and finite values whose
+# products overflow
+NONFINITE = (np.inf, -np.inf, np.nan, "0x7fffffff", 3.4e38, -3.4e38)
+# widths for it: d of one lane column (12), of part of a 512-column register
+# chunk (130), STAGATE's (512) and one past the chunk (513)
+NONFINITE_WIDTHS = (12, 130, 512, 513)
+
+
+def gat_nonfinite_case(d: int = 12, seed: int = 6):
+    """GAT backward inputs (bsr, er, el, h, g), unpadded, with the values of
+    ``NONFINITE`` placed in h, in ḡ, and in rows and columns that have no
+    edge but share stored tiles (pad tiles included): there only the plain
+    version's off-edge terms carry them. The rows of block-row 1 and rows 5,
+    6 have no edge; column 300 has none. The values' feature columns spread
+    from the first to the last of ``d``, so that a wide d puts some past the
+    first 512."""
+    adj = sp.lil_matrix(_adj(400, 400, 0.02, seed, [(128, 256), (5, 7)]))
+    adj[:, 300] = 0
+    bsr = tbsr.bsr_from_scipy(sp.csr_matrix(adj))
+    er, el, h, g = (t.numpy().copy() for t in gat_inputs(bsr, d, seed))
+
+    def put(arr, row, col, value):
+        if value == "0x7fffffff":
+            arr.view(np.int32)[row, col] = 0x7FFFFFFF
+        else:
+            arr[row, col] = value
+
+    col = [q * (d - 1) // (len(NONFINITE) - 1) for q in range(len(NONFINITE))]
+    for q, value in enumerate(NONFINITE):
+        put(h, 20 + q, col[q], value)   # columns with edges
+        put(g, 40 + q, col[q], value)   # rows with edges
+    put(h, 300, col[1], np.nan)         # a column without edges
+    put(g, 5, col[2], np.inf)           # a row without edges
+    put(g, 6, col[3], 3.4e38)
+    put(g, 130, col[4], -np.inf)        # a row of a block-row with only a pad tile
+    return (bsr,) + tuple(torch.from_numpy(a) for a in (er, el, h, g))
