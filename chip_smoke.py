@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: scDeepSort
-training, STAGATE training, graph-sc training and graph-sc's max
-aggregation over BSR tiles.
+training, STAGATE training, graph-sc training, graph-sc's max aggregation
+over BSR tiles, and scTAG and scDSC training.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -63,6 +63,37 @@ printed only when every phase passed):
    weight and NaN and infinities in h, and ``bsr_spmm`` on the tiling.
 10. graph-sc on a few hundred cells (dropout 0), fitted on the card and on
    the CPU from the same seed: losses and embeddings must agree.
+11. scTAG at its published defaults, counts set to 0 just before it: phase
+   8's raw counts -> ``sctag_preprocess`` (gene and cell filters,
+   normalize_per_cell, log1p, 3,000 cell_ranger HVGs, filters, the ZINB
+   target kept, normalize_total, log1p, scale, 50-d cell PCA, 15-NN gauss
+   graph) -> ``ScTAG(n_clusters=8)`` (k = 3, 128 -> 15, decoder 128, 256,
+   512) ``.fit(pretrain_epochs=200, epochs=300, use_bsr=True)`` on cuda, the
+   JAX defaults, nothing cut -> ``predict``. Checks finite losses, the shapes
+   of ``q`` and ``z``, the labels' range and that ``bsr_spmm`` ran at least
+   9 x epochs times (3 hops of each encoder forward, 3 ``Aᵀḡ`` of the
+   second); prints the tiling (nodes, block-rows, tiles, edges, fill), stage
+   times, median epochs, peak memory and the ARI against the types.
+12. ``bsr_spmm`` on scTAG's tiling at encoder1's width (the HVGs, 3,000) and
+   encoder2's (128), on A and on Aᵀ, against the plain version: error, times
+   (one call, back to back), the work schedule and its split-row scratch,
+   two runs bit-equal, the edge-counted and the slot-counted bound, the
+   library call.
+13. scDSC at its published defaults, counts set to 0 just before it: the same
+   counts -> ``scdsc_preprocess`` (the same count processing with 2,000
+   HVGs, then the 50-NN gauss graph of the scaled features) ->
+   ``ScDSC(n_clusters=8)`` with the default widths ``.fit(pt_epochs=200,
+   epochs=300, use_bsr=True)``, nothing cut -> ``predict``; checks and prints
+   as in phase 11 (``bsr_spmm`` at least 14 x epochs: 7 aggregations forward
+   and 7 ``Aᵀḡ``), then phase 12's measurements on its tiling at d = 512 and
+   8 (the first and the last aggregation's widths).
+14. scTAG and scDSC on a few hundred cells, fitted on the card and on the CPU
+   from the same seed. scTAG: losses (each stage), ``q`` and ``z`` must
+   agree. scDSC, through its DEC stage: the losses; from the same weights
+   the refresh's ``q``, the GCN's output, the loss and every gradient (all
+   seven aggregations carrying gradient); and the two fits' ``q`` and GCN
+   output after the DEC stage against the CPU's own spread under one-ulp
+   changes of the features (``scdsc_card_vs_cpu``).
 
 Each kernel's bound is the larger of its operations over a compute peak and
 the bytes of its inputs and outputs, each counted once, over 3.35 TB/s, for
@@ -90,7 +121,9 @@ prints the device time of the kernel's own launches (torch.profiler), as
 #5's wrapper work outlasts its kernels when calls queue back to back.
 ``library_ms`` times one PyTorch call that computes the same function where
 there is one (BSR ``@`` for the SpMM, ``sampled_addmm`` over the tiles'
-pattern for the SDDMM); the port never calls them.
+pattern for the SDDMM); the port never calls them. The SpMM's entry carries
+the other paths' tilings beside scDeepSort's (``graphsc``, ``sctag``,
+``scdsc``) and its launches by path.
 
 PyTorch's TF32 is off for every phase (the plain versions and cuBLAS run
 IEEE float32); the tensor-core kernels hold float32 accuracy by 3xTF32.
@@ -128,6 +161,10 @@ GRAD_REL_BOUND = 1e-4
 # of the max fit, and the small card-against-CPU fit
 GSC_CELLS, GSC_GENES, GSC_TYPES, GSC_HVG = 10000, 5000, 8, 3000
 GSC_EPOCHS, GSC_MAX_EPOCHS, GSC_HIDDEN = 30, 5, 200
+# scTAG and scDSC on graph-sc's synthetic counts: their published defaults
+# (sctag.py:71-112, 209-214; scdsc.py:113-159, 209-212), epochs as run here
+TAG_HVG, TAG_PCS, TAG_NEIGHBORS, TAG_PRETRAIN, TAG_EPOCHS = 3000, 50, 15, 200, 300
+DSC_HVG, DSC_NEIGHBORS, DSC_PRETRAIN, DSC_EPOCHS = 2000, 50, 200, 300
 # H100 SXM: FP32 outside the tensor cores, TF32 dense on the tensor cores, HBM3
 PEAK_FLOPS, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
 PALLAS = "dance_tpu/ops/pallas_kernels.py"
@@ -184,10 +221,11 @@ def device_ms(fn, kernels, calls: int = STREAM) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and any(k in e.key for k in kernels))
-    return total / calls / 1e3
+    mine = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and any(k in e.key for k in kernels)]
+    print(f"  profiler: {sum(e.count for e in mine)} launches of {kernels} seen over {calls} "
+          f"calls", flush=True)
+    return sum(e.self_device_time_total for e in mine) / calls / 1e3
 
 
 def check(name: str, outs, refs, bound: float = REL_BOUND, masks=None) -> float:
@@ -882,6 +920,361 @@ def graphsc_phases(cuda) -> dict:
             "graphsc_launches": launches["bsr_spmm"], "graphsc_spmm": spmm}
 
 
+def tiling_line(name: str, a, n_nodes: int) -> str:
+    """Nodes, block-rows, stored tiles, edges and the share of the tiles'
+    slots that hold an edge."""
+    edges, slots = edge_count(a), a.nb * a.block ** 2
+    return (f"{name} tiling: {n_nodes} nodes, {a.shape[0] // a.block} block-rows, {a.nb} tiles "
+            f"({slots * 4 / 1e6:.1f} MB), {edges} edges, fill {edges / slots!r}")
+
+
+def spmm_widths(name: str, a, widths, seed: int) -> dict:
+    """``bsr_spmm`` on tiling ``a`` and on its transpose (the backward's
+    ``Aᵀḡ``) at each width in ``widths``, against the plain version: error,
+    times (one call, back to back), the work schedule and its scratch, two
+    runs bit-equal, the edge-counted and the slot-counted bound and the
+    library call. Returns the numbers by width."""
+    import torch
+
+    from dance_tpu_torch.ops import bsr
+
+    at = bsr.bsr_transpose(a)
+    nnz, out = edge_count(a), {}
+    gen = torch.Generator().manual_seed(seed)
+    for d in widths:
+        b = torch.randn((a.shape[1], d), generator=gen).to(a.tiles.device)
+        g = torch.randn((a.shape[0], d), generator=gen).to(a.tiles.device)
+        res = compare(f"bsr_spmm {name} A@B d={d}", lambda: bsr.bsr_spmm(a, b),
+                      lambda: bsr.bsr_spmm_reference(a, b))
+        res_t = compare(f"bsr_spmm {name} At@G d={d}", lambda: bsr.bsr_spmm(at, g),
+                        lambda: bsr.bsr_spmm_reference(at, g))
+        res["max_abs_err"] = max(res["max_abs_err"], res_t["max_abs_err"])
+        res["transpose_ms"], res["transpose_stream_ms"] = res_t["ms"], res_t["stream_ms"]
+        for label, mat in (("A@B", a), ("At@G", at)):
+            work_launch(f"bsr_spmm {name} {label} d={d}", mat, "spmm", d)
+            sched = bsr.device_schedule(mat, "spmm", d, b.device)
+            print(f"  scratch for split block-rows: {sched.schedule.n_slots} x {mat.block} x {d} "
+                  f"float32 = {sched.schedule.n_slots * mat.block * d * 4 / 1e6:.1f} MB",
+                  flush=True)
+        bit_equal(f"bsr_spmm {name} A@B d={d}", lambda: bsr.bsr_spmm(a, b))
+        bit_equal(f"bsr_spmm {name} At@G d={d}", lambda: bsr.bsr_spmm(at, g))
+        y = bsr.bsr_spmm(a, b)
+        tensors = (a.tiles, a.block_cols, a.rowptr, b, y)
+        res.update(roofline(nnz, 2, d, tensors))
+        # printed only: the kernels line carries the edge-counted bound
+        print("  (the same work counted on every slot of the stored tiles:)", flush=True)
+        roofline(a.nb * a.block ** 2, 2, d, tensors)
+        res["library_ms"] = library(f"bsr_spmm {name} d={d}: torch.sparse_bsr_tensor @ b", a, b, y)
+        out[d] = res
+        del b, g, y
+    return out
+
+
+def fit_report(name: str, model, launches: dict, peak: int, times: dict, truth, labels):
+    """Print a clustering fit's stage times, median epochs, peak memory, losses,
+    launches and ARI."""
+    from dance_tpu_torch.utils import ari
+
+    pre = [h["seconds"] for h in model.pretrain_history]
+    dec = [h["seconds"] for h in model.history]
+    print(f"{name}: " + ", ".join(f"{k} {v:.3f} s" for k, v in times.items())
+          + f"; pretrain {len(pre)} epochs {sum(pre):.3f} s (median {statistics.median(pre)!r}"
+          f" s/epoch), DEC {len(dec)} epochs {sum(dec):.3f} s (median "
+          f"{statistics.median(dec)!r} s/epoch); peak device memory {peak / 2**20:.1f} MiB",
+          flush=True)
+    print(f"{name} pretrain losses {[h['loss'] for h in model.pretrain_history][::20]} (every "
+          f"20th); DEC losses {[h['loss'] for h in model.history][::20]}", flush=True)
+    print(f"{name} ARI against the generating types {ari(truth, labels)!r}", flush=True)
+    print(f"launches in the {name} path: {launches}", flush=True)
+
+
+def check_fit(name: str, model, n_cells: int, n_clusters: int, latent: int, labels,
+              launches: int, per_epoch: int, epochs: int):
+    """Finite losses, the shapes of ``q`` (and ``z``), labels in range and
+    the SpMM launches the path implies."""
+    import numpy as np
+
+    losses = [h["loss"] for h in model.pretrain_history + model.history]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{name}: non-finite losses")
+    if model.q.shape != (n_cells, n_clusters) or not np.isfinite(model.q).all():
+        raise AssertionError(f"{name}: q {model.q.shape} or non-finite")
+    z = getattr(model, "z", None)
+    if z is not None and (z.shape != (n_cells, latent) or not np.isfinite(z).all()):
+        raise AssertionError(f"{name}: z {z.shape} or non-finite")
+    if labels.shape != (n_cells,) or not ((labels >= 0) & (labels < n_clusters)).all():
+        raise AssertionError(f"{name}: labels out of range")
+    if launches < per_epoch * epochs:
+        raise AssertionError(f"{name}: bsr_spmm launched {launches} times, fewer than "
+                             f"{per_epoch} x {epochs} epochs")
+
+
+def card_vs_cpu(name: str, make, fit, compare_z: bool, cuda):
+    """Fit ``make(device)`` on the CPU and on the card from the same seed:
+    losses, ``q`` (and ``z``) must agree."""
+    import numpy as np
+    import torch
+
+    runs = {}
+    for label, device in (("cpu", torch.device("cpu")), ("cuda", cuda)):
+        m = make(device)
+        fit(m)
+        runs[label] = ([np.array([h["loss"] for h in hist])
+                        for hist in (m.pretrain_history, m.history)], m.q,
+                       m.z if compare_z else m.q)
+    pre_gap, dec_gap = (float(np.max(np.abs(c / p - 1)))
+                        for c, p in zip(runs["cuda"][0], runs["cpu"][0]))
+    q_gap = float(np.max(np.abs(runs["cuda"][1] - runs["cpu"][1])))
+    z_gap = float(np.max(np.abs(runs["cuda"][2] - runs["cpu"][2])))
+    z_scale = float(np.max(np.abs(runs["cpu"][2])))
+    print(f"small {name}, card vs CPU: max relative loss gap pretrain {pre_gap!r}, DEC "
+          f"{dec_gap!r}; max q gap {q_gap!r}, max z gap {z_gap!r} (max |z| {z_scale!r}; bounds "
+          f"1e-4, 1e-4, 1e-4 and 1e-4 x max |z|)", flush=True)
+    if not (pre_gap <= 1e-4 and dec_gap <= 1e-4 and q_gap <= 1e-4 and z_gap <= 1e-4 * z_scale):
+        raise AssertionError(f"the card disagrees with the CPU on the small {name} fit")
+
+
+def scdsc_dec_state(m, data, sigma: float):
+    """From ``m``'s current weights, with the GCN's mixing ``sigma``: the
+    refresh's ``q``, the DEC loss against its target, the GCN's ``predict``
+    and every parameter's gradient, on ``m``'s device and in the training
+    (RCM) order."""
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.modules.single_modality.clustering.scdsc import dec_loss
+    from dance_tpu_torch.utils.loss import target_distribution
+
+    _, x, x_raw, n_counts = data
+    perm, model = m._perm if m._perm is not None else slice(None), m.model
+    xt, xr = (torch.from_numpy(np.asarray(a, np.float32)[perm]).to(m.device)
+              for a in (x, x_raw))
+    n = np.asarray(n_counts, np.float64)[perm]
+    sf = torch.from_numpy((n / np.median(n)).astype(np.float32)).to(m.device)
+    model.sigma, kept = sigma, model.sigma
+    with torch.no_grad():
+        q = model.assign(model.ae(xt)[4])
+    model.zero_grad(set_to_none=True)
+    loss, pred = dec_loss(model, xt, m.adj, xr, sf, target_distribution(q))
+    loss.backward()
+    model.sigma = kept
+    return (float(loss.detach()), q.cpu().numpy(), pred.detach().cpu().numpy(),
+            {k: v.grad.cpu().numpy() for k, v in model.named_parameters()})
+
+
+def relu_patterned(record=None, impose=None):
+    """A context in which ``torch.relu`` appends each input to ``record``, or
+    passes ``x * mask`` with the masks of ``impose`` taken in call order (its
+    derivative is then the mask): so one device's ReLU pattern can be laid
+    on the other's computation."""
+    from unittest import mock
+
+    import torch
+
+    plain, masks = torch.relu, iter(impose or ())
+
+    def relu(x):
+        if record is not None:
+            record.append(x.detach().cpu())
+        return x * next(masks).to(x.device) if impose is not None else plain(x)
+
+    return mock.patch.object(torch, "relu", relu)
+
+
+def scdsc_card_vs_cpu(data, cuda):
+    """scDSC on a few hundred cells through its DEC stage (11 epochs: the
+    refresh at epoch 10 follows 10 DEC steps), fitted on the CPU and on the
+    card from the same seed. Holds, in order:
+
+    - the losses of each stage, at 1e-4;
+    - from the same weights (the CPU fit's, copied to the card): the
+      refresh's ``q``, the DEC loss, the GCN's ``predict`` and every
+      gradient, with ``sigma`` 1 (the model as fitted, where only the last
+      aggregation reaches the output) and 0.5 (all seven aggregations and
+      their ``Aᵀḡ`` carry gradient). A unit whose pre-activation lies
+      within rounding of 0 can take the other side of its ReLU on the other
+      device, and then its whole derivative differs (on an H100, one of the
+      autoencoder's 400 x 256 decoder units at 1.7e-7 against -5.4e-8 moved
+      the encoder's gradients by up to 3.7 % of their largest). So every
+      such flip must lie within 1e-5 of the kink, relative to its layer's
+      largest pre-activation, and the CPU's gradients are taken again with
+      the card's ReLU pattern laid on (``relu_patterned``);
+    - ``q`` and ``predict`` of the two fits after the DEC stage, which drift
+      apart as Adam amplifies rounding: held against the spread of two more
+      CPU fits whose features lie one float32 ulp up and down.
+    """
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.modules.single_modality.clustering import ScDSC
+
+    adj, x, x_raw, n_counts = data
+    fits = {}
+    for label, device, feats in (
+            ("cuda", cuda, x), ("cpu", torch.device("cpu"), x),
+            ("cpu, x 1 ulp up", torch.device("cpu"), np.nextafter(x, np.float32(np.inf))),
+            ("cpu, x 1 ulp down", torch.device("cpu"), np.nextafter(x, np.float32(-np.inf)))):
+        m = ScDSC(n_input=x.shape[1], n_clusters=4, device=device, seed=0,
+                  reference_protocol=True)
+        m.fit((adj, feats, x_raw, n_counts), pt_epochs=1, epochs=11, lr=1e-4, pt_lr=1e-5,
+              use_bsr=True)
+        state = scdsc_dec_state(m, (adj, feats, x_raw, n_counts), m.sigma)
+        fits[label] = (m, [np.array([h["loss"] for h in hist])
+                           for hist in (m.pretrain_history, m.history)], state)
+    card, cpu = fits["cuda"], fits["cpu"]
+    pre_gap, dec_gap = (float(np.max(np.abs(c / p - 1))) for c, p in zip(card[1], cpu[1]))
+    print(f"small scDSC ({x.shape[0]} cells, 1 + 11 epochs), card vs CPU: max relative loss "
+          f"gap pretrain {pre_gap!r}, DEC {dec_gap!r} (bound 1e-4)", flush=True)
+    ok = pre_gap <= 1e-4 and dec_gap <= 1e-4
+    card[0].model.load_state_dict(cpu[0].model.state_dict())
+    for sigma in (1.0, 0.5):
+        pre_card, pre_cpu = [], []
+        with relu_patterned(record=pre_card):
+            got = scdsc_dec_state(card[0], data, sigma)
+        with relu_patterned(record=pre_cpu):
+            plain = scdsc_dec_state(cpu[0], data, sigma)
+        flips, worst = 0, 0.0
+        for c, p in zip(pre_card, pre_cpu):
+            flip = (c > 0) != (p > 0)
+            flips += int(flip.sum())
+            if flip.any():
+                scale = float(p.abs().max())
+                worst = max(worst, float(torch.maximum(c[flip].abs(), p[flip].abs()).max()) / scale)
+        with relu_patterned(impose=[(c > 0).float() for c in pre_card]):
+            want = scdsc_dec_state(cpu[0], data, sigma)
+        ok &= len(pre_card) == len(pre_cpu) and worst <= 1e-5
+
+        def grad_gap(ref):
+            # relative to each tensor's max |g|; absolute where the CPU's is all 0
+            return max((float(np.max(np.abs(got[3][k] - w))) / (float(np.max(np.abs(w))) or 1.0),
+                        k) for k, w in ref[3].items())
+
+        loss_gap = abs(got[0] / want[0] - 1)
+        q_gap, pred_gap = (float(np.max(np.abs(g - w))) for g, w in zip(got[1:3], want[1:3]))
+        (gap, worst_name), (plain_gap, plain_name) = grad_gap(want), grad_gap(plain)
+        print(f"  from the CPU fit's weights, sigma {sigma}: {flips} ReLU inputs of "
+              f"{sum(c.numel() for c in pre_card)} on the other side of 0 on the card, the "
+              f"farthest {worst!r} of its layer's largest (bound 1e-5); with the card's ReLU "
+              f"pattern on the CPU, relative loss gap {loss_gap!r}, max q gap {q_gap!r}, max "
+              f"predict gap {pred_gap!r}, max gradient gap relative to each tensor's max |g| "
+              f"{gap!r} ({worst_name}; without the pattern {plain_gap!r}, {plain_name}) (bounds "
+              f"1e-5, 1e-5, 1e-5, {GRAD_REL_BOUND})", flush=True)
+        ok &= (loss_gap <= 1e-5 and q_gap <= 1e-5 and pred_gap <= 1e-5
+               and gap <= GRAD_REL_BOUND)
+    gaps = {}
+    for label, (_, _, state) in fits.items():
+        if label != "cpu":
+            gaps[label] = tuple(float(np.max(np.abs(a - b))) for a, b in zip(state[1:3],
+                                                                              cpu[2][1:3]))
+    spread = tuple(max(gaps[k][i] for k in gaps if k != "cuda") for i in (0, 1))
+    print(f"  after the DEC stage, max q and predict gaps from the CPU fit: "
+          + "; ".join(f"{k} {v[0]!r}, {v[1]!r}" for k, v in gaps.items())
+          + " (the card's bound: 10 x the CPU's 1-ulp spread, or 1e-4)", flush=True)
+    ok &= all(g <= max(10 * s, 1e-4) for g, s in zip(gaps["cuda"], spread))
+    if not ok:
+        raise AssertionError("the card disagrees with the CPU on the small scDSC fit")
+
+
+def clustering_phases(cuda) -> dict:
+    """Phases 11-14; returns the scTAG and scDSC paths' SpMM launches and
+    the SpMM's numbers on their tilings."""
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.modules.single_modality.clustering import (ScDSC, ScTAG,
+                                                                    scdsc_preprocess,
+                                                                    sctag_preprocess)
+
+    t_phases = time.perf_counter()
+    counts, types = clustered_counts(GSC_CELLS, GSC_GENES, GSC_TYPES, seed=0)
+    result = {}
+    # -- 11. scTAG at its published defaults -------------------------------
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    t0 = time.perf_counter()
+    inputs, cells = sctag_preprocess(counts, n_top_genes=TAG_HVG, n_components=TAG_PCS,
+                                     n_neighbors=TAG_NEIGHBORS, device=cuda)
+    times["preprocess"] = time.perf_counter() - t0
+    model = ScTAG(n_clusters=GSC_TYPES, device=cuda, seed=0)
+    t0 = time.perf_counter()
+    model.fit(inputs, types[cells], pretrain_epochs=TAG_PRETRAIN, epochs=TAG_EPOCHS,
+              use_bsr=True)
+    torch.cuda.synchronize()
+    times["fit"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    labels = model.predict()
+    times["predict"] = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n_cells, x = len(cells), inputs[1]
+    print(f"scTAG: {n_cells} cells x {x.shape[1]} HVGs, graph {inputs[0].nnz} edges; epochs "
+          f"{TAG_PRETRAIN} pretrain + {TAG_EPOCHS} DEC (the JAX defaults 200 + 300)", flush=True)
+    print(tiling_line("scTAG", model.adj_n, n_cells), flush=True)
+    fit_report("scTAG", model, launches, peak, times, types[cells], labels)
+    # per epoch 3 hops of each encoder forward and 3 Aᵀḡ of the second
+    check_fit("scTAG", model, n_cells, GSC_TYPES, 15, labels, launches["bsr_spmm"], 9,
+              TAG_PRETRAIN + TAG_EPOCHS)
+    result["sctag_launches"] = launches["bsr_spmm"]
+
+    # -- 12. #1 on scTAG's tiling, at encoder1's and encoder2's widths -------
+    result["sctag"] = spmm_widths("scTAG", model.adj_n, (x.shape[1], 128), seed=4)
+    del model, inputs
+
+    # -- 13. scDSC at its published defaults --------------------------------
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    t0 = time.perf_counter()
+    inputs, cells = scdsc_preprocess(counts, n_top_genes=DSC_HVG, n_neighbors=DSC_NEIGHBORS,
+                                     device=cuda)
+    times["preprocess"] = time.perf_counter() - t0
+    n_cells, x = len(cells), inputs[1]
+    model = ScDSC(n_input=x.shape[1], n_clusters=GSC_TYPES, device=cuda, seed=0)
+    t0 = time.perf_counter()
+    model.fit(inputs, types[cells], pt_epochs=DSC_PRETRAIN, epochs=DSC_EPOCHS, use_bsr=True)
+    torch.cuda.synchronize()
+    times["fit"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    labels = model.predict()
+    times["predict"] = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"scDSC: {n_cells} cells x {x.shape[1]} HVGs, graph {inputs[0].nnz} edges; epochs "
+          f"{DSC_PRETRAIN} AE pretrain + {DSC_EPOCHS} DEC (the JAX defaults 200 + 300); DEC "
+          f"loop ran {model.dec_out['epoch']} epochs, best refresh ARI "
+          f"{model.dec_out['best_ari']!r}", flush=True)
+    print(tiling_line("scDSC", model.adj, n_cells), flush=True)
+    fit_report("scDSC", model, launches, peak, times, types[cells], labels)
+    # per epoch 7 aggregations forward and 7 Aᵀḡ
+    check_fit("scDSC", model, n_cells, GSC_TYPES, 0, labels, launches["bsr_spmm"], 14,
+              DSC_EPOCHS)
+    result["scdsc_launches"] = launches["bsr_spmm"]
+    result["scdsc"] = spmm_widths("scDSC", model.adj, (512, GSC_TYPES), seed=5)
+    del model, inputs
+
+    # -- 14. a few hundred cells: the card against the CPU -------------------
+    small_counts, small_types = clustered_counts(400, 600, 4, seed=1)
+    small, _ = sctag_preprocess(small_counts, n_top_genes=200, n_components=16,
+                                n_neighbors=10, device=torch.device("cpu"))
+    card_vs_cpu("scTAG", lambda dev: ScTAG(n_clusters=4, hidden_dim=32, latent_dim=8,
+                                           dec_dim=(32, 64), device=dev, seed=0),
+                lambda m: m.fit(small, pretrain_epochs=10, epochs=10, lr=1e-3, use_bsr=True),
+                True, cuda)
+    small, _ = scdsc_preprocess(small_counts, n_top_genes=200, n_neighbors=10,
+                                device=torch.device("cpu"))
+    # The seeded centres and one pretrain epoch at a small step: Adam's first
+    # steps move each weight by about lr, whatever its gradient's size, so a
+    # discrete change that rounding sets off (a unit crossing its ReLU's kink)
+    # grows into a gap in q while the losses stay close. On an H100 against
+    # the CPU, q right after one pretrain epoch was 3.2e-3 apart at lr 1e-3
+    # and 6.6e-6 at 1e-5; after 11 DEC epochs at lr 1e-4, 1.4e-3. Hence the
+    # check from shared weights and the CPU's own spread (scdsc_card_vs_cpu).
+    scdsc_card_vs_cpu(small, cuda)
+    print(f"phases 11-14: {time.perf_counter() - t_phases:.3f} s", flush=True)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -891,6 +1284,7 @@ def main() -> int:
         return 1
     from dance_tpu_torch.ops._build import load_kernels
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cuda = torch.device("cuda")
@@ -911,6 +1305,7 @@ def main() -> int:
     measured.update(stagate_phases(cuda))
     gsc = graphsc_phases(cuda)
     measured["bsr_spmm_max"] = gsc["bsr_spmm_max"]
+    clu = clustering_phases(cuda)
 
     def entry(name):
         result, launched = measured[name]
@@ -919,14 +1314,19 @@ def main() -> int:
                 "launches": launched, **result}
 
     entries = {name: entry(name) for name in KERNELS}
-    # the SpMM runs on two main paths: its times are scDeepSort's tiling at
-    # d = 256; graph-sc's tiling at d = 200 rides beside them. The SDDMM is on
-    # no main path (the tiles of both paths are constants): 0 launches.
+    # the SpMM runs on four main paths: its times are scDeepSort's tiling at
+    # d = 256; graph-sc's tiling at d = 200, scTAG's at d = 3000 and 128 and
+    # scDSC's at d = 512 and 8 ride beside them. The SDDMM is on no main path
+    # (every path's tiles are constants): 0 launches.
     spmm = entries["bsr_spmm"]
     spmm["launches_by_path"] = {"scdeepsort": spmm["launches"],
-                                "graphsc": gsc["graphsc_launches"]}
-    spmm["launches"] += gsc["graphsc_launches"]
+                                "graphsc": gsc["graphsc_launches"],
+                                "sctag": clu["sctag_launches"], "scdsc": clu["scdsc_launches"]}
+    spmm["launches"] = sum(spmm["launches_by_path"].values())
     spmm["graphsc"] = gsc["graphsc_spmm"]
+    spmm["sctag"] = {f"d{d}": res for d, res in clu["sctag"].items()}
+    spmm["scdsc"] = {f"d{d}": res for d, res in clu["scdsc"].items()}
+    print(f"chip_smoke: {time.perf_counter() - t_start:.3f} s in all", flush=True)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,25 @@
-"""Method base contract (counterpart: dance_tpu/modules/base.py:21-101,201-232).
+"""Method base contract and the pretrain mixins (counterpart:
+dance_tpu/modules/base.py:21-232).
 
 ``fit``/``predict``/``score``/``fit_predict``, and for clustering
 ``score``/``fit_score`` over ``valid_idx``/``test_idx``. Only the ``acc`` and
-``ari`` metrics are ported; any other metric name raises. Not ported yet:
-the Data-container preprocessing hooks (``preprocess``/
-``preprocessing_pipeline``), the data-parallel ``fit_distributed`` and the
-pretrain mixins (``BasePretrain``).
+``ari`` metrics are ported; any other metric name raises. ``BasePretrain``
+loads a pretrained model from ``pretrain_path`` or pretrains and saves it;
+``NNPretrain`` freezes named submodules of the model's ``torch.nn.Module``
+and saves its ``state_dict``. Not ported yet: the Data-container
+preprocessing hooks (``preprocess``/``preprocessing_pipeline``) and the
+data-parallel ``fit_distributed``.
 """
 
+import os
 from abc import ABC, abstractmethod
+from contextlib import contextmanager
+from time import time
 from typing import Any, Callable, Optional, Tuple, Union
 
+import torch
+
+from dance_tpu_torch.settings import logger
 from dance_tpu_torch.utils import acc, ari
 
 _METRICS = {"acc": acc, "ari": ari}
@@ -93,5 +102,105 @@ class BaseClusteringMethod(BaseMethod):
                           valid_idx=valid_idx, test_idx=test_idx)
 
 
-__all__ = ["BaseClassificationMethod", "BaseClusteringMethod", "BaseMethod",
-           "resolve_score_func"]
+class BasePretrain(ABC):
+    """Pretrain orchestration (counterpart: base.py:104): with
+    ``force_pretrain`` always pretrain; otherwise skip when already
+    pretrained, load from ``pretrain_path`` when that file exists, else
+    pretrain. A pretrain saves to ``pretrain_path`` when it is set."""
+
+    @property
+    def is_pretrained(self) -> bool:
+        return getattr(self, "_is_pretrained", False)
+
+    def _pretrain(self, *args, force_pretrain: bool = False, **kwargs):
+        pt_path = getattr(self, "pretrain_path", None)
+        if not force_pretrain:
+            if self.is_pretrained:
+                logger.info("Skipping pretrain (already pretrained); "
+                            "set force_pretrain=True to redo")
+                return
+            if pt_path is not None and os.path.isfile(pt_path):
+                logger.info("Loading pre-trained model from %s", pt_path)
+                self.load_pretrained(pt_path)
+                self._is_pretrained = True
+                return
+        if pt_path is None:
+            logger.warning("pretrain_path not set; pre-trained model will not be saved")
+        t = time()
+        self.pretrain(*args, **kwargs)
+        logger.info("Pre-training finished (took %.2f seconds)", time() - t)
+        self._is_pretrained = True
+        if pt_path is not None:
+            self.save_pretrained(pt_path)
+
+    def pretrain(self, *args, **kwargs):
+        ...
+
+    def save_pretrained(self, path, **kwargs):
+        ...
+
+    def load_pretrained(self, path, **kwargs):
+        ...
+
+
+class NNPretrain(BasePretrain, ABC):
+    """:class:`BasePretrain` for a model held as a ``torch.nn.Module`` in the
+    attribute named by ``_MODULE_ATTR`` (counterpart: base.py:143).
+
+    ``fix_module(*names)`` freezes named submodules of that module (names as
+    ``get_submodule`` takes them): their parameters stop requiring grad, get
+    no gradient and so no optimizer update. ``save_pretrained`` and
+    ``load_pretrained`` write and read the module's ``state_dict`` with
+    ``torch.save``/``torch.load``: the port's own format, not the JAX
+    package's pickled parameter trees."""
+
+    _MODULE_ATTR = "model"
+
+    def __init__(self):
+        self._frozen: set = set()
+
+    @property
+    def _module(self) -> torch.nn.Module:
+        return getattr(self, self._MODULE_ATTR)
+
+    def _set_trainable(self, names, trainable: bool):
+        for name in names:
+            self._module.get_submodule(name).requires_grad_(trainable)
+
+    def fix_module(self, *names: str):
+        self._set_trainable(names, False)
+        self._frozen.update(names)
+
+    def unfix_module(self, *names: str):
+        self._set_trainable(names, True)
+        self._frozen.difference_update(names)
+
+    # reference plural aliases
+    fix_modules = fix_module
+    unfix_modules = unfix_module
+
+    @contextmanager
+    def pretrain_context(self, *names: str):
+        """Unfreeze ``names`` for the duration of the context (counterpart: base.py:166)."""
+        logger.info("Entering pre-training context; unlocking: %s", names)
+        self.unfix_module(*names)
+        try:
+            yield
+        finally:
+            logger.info("Exiting pre-training context; locking: %s", names)
+            self.fix_module(*names)
+
+    def save_pretrained(self, path):
+        torch.save(self._module.state_dict(), path)
+
+    def load_pretrained(self, path):
+        device = next(self._module.parameters()).device
+        self._module.load_state_dict(torch.load(path, map_location=device, weights_only=True))
+
+
+# the reference class name
+TorchNNPretrain = NNPretrain
+
+
+__all__ = ["BaseClassificationMethod", "BaseClusteringMethod", "BaseMethod", "BasePretrain",
+           "NNPretrain", "TorchNNPretrain", "resolve_score_func"]

@@ -30,6 +30,7 @@ from torch import nn
 from dance_tpu_torch.graph import Graph
 from dance_tpu_torch.modules.base import BaseClassificationMethod
 from dance_tpu_torch.nn.gnn import AdaptiveSAGE
+from dance_tpu_torch.ops.bsr import resolve_use_bsr
 from dance_tpu_torch.ops.sparse import csr_from_scipy
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.utils import resolve_device
@@ -106,14 +107,10 @@ class ScDeepSort(BaseClassificationMethod):
         scdeepsort.py:99-196). ``use_bsr=True`` runs AdaptiveSAGE through the
         block-sparse SpMM, ``False`` through the CSR edge gather.
         ``epochs=0`` builds the model and optimizer and returns."""
-        if use_bsr == "auto":
-            raise NotImplementedError("use_bsr='auto' needs H100 crossovers that are not "
-                                      "measured yet (ROADMAP Queue 1, 'left out of slice 1'); "
-                                      "pass use_bsr=True or False")
+        use_bsr = resolve_use_bsr(use_bsr)
         if bsr_dtype is not None:
             raise NotImplementedError("bf16 BSR streaming (bsr_dtype) is not ported yet "
                                       "(ROADMAP Queue 1, 'left out of slice 1')")
-        use_bsr = bool(use_bsr)
         labels = np.asarray(labels)
         if labels.ndim == 2:
             labels = labels.argmax(1)

@@ -31,7 +31,6 @@ Where this differs from the JAX package:
   (ROADMAP Queue 1); :func:`graphsc_preprocess` is the pipeline's array core.
 """
 
-import math
 import time
 from typing import Dict, List, Optional
 
@@ -42,7 +41,8 @@ from torch import nn
 
 from dance_tpu_torch.graph import Graph
 from dance_tpu_torch.modules.base import BaseClusteringMethod
-from dance_tpu_torch.nn.gnn import WeightedGraphConv
+from dance_tpu_torch.nn.gnn import WeightedGraphConv, flax_dense_init_
+from dance_tpu_torch.ops.bsr import resolve_use_bsr
 from dance_tpu_torch.ops.cluster import kmeans
 from dance_tpu_torch.ops.segment import AGGREGATIONS
 from dance_tpu_torch.ops.sparse import csr_from_scipy
@@ -97,11 +97,7 @@ class GCNAE(nn.Module):
         for conv in self.convs:
             conv.reset_parameters(generator)
         for dense in self.denses:
-            # flax's truncated normal has unit variance after the cut
-            std = math.sqrt(1.0 / dense.in_features) / 0.87962566103423978
-            nn.init.trunc_normal_(dense.weight, std=std, a=-2 * std, b=2 * std,
-                                  generator=generator)
-            nn.init.zeros_(dense.bias)
+            flax_dense_init_(dense, generator)
 
     def encode(self, adj, feats: torch.Tensor, degrees: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -196,15 +192,12 @@ class GraphSC(BaseClusteringMethod):
         is full-graph, as in JAX."""
         if not isinstance(g, Graph):
             raise TypeError(f"expected a dance_tpu_torch Graph, got {type(g)}")
-        if use_bsr == "auto":
-            if self.agg in ("sum", "mean"):
-                raise NotImplementedError("use_bsr='auto' needs H100 crossovers that are not "
-                                          "measured yet (ROADMAP Queue 1); pass use_bsr=True "
-                                          "or False")
+        if use_bsr == "auto" and self.agg not in ("sum", "mean"):
             # max-of-products has no matrix-product form: the JAX package
             # sends it to the segment path (graphsc.py:152-160)
             logger.info("agg=%r: using the CSR segment-max path", self.agg)
             use_bsr = False
+        use_bsr = resolve_use_bsr(use_bsr)
         fmt = "bsr" if use_bsr else "csr"
         if fmt == "bsr" and self.agg not in ("sum", "mean"):
             raise ValueError("use_bsr supports agg='sum' or 'mean'")

@@ -37,7 +37,8 @@ import torch
 from torch import nn
 
 from dance_tpu_torch.modules.base import BaseClusteringMethod
-from dance_tpu_torch.ops.bsr import BSRMatrix, bsr_from_scipy, bsr_gat_ad, rcm_reorder, unpermute
+from dance_tpu_torch.ops.bsr import (BSRMatrix, bsr_from_scipy, bsr_gat_ad, rcm_reorder,
+                                     resolve_use_bsr, unpermute)
 from dance_tpu_torch.ops.cluster import kmeans
 from dance_tpu_torch.ops.segment import aggregate, edge_softmax, gather_src
 from dance_tpu_torch.ops.sparse import csr_from_scipy
@@ -135,10 +136,7 @@ class Stagate(BaseClusteringMethod):
         """Train from the current weights (counterpart: stagate.py:130). The
         graph gains self-loops; with ``use_bsr=True`` it is RCM-reordered and
         tiled, and the embedding ``z`` is put back in the input order."""
-        if use_bsr == "auto":
-            raise NotImplementedError("use_bsr='auto' needs H100 crossovers that are not "
-                                      "measured yet (ROADMAP Queue 1); pass use_bsr=True "
-                                      "or False")
+        use_bsr = resolve_use_bsr(use_bsr)
         x, adj = inputs
         x = np.asarray(x, dtype=np.float32)
         adj = sp.csr_matrix(adj) + sp.eye(adj.shape[0], format="csr", dtype=np.float32)

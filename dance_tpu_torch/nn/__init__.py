@@ -1,5 +1,7 @@
-"""Graph neural layers (counterpart: dance_tpu/nn/__init__.py)."""
+"""Graph neural layers and the ZINB heads' activations (counterpart:
+dance_tpu/nn/__init__.py)."""
 
-from dance_tpu_torch.nn.gnn import AdaptiveSAGE, GATConv, WeightedGraphConv
+from dance_tpu_torch.nn.gnn import AdaptiveSAGE, GATConv, TAGConv, WeightedGraphConv
+from dance_tpu_torch.nn.zinb_ae import disp_act, mean_act
 
-__all__ = ["AdaptiveSAGE", "GATConv", "WeightedGraphConv"]
+__all__ = ["AdaptiveSAGE", "GATConv", "TAGConv", "WeightedGraphConv", "disp_act", "mean_act"]

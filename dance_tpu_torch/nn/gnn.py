@@ -1,9 +1,11 @@
-"""Graph layers: graph-sc's WeightedGraphConv, scDeepSort's AdaptiveSAGE and
-the GAT convolution (counterparts: dance_tpu/nn/gnn.py:35-61, 75-163, 166-203).
+"""Graph layers: graph-sc's WeightedGraphConv, scDeepSort's AdaptiveSAGE, the
+GAT convolution and scTAG's TAGConv (counterparts: dance_tpu/nn/gnn.py:35-61,
+75-163, 166-203, 206-219).
 
-WeightedGraphConv aggregates through :func:`~dance_tpu_torch.ops.segment.spmm`,
-so its adjacency may be CSR, dense or BSR: on a BSR adjacency a sum or mean
-is the SpMM kernel and a max the forward-only max kernel.
+WeightedGraphConv and TAGConv aggregate through
+:func:`~dance_tpu_torch.ops.segment.spmm`, so their adjacency may be CSR,
+dense or BSR: on a BSR adjacency a sum or mean is the SpMM kernel and a max
+the forward-only max kernel.
 
 AdaptiveSAGE has two branches, as in the JAX package:
 
@@ -35,6 +37,25 @@ from dance_tpu_torch.ops.segment import (aggregate, edge_softmax, gather_src, in
 from dance_tpu_torch.ops.sparse import AdaptiveBSR, CSRMatrix
 
 GRAPH_CONV_NORMS = ("none", "both", "right")
+# the standard deviation of a unit normal cut at ±2 (flax's truncated normal
+# initializers divide by it so that the cut distribution has the set variance)
+_TRUNC_STD = 0.87962566103423978
+
+
+def truncated_normal_(weight: torch.Tensor, std: float,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's ``variance_scaling(..., "truncated_normal")``: a normal cut at
+    two standard deviations, scaled so that what is left has ``std``."""
+    std = std / _TRUNC_STD
+    return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
+def flax_dense_init_(linear: nn.Linear, generator: Optional[torch.Generator] = None):
+    """flax ``Dense``'s default init: a lecun-normal kernel (truncated normal
+    of variance 1 / fan-in) and a zero bias."""
+    truncated_normal_(linear.weight, math.sqrt(1.0 / linear.in_features), generator)
+    if linear.bias is not None:
+        nn.init.zeros_(linear.bias)
 
 
 class WeightedGraphConv(nn.Module):
@@ -188,4 +209,32 @@ class GATConv(nn.Module):
         return (out, att) if return_attention else out
 
 
-__all__ = ["AdaptiveSAGE", "GATConv", "GRAPH_CONV_NORMS", "WeightedGraphConv"]
+class TAGConv(nn.Module):
+    """Topology-adaptive graph convolution ``W_0 h + Σ_{i=1..k} W_i (A^i h)``
+    (counterpart: gnn.py:206, scTAG's TAG conv): ``W_0`` has a bias, the
+    ``W_i`` do not, and each hop is one :func:`spmm`. ``linears`` holds
+    ``W_0 .. W_k`` in the order flax names them (``Dense_0 .. Dense_k``).
+    flax infers the input width; torch takes it."""
+
+    def __init__(self, in_dim: int, out_dim: int, k: int = 2):
+        super().__init__()
+        self.k = k
+        self.linears = nn.ModuleList(nn.Linear(in_dim, out_dim, bias=i == 0)
+                                     for i in range(k + 1))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """flax's ``Dense`` init for each of the k + 1 kernels."""
+        for linear in self.linears:
+            flax_dense_init_(linear, generator)
+
+    def forward(self, adj, h: torch.Tensor) -> torch.Tensor:
+        out = self.linears[0](h)
+        hk = h
+        for linear in self.linears[1:]:
+            hk = spmm(adj, hk)
+            out = out + linear(hk)
+        return out
+
+
+__all__ = ["AdaptiveSAGE", "GATConv", "GRAPH_CONV_NORMS", "TAGConv", "WeightedGraphConv",
+           "flax_dense_init_", "truncated_normal_"]

@@ -44,11 +44,14 @@ GAT_ACTS = {"leaky_relu": 0, "sigmoid": 1}
 class BSRMatrix:
     """Dense nonzero tiles sorted by block-row (counterpart: pallas_kernels.py:29).
 
-    ``shape`` is the padded (n_rows, n_cols), multiples of the tile edge. The
-    tiles are treated as constants unless they require grad: the transposed
-    tiling is then computed once and kept (:func:`bsr_transpose`), as are the
-    kernels' work schedules (:func:`device_schedule`), the edge bits
-    (:func:`bsr_edge_mask`) and the edge lists (:func:`bsr_edges`)."""
+    ``shape`` is the padded (n_rows, n_cols), multiples of the tile edge.
+    Unless the tiles require grad, the transposed tiling is computed once and
+    kept (:func:`bsr_transpose`), as are the edge bits (:func:`bsr_edge_mask`)
+    and the edge lists (:func:`bsr_edges`); the kernels' work schedules
+    (:func:`device_schedule`) are kept always. Each kept value is stamped with
+    the tensors it was built from and their version counters (the tiles,
+    block rows and block columns; ``rowptr`` for the schedules), and is built
+    again once one of them is replaced or edited in place."""
 
     tiles: torch.Tensor       # (nb, block, block) f32
     block_rows: torch.Tensor  # (nb,) int32, sorted
@@ -60,6 +63,9 @@ class BSRMatrix:
     _schedules: dict = field(default_factory=dict, repr=False, compare=False)
     _edge_mask: Optional[torch.Tensor] = field(default=None, repr=False, compare=False)
     _edges: Optional["BSREdges"] = field(default=None, repr=False, compare=False)
+    # what the kept values above were built from (:func:`_drop_stale`)
+    _tiles_stamp: tuple = field(default=(), repr=False, compare=False)
+    _rowptr_stamp: tuple = field(default=(), repr=False, compare=False)
 
     @property
     def nb(self) -> int:
@@ -72,6 +78,28 @@ class BSRMatrix:
     def to(self, device) -> "BSRMatrix":
         return BSRMatrix(self.tiles.to(device), self.block_rows.to(device),
                          self.block_cols.to(device), self.rowptr.to(device), self.shape)
+
+
+def _stale(stamp: tuple, tensors) -> bool:
+    """Whether ``stamp`` was taken of other tensors than ``tensors``, or of
+    them before an in-place edit (their version counters moved since)."""
+    return len(stamp) != len(tensors) or any(
+        kept is not t or version != t._version for (kept, version), t in zip(stamp, tensors))
+
+
+def _drop_stale(bsr: "BSRMatrix"):
+    """Forget the values kept on ``bsr`` whose inputs changed since they were
+    built: the transpose, edge bits and edge lists when the tiles, block rows
+    or block columns were replaced or edited in place, the work schedules when
+    ``rowptr`` was. JAX arrays cannot change under a kept value; torch
+    tensors can, and a stale transpose gave the old ``Aᵀḡ`` silently."""
+    tiles = (bsr.tiles, bsr.block_rows, bsr.block_cols)
+    if _stale(bsr._tiles_stamp, tiles):
+        bsr._transpose = bsr._edge_mask = bsr._edges = None
+        bsr._tiles_stamp = tuple((t, t._version) for t in tiles)
+    if _stale(bsr._rowptr_stamp, (bsr.rowptr,)):
+        bsr._schedules.clear()
+        bsr._rowptr_stamp = ((bsr.rowptr, bsr.rowptr._version),)
 
 
 def _rowptr(block_rows: torch.Tensor, n_brows: int) -> torch.Tensor:
@@ -121,8 +149,9 @@ def bsr_transpose(bsr: BSRMatrix) -> BSRMatrix:
     """Aᵀ in BSR form: transpose each tile, swap block row/col, re-sort by row
     (counterpart: pallas_kernels.py:207).
 
-    The JAX package re-derives it in every backward; here it is computed once
-    per matrix and kept on it, unless the tiles require grad."""
+    The JAX package re-derives it in every backward; here it is kept on the
+    matrix until its tiles change, unless they require grad."""
+    _drop_stale(bsr)
     if bsr._transpose is not None:
         return bsr._transpose
     order = torch.argsort(bsr.block_cols, stable=True)
@@ -230,7 +259,8 @@ def device_schedule(bsr: BSRMatrix, kernel: str, d: int, device: torch.device) -
     """The work schedule that ``kernel`` (``"spmm"``, ``"gat"`` or ``"max"``) runs on
     ``bsr`` at width ``d`` on ``device``: :func:`work_schedule` for the
     card's resident thread blocks and the kernel's blocks per item, from
-    :func:`launch_geometry`. Computed once per matrix and kept."""
+    :func:`launch_geometry`. Kept on the matrix until its ``rowptr`` changes."""
+    _drop_stale(bsr)
     geo = launch_geometry(kernel, d, device.index)
     key = (geo["blocks_per_sm"] * geo["sms"], geo["blocks_per_item"])
     if key not in bsr._schedules:
@@ -243,8 +273,9 @@ def device_schedule(bsr: BSRMatrix, kernel: str, d: int, device: torch.device) -
 def bsr_edge_mask(bsr: BSRMatrix) -> torch.Tensor:
     """The edges ``tiles != 0`` as bits, (nb, 128, 4) int32: bit ``j`` of word
     ``w`` of row ``i`` is column ``32 w + j`` (NaN counts as an edge). The GAT
-    kernels read it instead of the tiles, 1/32 of their bytes. Computed once
-    per matrix and kept, unless the tiles require grad."""
+    kernels read it instead of the tiles, 1/32 of their bytes. Kept on the
+    matrix until its tiles change, unless they require grad."""
+    _drop_stale(bsr)
     if bsr._edge_mask is not None:
         return bsr._edge_mask
     nb, blk = bsr.nb, bsr.block
@@ -280,8 +311,9 @@ def bsr_edges(bsr: BSRMatrix) -> BSREdges:
     :func:`bsr_edge_mask` and the plain versions; pad tiles give none. Edge
     ids run by row, and within a row in tile order, then slot order; each
     column lists its edges in id order. Building them synchronises once
-    (``torch.nonzero``); they are kept on the matrix unless its tiles
-    require grad, so later calls read nothing back to the host."""
+    (``torch.nonzero``); they are kept on the matrix until its tiles change,
+    unless they require grad, so later calls read nothing back to the host."""
+    _drop_stale(bsr)
     if bsr._edges is not None:
         return bsr._edges
     blk, (n_rows, n_cols) = bsr.block, bsr.shape
@@ -300,6 +332,17 @@ def bsr_edges(bsr: BSRMatrix) -> BSREdges:
     if not bsr.tiles.requires_grad:
         bsr._edges = edges
     return edges
+
+
+def resolve_use_bsr(use_bsr) -> bool:
+    """The port's ``use_bsr`` flag as a bool (counterpart:
+    pallas_kernels.py:711). ``True``/``False`` pass through; ``"auto"``
+    raises, since JAX's choice rests on v5e crossovers and the H100's are not
+    measured yet (ROADMAP Queue 1, item 4)."""
+    if use_bsr == "auto":
+        raise NotImplementedError("use_bsr='auto' needs H100 crossovers that are not measured "
+                                  "yet (ROADMAP Queue 1, item 4); pass use_bsr=True or False")
+    return bool(use_bsr)
 
 
 def rcm_reorder(adj: sp.spmatrix):
@@ -850,4 +893,4 @@ __all__ = ["BLOCK", "BSREdges", "BSRGat", "BSRMatrix", "BSRSpMM", "BSRSpMMMax", 
            "bsr_gat_reference", "bsr_gat_stats", "bsr_sddmm", "bsr_sddmm_reference", "bsr_spmm",
            "bsr_spmm_ad", "bsr_spmm_max", "bsr_spmm_max_reference", "bsr_spmm_reference",
            "bsr_transpose", "bsr_with_rcm", "device_schedule", "launch_geometry", "rcm_reorder",
-           "unpermute", "work_schedule"]
+           "resolve_use_bsr", "unpermute", "work_schedule"]

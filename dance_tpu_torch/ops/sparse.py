@@ -43,6 +43,17 @@ def csr_from_scipy(mat: sp.spmatrix) -> CSRMatrix:
                      torch.from_numpy(np.asarray(mat.indptr, np.int64)), mat.shape)
 
 
+def sym_norm_adjacency(adj) -> Tuple[sp.csr_matrix, sp.csr_matrix]:
+    """The graph with self-loops and its symmetric normalisation ``D^-1/2 (A
+    + I) D^-1/2`` (counterpart: sctag.py:115-119, scdsc.py:240-244), in the
+    JAX package's scipy arithmetic. Returns ``(A + I, normalised)``."""
+    adj = sp.csr_matrix(adj)
+    adj = adj + sp.eye(adj.shape[0], format="csr", dtype=np.float32)
+    deg = np.asarray(adj.sum(1)).ravel()
+    dinv = 1.0 / np.sqrt(np.maximum(deg, 1e-12))
+    return adj, sp.diags(dinv) @ adj @ sp.diags(dinv)
+
+
 @dataclass
 class DenseAdj:
     """A dense adjacency, its SpMM one matrix product (counterpart:
@@ -91,4 +102,5 @@ class AdaptiveBSR:
                        gene_idx=self.gene_idx.to(device), deg=self.deg.to(device))
 
 
-__all__ = ["AdaptiveBSR", "CSRMatrix", "DenseAdj", "csr_from_scipy", "dense_adj_from_scipy"]
+__all__ = ["AdaptiveBSR", "CSRMatrix", "DenseAdj", "csr_from_scipy", "dense_adj_from_scipy",
+           "sym_norm_adjacency"]

@@ -1,15 +1,18 @@
 """scanpy-style preprocessing on arrays: the cores of ``filter_cells``,
-``filter_genes``, ``normalize_total``, ``log1p`` and ``highly_variable_genes``
-with the ``cell_ranger`` and ``seurat_v3`` flavours (counterparts:
-dance_tpu/sc/pp.py:33-92, 118-149, 171-185, 209-249, 298-380).
+``filter_genes``, ``normalize_total``, ``normalize_per_cell``, ``log1p``,
+``scale`` and ``highly_variable_genes`` with the ``cell_ranger`` and
+``seurat_v3`` flavours (counterparts: dance_tpu/sc/pp.py:33-92, 118-169,
+171-203, 209-249, 298-380), and ``normalized_counts``, the chain of them that
+scTAG's and scDSC's pipelines share.
 
 The JAX package's versions read and write an ``AnnData`` (pandas frames);
 the card has no pandas, so these take a cells x genes numpy or scipy matrix
 and return masks and new arrays. The arithmetic is the JAX package's, in the
 same order, so the results agree bit for bit; ``pd.cut`` and the per-bin
-``groupby`` medians of cell_ranger are written out in numpy. The ``seurat``
-flavour, batches and ``normalize_per_cell``/``scale`` are not ported yet
-(ROADMAP Queue 1).
+``groupby`` medians of cell_ranger are written out in numpy. Where the JAX
+version writes a column to ``obs`` or ``var`` (``n_counts``, ``mean``,
+``std``), the port returns it. The ``seurat`` flavour and batches are not
+ported yet (ROADMAP Queue 1).
 """
 
 from typing import Dict, Optional
@@ -101,6 +104,27 @@ def normalize_total(x, *, target_sum: Optional[float] = None,
     return (np.asarray(x, dtype=np.float64) * scale[:, None]).astype(np.float32)
 
 
+def normalize_per_cell(x, *, counts_per_cell_after: Optional[float] = None,
+                       min_counts: Optional[int] = 1):
+    """Legacy scanpy ``normalize_per_cell`` (counterpart: pp.py:152): drop the
+    cells under ``min_counts`` counts, then scale each cell to
+    ``counts_per_cell_after`` counts (the mean of the kept cells' totals when
+    None); float32, sparse stays sparse. Returns ``(x, kept, n_counts)``: the
+    scaled matrix of the kept cells, the mask of the kept cells and their
+    totals (``obs["n_counts"]`` in JAX)."""
+    counts = _row_sums(x)
+    kept = np.ones(x.shape[0], dtype=bool)
+    if min_counts is not None and (counts < min_counts).any():
+        kept = counts >= min_counts
+        x = x[np.nonzero(kept)[0]]
+        counts = counts[kept]
+    target = counts_per_cell_after if counts_per_cell_after is not None else counts.mean()
+    scale_ = target / np.maximum(counts, 1e-12)
+    if sp.issparse(x):
+        return (sp.diags(scale_) @ x).tocsr().astype(np.float32), kept, counts
+    return (np.asarray(x) * scale_[:, None]).astype(np.float32), kept, counts
+
+
 def log1p(x, *, base: Optional[float] = None):
     """``log(1 + x)``, divided by ``log(base)`` when given (counterpart: pp.py:171)."""
     if sp.issparse(x):
@@ -113,6 +137,23 @@ def log1p(x, *, base: Optional[float] = None):
     if base is not None:
         out /= np.log(base)
     return out.astype(np.float32)
+
+
+def scale(x, *, zero_center: bool = True, max_value: Optional[float] = None):
+    """Per-gene standardization, dense (counterpart: pp.py:188): centre (with
+    ``zero_center``), divide by the ``ddof=1`` standard deviation (1 where it
+    is 0) and clip at ``max_value``, in float64. Returns ``(x, mean, std)``:
+    float32 and the float64 ``var["mean"]`` and ``var["std"]``."""
+    xd = _dense(x).astype(np.float64)
+    mean = xd.mean(axis=0)
+    std = xd.std(axis=0, ddof=1)
+    std[std == 0] = 1.0
+    if zero_center:
+        xd = xd - mean
+    xd /= std
+    if max_value is not None:
+        xd = np.clip(xd, -max_value if zero_center else None, max_value)
+    return xd.astype(np.float32), mean, std
 
 
 def _loess(x: np.ndarray, y: np.ndarray, *, span: float = 0.3, degree: int = 2,
@@ -259,5 +300,36 @@ def highly_variable_genes(x, *, flavor: str = "seurat_v3", n_top_genes: Optional
             "variances_norm": std_var}
 
 
+def normalized_counts(counts, n_top_genes: int):
+    """The count processing that scTAG's and scDSC's pipelines share
+    (sctag.py:93-105, scdsc.py:120-131): genes under 3 counts and cells
+    without counts dropped, ``normalize_per_cell``, ``log1p``, the
+    ``n_top_genes`` cell_ranger HVGs kept, genes and cells without counts
+    dropped; that matrix is the ZINB target (``SaveRaw``), and the features are
+    it after ``normalize_total``, ``log1p`` and ``scale``. Returns ``(x, x_raw,
+    n_counts, cells)``: dense float32 features and target, the cells' totals
+    as the last ``filter_cells`` writes them (``obs["n_counts"]``), and the
+    indices of the kept cells."""
+    x = sp.csr_matrix(counts, dtype=np.float32) if sp.issparse(counts) \
+        else np.asarray(counts, np.float32)
+    genes, _ = filter_genes(x, min_counts=3)
+    x = x[:, np.nonzero(genes)[0]]
+    kept, _ = filter_cells(x, min_counts=1)
+    cells = np.nonzero(kept)[0]
+    x, kept, _ = normalize_per_cell(x[cells])
+    cells = cells[kept]
+    x = log1p(x)
+    hv = highly_variable_genes(x, flavor="cell_ranger", n_top_genes=n_top_genes,
+                               min_mean=0.0125, max_mean=4, min_disp=0.5)["highly_variable"]
+    x = x[:, np.nonzero(hv)[0]]
+    genes, _ = filter_genes(x, min_counts=1)
+    x = x[:, np.nonzero(genes)[0]]
+    kept, n_counts = filter_cells(x, min_counts=1)
+    x, cells, n_counts = x[np.nonzero(kept)[0]], cells[kept], n_counts[kept]
+    x_raw = np.asarray(x.toarray() if sp.issparse(x) else x, np.float32)
+    x, _, _ = scale(log1p(normalize_total(x)))
+    return x, x_raw, n_counts, cells
+
+
 __all__ = ["filter_cells", "filter_genes", "highly_variable_genes", "log1p",
-           "normalize_total"]
+           "normalize_per_cell", "normalize_total", "normalized_counts", "scale"]

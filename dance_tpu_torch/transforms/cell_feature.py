@@ -1,6 +1,7 @@
-"""Gene PCA and expression-weighted cell features, scDeepSort's preprocessing
-(counterpart: the array core of ``WeightedFeaturePCA.__call__``,
-dance_tpu/transforms/cell_feature.py:51-67).
+"""Gene PCA and expression-weighted cell features, scDeepSort's preprocessing,
+and the cell PCA embedding of scTAG's (counterparts: the array cores of
+``WeightedFeaturePCA.__call__`` and ``CellPCA.__call__``,
+dance_tpu/transforms/cell_feature.py:51-67, 119-146).
 
 The JAX transform reads and writes a ``Data`` container and registers itself
 in ``dance_tpu.registry``. The port works on arrays and registers nothing,
@@ -50,4 +51,20 @@ def weighted_feature_pca(x_split, x_all, n_components: int, *,
     return cell_feat.cpu().numpy(), gene_feat.cpu().numpy()
 
 
-__all__ = ["weighted_feature_pca"]
+def cell_pca(x, n_components: int = 400, *, device="auto") -> np.ndarray:
+    """The PCA embedding of the cells, ``x`` (cells x features) projected on
+    its ``n_components`` leading principal axes, float32 (n_cells, k); ``k``
+    is clipped to the matrix size (counterpart: ``CellPCA.__call__``,
+    cell_feature.py:135-146, which writes it to ``obsm``). The arithmetic runs
+    on ``device`` (default the CUDA card; the CPU only when named).
+    ``save_info`` and float ``n_components`` are not ported yet."""
+    device = resolve_device(device)
+    feat = _dense(x, device)
+    k = int(min(n_components, min(feat.shape)))
+    if k < n_components:
+        logger.warning("n_components=%s > min(n_samples, n_features)=%s; clipping",
+                       n_components, k)
+    return pca(feat, k).embedding.cpu().numpy()
+
+
+__all__ = ["cell_pca", "weighted_feature_pca"]

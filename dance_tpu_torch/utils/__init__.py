@@ -1,12 +1,15 @@
-"""Seeding, device resolution, accuracy and the adjusted Rand index.
+"""Seeding, device resolution, accuracy, the adjusted Rand index and an
+epoch clock.
 
 Counterparts: ``set_seed`` dance_tpu/utils/__init__.py:99, ``get_device``
 dance_tpu/utils/__init__.py:23 (here :func:`resolve_device`, over torch
 devices), ``acc`` dance_tpu/utils/metrics.py:36, ``ari`` metrics.py:55.
+:class:`EpochClock` has no counterpart: the JAX package times whole scans.
 """
 
 import random
-from typing import Union
+import time
+from typing import List, Union
 
 import numpy as np
 import torch
@@ -77,4 +80,33 @@ def ari(true, pred) -> float:
     return 2.0 * (tp * tn - fn * fp) / ((tp + fn) * (fn + tn) + (tp + fp) * (fp + tn))
 
 
-__all__ = ["acc", "ari", "resolve_device", "set_seed"]
+class EpochClock:
+    """Seconds per epoch of a training loop that reads nothing back per epoch.
+
+    ``tick()`` at the start of every epoch and once after the last. On a
+    CUDA device each tick records an event on the current stream, and
+    :meth:`seconds` waits for the last one and returns the device-timeline
+    span between consecutive ticks (host gaps that leave the device idle
+    included); on the CPU it is ``time.perf_counter``."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.marks: list = []
+
+    def tick(self):
+        if self.cuda:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            self.marks.append(event)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def seconds(self) -> List[float]:
+        if not self.cuda:
+            return [b - a for a, b in zip(self.marks[:-1], self.marks[1:])]
+        if self.marks:
+            self.marks[-1].synchronize()
+        return [a.elapsed_time(b) / 1e3 for a, b in zip(self.marks[:-1], self.marks[1:])]
+
+
+__all__ = ["EpochClock", "acc", "ari", "resolve_device", "set_seed"]

@@ -1,5 +1,5 @@
 """flax -> torch parameter transfer for the scDeepSort ``GNN``, STAGATE's
-net, ``GATConv`` and graph-sc's ``GCNAE``.
+net, ``GATConv``, graph-sc's ``GCNAE``, scTAG's net and scDSC's model.
 
 Parity between the two packages is checked by copying the flax parameters
 into the torch module, since the two frameworks' generators and initializers
@@ -23,6 +23,23 @@ graph-sc's ``GCNAE`` (graphsc.py:29-57):
     WeightedGraphConv_{i}/Dense_0/kernel -> convs.{i}.linear.weight
     WeightedGraphConv_{i}/bias           -> convs.{i}.bias
     Dense_{k}/{kernel,bias}              -> denses.{k}.{weight,bias}
+
+scTAG's ``_ScTAGNet`` (sctag.py:32-63; ``TAGConv`` gnn.py:206 names its
+kernels compactly, ``Dense_0`` with the bias and ``Dense_1 .. Dense_k``
+without):
+
+    encoder{1,2}/Dense_{i}/kernel        -> encoder{1,2}.linears.{i}.weight
+    encoder{1,2}/Dense_0/bias            -> encoder{1,2}.linears.0.bias
+    dec_stack_{i}/{kernel,bias}          -> dec_stack.{i}.{weight,bias}
+    dec_{mean,disp,pi}/{kernel,bias}     -> dec_{mean,disp,pi}.{weight,bias}
+
+scDSC's ``ScDSCModel`` (scdsc.py:32-104):
+
+    ae/{enc,zs,dec}_{i}/{kernel,bias}    -> ae.{enc,zs,dec}.{i}.{weight,bias}
+    ae/out/{kernel,bias}                 -> ae.out.{weight,bias}
+    gnn_{i}/kernel                       -> gnn.{i}.weight
+    dec_{mean,disp,pi}/{kernel,bias}     -> dec_{mean,disp,pi}.{weight,bias}
+    cluster_layer                        -> cluster_layer
 """
 
 from typing import Dict, Mapping
@@ -79,5 +96,69 @@ def graphsc_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
+def _dense(state: dict, prefix: str, sub: Mapping, bias: bool = True):
+    """One flax ``Dense`` into ``{prefix}.weight`` (transposed) and ``.bias``;
+    raise on any other leaf."""
+    extra = set(sub) - ({"kernel", "bias"} if bias else {"kernel"})
+    if extra or "kernel" not in sub:
+        raise KeyError(f"unexpected Dense parameters {sorted(sub)} under {prefix!r}")
+    state[f"{prefix}.weight"] = _t(np.asarray(sub["kernel"]).T)
+    if "bias" in sub:
+        state[f"{prefix}.bias"] = _t(sub["bias"])
+
+
+def tagconv_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``TAGConv`` tree -> ``TAGConv.state_dict()``."""
+    state = {}
+    for dense, leaves in params.items():
+        kind, _, i = dense.rpartition("_")
+        if kind != "Dense":
+            raise KeyError(f"unexpected TAGConv parameter {dense!r}")
+        _dense(state, f"linears.{i}", leaves, bias=i == "0")
+    return state
+
+
+def sctag_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``_ScTAGNet`` tree -> ``_ScTAGNet.state_dict()``."""
+    state = {}
+    for name, sub in params.items():
+        kind, _, idx = name.rpartition("_")
+        if name in ("encoder1", "encoder2"):
+            state.update({f"{name}.{k}": v for k, v in tagconv_flax_to_torch(sub).items()})
+        elif kind == "dec_stack":
+            _dense(state, f"dec_stack.{idx}", sub)
+        elif name in ("dec_mean", "dec_disp", "dec_pi"):
+            _dense(state, name, sub)
+        else:
+            raise KeyError(f"unexpected _ScTAGNet parameter {name!r}")
+    return state
+
+
+def scdsc_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``ScDSCModel`` tree -> ``ScDSCModel.state_dict()``."""
+    state = {}
+    for name, sub in params.items():
+        kind, _, idx = name.rpartition("_")
+        if name == "ae":
+            for layer, leaves in sub.items():
+                lkind, _, i = layer.rpartition("_")
+                if layer == "out":
+                    _dense(state, "ae.out", leaves)
+                elif lkind in ("enc", "zs", "dec"):
+                    _dense(state, f"ae.{lkind}.{i}", leaves)
+                else:
+                    raise KeyError(f"unexpected _AE parameter {layer!r}")
+        elif kind == "gnn":
+            _dense(state, f"gnn.{idx}", sub, bias=False)
+        elif name in ("dec_mean", "dec_disp", "dec_pi"):
+            _dense(state, name, sub)
+        elif name == "cluster_layer":
+            state[name] = _t(sub)
+        else:
+            raise KeyError(f"unexpected ScDSCModel parameter {name!r}")
+    return state
+
+
 __all__ = ["flax_to_torch", "gatconv_flax_to_torch", "graphsc_flax_to_torch",
-           "stagate_flax_to_torch"]
+           "scdsc_flax_to_torch", "sctag_flax_to_torch", "stagate_flax_to_torch",
+           "tagconv_flax_to_torch"]

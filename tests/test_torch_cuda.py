@@ -1,6 +1,6 @@
 """dance_tpu_torch on the card: the hand-written CUDA kernels against their
-plain PyTorch versions, and the scDeepSort, STAGATE and graph-sc fits on the
-card against the CPU.
+plain PyTorch versions, and the scDeepSort, STAGATE, graph-sc, scTAG and
+scDSC fits on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips where ``torch.cuda.is_available()``
 is False. This file imports no JAX, so it runs on a machine with only
@@ -29,8 +29,8 @@ from dance_tpu_torch.graph import Graph
 from dance_tpu_torch.modules.single_modality.cell_type_annotation import ScDeepSort
 from dance_tpu_torch.modules.spatial.spatial_domain import Stagate
 from dance_tpu_torch.ops import bsr as tbsr
-from torch_cases import (CASES, NONFINITE_WIDTHS, gat_inputs, gat_nonfinite_case, knn_bsr,
-                         max_edge_case, no_pad, signed, skewed_bsr, spatial_case)
+from torch_cases import (CASES, NONFINITE_WIDTHS, cell_knn_bsr, gat_inputs, gat_nonfinite_case,
+                         knn_bsr, max_edge_case, no_pad, signed, skewed_bsr, spatial_case)
 
 RTOL, ATOL = 1e-5, 1e-5
 
@@ -400,3 +400,122 @@ def test_graphsc_fit_matches_cpu(cuda, use_bsr, agg):
     np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=1e-4)
     np.testing.assert_allclose(runs[1][1], runs[0][1], rtol=1e-4, atol=1e-4)
     assert runs[0][2] == 0 and runs[1][2] == (4 * 2 + 1 if use_bsr else 0)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("d", [8, 32, 128, 3000])
+def test_spmm_cell_knn_tiling_matches_plain_and_repeats_bit_equal(cuda, d, transposed):
+    """scTAG's and scDSC's kind of tiling (under 2 % of the stored slots are
+    edges) at their widths, up to scTAG's 3,000 input genes (24 feature
+    slabs), and ``Aᵀ`` as the backward runs it."""
+    bsr = cell_knn_bsr()
+    assert int((bsr.tiles != 0).sum()) < 0.02 * bsr.tiles.numel()
+    bsr = tbsr.bsr_transpose(bsr) if transposed else bsr
+    b = torch.randn((bsr.shape[1], d), generator=torch.Generator().manual_seed(d))
+    ref = tbsr.bsr_spmm_reference(bsr, b)
+    dev, bd = bsr.to(cuda), b.to(cuda)
+    runs = [tbsr.bsr_spmm(dev, bd) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    torch.testing.assert_close(runs[0].cpu(), ref, rtol=RTOL, atol=ATOL)
+
+
+def test_spmm_ad_grad_follows_in_place_tile_edit(cuda):
+    """The transpose kept on the matrix is built again after ``tiles.mul_``:
+    the second ``dB = Aᵀḡ`` is twice the first (tests/test_torch_bsr_cache.py
+    on the CPU)."""
+    bsr = cell_knn_bsr(n=600).to(cuda)
+    g = torch.randn((bsr.shape[0], 16), generator=torch.Generator().manual_seed(1)).to(cuda)
+
+    def grad_b():
+        b = torch.linspace(-1, 1, bsr.shape[1] * 16, device=cuda).reshape(-1, 16)
+        b.requires_grad_(True)
+        (tbsr.bsr_spmm_ad(bsr, b) * g).sum().backward()
+        return b.grad
+
+    first = grad_b()
+    bsr.tiles.mul_(2.0)
+    second = grad_b()
+    torch.testing.assert_close(second, 2 * first, rtol=0, atol=0)
+    want = tbsr.bsr_spmm_reference(tbsr.bsr_transpose(bsr.to("cpu")), g.cpu())
+    torch.testing.assert_close(second.cpu(), want, rtol=RTOL, atol=ATOL)
+
+
+def _cell_inputs(n=300, g=40, seed=16):
+    from dance_tpu_torch.ops.neighbors import knn_graph
+
+    rng = np.random.default_rng(seed)
+    types = rng.integers(0, 3, n)
+    pts = (rng.normal(0, 3, (3, 6))[types] + rng.normal(0, 1, (n, 6))).astype(np.float32)
+    x = (rng.normal(0, 1, (n, g)) + types[:, None] * 0.5).astype(np.float32)
+    x_raw = rng.poisson(np.exp(rng.normal(0, 1, (3, g)))[types]).astype(np.float32)
+    return (knn_graph(pts, 8, mode="gauss"), x, x_raw, x_raw.sum(1)), types
+
+
+@pytest.mark.parametrize("use_bsr", [True, False])
+def test_sctag_fit_matches_cpu(cuda, use_bsr):
+    from dance_tpu_torch.modules.single_modality.clustering import ScTAG
+
+    inputs, types = _cell_inputs()
+    runs = []
+    for device in (torch.device("cpu"), cuda):
+        n = tbsr.bsr_spmm.launches
+        m = ScTAG(n_clusters=3, hidden_dim=32, latent_dim=6, dec_dim=(16, 32), device=device)
+        m.fit(inputs, types, pretrain_epochs=3, epochs=4, lr=1e-3, use_bsr=use_bsr)
+        runs.append(([h["loss"] for h in m.pretrain_history + m.history], m.q, m.z,
+                     tbsr.bsr_spmm.launches - n))
+    np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=1e-4)
+    for got, want in zip(runs[1][1:3], runs[0][1:3]):
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    # per epoch 3 x 3 hops (k = 3), 3 encodes for k-means
+    assert runs[0][3] == 0 and runs[1][3] == ((3 + 4) * 9 + 6 if use_bsr else 0)
+
+
+@pytest.mark.parametrize("use_bsr", [True, False])
+def test_scdsc_fit_matches_cpu(cuda, use_bsr):
+    from dance_tpu_torch.modules.single_modality.clustering import ScDSC
+
+    inputs, types = _cell_inputs(seed=17)
+    runs = []  # q from the refresh at epoch 0, before any DEC step (see the next test)
+    for device in (torch.device("cpu"), cuda):
+        n = tbsr.bsr_spmm.launches
+        m = ScDSC(n_input=inputs[1].shape[1], n_clusters=3, device=device, n_enc_1=64,
+                  n_enc_2=32, n_enc_3=32, n_z1=32, n_z2=16, n_z3=8, n_dec_1=32, n_dec_2=32,
+                  n_dec_3=64)
+        m.fit(inputs, types, pt_epochs=3, epochs=4, lr=1e-4, use_bsr=use_bsr)
+        runs.append(([h["loss"] for h in m.pretrain_history + m.history], m.q,
+                     tbsr.bsr_spmm.launches - n))
+    np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=1e-4)
+    np.testing.assert_allclose(runs[1][1], runs[0][1], rtol=1e-4, atol=1e-4)
+    assert runs[0][2] == 0 and runs[1][2] == (4 * 14 if use_bsr else 0)
+
+
+@pytest.mark.parametrize("use_bsr", [True, False])
+def test_scdsc_dec_stage_matches_cpu(cuda, use_bsr):
+    """After 11 DEC epochs on the CPU (a refresh at epoch 10), the CPU fit's
+    weights copied to the card: the refresh's q, the loss, the GCN's predict
+    and every gradient agree, with sigma 1 (as fitted) and 0.5 (all seven
+    aggregations and their backward carry gradient). Shared weights keep
+    Adam's amplified rounding out of the comparison."""
+    from chip_smoke import scdsc_dec_state
+    from dance_tpu_torch.modules.single_modality.clustering import ScDSC
+
+    inputs, types = _cell_inputs(seed=17)
+    models = []
+    for device in (torch.device("cpu"), cuda):
+        m = ScDSC(n_input=inputs[1].shape[1], n_clusters=3, device=device, n_enc_1=64,
+                  n_enc_2=32, n_enc_3=32, n_z1=32, n_z2=16, n_z3=8, n_dec_1=32, n_dec_2=32,
+                  n_dec_3=64)
+        m.fit(inputs, types, pt_epochs=3, epochs=11 if device.type == "cpu" else 0, lr=1e-4,
+              use_bsr=use_bsr)
+        models.append(m)
+    cpu, card = models
+    card.model.load_state_dict(cpu.model.state_dict())
+    for sigma in (1.0, 0.5):
+        got, want = scdsc_dec_state(card, inputs, sigma), scdsc_dec_state(cpu, inputs, sigma)
+        assert got[0] == pytest.approx(want[0], rel=1e-5)
+        for g, w in zip(got[1:3], want[1:3]):
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-5)
+        for name, w in want[3].items():
+            scale = float(np.abs(w).max()) or 1.0
+            np.testing.assert_allclose(got[3][name], w, rtol=0, atol=1e-4 * scale, err_msg=name)
