@@ -165,6 +165,17 @@ GSC_EPOCHS, GSC_MAX_EPOCHS, GSC_HIDDEN = 30, 5, 200
 # (sctag.py:71-112, 209-214; scdsc.py:113-159, 209-212), epochs as run here
 TAG_HVG, TAG_PCS, TAG_NEIGHBORS, TAG_PRETRAIN, TAG_EPOCHS = 3000, 50, 15, 200, 300
 DSC_HVG, DSC_NEIGHBORS, DSC_PRETRAIN, DSC_EPOCHS = 2000, 50, 200, 300
+# scMoGNN: the JAX package's scmogcn_predict case (benchmarks/matrix.py:94,
+# 418-423, 478-497): 10,000 cells x 2,000 genes -> 134 proteins; the trunk's
+# width (default_args, predict_modality/scmogcn.py:435-449)
+MM_CELLS, MM_GENES, MM_TYPES, MM_PROTEINS, MM_HIDDEN = 10000, 2000, 8, 134, 48
+# epochs of the BSR fit (cut from default_args' 15,000), of the "auto" fit and
+# of the small card-against-CPU fit
+MM_EPOCHS, MM_AUTO_EPOCHS, MM_SMALL_EPOCHS = 300, 300, 10
+# card against CPU on the small fit: relative loss gap, prediction gap relative
+# to the largest prediction (float32 sums in another order, grown by AdamW
+# steps of ~lr each; group norm over 12 features a group)
+MM_LOSS_BOUND, MM_PRED_BOUND = 1e-4, 1e-4
 # H100 SXM: FP32 outside the tensor cores, TF32 dense on the tensor cores, HBM3
 PEAK_FLOPS, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
 PALLAS = "dance_tpu/ops/pallas_kernels.py"
@@ -183,6 +194,12 @@ def card_line() -> str:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True)
     return proc.stdout.strip()
+
+
+def auto_pick(name: str, fmt) -> None:
+    """Print the format ``use_bsr="auto"`` picks for a path's adjacency."""
+    fmt = fmt if isinstance(fmt, str) else ("bsr" if fmt else "csr")
+    print(f"{name}: use_bsr='auto' picks {fmt} on the card (ops.bsr defaults)", flush=True)
 
 
 def median_ms(fn, reps: int = REPS, inner: int = 1) -> float:
@@ -410,6 +427,33 @@ def clustered_counts(n_cells: int, n_genes: int, n_types: int, seed: int):
     return sp.csr_matrix(rng.poisson(fold[types] * base[None] * depth).astype(np.float32)), types
 
 
+def multimodal_counts(n_cells: int, n_genes: int, n_types: int, seed: int):
+    """Raw counts of cells in types, as :func:`clustered_counts` makes them
+    but sparser: about 5.6 % of the entries are nonzero at 10,000 x 2,000,
+    inside the 2-10 % that the JAX package gives for the NeurIPS multimodal
+    matrices (predict_modality/scmogcn.py:118-119). Returns (dense float32
+    counts, types)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    types = rng.integers(0, n_types, n_cells)
+    base = rng.gamma(0.3, 0.2, n_genes)
+    fold = np.exp(rng.normal(0, 1.0, (n_types, n_genes))
+                  * (rng.random((n_types, n_genes)) < 0.2))
+    depth = rng.gamma(4.0, 0.25, (n_cells, 1))
+    return rng.poisson(fold[types] * base[None] * depth).astype(np.float32), types
+
+
+def protein_targets(counts, n_proteins: int = MM_PROTEINS):
+    """The second modality as the JAX package's ``_mm_inputs`` makes it
+    (benchmarks/matrix.py:418-423): ``log1p(x) @ w / genes * 4`` with ``w``
+    uniform from ``default_rng(1)``."""
+    import numpy as np
+
+    w = np.random.default_rng(1).random((counts.shape[1], n_proteins)).astype(np.float32)
+    return (np.log1p(counts) @ w / counts.shape[1] * 4).astype(np.float32)
+
+
 def scdeepsort_phases(cuda) -> dict:
     """Phases 2-4; returns the kernel entries' numbers and launch counts."""
     import numpy as np
@@ -434,6 +478,8 @@ def scdeepsort_phases(cuda) -> dict:
     t0 = time.perf_counter()
     graph = Graph.from_cell_feature_matrix(expr, cell_feat, gene_feat)
     t_graph = time.perf_counter() - t0
+    auto_pick("scDeepSort", bsr.resolve_adj_format("auto", graph.adj, device=cuda,
+                                                   reorder=False))
     model = ScDeepSort(dim_in=DIM, dim_hid=DIM, num_layers=2, seed=0, device=cuda)
     t0 = time.perf_counter()
     model.fit(graph, labels, epochs=EPOCHS, val_ratio=0.2, use_bsr=True)
@@ -567,6 +613,9 @@ def stagate_phases(cuda) -> dict:
     x, adj = stagate_preprocess(counts, xy, n_top_genes=N_HVG, model_name="knn",
                                 n_neighbors=N_NEIGHBORS)
     t_pre = time.perf_counter() - t0
+    auto_pick("STAGATE", bsr.resolve_use_bsr(
+        "auto", sp.csr_matrix(adj) + sp.eye(adj.shape[0], format="csr", dtype=np.float32),
+        device=cuda))
     model = Stagate(hidden_dims=STAGATE_DIMS, device=cuda, seed=0)
     t0 = time.perf_counter()
     model.fit((x, adj), epochs=STAGATE_EPOCHS, use_bsr=True, n_clusters=N_DOMAINS)
@@ -771,6 +820,7 @@ def graphsc_phases(cuda) -> dict:
     t0 = time.perf_counter()
     g, cells = graphsc_preprocess(counts, n_top_genes=GSC_HVG, device=cuda)
     t_pre = time.perf_counter() - t0
+    auto_pick("graph-sc", bsr.resolve_adj_format("auto", g.adj, device=cuda, reorder=False))
     model = GraphSC(n_clusters=GSC_TYPES, device=cuda, seed=0)
     t0 = time.perf_counter()
     model.fit(g, epochs=GSC_EPOCHS, use_bsr=True)
@@ -1184,6 +1234,8 @@ def clustering_phases(cuda) -> dict:
     from dance_tpu_torch.modules.single_modality.clustering import (ScDSC, ScTAG,
                                                                     scdsc_preprocess,
                                                                     sctag_preprocess)
+    from dance_tpu_torch.ops import bsr
+    from dance_tpu_torch.ops.sparse import sym_norm_adjacency
 
     t_phases = time.perf_counter()
     counts, types = clustered_counts(GSC_CELLS, GSC_GENES, GSC_TYPES, seed=0)
@@ -1196,6 +1248,7 @@ def clustering_phases(cuda) -> dict:
     inputs, cells = sctag_preprocess(counts, n_top_genes=TAG_HVG, n_components=TAG_PCS,
                                      n_neighbors=TAG_NEIGHBORS, device=cuda)
     times["preprocess"] = time.perf_counter() - t0
+    auto_pick("scTAG", bsr.resolve_use_bsr("auto", inputs[0], device=cuda))
     model = ScTAG(n_clusters=GSC_TYPES, device=cuda, seed=0)
     t0 = time.perf_counter()
     model.fit(inputs, types[cells], pretrain_epochs=TAG_PRETRAIN, epochs=TAG_EPOCHS,
@@ -1229,6 +1282,8 @@ def clustering_phases(cuda) -> dict:
     inputs, cells = scdsc_preprocess(counts, n_top_genes=DSC_HVG, n_neighbors=DSC_NEIGHBORS,
                                      device=cuda)
     times["preprocess"] = time.perf_counter() - t0
+    auto_pick("scDSC", bsr.resolve_use_bsr("auto", sym_norm_adjacency(inputs[0])[1],
+                                           device=cuda))
     n_cells, x = len(cells), inputs[1]
     model = ScDSC(n_input=x.shape[1], n_clusters=GSC_TYPES, device=cuda, seed=0)
     t0 = time.perf_counter()
@@ -1275,6 +1330,186 @@ def clustering_phases(cuda) -> dict:
     return result
 
 
+def scmogcn_fit_report(name: str, model, times: dict, peak: int, launches: dict, builds: int):
+    """Print a scMoGNN fit's format, tilings, stage times, median epoch, peak
+    memory, launches and the work schedules it built."""
+    g = model._graph
+    print(f"{name}: format {g.fmt}; " + ", ".join(f"{k} {v:.3f} s" for k, v in times.items())
+          + f"; {len(model.history)} epochs, median "
+          f"{statistics.median(h['seconds'] for h in model.history)!r} s/epoch; peak device "
+          f"memory {peak / 2**20:.1f} MiB", flush=True)
+    if g.fmt == "bsr":
+        for rel in ("f2c", "c2f"):
+            print(tiling_line(f"{name} {rel}", getattr(g, rel), getattr(g, rel).shape[0]),
+                  flush=True)
+    losses = [h["loss"] for h in model.history]
+    print(f"{name} losses {losses[::25]} (every 25th); validation RMSE "
+          f"{[h['val'] for h in model.history][::25]}", flush=True)
+    print(f"launches in the {name} path: {launches}; work schedules built on the host during "
+          f"the fit: {builds}", flush=True)
+
+
+def scmogcn_card_vs_cpu(cuda):
+    """Phase 17: scMoGNN on a few hundred cells, fitted on the CPU and on the
+    card from the same weights (both draw them from the same CPU generator)
+    with edge and model dropout at 0: the full-graph fit on BSR tiles, then
+    two epochs of the sampled fit, which must launch no BSR kernel."""
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.modules.multi_modality.predict_modality import ScMoGCNWrapper
+
+    counts, _ = multimodal_counts(400, 300, 4, seed=2)
+    y = protein_targets(counts, 12)
+    cfg = dict(hidden_size=MM_HIDDEN, conv_layers=4, edge_dropout=0.0, model_dropout=0.0,
+               seed=0, batch_size=128)
+    ok = True
+    for label, kw, epochs in (("full-graph, BSR", dict(use_bsr=True), MM_SMALL_EPOCHS),
+                              ("sampled", dict(sampling=True), 2)):
+        runs = {}
+        for side, dev in (("cpu", torch.device("cpu")), ("card", cuda)):
+            reset_launches()
+            m = ScMoGCNWrapper(device=dev, **cfg)
+            m.fit(counts, y, epochs=epochs, **kw)
+            runs[side] = (np.array([h["loss"] for h in m.history]), m.predict(),
+                              read_launches())
+        loss_gap = float(np.max(np.abs(runs["card"][0] / runs["cpu"][0] - 1)))
+        scale = float(np.max(np.abs(runs["cpu"][1])))
+        pred_gap = float(np.max(np.abs(runs["card"][1] - runs["cpu"][1])))
+        card_launches = runs["card"][2]
+        print(f"small scMoGNN ({counts.shape[0]} cells x {counts.shape[1]} genes, {label}, "
+              f"{epochs} epochs), card vs CPU: max relative loss gap {loss_gap!r}, max "
+              f"prediction gap {pred_gap!r} (max |prediction| {scale!r}); bounds "
+              f"{MM_LOSS_BOUND} and {MM_PRED_BOUND} x max |prediction|; card launches "
+              f"{card_launches}", flush=True)
+        ok &= loss_gap <= MM_LOSS_BOUND and pred_gap <= MM_PRED_BOUND * scale
+        if label == "sampled":
+            ok &= not any(card_launches.values()) and np.isfinite(runs["card"][0]).all()
+        else:
+            ok &= card_launches["bsr_spmm"] >= 16 * epochs
+    if not ok:
+        raise AssertionError("the card disagrees with the CPU on the small scMoGNN fits")
+
+
+def multimodal_phases(cuda) -> dict:
+    """Phases 15-18; returns the scMoGNN paths' SpMM launches and the SpMM's
+    numbers on their tilings."""
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.modules.multi_modality.joint_embedding import (
+        ScMoGCNWrapper as JointEmbedding)
+    from dance_tpu_torch.modules.multi_modality.predict_modality import ScMoGCNWrapper
+    from dance_tpu_torch.ops import bsr
+    from dance_tpu_torch.utils import rmse
+
+    t_phases = time.perf_counter()
+    result = {}
+    # -- 15. scMoGNN modality prediction at the JAX defaults -----------------
+    t0 = time.perf_counter()
+    counts, types = multimodal_counts(MM_CELLS, MM_GENES, MM_TYPES, seed=0)
+    y = protein_targets(counts)
+    print(f"scMoGNN data: {counts.shape} raw counts, {float((counts > 0).mean())!r} nonzero "
+          f"(the NeurIPS matrices: 2-10 %), {y.shape[1]} protein targets, made in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    builds = bsr.device_schedule.builds
+    model = ScMoGCNWrapper(seed=0, device=cuda)
+    t0 = time.perf_counter()
+    model.fit(counts, y, epochs=MM_EPOCHS, use_bsr=True, val_fraction=0.15)
+    torch.cuda.synchronize()
+    times = {"graph + fit": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    pred = model.predict()
+    times["predict"] = time.perf_counter() - t0
+    launches, builds = read_launches(), bsr.device_schedule.builds - builds
+    peak = torch.cuda.max_memory_allocated()
+    a = model.args
+    print(f"scMoGNN: default_args (hidden {a.hidden_size}, {a.conv_layers} conv layers, "
+          f"{a.residual}, {a.normalization} norm, {a.activation}, edge dropout "
+          f"{a.edge_dropout}, model dropout {a.model_dropout}, AdamW lr {a.learning_rate}, "
+          f"weight decay {a.weight_decay}); {MM_EPOCHS} epochs (cut from {a.epoch})", flush=True)
+    scmogcn_fit_report("scMoGNN", model, times, peak, launches, builds)
+    val, train = model.split["valid"], model.split["train"]
+    got, base = rmse(y[val], pred[val]), rmse(y[val], np.broadcast_to(y[train].mean(0),
+                                                                       y[val].shape))
+    print(f"scMoGNN validation RMSE {got!r} against {base!r} for the train mean", flush=True)
+    losses = [h["loss"] for h in model.history]
+    if not np.isfinite(losses).all() or pred.shape != y.shape or not np.isfinite(pred).all():
+        raise AssertionError("scMoGNN: non-finite losses or predictions of the wrong shape")
+    if not got < base:
+        raise AssertionError(f"scMoGNN: validation RMSE {got} not below the mean's {base}")
+    # a training step: 4 layers x 2 relations forward and 7 Aᵀḡ (the last
+    # layer's feature update reaches no output); the validation forward: 8
+    if launches["bsr_spmm"] < 16 * MM_EPOCHS:
+        raise AssertionError(f"scMoGNN: bsr_spmm launched {launches['bsr_spmm']} times, fewer "
+                             f"than 16 x {MM_EPOCHS} epochs")
+    # dropped tiles share the graph's schedules: 4 tilings (f2c, c2f and their
+    # transposes) at 2 widths at most, however many epochs
+    if builds > 8:
+        raise AssertionError(f"scMoGNN: {builds} work schedules built during the fit")
+    result["scmogcn_launches"] = launches["bsr_spmm"]
+    g = model._graph
+
+    # "auto": the format the rule picks for this matrix, and its epoch
+    auto = ScMoGCNWrapper(seed=0, device=cuda)
+    t0 = time.perf_counter()
+    auto.fit(counts, y, epochs=MM_AUTO_EPOCHS, use_bsr="auto", val_fraction=0.15)
+    torch.cuda.synchronize()
+    print(f"scMoGNN use_bsr='auto' picks {auto._graph.fmt}: {MM_AUTO_EPOCHS} epochs in "
+          f"{time.perf_counter() - t0:.3f} s (graph included), median "
+          f"{statistics.median(h['seconds'] for h in auto.history)!r} s/epoch; validation RMSE "
+          f"{rmse(y[val], auto.predict()[val])!r}", flush=True)
+    del auto
+
+    # -- 16. #1 on f2c and c2f at the trunk's widths, and on dropped tiles ---
+    widths = (a.hidden_size, 2 * a.hidden_size)
+    result["f2c"] = spmm_widths("scMoGNN f2c", g.f2c, widths, seed=6)
+    result["c2f"] = spmm_widths("scMoGNN c2f", g.c2f, widths, seed=7)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    keep = torch.rand(g.f2c.tiles.shape, generator=gen, device=cuda) >= a.edge_dropout
+    dropped = bsr.bsr_like(g.f2c, torch.where(keep, g.f2c.tiles / (1 - a.edge_dropout), 0.0))
+    builds = bsr.device_schedule.builds
+    result["f2c_dropped"] = spmm_widths("scMoGNN f2c, edge dropout", dropped,
+                                        (a.hidden_size,), seed=8)
+    print(f"  the dropped copy built {bsr.device_schedule.builds - builds} work schedules",
+          flush=True)
+    del model, g, dropped, keep
+
+    # -- 17. a few hundred cells: the card against the CPU -------------------
+    scmogcn_card_vs_cpu(cuda)
+
+    # -- 18. joint embedding on the same cells ------------------------------
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    je = JointEmbedding(device=cuda)
+    t0 = time.perf_counter()
+    je.fit(counts, y, types, use_bsr=True)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    launches = read_launches()
+    scores, emb = je.score(None, types, return_pred=True)
+    print(f"scMoGNN joint embedding: {counts.shape[1]} genes + {y.shape[1]} proteins, hidden "
+          f"{je.hidden}, {je.n_layers} layers, z {je.z_dim}; {len(je.history)} epochs (the JAX "
+          f"default) in {t_fit:.3f} s, median "
+          f"{statistics.median(h['seconds'] for h in je.history)!r} s/epoch, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; losses "
+          f"{[h['loss'] for h in je.history][::25]} (every 25th)", flush=True)
+    print(f"scMoGNN joint embedding: k-means NMI {scores['dance_nmi']!r}, ARI "
+          f"{scores['dance_ari']!r} against the generating types; launches {launches}",
+          flush=True)
+    if emb.shape != (MM_CELLS, je.z_dim) or not np.isfinite(emb).all():
+        raise AssertionError("scMoGNN joint embedding: non-finite or misshapen embedding")
+    # 2 layers x 2 relations forward, and Aᵀḡ of all but the last layer's
+    # feature update, which the embedding does not read: 7 an epoch
+    if launches["bsr_spmm"] < 7 * len(je.history):
+        raise AssertionError("scMoGNN joint embedding: too few bsr_spmm launches")
+    result["je_launches"] = launches["bsr_spmm"]
+    print(f"phases 15-18: {time.perf_counter() - t_phases:.3f} s", flush=True)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1306,6 +1541,7 @@ def main() -> int:
     gsc = graphsc_phases(cuda)
     measured["bsr_spmm_max"] = gsc["bsr_spmm_max"]
     clu = clustering_phases(cuda)
+    mm = multimodal_phases(cuda)
 
     def entry(name):
         result, launched = measured[name]
@@ -1321,11 +1557,15 @@ def main() -> int:
     spmm = entries["bsr_spmm"]
     spmm["launches_by_path"] = {"scdeepsort": spmm["launches"],
                                 "graphsc": gsc["graphsc_launches"],
-                                "sctag": clu["sctag_launches"], "scdsc": clu["scdsc_launches"]}
+                                "sctag": clu["sctag_launches"], "scdsc": clu["scdsc_launches"],
+                                "scmogcn": mm["scmogcn_launches"],
+                                "scmogcn_je": mm["je_launches"]}
     spmm["launches"] = sum(spmm["launches_by_path"].values())
     spmm["graphsc"] = gsc["graphsc_spmm"]
     spmm["sctag"] = {f"d{d}": res for d, res in clu["sctag"].items()}
     spmm["scdsc"] = {f"d{d}": res for d, res in clu["scdsc"].items()}
+    spmm["scmogcn"] = {f"{rel}_d{d}": res for rel in ("f2c", "c2f", "f2c_dropped")
+                       for d, res in mm[rel].items()}
     print(f"chip_smoke: {time.perf_counter() - t_start:.3f} s in all", flush=True)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

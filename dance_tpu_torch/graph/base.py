@@ -6,8 +6,8 @@ bit-identical; ``dance_tpu.graph`` itself cannot be imported here because it
 pulls in JAX. The bipartite cell-gene graph is homogeneous: gene nodes first
 (0..n_genes-1), then cell nodes. The device forms (``to_device``, ``to_bsr``,
 ``to_dense_adj``, ``to_adaptive_bsr``) go to the CUDA card unless the caller
-names the CPU. Not ported yet: ``from_adjacency``, the symmetric/row
-normalizations and ``to_adaptive_bsr(dense=True)``.
+names the CPU. Not ported yet: ``from_adjacency`` and the symmetric/row
+normalizations.
 """
 
 from typing import Dict, NamedTuple, Optional
@@ -124,11 +124,13 @@ class Graph:
         """The adjacency as one dense matrix on ``device`` (counterpart: base.py:153)."""
         return dense_adj_from_scipy(self.adj).to(resolve_device(device))
 
-    def to_adaptive_bsr(self, block: int = 128, device="auto") -> AdaptiveBSR:
+    def to_adaptive_bsr(self, block: int = 128, dense: bool = False,
+                        device="auto") -> AdaptiveBSR:
         """AdaptiveSAGE's decomposed form: one SpMM over the off-diagonal
         adjacency, per-node alpha scales and self-loop terms (counterpart:
-        base.py:160-179; its ``dense=True`` option is not in this slice).
-        Needs the bipartite ``cell_id`` node labels (gene index or -1)."""
+        base.py:160-179). The off-diagonal is BSR tiles, or with ``dense`` a
+        :class:`DenseAdj` (one cuBLAS product). Needs the bipartite
+        ``cell_id`` node labels (gene index or -1)."""
         device = resolve_device(device)
         gene_idx = np.asarray(self.ndata["cell_id"], np.int64)
         adj = self.adj.tocsr()
@@ -136,7 +138,8 @@ class Graph:
         off = adj - sp.diags(w_diag)
         off.eliminate_zeros()
         deg = np.diff(adj.indptr).astype(np.float32)
-        return AdaptiveBSR(bsr_from_scipy(off, block=block), torch.from_numpy(w_diag),
+        off_dev = dense_adj_from_scipy(off) if dense else bsr_from_scipy(off, block=block)
+        return AdaptiveBSR(off_dev, torch.from_numpy(w_diag),
                            torch.from_numpy(gene_idx), torch.from_numpy(deg),
                            int(self.info["num_genes"])).to(device)
 

@@ -2,8 +2,9 @@
 dance_tpu/modules/base.py:21-232).
 
 ``fit``/``predict``/``score``/``fit_predict``, and for clustering
-``score``/``fit_score`` over ``valid_idx``/``test_idx``. Only the ``acc`` and
-``ari`` metrics are ported; any other metric name raises. ``BasePretrain``
+``score``/``fit_score`` over ``valid_idx``/``test_idx``. The ``acc``, ``ari``,
+``nmi``, ``mse`` and ``rmse`` metrics are ported; any other metric name
+raises. ``BasePretrain``
 loads a pretrained model from ``pretrain_path`` or pretrains and saves it;
 ``NNPretrain`` freezes named submodules of the model's ``torch.nn.Module``
 and saves its ``state_dict``. Not ported yet: the Data-container
@@ -20,9 +21,9 @@ from typing import Any, Callable, Optional, Tuple, Union
 import torch
 
 from dance_tpu_torch.settings import logger
-from dance_tpu_torch.utils import acc, ari
+from dance_tpu_torch.utils import acc, ari, mse, nmi, rmse
 
-_METRICS = {"acc": acc, "ari": ari}
+_METRICS = {"acc": acc, "ari": ari, "mse": mse, "nmi": nmi, "rmse": rmse}
 
 
 def resolve_score_func(score_func: Optional[Union[str, Callable]]) -> Callable:
@@ -76,6 +77,12 @@ class BaseMethod(ABC):
 class BaseClassificationMethod(BaseMethod):
 
     _DEFAULT_METRIC = "acc"
+
+
+class BaseRegressionMethod(BaseMethod):
+    """Counterpart: base.py:206."""
+
+    _DEFAULT_METRIC = "mse"
 
 
 class BaseClusteringMethod(BaseMethod):
@@ -203,4 +210,4 @@ TorchNNPretrain = NNPretrain
 
 
 __all__ = ["BaseClassificationMethod", "BaseClusteringMethod", "BaseMethod", "BasePretrain",
-           "NNPretrain", "TorchNNPretrain", "resolve_score_func"]
+           "BaseRegressionMethod", "NNPretrain", "TorchNNPretrain", "resolve_score_func"]

@@ -1,0 +1,2 @@
+"""Multimodal methods (counterpart: dance_tpu/modules/multi_modality). Ported
+so far: scMoGNN for modality prediction and joint embedding."""

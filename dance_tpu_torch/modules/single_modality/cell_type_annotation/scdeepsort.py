@@ -5,15 +5,18 @@ Counterpart: dance_tpu/modules/single_modality/cell_type_annotation/scdeepsort.p
 lives on the device and every epoch is one forward/backward and one Adam step.
 With ``use_bsr=True`` each AdaptiveSAGE layer is one block-sparse SpMM, run by
 the hand-written CUDA kernel on the card (forward, and on the transposed tiles
-for the backward).
+for the backward). ``use_bsr="auto"`` (the default, as in JAX) takes the
+format :func:`~dance_tpu_torch.ops.bsr.resolve_adj_format` picks for the
+graph in its natural order: BSR, a dense off-diagonal (one cuBLAS product)
+or CSR; CSR off the card.
 
 Where this differs from the JAX package:
 
 - With ``val_ratio=0`` the JAX ``fit`` returns the untrained initial weights
   (``best_params`` is only replaced under ``if num_val:``, scdeepsort.py:178-195).
   Here ``fit`` keeps the last weights when there is no validation split.
-- ``use_bsr="auto"`` (v5e thresholds) and ``bsr_dtype`` (bf16 streaming) raise
-  ``NotImplementedError``; ``fit_with_sampling``/``predict_sampled`` and the
+- ``bsr_dtype`` (bf16 streaming) raises ``NotImplementedError``;
+  ``fit_with_sampling``/``predict_sampled`` and the
   Data-container ``preprocessing_pipeline`` are not ported yet (ROADMAP).
 - Weights are drawn from a ``torch.Generator`` seeded with ``seed``, not from
   ``jax.random``: the same seed gives other initial weights. Parity tests
@@ -30,7 +33,7 @@ from torch import nn
 from dance_tpu_torch.graph import Graph
 from dance_tpu_torch.modules.base import BaseClassificationMethod
 from dance_tpu_torch.nn.gnn import AdaptiveSAGE
-from dance_tpu_torch.ops.bsr import resolve_use_bsr
+from dance_tpu_torch.ops.bsr import resolve_adj_format
 from dance_tpu_torch.ops.sparse import csr_from_scipy
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.utils import resolve_device
@@ -82,17 +85,18 @@ class ScDeepSort(BaseClassificationMethod):
         self.model: Optional[GNN] = None
         self.history: List[Dict[str, float]] = []  # per epoch: loss, val_acc, seconds
 
-    def _device_graph(self, graph: Graph, use_bsr: bool, bsr_block: int):
-        """Adjacency, features, gene ids and alpha index on the device, cached
-        across fits and predictions on the same graph (counterpart:
-        scdeepsort.py:117-129)."""
-        key = (id(graph), graph.adj.shape, graph.adj.nnz, use_bsr, bsr_block)
+    def _device_graph(self, graph: Graph, fmt: str, bsr_block: int):
+        """Adjacency (``fmt``: ``"bsr"``, ``"dense"`` or ``"csr"``), features,
+        gene ids and alpha index on the device, cached across fits and
+        predictions on the same graph (counterpart: scdeepsort.py:117-129)."""
+        key = (id(graph), graph.adj.shape, graph.adj.nnz, fmt, bsr_block)
         if getattr(self, "_dev_cache_key", None) == key:
             return self._dev_cache
         feats = torch.from_numpy(np.asarray(graph.ndata["features"], np.float32)).to(self.device)
         gene_id = torch.from_numpy(np.asarray(graph.ndata["cell_id"], np.int64)).to(self.device)
-        if use_bsr:
-            adj, alpha_idx = graph.to_adaptive_bsr(block=bsr_block, device=self.device), None
+        if fmt in ("bsr", "dense"):
+            adj = graph.to_adaptive_bsr(block=bsr_block, dense=fmt == "dense", device=self.device)
+            alpha_idx = None
         else:
             adj = csr_from_scipy(graph.adj).to(self.device)
             alpha_idx = AdaptiveSAGE.edge_alpha_index(adj.row_ids(), adj.indices, gene_id,
@@ -101,24 +105,26 @@ class ScDeepSort(BaseClassificationMethod):
         return self._dev_cache
 
     def fit(self, graph: Graph, labels, epochs: int = 300, lr: float = 1e-3,
-            weight_decay: float = 0, val_ratio: float = 0.2, use_bsr=True,
+            weight_decay: float = 0, val_ratio: float = 0.2, use_bsr="auto",
             bsr_block: int = 128, bsr_dtype=None):
         """Full-graph training with best-val weight selection (counterpart:
         scdeepsort.py:99-196). ``use_bsr=True`` runs AdaptiveSAGE through the
-        block-sparse SpMM, ``False`` through the CSR edge gather.
+        block-sparse SpMM, ``False`` through the CSR edge gather, ``"auto"``
+        as :func:`resolve_adj_format` picks (natural order).
         ``epochs=0`` builds the model and optimizer and returns."""
-        use_bsr = resolve_use_bsr(use_bsr)
+        fmt = resolve_adj_format(use_bsr, graph.adj, bsr_block, device=self.device,
+                                 reorder=False)
         if bsr_dtype is not None:
             raise NotImplementedError("bf16 BSR streaming (bsr_dtype) is not ported yet "
                                       "(ROADMAP Queue 1, 'left out of slice 1')")
         labels = np.asarray(labels)
         if labels.ndim == 2:
             labels = labels.argmax(1)
-        adj, feats, gene_id, alpha_idx = self._device_graph(graph, use_bsr, bsr_block)
+        adj, feats, gene_id, alpha_idx = self._device_graph(graph, fmt, bsr_block)
         num_genes = int(graph.info["num_genes"])
         num_cells = int(graph.info["num_cells"])
         self.num_labels = int(labels.max()) + 1
-        self._use_bsr, self._bsr_block = use_bsr, bsr_block
+        self._fmt, self._bsr_block = fmt, bsr_block
 
         rng = np.random.default_rng(self.seed)
         perm = rng.permutation(num_cells) + num_genes
@@ -199,8 +205,7 @@ class ScDeepSort(BaseClassificationMethod):
 
     def predict_proba(self, graph: Graph) -> np.ndarray:
         """Softmax over the cell nodes' logits (counterpart: scdeepsort.py:306)."""
-        adj, feats, gene_id, alpha_idx = self._device_graph(graph, self._use_bsr,
-                                                            self._bsr_block)
+        adj, feats, gene_id, alpha_idx = self._device_graph(graph, self._fmt, self._bsr_block)
         logits = self._logits(adj, feats, gene_id, alpha_idx)
         cell_logits = logits[int(graph.info["num_genes"]):]
         return torch.softmax(cell_logits, dim=-1).cpu().numpy()

@@ -8,17 +8,15 @@ all nodes with ``WeightedGraphConv`` layers, reconstructs the whole dense
 adjacency as ``emb @ embᵀ`` and takes one Adam step on its pos-weighted
 BCE. With ``use_bsr=True`` each layer's sum or mean aggregation is one
 block-sparse SpMM (the CUDA kernel on the card, forward and on the
-transposed tiles backward). Max aggregation trains on the CSR adjacency
+transposed tiles backward). ``use_bsr="auto"`` (the default, as in JAX)
+takes the format :func:`~dance_tpu_torch.ops.bsr.choose_adj_format` picks
+in the natural order (BSR, dense or CSR; CSR off the card) for a sum or
+mean, and the CSR adjacency for a max. Max aggregation trains on the CSR adjacency
 (``scatter_reduce`` amax), as in JAX; its BSR form, the forward-only max
 kernel, serves a layer run without gradients (:func:`spmm` ``op="max"``).
 
 Where this differs from the JAX package:
 
-- ``use_bsr`` defaults to True, as for the port's ScDeepSort and STAGATE.
-  ``"auto"`` with max aggregation takes the CSR adjacency, as in JAX; with
-  sum or mean it raises ``NotImplementedError`` (the v5e crossovers are not
-  H100 facts). The dense adjacency (``DenseAdj``) is not chosen by ``fit``,
-  since only ``"auto"`` chose it.
 - Dropout draws its mask from a ``torch.Generator`` on the model's device
   seeded with ``seed``, not from ``jax.random``; weights are drawn from a
   CPU ``torch.Generator``. Parity tests copy the flax weights in
@@ -41,8 +39,8 @@ from torch import nn
 
 from dance_tpu_torch.graph import Graph
 from dance_tpu_torch.modules.base import BaseClusteringMethod
-from dance_tpu_torch.nn.gnn import WeightedGraphConv, flax_dense_init_
-from dance_tpu_torch.ops.bsr import resolve_use_bsr
+from dance_tpu_torch.nn.gnn import WeightedGraphConv, flax_dense_init_, flax_dropout
+from dance_tpu_torch.ops.bsr import resolve_adj_format
 from dance_tpu_torch.ops.cluster import kmeans
 from dance_tpu_torch.ops.segment import AGGREGATIONS
 from dance_tpu_torch.ops.sparse import csr_from_scipy
@@ -52,13 +50,6 @@ from dance_tpu_torch.settings import logger
 from dance_tpu_torch.transforms.cell_feature import weighted_feature_pca
 from dance_tpu_torch.utils import ari, resolve_device
 from dance_tpu_torch.utils.loss import binary_ce_logits
-
-
-def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """flax ``Dropout``: keep with probability ``1 - rate`` and scale by its
-    inverse; the uniforms come from ``generator`` on ``x``'s device."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 class InnerProductDecoder(nn.Module):
@@ -102,7 +93,7 @@ class GCNAE(nn.Module):
     def encode(self, adj, feats: torch.Tensor, degrees: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """The node embeddings; dropout only in training mode."""
-        h = _dropout(feats, self.dropout, generator) if self.training and self.dropout else feats
+        h = flax_dropout(feats, self.dropout, generator) if self.training else feats
         for conv in self.convs:
             h = torch.relu(conv(adj, h, agg=self.agg, degrees=degrees))
         if self.hidden_1:
@@ -158,6 +149,8 @@ class GraphSC(BaseClusteringMethod):
             adj = g.to_bsr(block=bsr_block, device=dev)
             if self.agg == "mean":
                 degrees = torch.from_numpy(np.diff(g.adj.indptr).astype(np.float32)).to(dev)
+        elif fmt == "dense":
+            adj = g.to_dense_adj(device=dev)
         else:
             adj = csr_from_scipy(g.adj).to(dev)
         feats = g.ndata.get("features")
@@ -182,7 +175,7 @@ class GraphSC(BaseClusteringMethod):
 
     def fit(self, g: Graph, y=None, *, epochs: int = 100, lr: float = 1e-5,
             batch_size: int = 128, show_epoch_ari: bool = False, eval_epoch: bool = False,
-            use_bsr=True, bsr_block: int = 128):
+            use_bsr="auto", bsr_block: int = 128):
         """Train from the current weights with a new Adam (counterpart:
         graphsc.py:139-249). ``use_bsr=True`` aggregates sums and means
         through the block-sparse SpMM, ``False`` on the CSR adjacency. With
@@ -197,8 +190,7 @@ class GraphSC(BaseClusteringMethod):
             # sends it to the segment path (graphsc.py:152-160)
             logger.info("agg=%r: using the CSR segment-max path", self.agg)
             use_bsr = False
-        use_bsr = resolve_use_bsr(use_bsr)
-        fmt = "bsr" if use_bsr else "csr"
+        fmt = resolve_adj_format(use_bsr, g.adj, bsr_block, device=self.device, reorder=False)
         if fmt == "bsr" and self.agg not in ("sum", "mean"):
             raise ValueError("use_bsr supports agg='sum' or 'mean'")
         if eval_epoch and y is not None and self.cluster_method != "kmeans":

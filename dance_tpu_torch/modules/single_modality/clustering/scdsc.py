@@ -13,13 +13,14 @@ assignments are scored (ARI), and the best ``q`` is kept
 (:func:`~dance_tpu_torch.nn.dec_loop.run_dec_loop`). With ``use_bsr=True``
 the graph is RCM-banded and every aggregation is one block-sparse SpMM (the
 CUDA kernel on the card, forward and ``Aᵀḡ`` backward); ``q`` is put back in
-the input order.
+the input order. ``use_bsr="auto"`` (the default, as in JAX) decides BSR or
+CSR by :func:`~dance_tpu_torch.ops.bsr.resolve_use_bsr` on the normalised
+graph; CSR off the card.
 
 Where this differs from the JAX package:
 
 - The refresh runs the autoencoder branch only: ``q`` and ``p`` depend on
   nothing else, and JAX's full forward there would add the seven SpMMs.
-- ``use_bsr`` defaults to True; ``"auto"`` raises (ROADMAP Queue 1, item 4).
 - The weights are drawn when the model is made (JAX draws them at the first
   fit), from a CPU ``torch.Generator`` seeded with ``seed``; the pretrain
   batches come from a ``torch.Generator`` too, and k-means is the port's.
@@ -217,18 +218,19 @@ class ScDSC(NNPretrain, BaseClusteringMethod):
 
     def fit(self, inputs: Tuple, y=None, lr: float = 1e-3, epochs: int = 300, bcl: float = 0.1,
             cl: float = 0.01, rl: float = 1.0, zl: float = 0.1, pt_epochs: int = 200,
-            pt_batch_size: int = 256, pt_lr: float = 1e-3, use_bsr=True, bsr_block: int = 128):
+            pt_batch_size: int = 256, pt_lr: float = 1e-3, use_bsr="auto",
+            bsr_block: int = 128):
         """Pretrain the autoencoder (always; then saved to ``pretrain_path``
         when set), k-means centres of its latent (10 restarts), then the DEC
         loop from a new Adam: a refresh every 10 epochs, never a tolerance
         stop (counterpart: scdsc.py:209-303). With labels ``y``, ``q`` is the
         refresh with the best ARI (the first best), else the last."""
-        use_bsr = resolve_use_bsr(use_bsr)
         adj, x, x_raw, n_counts = inputs
         x, x_raw, n_counts = (np.asarray(a.toarray() if sp.issparse(a) else a)
                               for a in (x, x_raw, n_counts))
         x = x.astype(np.float32)
         _, adj_n = sym_norm_adjacency(adj)
+        use_bsr = resolve_use_bsr(use_bsr, adj_n, bsr_block, device=self.device)
         self._perm = None
         if use_bsr:
             self._perm, tiles = bsr_with_rcm(adj_n, block=bsr_block)

@@ -12,6 +12,9 @@ barrier); the DEC stage adds ``w_c`` x KL(p || q) around k-means centres of
 the pretrained latent. With ``use_bsr=True`` the graph is RCM-banded and every
 TAGConv hop is one block-sparse SpMM (the CUDA kernel on the card, forward and
 ``Aᵀḡ`` backward); ``q`` and ``z`` are put back in the input order.
+``use_bsr="auto"`` (the default, as in JAX) decides BSR or CSR by
+:func:`~dance_tpu_torch.ops.bsr.resolve_use_bsr` on the kNN graph; CSR off
+the card.
 
 Where this differs from the JAX package:
 
@@ -20,8 +23,6 @@ Where this differs from the JAX package:
   unused ``sigmoid(z zᵀ)``; here the pre-update values are the loss forward's
   ``z`` detached, the same numbers, and the training step never forms the
   n x n sigmoid (``_ScTAGNet.forward`` still returns it, as the flax module).
-- ``use_bsr`` defaults to True, as for the port's other graph models;
-  ``"auto"`` raises (H100 crossovers not measured yet, ROADMAP Queue 1).
 - A later ``fit`` on another graph trains on that graph; JAX builds the
   adjacency once, at the first fit, and keeps it. The net is built before the
   pretrain, so that a pretrained ``state_dict`` can be loaded from
@@ -216,7 +217,7 @@ class ScTAG(NNPretrain, BaseClusteringMethod):
     def fit(self, inputs: Tuple, y=None, *, epochs: int = 300, pretrain_epochs: int = 200,
             lr: float = 5e-4, w_a: float = 0.3, w_x: float = 1.0, w_c: float = 1.5,
             w_d: float = 0.0, info_step: int = 1, max_dist: float = 20.0,
-            min_dist: float = 0.5, force_pretrain: bool = False, use_bsr=True,
+            min_dist: float = 0.5, force_pretrain: bool = False, use_bsr="auto",
             bsr_block: int = 128):
         """Pretrain (or load, or skip; :meth:`_pretrain`), k-means centres of
         the latent (20 restarts), then the DEC stage from a new Adam
@@ -225,8 +226,8 @@ class ScTAG(NNPretrain, BaseClusteringMethod):
         first best), read back once after the stage; otherwise the last
         epoch's. ``z`` is the last epoch's pre-update latent. ``info_step`` is
         unused, as in JAX."""
-        use_bsr = resolve_use_bsr(use_bsr)
         adj, x, x_raw, n_counts = inputs
+        use_bsr = resolve_use_bsr(use_bsr, sp.csr_matrix(adj), bsr_block, device=self.device)
         x, x_raw, n_counts = (np.asarray(a.toarray() if sp.issparse(a) else a)
                               for a in (x, x_raw, n_counts))
         self._perm = None

@@ -8,11 +8,12 @@ reordering and tiled, and each of the two attention aggregations per pass is
 one fused GAT (:func:`~dance_tpu_torch.ops.bsr.bsr_gat_ad`): on the card the
 hand-written CUDA forward-with-stats kernel forward, the flash backward
 kernel backward, and the primal forward kernel for the final embedding.
+``use_bsr="auto"`` (the default, as in JAX) decides BSR or CSR by
+:func:`~dance_tpu_torch.ops.bsr.resolve_use_bsr` on the graph with its
+self-loops; CSR off the card.
 
 Where this differs from the JAX package:
 
-- ``use_bsr="auto"`` (v5e thresholds) raises ``NotImplementedError``, and
-  ``use_bsr`` defaults to True (as the port's ScDeepSort).
 - optax's ``clip_by_global_norm`` is written out (:func:`_clip_by_global_norm_`):
   it scales by ``max / norm`` only when ``norm >= max``, where
   ``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6`` always.
@@ -132,14 +133,14 @@ class Stagate(BaseClusteringMethod):
 
     def fit(self, inputs, y=None, *, epochs: int = 500, lr: float = 1e-3,
             gradient_clipping: float = 5.0, weight_decay: float = 1e-4, n_clusters: int = 7,
-            use_bsr=True, bsr_block: int = 128):
+            use_bsr="auto", bsr_block: int = 128):
         """Train from the current weights (counterpart: stagate.py:130). The
         graph gains self-loops; with ``use_bsr=True`` it is RCM-reordered and
         tiled, and the embedding ``z`` is put back in the input order."""
-        use_bsr = resolve_use_bsr(use_bsr)
         x, adj = inputs
         x = np.asarray(x, dtype=np.float32)
         adj = sp.csr_matrix(adj) + sp.eye(adj.shape[0], format="csr", dtype=np.float32)
+        use_bsr = resolve_use_bsr(use_bsr, adj, bsr_block, device=self.device)
         self._perm = None
         if use_bsr:
             perm, adj = rcm_reorder(adj)

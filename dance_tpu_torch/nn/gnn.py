@@ -11,14 +11,14 @@ AdaptiveSAGE has two branches, as in the JAX package:
 
 - an :class:`~dance_tpu_torch.ops.sparse.AdaptiveBSR` adjacency runs the
   whole edge gather as one block-sparse SpMM (:func:`bsr_spmm_ad`, the CUDA
-  kernel on the card) plus per-node terms;
+  kernel on the card), or one dense product when its off-diagonal is a
+  :class:`~dance_tpu_torch.ops.sparse.DenseAdj`, plus per-node terms;
 - a :class:`~dance_tpu_torch.ops.sparse.CSRMatrix` gathers per-edge messages
   and mean-aggregates them with ``index_add_``.
 
-The sharded-CSR branch (gnn.py:134-140) and the dense off-diagonal
-(``DenseAdj``) wait for later slices, as do bf16 streaming (``bsr_dtype``) and
-``use_norm=False``, which no model sets. flax's ``LayerNorm`` eps is 1e-6, and
-torch's default 1e-5 is overridden.
+The sharded-CSR branch (gnn.py:134-140) waits for a later slice, as do bf16
+streaming (``bsr_dtype``) and ``use_norm=False``, which no model sets.
+flax's ``LayerNorm`` eps is 1e-6, and torch's default 1e-5 is overridden.
 
 GATConv, too: a :class:`~dance_tpu_torch.ops.bsr.BSRMatrix` runs each head as
 one fused GAT (:func:`bsr_gat_ad`, the CUDA kernels on the card), a
@@ -34,7 +34,7 @@ from torch import nn
 from dance_tpu_torch.ops.bsr import BSRMatrix, bsr_gat_ad, bsr_spmm_ad
 from dance_tpu_torch.ops.segment import (aggregate, edge_softmax, gather_src, in_degrees,
                                          out_degrees, spmm)
-from dance_tpu_torch.ops.sparse import AdaptiveBSR, CSRMatrix
+from dance_tpu_torch.ops.sparse import AdaptiveBSR, CSRMatrix, DenseAdj
 
 GRAPH_CONV_NORMS = ("none", "both", "right")
 # the standard deviation of a unit normal cut at ±2 (flax's truncated normal
@@ -48,6 +48,19 @@ def truncated_normal_(weight: torch.Tensor, std: float,
     two standard deviations, scaled so that what is left has ``std``."""
     std = std / _TRUNC_STD
     return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
+def flax_dropout(x: torch.Tensor, rate: float,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``Dropout``: keep with probability ``1 - rate`` and scale by its
+    inverse; the uniforms come from ``generator`` on ``x``'s device. Without a
+    generator (evaluation) or at rate 0, ``x`` itself; at rate 1, zeros."""
+    if generator is None or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 def flax_dense_init_(linear: nn.Linear, generator: Optional[torch.Generator] = None):
@@ -142,8 +155,11 @@ class AdaptiveSAGE(nn.Module):
             s = torch.where(gidx >= 0, alpha.index_select(0, gidx.clamp(min=0)), 1.0)
             self_alpha = torch.where(gidx >= 0, alpha[n_genes], alpha[n_genes + 1])
             n = h.shape[0]
-            hp = nn.functional.pad(s[:, None] * h, (0, 0, 0, adj.bsr.shape[1] - n))
-            neigh = s[:, None] * bsr_spmm_ad(adj.bsr, hp)[:n]
+            if isinstance(adj.bsr, DenseAdj):
+                neigh = s[:, None] * (adj.bsr.mat @ (s[:, None] * h))
+            else:
+                hp = nn.functional.pad(s[:, None] * h, (0, 0, 0, adj.bsr.shape[1] - n))
+                neigh = s[:, None] * bsr_spmm_ad(adj.bsr, hp)[:n]
             z = neigh + (adj.w_diag * self_alpha)[:, None] * h
             z = z / adj.deg.clamp(min=1.0)[:, None]
         elif isinstance(adj, CSRMatrix):

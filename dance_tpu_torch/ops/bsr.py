@@ -6,7 +6,9 @@ dance_tpu/ops/pallas_kernels.py — ``BSRMatrix`` (:29), ``bsr_from_scipy``
 ``bsr_spmm_ad`` (:219-270), the fused GAT ``bsr_gat`` (:354),
 ``bsr_gat_stats`` (:426), ``bsr_gat_grads`` (:507) and ``bsr_gat_ad``
 (:615-650), ``rcm_reorder``/``bsr_with_rcm`` (:653-674), ``unpermute``
-(:775) and the max aggregation ``bsr_spmm_max`` (:786-863).
+(:775), ``bipartite_bsr`` (:677-695), the format rule ``tile_expansion``,
+``resolve_use_bsr`` and ``choose_adj_format`` (:697-772) and the max
+aggregation ``bsr_spmm_max`` (:786-863).
 
 A BSR matrix here is the same list of dense 128 x 128 tiles sorted by
 block-row, plus a tile-row pointer ``rowptr`` (tiles of block-row ``r`` are
@@ -21,14 +23,18 @@ raises. Each wrapper counts its launches in a plain int attribute, e.g.
 ``bsr_spmm.launches``. The max aggregation ``bsr_spmm_max`` (:826) is
 forward-only, as in JAX: differentiating through it raises.
 
-Not ported yet (ROADMAP Queue 1): ``compute_dtype`` bf16 streaming,
-``tile_expansion``, ``bipartite_bsr`` and the pure-XLA ``bsr_gat_scan`` (the
-GAT plain versions take its place as the oracle).
+The format rule keeps JAX's shape and parameters; its default crossovers
+were measured on an H100 (``tools/time_formats.py``, PERF.md), not carried
+over from the TPU. Off the card ``"auto"`` is CSR, as JAX's is off the TPU.
+
+Not ported yet (ROADMAP Queue 1): ``compute_dtype`` bf16 streaming and the
+pure-XLA ``bsr_gat_scan`` (the GAT plain versions take its place as the
+oracle).
 """
 
 import functools
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -51,7 +57,9 @@ class BSRMatrix:
     (:func:`device_schedule`) are kept always. Each kept value is stamped with
     the tensors it was built from and their version counters (the tiles,
     block rows and block columns; ``rowptr`` for the schedules), and is built
-    again once one of them is replaced or edited in place."""
+    again once one of them is replaced or edited in place. A matrix made by
+    :func:`bsr_like` shares its pattern's block indices, ``rowptr``, work
+    schedules and transposed pattern (``_pattern``)."""
 
     tiles: torch.Tensor       # (nb, block, block) f32
     block_rows: torch.Tensor  # (nb,) int32, sorted
@@ -63,6 +71,10 @@ class BSRMatrix:
     _schedules: dict = field(default_factory=dict, repr=False, compare=False)
     _edge_mask: Optional[torch.Tensor] = field(default=None, repr=False, compare=False)
     _edges: Optional["BSREdges"] = field(default=None, repr=False, compare=False)
+    # the tile order of the transpose (by block column, stable), kept with it
+    _transpose_order: Optional[torch.Tensor] = field(default=None, repr=False, compare=False)
+    # the matrix whose pattern this one shares (:func:`bsr_like`)
+    _pattern: Optional["BSRMatrix"] = field(default=None, repr=False, compare=False)
     # what the kept values above were built from (:func:`_drop_stale`)
     _tiles_stamp: tuple = field(default=(), repr=False, compare=False)
     _rowptr_stamp: tuple = field(default=(), repr=False, compare=False)
@@ -95,7 +107,7 @@ def _drop_stale(bsr: "BSRMatrix"):
     tensors can, and a stale transpose gave the old ``Aᵀḡ`` silently."""
     tiles = (bsr.tiles, bsr.block_rows, bsr.block_cols)
     if _stale(bsr._tiles_stamp, tiles):
-        bsr._transpose = bsr._edge_mask = bsr._edges = None
+        bsr._transpose = bsr._transpose_order = bsr._edge_mask = bsr._edges = None
         bsr._tiles_stamp = tuple((t, t._version) for t in tiles)
     if _stale(bsr._rowptr_stamp, (bsr.rowptr,)):
         bsr._schedules.clear()
@@ -150,18 +162,45 @@ def bsr_transpose(bsr: BSRMatrix) -> BSRMatrix:
     (counterpart: pallas_kernels.py:207).
 
     The JAX package re-derives it in every backward; here it is kept on the
-    matrix until its tiles change, unless they require grad."""
+    matrix until its tiles change, unless they require grad. The transpose of
+    a :func:`bsr_like` copy takes its pattern's transposed pattern (block
+    indices, ``rowptr``, work schedules) and gathers only the tiles again."""
     _drop_stale(bsr)
     if bsr._transpose is not None:
         return bsr._transpose
-    order = torch.argsort(bsr.block_cols, stable=True)
-    brows_t = bsr.block_cols[order]
-    at = BSRMatrix(bsr.tiles.detach()[order].transpose(1, 2).contiguous(), brows_t,
-                   bsr.block_rows[order], _rowptr(brows_t, bsr.shape[1] // bsr.block),
-                   (bsr.shape[1], bsr.shape[0]))
+    if bsr._pattern is not None:
+        pt = bsr_transpose(bsr._pattern)
+        at = bsr_like(pt, bsr.tiles.detach()[bsr._pattern._transpose_order].transpose(1, 2)
+                      .contiguous())
+    else:
+        order = torch.argsort(bsr.block_cols, stable=True)
+        brows_t = bsr.block_cols[order]
+        at = BSRMatrix(bsr.tiles.detach()[order].transpose(1, 2).contiguous(), brows_t,
+                       bsr.block_rows[order], _rowptr(brows_t, bsr.shape[1] // bsr.block),
+                       (bsr.shape[1], bsr.shape[0]))
+        bsr._transpose_order = order
     if not bsr.tiles.requires_grad:
         bsr._transpose = at
     return at
+
+
+def bsr_like(bsr: BSRMatrix, tiles: torch.Tensor) -> BSRMatrix:
+    """A matrix of ``bsr``'s pattern with other ``tiles`` of the same shape,
+    such as its tiles after dropout on the weights (a zero slot stays zero, so
+    the edges stay a subset). It shares the block indices, ``rowptr`` and the
+    kernels' kept work schedules with ``bsr``; its transpose shares
+    ``bsr``'s transposed pattern (:func:`bsr_transpose`). So a new copy at
+    every step builds no schedule on the host and reads nothing back: only
+    its tiles are new. JAX's ``_drop_adj`` rebuilds the matrix from the same
+    block indices (predict_modality/scmogcn.py:221-223)."""
+    if tiles.shape != bsr.tiles.shape:
+        raise ValueError(f"bsr_like: tiles {tuple(tiles.shape)} do not match the pattern's "
+                         f"{tuple(bsr.tiles.shape)}")
+    _drop_stale(bsr)
+    pattern = bsr._pattern if bsr._pattern is not None else bsr
+    return BSRMatrix(tiles, bsr.block_rows, bsr.block_cols, bsr.rowptr, bsr.shape,
+                     _schedules=bsr._schedules, _rowptr_stamp=bsr._rowptr_stamp,
+                     _pattern=pattern)
 
 
 # A split block-row's chunks hold at least this many tiles.
@@ -259,15 +298,21 @@ def device_schedule(bsr: BSRMatrix, kernel: str, d: int, device: torch.device) -
     """The work schedule that ``kernel`` (``"spmm"``, ``"gat"`` or ``"max"``) runs on
     ``bsr`` at width ``d`` on ``device``: :func:`work_schedule` for the
     card's resident thread blocks and the kernel's blocks per item, from
-    :func:`launch_geometry`. Kept on the matrix until its ``rowptr`` changes."""
+    :func:`launch_geometry`. Kept on the matrix until its ``rowptr`` changes,
+    and shared with its :func:`bsr_like` copies; ``device_schedule.builds``
+    counts the schedules built."""
     _drop_stale(bsr)
     geo = launch_geometry(kernel, d, device.index)
     key = (geo["blocks_per_sm"] * geo["sms"], geo["blocks_per_item"])
     if key not in bsr._schedules:
         sched = work_schedule(bsr.rowptr.cpu().numpy(), *key)
+        device_schedule.builds += 1
         bsr._schedules[key] = DeviceSchedule(sched, torch.from_numpy(sched.items).to(device),
                                              torch.from_numpy(sched.rows).to(device), geo)
     return bsr._schedules[key]
+
+
+device_schedule.builds = 0  # schedules built on the host (each reads rowptr back once)
 
 
 def bsr_edge_mask(bsr: BSRMatrix) -> torch.Tensor:
@@ -334,15 +379,93 @@ def bsr_edges(bsr: BSRMatrix) -> BSREdges:
     return edges
 
 
-def resolve_use_bsr(use_bsr) -> bool:
-    """The port's ``use_bsr`` flag as a bool (counterpart:
-    pallas_kernels.py:711). ``True``/``False`` pass through; ``"auto"``
-    raises, since JAX's choice rests on v5e crossovers and the H100's are not
-    measured yet (ROADMAP Queue 1, item 4)."""
-    if use_bsr == "auto":
-        raise NotImplementedError("use_bsr='auto' needs H100 crossovers that are not measured "
-                                  "yet (ROADMAP Queue 1, item 4); pass use_bsr=True or False")
-    return bool(use_bsr)
+# The defaults of the format rule on the card: crossovers measured on an H100
+# by tools/time_formats.py (PERF.md, "Format crossovers"), one layer's sum
+# forward + backward in each format. #1 streams every slot of its stored
+# tiles at about 0.7-0.8 of the time cuBLAS takes per slot of the dense
+# matrix, so dense wins once the tiles cover ~80 % of the matrix; it streams
+# a slot at about 1/250 of what the CSR gather and index_add_ take per edge.
+# The density test is the occupancy test for a tiling packed without waste.
+DENSE_THRESHOLD = 0.8    # edges / (n m) at and above which the dense product wins
+DENSE_OCCUPANCY = 0.8    # stored tiles' slots / (n m) at and above which it wins too
+MAX_EXPANSION = 250.0    # stored slots per edge up to which #1 beats the CSR gather
+# Not a crossover: the most device memory a dense adjacency may take.
+DENSE_MAX_BYTES = 2 << 30
+
+
+def tile_expansion(adj: sp.spmatrix, block: int = BLOCK) -> float:
+    """Stored slots per edge of the BSR tiling, ``nonzero tiles x block² / nnz``
+    (counterpart: pallas_kernels.py:697): the multiply-adds #1 does for each
+    one an edge needs. ``inf`` for a matrix without entries."""
+    coo = sp.coo_matrix(adj)
+    if coo.nnz == 0:
+        return float("inf")
+    n_bcols = -(-coo.shape[1] // block)
+    tiles = np.unique((coo.row // block).astype(np.int64) * n_bcols + coo.col // block).size
+    return tiles * block * block / coo.nnz
+
+
+def choose_adj_format(adj: sp.spmatrix, block: int = BLOCK, *, device,
+                      max_expansion: float = MAX_EXPANSION, reorder: bool = True,
+                      dense_threshold: float = DENSE_THRESHOLD,
+                      dense_occupancy: float = DENSE_OCCUPANCY,
+                      dense_max_bytes: int = DENSE_MAX_BYTES) -> str:
+    """The device format of an adjacency that sums messages: ``"dense"``,
+    ``"bsr"`` or ``"csr"`` (counterpart: pallas_kernels.py:732), by JAX's rule:
+
+    - density ≥ ``dense_threshold`` and the dense (n, m) float32 matrix fits
+      in ``dense_max_bytes``: ``"dense"`` (one cuBLAS product);
+    - else, after an RCM reordering when ``reorder``, ``"dense"`` where the
+      BSR tiles would cover ≥ ``dense_occupancy`` of the n m slots
+      (``tile_expansion · density``) and the dense matrix fits;
+    - else ``"bsr"`` (#1) when :func:`tile_expansion` ≤ ``max_expansion``,
+      and ``"csr"`` (gather and ``index_add_``) above it.
+
+    On a CPU ``device`` the answer is ``"csr"``, as JAX's is off the TPU: the
+    plain BSR version there is the kernel's slow oracle. The defaults are the
+    H100 crossovers at the top of this module."""
+    if torch.device(device).type != "cuda":
+        return "csr"
+    adj = sp.csr_matrix(adj)
+    n, m = adj.shape
+    density = adj.nnz / max(n * m, 1)
+    dense_fits = 4 * n * m <= dense_max_bytes
+    if density >= dense_threshold and dense_fits:
+        return "dense"
+    if reorder:
+        _, adj = rcm_reorder(adj)
+    expansion = tile_expansion(adj, block)
+    if dense_fits and expansion * density >= dense_occupancy:
+        return "dense"
+    return "bsr" if expansion <= max_expansion else "csr"
+
+
+def resolve_adj_format(use_bsr, adj: Optional[sp.spmatrix] = None, block: int = BLOCK, *,
+                       device, dense: bool = True, reorder: bool = True,
+                       max_expansion: float = MAX_EXPANSION) -> str:
+    """The format a model's ``use_bsr`` flag names: ``True`` is ``"bsr"``,
+    ``False`` ``"csr"``, ``"auto"`` :func:`choose_adj_format` on ``adj``
+    (never ``"dense"`` for a model without a dense route, ``dense=False``).
+    The one place the flag is read; :func:`resolve_use_bsr` is its
+    BSR-or-CSR form."""
+    if isinstance(use_bsr, bool):
+        return "bsr" if use_bsr else "csr"
+    if use_bsr != "auto":
+        raise ValueError(f"use_bsr must be True, False or 'auto', got {use_bsr!r}")
+    if adj is None:
+        raise ValueError("use_bsr='auto' needs the adjacency it decides on")
+    return choose_adj_format(adj, block, device=device, max_expansion=max_expansion,
+                             reorder=reorder, dense_max_bytes=DENSE_MAX_BYTES if dense else 0)
+
+
+def resolve_use_bsr(use_bsr, adj: Optional[sp.spmatrix] = None, block: int = BLOCK, *,
+                    device, max_expansion: float = MAX_EXPANSION,
+                    reorder: bool = True) -> bool:
+    """A ``use_bsr`` flag as a bool for a model whose adjacency is BSR or CSR
+    (counterpart: pallas_kernels.py:711): :func:`resolve_adj_format` without
+    the dense answer, so one rule decides both."""
+    return resolve_adj_format(use_bsr, adj, block, device=device, dense=False, reorder=reorder,
+                              max_expansion=max_expansion) == "bsr"
 
 
 def rcm_reorder(adj: sp.spmatrix):
@@ -361,6 +484,23 @@ def bsr_with_rcm(adj: sp.spmatrix, block: int = BLOCK):
     covering ``adj[perm][:, perm]`` (counterpart: pallas_kernels.py:666)."""
     perm, adj_p = rcm_reorder(adj)
     return np.asarray(perm), bsr_from_scipy(adj_p, block=block)
+
+
+class BipartiteBSR(NamedTuple):
+    """A rectangular adjacency tiled both ways (counterpart: pallas_kernels.py:677):
+    ``fwd`` is the (rows x cols) matrix, ``bwd`` its transpose, each tiled
+    from scipy, so that ``A @ H`` and ``Aᵀ @ H`` are each one forward #1."""
+
+    fwd: BSRMatrix
+    bwd: BSRMatrix
+
+
+def bipartite_bsr(adj: sp.spmatrix, block: int = BLOCK) -> BipartiteBSR:
+    """Tile a rectangular scipy adjacency and its transpose (counterpart:
+    pallas_kernels.py:690)."""
+    adj = sp.csr_matrix(adj)
+    return BipartiteBSR(bsr_from_scipy(adj, block=block),
+                        bsr_from_scipy(adj.T.tocsr(), block=block))
 
 
 def unpermute(perm, arr: np.ndarray) -> np.ndarray:
@@ -886,11 +1026,14 @@ def bsr_spmm_max(bsr: BSRMatrix, b: torch.Tensor, *, weighted: bool = True) -> t
 
 bsr_spmm_max.launches = 0
 
-__all__ = ["BLOCK", "BSREdges", "BSRGat", "BSRMatrix", "BSRSpMM", "BSRSpMMMax", "DeviceSchedule",
-           "GAT_ACTS", "WorkSchedule", "bsr_edge_mask", "bsr_edges",
-           "bsr_from_scipy",
-           "bsr_gat", "bsr_gat_ad", "bsr_gat_grads", "bsr_gat_grads_reference",
-           "bsr_gat_reference", "bsr_gat_stats", "bsr_sddmm", "bsr_sddmm_reference", "bsr_spmm",
-           "bsr_spmm_ad", "bsr_spmm_max", "bsr_spmm_max_reference", "bsr_spmm_reference",
-           "bsr_transpose", "bsr_with_rcm", "device_schedule", "launch_geometry", "rcm_reorder",
-           "resolve_use_bsr", "unpermute", "work_schedule"]
+__all__ = ["BLOCK", "BSREdges", "BSRGat", "BSRMatrix", "BSRSpMM", "BSRSpMMMax",
+           "BipartiteBSR", "DENSE_MAX_BYTES", "DENSE_OCCUPANCY", "DENSE_THRESHOLD",
+           "DeviceSchedule", "GAT_ACTS", "MAX_EXPANSION", "WorkSchedule",
+           "bipartite_bsr", "bsr_edge_mask", "bsr_edges", "bsr_from_scipy", "bsr_gat",
+           "bsr_gat_ad", "bsr_gat_grads", "bsr_gat_grads_reference",
+           "bsr_gat_reference", "bsr_gat_stats", "bsr_like", "bsr_sddmm",
+           "bsr_sddmm_reference", "bsr_spmm", "bsr_spmm_ad", "bsr_spmm_max",
+           "bsr_spmm_max_reference", "bsr_spmm_reference", "bsr_transpose",
+           "bsr_with_rcm", "choose_adj_format", "device_schedule", "launch_geometry",
+           "rcm_reorder", "resolve_adj_format", "resolve_use_bsr", "tile_expansion", "unpermute",
+           "work_schedule"]

@@ -1,4 +1,5 @@
-"""Truncated SVD and PCA (counterpart: dance_tpu/ops/linalg.py:19-110).
+"""Truncated SVD, PCA and the SVD embedding (counterpart:
+dance_tpu/ops/linalg.py:19-122).
 
 ``solver="auto"`` takes the exact SVD when ``min(m, n) <= 1024`` and the
 randomized range finder (Halko et al.) otherwise, as the JAX package does.
@@ -72,4 +73,11 @@ def pca(x: torch.Tensor, n_components: int, *, seed: int = 0) -> PCAResult:
     return PCAResult(u * s[None, :], vt, mean, s ** 2 / (x.shape[0] - 1))
 
 
-__all__ = ["PCAResult", "pca", "randomized_svd"]
+def svd_embedding(x: torch.Tensor, n_components: int, **kwargs):
+    """TruncatedSVD's embedding, without centring: ``(U S, Vt)`` of
+    :func:`randomized_svd` (counterpart: linalg.py:118)."""
+    u, s, vt = randomized_svd(x, n_components, **kwargs)
+    return u * s[None, :], vt
+
+
+__all__ = ["PCAResult", "pca", "randomized_svd", "svd_embedding"]

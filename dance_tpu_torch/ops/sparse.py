@@ -85,9 +85,11 @@ class AdaptiveBSR:
 
     With node scale ``s[v] = alpha[gene_idx[v]]`` for genes and 1 for cells,
     ``sum_e w_e * alpha_e * h_src == s * (A_off @ (s * h)) + w_diag * alpha_self * h``.
+    ``bsr`` holds ``A_off`` as BSR tiles, or as a :class:`DenseAdj` (the JAX
+    class keeps either in the same field).
     """
 
-    bsr: BSRMatrix
+    bsr: "BSRMatrix | DenseAdj"  # the off-diagonal: BSR tiles or one dense matrix
     w_diag: torch.Tensor    # (n,) self-loop weight per node (0 if absent)
     gene_idx: torch.Tensor  # (n,) int64 gene index per node, -1 for cells
     deg: torch.Tensor       # (n,) incoming edge counts incl. self-loops

@@ -1,9 +1,13 @@
-"""Seeding, device resolution, accuracy, the adjusted Rand index and an
-epoch clock.
+"""Seeding, device resolution, the metrics (accuracy, the adjusted Rand
+index, NMI, MSE and RMSE, k-means NMI/ARI of an embedding) and an epoch
+clock.
 
 Counterparts: ``set_seed`` dance_tpu/utils/__init__.py:99, ``get_device``
 dance_tpu/utils/__init__.py:23 (here :func:`resolve_device`, over torch
-devices), ``acc`` dance_tpu/utils/metrics.py:36, ``ari`` metrics.py:55.
+devices), ``acc`` dance_tpu/utils/metrics.py:36, ``ari`` metrics.py:55,
+``nmi``, ``mse`` and ``rmse`` metrics.py:92-106 and
+``labeled_clustering_evaluate`` metrics.py:168. The JAX package calls
+scikit-learn for these; the port computes the same formulas in numpy.
 :class:`EpochClock` has no counterpart: the JAX package times whole scans.
 """
 
@@ -80,6 +84,74 @@ def ari(true, pred) -> float:
     return 2.0 * (tp * tn - fn * fp) / ((tp + fn) * (fn + tn) + (tp + fp) * (fp + tn))
 
 
+def _entropy(labels: np.ndarray) -> float:
+    """sklearn's ``entropy`` of a labeling (natural log; 0 for one cluster)."""
+    pi = np.bincount(np.unique(labels, return_inverse=True)[1]).astype(np.float64)
+    pi = pi[pi > 0]
+    if pi.size <= 1:
+        return 0.0
+    total = pi.sum()
+    return float(-np.sum((pi / total) * (np.log(pi) - np.log(total))))
+
+
+def nmi(true, pred) -> float:
+    """Normalised mutual information with ``average_method="max"``
+    (counterpart: metrics.py:92, sklearn's ``normalized_mutual_info_score``):
+    MI over the larger of the two entropies; 1 where both labelings are one
+    cluster, 0 where MI is 0."""
+    true, pred = np.asarray(true).ravel(), np.asarray(pred).ravel()
+    _, ti = np.unique(true, return_inverse=True)
+    _, pi = np.unique(pred, return_inverse=True)
+    n_t, n_p = int(ti.max(initial=-1)) + 1, int(pi.max(initial=-1)) + 1
+    if n_t == n_p and n_t <= 1:
+        return 1.0
+    cont = np.bincount(ti * n_p + pi, minlength=n_t * n_p).reshape(n_t, n_p)
+    if n_t == 1 or n_p == 1:
+        return 0.0
+    rows, cols = np.nonzero(cont)
+    nz = cont[rows, cols].astype(np.float64)
+    total = nz.sum()
+    a, b = cont.sum(1).astype(np.int64), cont.sum(0).astype(np.int64)
+    log_outer = -np.log(a[rows] * b[cols]) + np.log(a.sum()) + np.log(b.sum())
+    terms = nz / total * (np.log(nz) - np.log(total)) + nz / total * log_outer
+    terms = np.where(np.abs(terms) < np.finfo(np.float64).eps, 0.0, terms)
+    mi = max(float(terms.sum()), 0.0)
+    if mi == 0.0:
+        return 0.0
+    return mi / max(_entropy(true), _entropy(pred))
+
+
+def mse(true, pred) -> float:
+    """Mean squared error over every entry (counterpart: metrics.py:98)."""
+    true, pred = np.asarray(true), np.asarray(pred)
+    err = (true - pred) ** 2
+    return float(err.mean(axis=0).mean() if err.ndim == 2 else err.mean())
+
+
+def rmse(true, pred) -> float:
+    """Root of :func:`mse` (counterpart: metrics.py:104)."""
+    return float(np.sqrt(mse(true, pred)))
+
+
+def labeled_clustering_evaluate(emb, true_labels, n_clusters: int = 10,
+                                random_state: int = 200, device=None) -> dict:
+    """k-means (5 restarts) of an embedding scored against known labels:
+    ``{"dance_nmi", "dance_ari"}`` rounded to 3 places (counterpart:
+    metrics.py:168, which runs sklearn's ``KMeans``; here the port's
+    :func:`~dance_tpu_torch.ops.cluster.kmeans`, seeded with
+    ``random_state``, on ``device``: the card unless the CPU is named)."""
+    from dance_tpu_torch.ops.cluster import kmeans
+    from dance_tpu_torch.settings import logger
+
+    true_labels = np.asarray(true_labels).ravel()
+    pred = kmeans(np.asarray(emb, np.float32), n_clusters, n_init=5, seed=random_state,
+                  device=device).labels.cpu().numpy()
+    scores = {"dance_nmi": round(nmi(true_labels, pred), 3),
+              "dance_ari": round(ari(true_labels, pred), 3)}
+    logger.info("NMI: %s ARI: %s", scores["dance_nmi"], scores["dance_ari"])
+    return scores
+
+
 class EpochClock:
     """Seconds per epoch of a training loop that reads nothing back per epoch.
 
@@ -109,4 +181,5 @@ class EpochClock:
         return [a.elapsed_time(b) / 1e3 for a, b in zip(self.marks[:-1], self.marks[1:])]
 
 
-__all__ = ["EpochClock", "acc", "ari", "resolve_device", "set_seed"]
+__all__ = ["EpochClock", "acc", "ari", "labeled_clustering_evaluate", "mse", "nmi",
+           "resolve_device", "rmse", "set_seed"]

@@ -1,5 +1,6 @@
 """flax -> torch parameter transfer for the scDeepSort ``GNN``, STAGATE's
-net, ``GATConv``, graph-sc's ``GCNAE``, scTAG's net and scDSC's model.
+net, ``GATConv``, graph-sc's ``GCNAE``, scTAG's net, scDSC's model and the
+scMoGNN trunk.
 
 Parity between the two packages is checked by copying the flax parameters
 into the torch module, since the two frameworks' generators and initializers
@@ -40,6 +41,23 @@ scDSC's ``ScDSCModel`` (scdsc.py:32-104):
     gnn_{i}/kernel                       -> gnn.{i}.weight
     dec_{mean,disp,pi}/{kernel,bias}     -> dec_{mean,disp,pi}.{weight,bias}
     cluster_layer                        -> cluster_layer
+
+The scMoGNN trunk ``ScMoGCN`` (predict_modality/scmogcn.py:227-305; flax
+names a list of modules ``name_{i}``):
+
+    embed_feat/embedding                 -> embed_feat.weight
+    embed_cell/embedding, or {kernel,bias} (cell_init="svd") -> embed_cell.*
+    conv_{f2c,c2f,pw}_{i}/Dense_0, Dense_1 (mean: self without bias, then
+        neighbour; gcn: Dense_0 alone, the neighbour) -> conv_*.{i}.fc_{self,neigh}
+    {conv_norm,cell_input_norm,feat_input_norm}_{j}/{GroupNorm_0,LayerNorm_0}
+        -> ....{j}.norm.{weight,bias}; the batch norm's own scale, bias as they are
+    {att_linears,readout_linears,cell_input_linears,feat_input_linears}_{i}
+        -> ....{i}.{weight,bias}
+    extra_encoder                        -> extra_encoder
+    wt, aph                              -> wt, aph
+
+and the joint-embedding net ``_JENet`` (joint_embedding/scmogcn.py:25):
+``trunk/...`` -> ``trunk.…`` as above, ``head`` -> ``head``.
 """
 
 from typing import Dict, Mapping
@@ -159,6 +177,71 @@ def scdsc_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
+_SCMOGCN_LISTS = ("conv_f2c", "conv_c2f", "conv_pw", "conv_norm", "cell_input_norm",
+                  "feat_input_norm", "att_linears", "readout_linears", "cell_input_linears",
+                  "feat_input_linears")
+
+
+def _norm(state: dict, prefix: str, sub: Mapping):
+    """A ``_Norm``: flax's GroupNorm_0 / LayerNorm_0, or the batch norm's own
+    ``scale`` and ``bias``."""
+    if set(sub) <= {"scale", "bias"}:
+        for k in sub:
+            state[f"{prefix}.{k}"] = _t(sub[k])
+        return
+    (name, leaves), = sub.items()
+    if name not in ("GroupNorm_0", "LayerNorm_0") or set(leaves) - {"scale", "bias"}:
+        raise KeyError(f"unexpected _Norm parameters {sorted(sub)} under {prefix!r}")
+    state[f"{prefix}.norm.weight"] = _t(leaves["scale"])
+    state[f"{prefix}.norm.bias"] = _t(leaves["bias"])
+
+
+def scmogcn_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``ScMoGCN`` tree -> ``ScMoGCN.state_dict()`` (the modules flax
+    created: an unused one, such as the pathway norms of ``"sum"``, has no
+    flax parameters and keeps its torch ones)."""
+    state = {}
+    for name, sub in params.items():
+        kind, _, idx = name.rpartition("_")
+        if name in ("wt", "aph"):
+            state[name] = _t(sub)
+        elif name in ("embed_feat", "embed_cell") and set(sub) == {"embedding"}:
+            state[f"{name}.weight"] = _t(sub["embedding"])
+        elif name in ("embed_cell", "extra_encoder"):
+            _dense(state, name, sub)
+        elif kind in ("conv_f2c", "conv_c2f", "conv_pw"):
+            if "Dense_1" in sub:  # mean: Dense_0 the self weight, Dense_1 the neighbour's
+                if set(sub) != {"Dense_0", "Dense_1"}:
+                    raise KeyError(f"unexpected _SAGERelation parameters {sorted(sub)}")
+                _dense(state, f"{kind}.{idx}.fc_self", sub["Dense_0"], bias=False)
+                _dense(state, f"{kind}.{idx}.fc_neigh", sub["Dense_1"])
+            elif set(sub) == {"Dense_0"}:  # gcn
+                _dense(state, f"{kind}.{idx}.fc_neigh", sub["Dense_0"])
+            else:
+                raise KeyError(f"unexpected _SAGERelation parameters {sorted(sub)}")
+        elif kind in ("conv_norm", "cell_input_norm", "feat_input_norm"):
+            _norm(state, f"{kind}.{idx}", sub)
+        elif kind in _SCMOGCN_LISTS:
+            _dense(state, f"{kind}.{idx}", sub)
+        else:
+            raise KeyError(f"unexpected ScMoGCN parameter {name!r}")
+    return state
+
+
+def scmogcn_je_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax joint-embedding ``_JENet`` tree -> ``_JENet.state_dict()``."""
+    state = {}
+    for name, sub in params.items():
+        if name == "trunk":
+            state.update({f"trunk.{k}": v for k, v in scmogcn_flax_to_torch(sub).items()})
+        elif name == "head":
+            _dense(state, "head", sub)
+        else:
+            raise KeyError(f"unexpected _JENet parameter {name!r}")
+    return state
+
+
 __all__ = ["flax_to_torch", "gatconv_flax_to_torch", "graphsc_flax_to_torch",
-           "scdsc_flax_to_torch", "sctag_flax_to_torch", "stagate_flax_to_torch",
+           "scdsc_flax_to_torch", "scmogcn_flax_to_torch", "scmogcn_je_flax_to_torch",
+           "sctag_flax_to_torch", "stagate_flax_to_torch",
            "tagconv_flax_to_torch"]

@@ -1,6 +1,6 @@
 """dance_tpu_torch on the card: the hand-written CUDA kernels against their
-plain PyTorch versions, and the scDeepSort, STAGATE, graph-sc, scTAG and
-scDSC fits on the card against the CPU.
+plain PyTorch versions, and the scDeepSort, STAGATE, graph-sc, scTAG, scDSC
+and scMoGNN fits on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips where ``torch.cuda.is_available()``
 is False. This file imports no JAX, so it runs on a machine with only
@@ -29,8 +29,9 @@ from dance_tpu_torch.graph import Graph
 from dance_tpu_torch.modules.single_modality.cell_type_annotation import ScDeepSort
 from dance_tpu_torch.modules.spatial.spatial_domain import Stagate
 from dance_tpu_torch.ops import bsr as tbsr
-from torch_cases import (CASES, NONFINITE_WIDTHS, cell_knn_bsr, gat_inputs, gat_nonfinite_case,
-                         knn_bsr, max_edge_case, no_pad, signed, skewed_bsr, spatial_case)
+from torch_cases import (CASES, NONFINITE_WIDTHS, bipartite_case, cell_knn_bsr, gat_inputs,
+                         gat_nonfinite_case, knn_bsr, max_edge_case, no_pad, signed, skewed_bsr,
+                         spatial_case)
 
 RTOL, ATOL = 1e-5, 1e-5
 
@@ -519,3 +520,75 @@ def test_scdsc_dec_stage_matches_cpu(cuda, use_bsr):
         for name, w in want[3].items():
             scale = float(np.abs(w).max()) or 1.0
             np.testing.assert_allclose(got[3][name], w, rtol=0, atol=1e-4 * scale, err_msg=name)
+
+
+def _dropped(bsr: tbsr.BSRMatrix, seed: int = 0) -> tbsr.BSRMatrix:
+    """``bsr`` with edge dropout at 0.3 on its tiles, as scMoGNN's layers do."""
+    gen = torch.Generator(device=bsr.tiles.device).manual_seed(seed)
+    keep = torch.rand(bsr.tiles.shape, generator=gen, device=bsr.tiles.device) < 0.7
+    return tbsr.bsr_like(bsr, torch.where(keep, bsr.tiles / 0.7, 0.0))
+
+
+@pytest.mark.parametrize("dropped", [False, True])
+@pytest.mark.parametrize("which", ["f2c", "c2f"])
+@pytest.mark.parametrize("d", [48, 96])
+def test_spmm_rectangular_tiling_matches_plain_and_repeats_bit_equal(cuda, d, which, dropped):
+    """#1 on scMoGNN's rectangular tilings at the trunk's widths: ``f2c``
+    (every tile of 47 x 8 stored) and ``c2f`` (8 block-rows of 47 tiles, split
+    by the work schedule), and on a dropped copy of the tiles, whose
+    transpose (the backward's ``Aᵀḡ``) shares the pattern's."""
+    pair = dict(zip(("f2c", "c2f"), bipartite_case()))
+    bsr = pair[which].to(cuda)
+    bsr = _dropped(bsr) if dropped else bsr
+    for mat in (bsr, tbsr.bsr_transpose(bsr)):
+        b = torch.randn((mat.shape[1], d), generator=torch.Generator().manual_seed(d)).to(cuda)
+        runs = [tbsr.bsr_spmm(mat, b) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1])
+        ref = tbsr.bsr_spmm_reference(mat.to("cpu"), b.cpu())
+        torch.testing.assert_close(runs[0].cpu(), ref, rtol=RTOL, atol=1e-4)
+    c2f = pair["c2f"].to(cuda)
+    sched = tbsr.device_schedule(c2f, "spmm", d, c2f.tiles.device)
+    assert len(sched.schedule.rows) == 8  # every long row of c2f is split
+
+
+def test_dropped_copies_build_no_schedule(cuda):
+    """Fresh dropped tiles at every step: after the first step's forward and
+    ``Aᵀḡ``, no work schedule is built on the host again."""
+    f2c = bipartite_case().fwd.to(cuda)
+    h = torch.randn((f2c.shape[1], 48), device=cuda, requires_grad=True)
+    builds = []
+    for step in range(4):
+        out = tbsr.bsr_spmm_ad(_dropped(f2c, seed=step), h)
+        out.sum().backward()
+        torch.cuda.synchronize()
+        builds.append(tbsr.device_schedule.builds)
+    assert builds[1:] == [builds[0]] * 3
+
+
+@pytest.mark.parametrize("use_bsr", [True, False, "auto"])
+def test_scmogcn_fit_matches_cpu(cuda, use_bsr):
+    """A small scMoGNN fit (300 cells, 80 features, 2 layers of 16, dropout
+    off) on the card and on the CPU from the same seed: losses, validation
+    RMSEs and predictions; #1 runs 11 times an epoch on BSR: 2 layers x 2
+    relations forward, 3 Aᵀḡ (the last layer's feature update reaches no
+    output) and the validation forward's 4."""
+    from dance_tpu_torch.modules.multi_modality.predict_modality import ScMoGCNWrapper
+
+    rng = np.random.default_rng(18)
+    x = (rng.poisson(2.0, (300, 80)) * (rng.random((300, 80)) < 0.1)).astype(np.float32)
+    y = (np.log1p(x) @ rng.random((80, 4)) / 20).astype(np.float32)
+    runs = []
+    for device in (torch.device("cpu"), cuda):
+        n = tbsr.bsr_spmm.launches
+        m = ScMoGCNWrapper(hidden_size=16, conv_layers=2, edge_dropout=0.0, model_dropout=0.0,
+                           device=device, seed=0)
+        m.fit(x, y, epochs=5, use_bsr=use_bsr)
+        launched = tbsr.bsr_spmm.launches - n
+        runs.append(([h["loss"] for h in m.history], [h["val"] for h in m.history],
+                      m.predict(), launched, m._graph.fmt))
+    for got, want in zip(runs[1][:3], runs[0][:3]):
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    assert runs[0][3] == 0 and runs[1][3] == (5 * 11 if runs[1][4] == "bsr" else 0)
+    assert runs[0][4] == ("bsr" if use_bsr is True else "csr")
+    assert runs[1][4] == {True: "bsr", False: "csr", "auto": "dense"}[use_bsr]

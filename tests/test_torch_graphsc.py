@@ -281,8 +281,8 @@ def test_gcnae_dropout_keeps_and_scales_like_flax():
     _, tg, _ = _graphs(5)
     tm = GCNAE(8, hidden_dim=16, hidden_1=12, dropout=0.25)
     x = torch.ones((20000, 8))
-    from dance_tpu_torch.modules.single_modality.clustering.graphsc import _dropout
-    out = _dropout(x, 0.25, torch.Generator().manual_seed(0))
+    from dance_tpu_torch.nn.gnn import flax_dropout  # graph-sc's dropout, shared with scMoGNN
+    out = flax_dropout(x, 0.25, torch.Generator().manual_seed(0))
     torch.testing.assert_close(torch.unique(out), torch.tensor([0.0, 1.0]) / 0.75, rtol=0,
                                atol=0)
     assert abs(float((out == 0).float().mean()) - 0.25) < 0.01
@@ -369,8 +369,10 @@ def test_graphsc_fit_counts_spmm_and_bsr_rules(monkeypatch):
     m.fit(tg, epochs=3, use_bsr=True)
     # per epoch one forward SpMM and one Aᵀḡ backward; one more for z
     assert calls["spmm"] == 3 * 2 + 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.fit(tg, epochs=1, use_bsr="auto")
+    m.fit(tg, epochs=1, use_bsr="auto")  # CSR on the CPU, as JAX's "auto" off the TPU
+    assert calls["spmm"] == 3 * 2 + 1
+    with pytest.raises(ValueError, match="use_bsr must be"):
+        m.fit(tg, epochs=1, use_bsr="sometimes")
     mmax = GraphSC(agg="max", hidden_dim=8, hidden_1=6, n_clusters=2, device="cpu")
     with pytest.raises(ValueError, match="use_bsr supports"):
         mmax.fit(tg, epochs=1, use_bsr=True)

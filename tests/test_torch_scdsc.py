@@ -32,7 +32,7 @@ from dance_tpu_torch.modules.single_modality.clustering import scdsc as tscdsc
 from dance_tpu_torch.ops.sparse import sym_norm_adjacency
 from dance_tpu_torch.ops import bsr as tbsr
 from dance_tpu_torch.ops.cluster import KMeansResult
-from dance_tpu_torch.ops.sparse import csr_from_scipy
+from dance_tpu_torch.ops.sparse import CSRMatrix, csr_from_scipy
 from dance_tpu_torch.utils.params import scdsc_flax_to_torch
 from test_torch_sctag import _counts, _inputs
 
@@ -145,8 +145,8 @@ def test_scdsc_fit_counts_spmm_and_refreshes_every_ten_epochs(monkeypatch):
     assert calls["refresh"] == 12 + 2  # the training forwards and 2 refreshes
     assert m.q.shape == (150, 3) and m.dec_out["epoch"] == 12
     np.testing.assert_allclose(m.q.sum(1), 1.0, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        m.fit(inputs, epochs=1, use_bsr="auto")
+    m.fit(inputs, pt_epochs=1, epochs=1, use_bsr="auto")  # CSR on the CPU, as JAX off the TPU
+    assert calls["spmm"] == 12 * 14 and isinstance(m.adj, CSRMatrix)
 
 
 @pytest.mark.parametrize("sparse", [True, False])

@@ -33,7 +33,7 @@ from dance_tpu_torch.modules.single_modality.clustering.scdsc import scdsc_prepr
 from dance_tpu_torch.ops import bsr as tbsr
 from dance_tpu_torch.ops.cluster import KMeansResult
 from dance_tpu_torch.ops.neighbors import knn_graph
-from dance_tpu_torch.ops.sparse import csr_from_scipy, sym_norm_adjacency
+from dance_tpu_torch.ops.sparse import CSRMatrix, csr_from_scipy, sym_norm_adjacency
 from dance_tpu_torch.transforms import cell_pca
 from dance_tpu_torch.utils.params import sctag_flax_to_torch
 
@@ -153,8 +153,8 @@ def test_sctag_fit_counts_spmm_and_keeps_the_last_q_without_labels(monkeypatch):
     assert m.q.shape == (150, 3) and m.z.shape == (150, NET["latent_dim"])
     np.testing.assert_allclose(m.q.sum(1), 1.0, rtol=1e-5)
     assert m.predict().shape == (150,) and m.is_pretrained
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        m.fit(inputs, epochs=1, use_bsr="auto")
+    m.fit(inputs, epochs=1, use_bsr="auto")  # CSR on the CPU, as JAX's "auto" off the TPU
+    assert calls["spmm"] == (2 + 3) * 3 * k + 2 * k and isinstance(m.adj_n, CSRMatrix)
     m.fit(inputs, pretrain_epochs=5, epochs=0, use_bsr=False)  # pretrained: skipped
     assert len(m.pretrain_history) == 2 and not m.q.any()
 

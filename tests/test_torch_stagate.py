@@ -33,7 +33,7 @@ from dance_tpu_torch.modules.spatial.spatial_domain import (Stagate, StagateNet,
 from dance_tpu_torch.ops import bsr as tbsr
 from dance_tpu_torch.ops import cluster as tcluster
 from dance_tpu_torch.ops import neighbors as tnb
-from dance_tpu_torch.ops.sparse import csr_from_scipy
+from dance_tpu_torch.ops.sparse import CSRMatrix, csr_from_scipy
 from dance_tpu_torch.sc import pp as tpp
 from dance_tpu_torch.transforms.graph import stagate_graph
 from dance_tpu_torch.utils import ari
@@ -325,5 +325,5 @@ def test_stagate_fit_predict_finds_domains(use_bsr):
     assert z.shape == (150, 4) and np.isfinite(z).all()
     assert len(m.history) == 150 and m.history[-1]["loss"] < m.history[0]["loss"]
     assert m.score(None, dom) > 0.6
-    with pytest.raises(NotImplementedError, match="auto"):
-        m.fit((x, adj), epochs=1, use_bsr="auto")
+    m.fit((x, adj), epochs=1, use_bsr="auto")  # CSR on the CPU, as JAX's "auto" off the TPU
+    assert isinstance(m.adj, CSRMatrix)

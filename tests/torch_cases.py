@@ -173,3 +173,16 @@ def cell_knn_bsr(n: int = 2000, dim: int = 50, k: int = 15, seed: int = 0) -> tb
     pts = np.random.default_rng(seed).normal(0, 1, (n, dim)).astype(np.float32)
     _, adj_n = sym_norm_adjacency(knn_graph(pts, k, mode="gauss"))
     return tbsr.bsr_with_rcm(adj_n)[1]
+
+
+def bipartite_case(n_cells: int = 6000, n_feats: int = 1000, density: float = 0.05,
+                   seed: int = 7):
+    """scMoGNN's kind of rectangular tilings (``bipartite_bsr``): ``f2c`` of
+    47 block-rows x 8 block-columns, every tile stored, and its transpose
+    ``c2f`` of 8 block-rows of 47 tiles, long enough that the work schedule
+    splits them. Expression-like weights: small positive counts."""
+    rng = np.random.default_rng(seed)
+    a = sp.random(n_cells, n_feats, density=density, random_state=seed, format="csr",
+                  dtype=np.float32)
+    a.data = rng.poisson(2.0, a.data.shape).astype(np.float32) + 1.0
+    return tbsr.bipartite_bsr(a)
