@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: scDeepSort
 training, STAGATE training, graph-sc training, graph-sc's max aggregation
-over BSR tiles, and scTAG and scDSC training.
+over BSR tiles, scTAG and scDSC training, scMoGNN's modality prediction and
+joint embedding, and DSTG and stdGCN deconvolution.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -94,6 +95,36 @@ printed only when every phase passed):
    seven aggregations carrying gradient); and the two fits' ``q`` and GCN
    output after the DEC stage against the CPU's own spread under one-ulp
    changes of the features (``scdsc_card_vs_cpu``).
+15. scMoGNN modality prediction at ``default_args`` on 10,000 cells x 2,000
+   raw counts -> 134 proteins, 300 BSR epochs (#1 on the rectangular
+   ``f2c``/``c2f`` tilings with edge dropout on the tiles), then
+   ``use_bsr="auto"``; 16. #1 on both tilings at d = 48 and 96 and on a
+   dropped copy; 17. 400 cells card vs CPU, full-graph and sampled; 18. the
+   joint embedding's 150 epochs and its k-means NMI/ARI.
+19. DSTG at its defaults, counts set to 0 just before it: the JAX package's
+   deconvolution case (2,000 reference cells x 2,000 genes in 8 types;
+   4,000 real spots, Poisson of Dirichlet portions of the type profiles) ->
+   ``dstg_preprocess`` (1,000 pseudo-spots, median profiles, marker genes,
+   10 PCs, the CCA link graph at k_filter 30) -> ``DSTG(seed=0).fit(use_bsr=
+   "auto")``, which must pick BSR -> ``predict``. Prints the tiling, the
+   stored slots per edge, the preprocessing steps' and the fit's times and
+   the median epoch; the real spots' portion MSE must beat the uniform
+   guess's, and ``bsr_spmm`` must run at least 4 x epochs + 2 times (2
+   aggregations forward and 2 ``Aᵀḡ`` an epoch, 2 in ``predict``).
+20. ``bsr_spmm`` on DSTG's tiling at d = 32 and 8, as phase 12 measures it.
+21. stdGCN at its defaults on DSTG's pseudo-spots and the real spots (all
+   genes, log1p): ``use_bsr=True``, ``early_stopping_patience=0``, 300
+   epochs (``bsr_spmm`` at least 8 x epochs + 4: 4 tower aggregations and
+   their ``Aᵀḡ``), the towers' tilings under the shared RCM order, the
+   union's occupancy, the spatial tower's tiles under its own order, the
+   MSE; then ``use_bsr="auto"`` at the default patience (its pick, the
+   early-stop epoch, the MSE, which must beat the uniform guess's) and at
+   patience 0 (its epoch); then ``bsr_spmm`` on each tower's tiling at d =
+   256, as phase 12.
+22. DSTG and stdGCN on 400 spots, card against CPU (``deconvo_card_vs_cpu``):
+   DSTG's losses and predictions; stdGCN's graphs built on each device, one
+   step from the same weights, and short fits held against the CPU's own
+   spread.
 
 Each kernel's bound is the larger of its operations over a compute peak and
 the bytes of its inputs and outputs, each counted once, over 3.35 TB/s, for
@@ -123,7 +154,7 @@ prints the device time of the kernel's own launches (torch.profiler), as
 there is one (BSR ``@`` for the SpMM, ``sampled_addmm`` over the tiles'
 pattern for the SDDMM); the port never calls them. The SpMM's entry carries
 the other paths' tilings beside scDeepSort's (``graphsc``, ``sctag``,
-``scdsc``) and its launches by path.
+``scdsc``, ``scmogcn``, ``dstg``, ``stdgcn``) and its launches by path.
 
 PyTorch's TF32 is off for every phase (the plain versions and cuBLAS run
 IEEE float32); the tensor-core kernels hold float32 accuracy by 3xTF32.
@@ -176,6 +207,12 @@ MM_EPOCHS, MM_AUTO_EPOCHS, MM_SMALL_EPOCHS = 300, 300, 10
 # to the largest prediction (float32 sums in another order, grown by AdamW
 # steps of ~lr each; group norm over 12 features a group)
 MM_LOSS_BOUND, MM_PRED_BOUND = 1e-4, 1e-4
+# Deconvolution: the JAX package's dstg and stdgcn cases (benchmarks/matrix.py:96,
+# 750-757, 809-848): 2,000 reference cells x 2,000 genes in 8 types, 4,000 real
+# spots (about one Visium slide's 4,992), 1,000 pseudo-spots; DSTG's link graph
+# at the benchmark's k_filter and num_cc
+DC_REF, DC_GENES, DC_TYPES, DC_REAL, DC_PSEUDO = 2000, 2000, 8, 4000, 1000
+DC_K_FILTER, DC_NUM_CC = 30, 10
 # H100 SXM: FP32 outside the tensor cores, TF32 dense on the tensor cores, HBM3
 PEAK_FLOPS, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
 PALLAS = "dance_tpu/ops/pallas_kernels.py"
@@ -1510,6 +1547,306 @@ def multimodal_phases(cuda) -> dict:
     return result
 
 
+def deconvo_inputs(n_ref: int, n_genes: int, n_types: int, n_real: int, seed: int):
+    """Reference cells and real spots as the JAX package's deconvolution
+    cases make them (benchmarks/matrix.py:750-757, its counts from
+    dance_tpu/datasets/synthetic.py:16-31, both generators seeded with
+    ``seed``): per-type marker genes (a tenth, 4 x up) over gamma base rates,
+    lognormal depths, Poisson counts; each real spot Poisson of 3 x its
+    Dirichlet portions of the type profiles, at uniform coordinates in
+    [0, 100)². Returns (x_ref, labels as strings, x_real, portions, coords)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, n_types, n_ref)
+    rates = np.tile(rng.gamma(2.0, 0.5, n_genes), (n_ref, 1))
+    markers = [rng.choice(n_genes, max(n_genes // 10, 1), replace=False)
+               for _ in range(n_types)]
+    for t in range(n_types):
+        rates[np.ix_(np.nonzero(labels == t)[0], markers[t])] *= 4.0
+    x_ref = rng.poisson(rates * rng.lognormal(0, 0.3, n_ref)[:, None]).astype(np.float32)
+    profiles = np.stack([x_ref[labels == t].mean(0) for t in range(n_types)])
+    rng = np.random.default_rng(seed)
+    portions = rng.dirichlet(np.ones(n_types), n_real)
+    x_real = rng.poisson(portions @ profiles * 3).astype(np.float32)
+    coords = rng.random((n_real, 2)).astype(np.float32) * 100
+    return x_ref, np.array([f"ct{t}" for t in labels]), x_real, portions, coords
+
+
+def portion_mse(name: str, portions, pred) -> float:
+    """The real spots' portion MSE against the uniform guess's; fails unless
+    it is finite and below."""
+    import numpy as np
+
+    got = float(((pred - portions) ** 2).mean())
+    uniform = float(((portions - 1.0 / portions.shape[1]) ** 2).mean())
+    print(f"{name}: real spots' portion MSE {got!r} against {uniform!r} for the uniform guess",
+          flush=True)
+    if not (np.isfinite(pred).all() and got < uniform):
+        raise AssertionError(f"{name}: portion MSE {got} not below the uniform guess's {uniform}")
+    return got
+
+
+def median_epoch(model, skip: int = 1) -> float:
+    return statistics.median(h["seconds"] for h in model.history[skip:])
+
+
+def stdgcn_inputs(x_ref, labels, x_real, coords, n_pseudo: int):
+    """stdGCN's inputs on DSTG's pseudo-spots (``PseudoMixture``, the same
+    draws) and the real spots, all genes: log1p features ordered [pseudo;
+    real], coordinates (zeros for the pseudo-spots) and the portions."""
+    import numpy as np
+
+    from dance_tpu_torch.transforms import PseudoMixture
+
+    mix_x, mix_portions, _ = PseudoMixture(n_pseudo=n_pseudo)(x_ref, labels)
+    feat = np.log1p(np.concatenate([mix_x, x_real])).astype(np.float32)
+    coords_all = np.concatenate([np.zeros((n_pseudo, 2), np.float32), coords])
+    y = np.concatenate([mix_portions, np.zeros((len(x_real), mix_portions.shape[1]))])
+    return feat, coords_all, y.astype(np.float32)
+
+
+def deconvo_card_vs_cpu(cuda):
+    """Phase 22: DSTG and stdGCN on 400 spots (100 pseudo + 300 real, 300
+    genes, 4 types), fitted on the CPU and on the card from the same weights
+    (both draw them from the same CPU generator) with dropout off and the
+    graph on BSR tiles. DSTG: 20 epochs, losses and predictions at 1e-4.
+    stdGCN, on the CPU's graphs (its two graphs are built on each device and
+    compared first): one step from the same weights, its loss and log
+    portions at 1e-5 and its gradients at 1e-4 of the largest; then 5 epochs
+    with early stopping on, whose losses and predictions are held within the
+    larger of 1e-4 and 4 x the CPU's own spread between its CSR and dense
+    fits. Adam moves a weight whose gradient is at rounding level by up
+    to the learning rate on that rounding (the bias of a Dense before a
+    full-batch norm has a zero gradient in exact arithmetic, and a gene that
+    hardly varies gives its weights a gradient near it): on an H100 the
+    card's 10-epoch losses were 5.4e-4 apart from the CPU's, its predictions
+    3.1e-4, while the CPU's CSR and dense fits were 5.2e-4 apart."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.modules.spatial.cell_type_deconvo import DSTG, StdGCN, dstg_preprocess
+    from dance_tpu_torch.modules.spatial.cell_type_deconvo import stdgcn as st
+
+    cpu = torch.device("cpu")
+    x_ref, labels, x_real, _, coords = deconvo_inputs(300, 300, 4, 300, seed=3)
+    inp = dstg_preprocess(x_ref, labels, x_real, n_pseudo=100, k_filter=DC_K_FILTER,
+                          num_cc=DC_NUM_CC, device=cpu)
+    runs = {}
+    for label, dev in (("cpu", cpu), ("card", cuda)):
+        reset_launches()
+        m = DSTG(seed=0, device=dev).fit((inp.x, inp.adj), inp.y, max_epochs=20, use_bsr=True)
+        runs[label] = (np.array([h["loss"] for h in m.history]), m.predict(),
+                       read_launches()["bsr_spmm"])
+    loss_gap = float(np.max(np.abs(runs["card"][0] / runs["cpu"][0] - 1)))
+    pred_gap = float(np.max(np.abs(runs["card"][1] - runs["cpu"][1])))
+    print(f"small DSTG ({len(inp.x)} spots, {inp.x.shape[1]} PCs, 20 epochs), card vs CPU: max "
+          f"relative loss gap {loss_gap!r}, max prediction gap {pred_gap!r} (bounds 1e-4, "
+          f"1e-4); card launches of #1 {runs['card'][2]} (4 x 20 + 2)", flush=True)
+    ok = loss_gap <= 1e-4 and pred_gap <= 1e-4 and runs["card"][2] == 4 * 20 + 2
+
+    feat, coords_all, y = stdgcn_inputs(x_ref, labels, x_real, coords, 100)
+    kw = dict(inter_k=20, intra_exp_k=10, space_k=27)
+    graphs = {label: st.build_stdgcn_adjacencies(feat, coords, 100, device=dev, **kw)
+              for label, dev in (("cpu", cpu), ("card", cuda))}
+    for i, tower in enumerate(("expression", "spatial")):
+        a, b = graphs["card"][i], graphs["cpu"][i]
+        same = (a != 0).multiply(b != 0).nnz
+        common = (a != 0).multiply(b != 0)
+        w_gap = float(np.max(np.abs((a - b).multiply(common)))) if common.nnz else 0.0
+        print(f"  stdGCN {tower} graph built on the card against the CPU: {a.nnz} and {b.nnz} "
+              f"edges, {same} shared, max weight gap on the shared {w_gap!r}", flush=True)
+        ok &= same >= 0.99 * b.nnz and w_gap <= 1e-5
+    with mock.patch.object(st, "build_stdgcn_adjacencies", lambda *a, **k: graphs["cpu"]):
+        # from the same weights: one forward and backward on the BSR towers
+        state = {}
+        for label, dev in (("cpu", cpu), ("card", cuda)):
+            m = StdGCN(dropout=0.0, seed=0, device=dev)
+            m.fit((feat, coords_all), y, max_epochs=0, use_bsr=True, **kw)
+            m.net.zero_grad(set_to_none=True)
+            yt = torch.from_numpy(y[m._perm]).to(dev)
+            logp = m.net(m.adj_exp, m.adj_sp, m.x)
+            loss = m._kl(logp, yt, (yt.sum(1) > 0).float())
+            loss.backward()
+            state[label] = (float(loss.detach()), logp.detach().cpu().numpy(),
+                            {k: p.grad.cpu().numpy() for k, p in m.net.named_parameters()})
+        loss_gap = abs(state["card"][0] / state["cpu"][0] - 1)
+        logp_gap = float(np.max(np.abs(state["card"][1] - state["cpu"][1])))
+        scale = max(float(np.max(np.abs(g))) for g in state["cpu"][2].values())
+        grad_gap = max(float(np.max(np.abs(state["card"][2][k] - g)))
+                       for k, g in state["cpu"][2].items()) / scale
+        print(f"small stdGCN ({len(feat)} spots, {feat.shape[1]} genes), one step from the same "
+              f"weights, card vs CPU on BSR: relative loss gap {loss_gap!r}, max log-portion gap "
+              f"{logp_gap!r}, max gradient gap relative to the largest gradient {grad_gap!r} "
+              f"(bounds 1e-5, 1e-5, {GRAD_REL_BOUND})", flush=True)
+        ok &= loss_gap <= 1e-5 and logp_gap <= 1e-5 and grad_gap <= GRAD_REL_BOUND
+        fits = {}
+        for label, dev, use_bsr in (("cpu", cpu, True), ("card", cuda, True),
+                                    ("cpu, csr", cpu, False), ("cpu, dense", cpu, "dense")):
+            reset_launches()
+            m = StdGCN(dropout=0.0, seed=0, device=dev)
+            if use_bsr == "dense":
+                with mock.patch.object(st, "resolve_adj_format", lambda *a, **k: "dense"):
+                    m.fit((feat, coords_all), y, max_epochs=5, **kw)
+            else:
+                m.fit((feat, coords_all), y, max_epochs=5, use_bsr=use_bsr, **kw)
+            fits[label] = (np.array([h["loss"] for h in m.history]), m.predict(),
+                           read_launches()["bsr_spmm"])
+    def gaps(a, b):  # relative loss gap, prediction gap
+        return (float(np.max(np.abs(a[0] / b[0] - 1))), float(np.max(np.abs(a[1] - b[1]))))
+
+    # the BSR fits split the labelled spots in the RCM order, the CSR and
+    # dense fits in the input order: the spread compares those two
+    got, spread = gaps(fits["card"], fits["cpu"]), gaps(fits["cpu, csr"], fits["cpu, dense"])
+    epochs = len(fits["card"][0])
+    print(f"small stdGCN, {epochs} epochs with early stopping on, from the same seed: card "
+          f"against CPU on BSR, relative loss gap {got[0]!r}, prediction gap {got[1]!r}; the "
+          f"CPU's own CSR against dense fit {spread[0]!r}, {spread[1]!r} (the card's limit: "
+          f"max(1e-4, 4 x the CPU's)); card launches of #1 {fits['card'][2]} (12 x {epochs} + 4)",
+          flush=True)
+    ok &= (all(g <= max(1e-4, 4 * s) for g, s in zip(got, spread))
+           and fits["card"][2] == 12 * epochs + 4 and len(fits["cpu"][0]) == epochs)
+    if not ok:
+        raise AssertionError("the card disagrees with the CPU on the small DSTG or stdGCN fit")
+
+
+def deconvo_phases(cuda) -> dict:
+    """Phases 19-22; returns the DSTG and stdGCN paths' SpMM launches and the
+    SpMM's numbers on their tilings."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from dance_tpu_torch.modules.spatial.cell_type_deconvo import DSTG, StdGCN, dstg_preprocess
+    from dance_tpu_torch.ops import bsr
+
+    t_phases = time.perf_counter()
+    result = {}
+    x_ref, labels, x_real, portions, coords = deconvo_inputs(DC_REF, DC_GENES, DC_TYPES,
+                                                             DC_REAL, seed=5)
+    # -- 19. DSTG at its defaults on the link graph ------------------------
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    inp = dstg_preprocess(x_ref, labels, x_real, n_pseudo=DC_PSEUDO, k_filter=DC_K_FILTER,
+                          num_cc=DC_NUM_CC, device=cuda)
+    t_pre = time.perf_counter() - t0
+    n_spots = len(inp.x)
+    print(f"DSTG: {DC_REF} reference cells x {DC_GENES} genes in {DC_TYPES} types, {DC_PSEUDO} "
+          f"pseudo + {DC_REAL} real spots; {int(inp.genes.sum())} marker genes -> "
+          f"{inp.x.shape[1]} PCs; link graph {inp.adj.nnz} entries (k_filter {DC_K_FILTER}, "
+          f"num_cc {DC_NUM_CC}); preprocessing {t_pre:.3f} s ("
+          + ", ".join(f"{k} {v:.3f} s" for k, v in inp.seconds.items()) + ")", flush=True)
+    fmt = bsr.resolve_use_bsr("auto", inp.adj, device=cuda)
+    auto_pick("DSTG", fmt)
+    model = DSTG(seed=0, device=cuda)
+    t0 = time.perf_counter()
+    model.fit((inp.x, inp.adj), inp.y, use_bsr="auto")
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = model.predict()
+    t_pred = time.perf_counter() - t0
+    launches = read_launches()
+    a = model.adj
+    if not (fmt and isinstance(a, bsr.BSRMatrix)):
+        raise AssertionError("DSTG: use_bsr='auto' did not pick BSR on the card")
+    print(tiling_line("DSTG", a, n_spots) + f", {a.nb * a.block ** 2 / edge_count(a)!r} stored "
+          f"slots per edge", flush=True)
+    losses = [h["loss"] for h in model.history]
+    print(f"DSTG: nhid {model.nhid}, dropout {model.dropout}, lr 0.005, {len(losses)} epochs "
+          f"(the JAX defaults): fit {t_fit:.3f} s (tiling included), median steady epoch "
+          f"{median_epoch(model)!r} s, predict {t_pred:.3f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; losses {losses[::50]} (every "
+          f"50th); launches {launches}", flush=True)
+    if not np.isfinite(losses).all() or pred.shape != (n_spots, DC_TYPES):
+        raise AssertionError("DSTG: non-finite losses or predictions of the wrong shape")
+    portion_mse("DSTG", portions, pred[DC_PSEUDO:])
+    # 2 aggregations forward and 2 Aᵀḡ an epoch (both layers' inputs carry
+    # gradient), 2 in predict
+    if launches["bsr_spmm"] < 4 * len(losses) + 2:
+        raise AssertionError(f"DSTG: bsr_spmm launched {launches['bsr_spmm']} times, fewer "
+                             f"than 4 x {len(losses)} + 2")
+    result["dstg_launches"] = launches["bsr_spmm"]
+
+    # -- 20. #1 on DSTG's tiling at the hidden and the output width --------
+    result["dstg"] = spmm_widths("DSTG", a, (model.nhid, DC_TYPES), seed=9)
+    del model, a
+
+    # -- 21. stdGCN at its defaults: BSR towers, then "auto" ---------------
+    feat, coords_all, y = stdgcn_inputs(x_ref, labels, x_real, coords, DC_PSEUDO)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    model = StdGCN(seed=0, device=cuda)
+    t0 = time.perf_counter()
+    model.fit((feat, coords_all), y, use_bsr=True, early_stopping_patience=0)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    pred = model.predict()
+    launches = read_launches()
+    epochs = len(model.history)
+    print(f"stdGCN: {len(feat)} spots x {feat.shape[1]} genes, nhid {model.nhid}, 1 + "
+          f"{model.common_hid_layers_num} tower layers, {model.fcnn_hid_layers_num} + 1 head "
+          f"layers, dropout {model.dropout}, lr 1e-2, clip 1.0, inter_k 20, intra_exp_k 10, "
+          f"space_k 27, PCA integration at 50 dims (the JAX defaults); use_bsr=True, "
+          f"early_stopping_patience=0: fit {t_fit:.3f} s (graph {model.graph_seconds:.3f} s), "
+          f"{epochs} epochs, median steady epoch {median_epoch(model)!r} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; losses "
+          f"{[h['loss'] for h in model.history][::50]} (every 50th); launches {launches}",
+          flush=True)
+    for tower, a in (("expression", model.adj_exp), ("spatial", model.adj_sp)):
+        print(tiling_line(f"stdGCN {tower} tower (union RCM order)", a, len(feat))
+              + f", {a.nb * a.block ** 2 / edge_count(a)!r} stored slots per edge", flush=True)
+    a = model.adj_sp
+    spatial = sp.bsr_matrix((a.tiles.cpu().numpy(), a.block_cols.cpu().numpy(),
+                             a.rowptr.cpu().numpy()), shape=a.shape).tocsr()
+    spatial.eliminate_zeros()  # the tiles' empty slots
+    alone = bsr.bsr_from_scipy(bsr.rcm_reorder(spatial[:len(feat), :len(feat)])[1])
+    union = {(int(r), int(c)) for t in (model.adj_exp, model.adj_sp)
+             for r, c in zip(t.block_rows.tolist(), t.block_cols.tolist())}
+    print(f"  the union of the towers holds {len(union)} tiles: occupancy "
+          f"{len(union) * a.block ** 2 / len(feat) ** 2!r} of the {len(feat)}² slots (dense from "
+          f"{bsr.DENSE_OCCUPANCY}); the spatial tower under its own RCM order would hold "
+          f"{alone.nb} tiles", flush=True)
+    if not np.isfinite([h["loss"] for h in model.history]).all():
+        raise AssertionError("stdGCN: non-finite losses")
+    result["stdgcn_bsr_mse"] = portion_mse("stdGCN (BSR, 300 epochs)", portions,
+                                           pred[DC_PSEUDO:])
+    # 2 layers x 2 towers forward and their 4 Aᵀḡ an epoch, 4 in predict
+    if launches["bsr_spmm"] < 8 * epochs + 4:
+        raise AssertionError(f"stdGCN: bsr_spmm launched {launches['bsr_spmm']} times, fewer "
+                             f"than 8 x {epochs} + 4")
+    result["stdgcn_launches"] = launches["bsr_spmm"]
+    result["stdgcn_exp"] = spmm_widths("stdGCN expression", model.adj_exp, (model.nhid,),
+                                       seed=10)
+    result["stdgcn_sp"] = spmm_widths("stdGCN spatial", model.adj_sp, (model.nhid,), seed=11)
+    del model, a, alone
+
+    auto = StdGCN(seed=0, device=cuda)
+    reset_launches()
+    t0 = time.perf_counter()
+    auto.fit((feat, coords_all), y)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    auto_pick("stdGCN", auto.fmt)
+    print(f"stdGCN use_bsr='auto' picks {auto.fmt}; early stopping (patience 5) at epoch "
+          f"{auto.stopped_epoch} of {len(auto.history)} run: fit {t_fit:.3f} s (graph "
+          f"{auto.graph_seconds:.3f} s), median epoch {median_epoch(auto)!r} s (a validation "
+          f"read each); launches {read_launches()}", flush=True)
+    portion_mse("stdGCN (auto, early stopping)", portions, auto.predict()[DC_PSEUDO:])
+    auto.fit((feat, coords_all), y, early_stopping_patience=0)  # the graph from the cache
+    print(f"stdGCN {auto.fmt}, early_stopping_patience=0: {len(auto.history)} epochs, median "
+          f"steady epoch {median_epoch(auto)!r} s", flush=True)
+    del auto
+
+    # -- 22. 400 spots: the card against the CPU ---------------------------
+    deconvo_card_vs_cpu(cuda)
+    print(f"phases 19-22: {time.perf_counter() - t_phases:.3f} s", flush=True)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1542,6 +1879,7 @@ def main() -> int:
     measured["bsr_spmm_max"] = gsc["bsr_spmm_max"]
     clu = clustering_phases(cuda)
     mm = multimodal_phases(cuda)
+    dc = deconvo_phases(cuda)
 
     def entry(name):
         result, launched = measured[name]
@@ -1550,22 +1888,27 @@ def main() -> int:
                 "launches": launched, **result}
 
     entries = {name: entry(name) for name in KERNELS}
-    # the SpMM runs on four main paths: its times are scDeepSort's tiling at
-    # d = 256; graph-sc's tiling at d = 200, scTAG's at d = 3000 and 128 and
-    # scDSC's at d = 512 and 8 ride beside them. The SDDMM is on no main path
-    # (every path's tiles are constants): 0 launches.
+    # the SpMM runs on eight main paths: its times are scDeepSort's tiling at
+    # d = 256; graph-sc's tiling at d = 200, scTAG's at d = 3000 and 128,
+    # scDSC's at d = 512 and 8, scMoGNN's, DSTG's at d = 32 and 8 and
+    # stdGCN's towers at d = 256 ride beside them. The SDDMM is on no main
+    # path (every path's tiles are constants): 0 launches.
     spmm = entries["bsr_spmm"]
     spmm["launches_by_path"] = {"scdeepsort": spmm["launches"],
                                 "graphsc": gsc["graphsc_launches"],
                                 "sctag": clu["sctag_launches"], "scdsc": clu["scdsc_launches"],
                                 "scmogcn": mm["scmogcn_launches"],
-                                "scmogcn_je": mm["je_launches"]}
+                                "scmogcn_je": mm["je_launches"],
+                                "dstg": dc["dstg_launches"], "stdgcn": dc["stdgcn_launches"]}
     spmm["launches"] = sum(spmm["launches_by_path"].values())
     spmm["graphsc"] = gsc["graphsc_spmm"]
     spmm["sctag"] = {f"d{d}": res for d, res in clu["sctag"].items()}
     spmm["scdsc"] = {f"d{d}": res for d, res in clu["scdsc"].items()}
     spmm["scmogcn"] = {f"{rel}_d{d}": res for rel in ("f2c", "c2f", "f2c_dropped")
                        for d, res in mm[rel].items()}
+    spmm["dstg"] = {f"d{d}": res for d, res in dc["dstg"].items()}
+    spmm["stdgcn"] = {f"{tower}_d{d}": res for tower in ("exp", "sp")
+                      for d, res in dc[f"stdgcn_{tower}"].items()}
     print(f"chip_smoke: {time.perf_counter() - t_start:.3f} s in all", flush=True)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

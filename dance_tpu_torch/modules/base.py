@@ -18,6 +18,7 @@ from contextlib import contextmanager
 from time import time
 from typing import Any, Callable, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from dance_tpu_torch.settings import logger
@@ -80,9 +81,21 @@ class BaseClassificationMethod(BaseMethod):
 
 
 class BaseRegressionMethod(BaseMethod):
-    """Counterpart: base.py:206."""
+    """Counterpart: base.py:206. ``score`` takes ``test_idx``, the rows to
+    score, as the JAX deconvolution models' own ``score`` does (dstg.py:133,
+    stdgcn.py:491)."""
 
     _DEFAULT_METRIC = "mse"
+
+    def score(self, x, y, *, score_func: Optional[Union[str, Callable]] = None,
+              return_pred: bool = False, test_idx=None) -> Any:
+        y_pred = self.predict(x)
+        if test_idx is None:
+            y_sel, pred_sel = y, y_pred
+        else:
+            y_sel, pred_sel = np.asarray(y)[test_idx], np.asarray(y_pred)[test_idx]
+        score = resolve_score_func(score_func or self._DEFAULT_METRIC)(y_sel, pred_sel)
+        return (score, pred_sel) if return_pred else score
 
 
 class BaseClusteringMethod(BaseMethod):

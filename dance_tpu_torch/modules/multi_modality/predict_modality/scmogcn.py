@@ -60,6 +60,7 @@ from dance_tpu_torch.ops.segment import spmm
 from dance_tpu_torch.ops.sparse import CSRMatrix, DenseAdj, csr_from_scipy
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.utils import EpochClock, resolve_device
+from dance_tpu_torch.utils.optim import best_state
 
 
 def _to(x, device):
@@ -472,11 +473,6 @@ def set_lr(opt: torch.optim.Optimizer, lr: float, epoch: int, lr_decay: float) -
     return lr
 
 
-def _best_state(net: nn.Module) -> Dict[str, torch.Tensor]:
-    """A copy of the weights: ``state_dict()`` holds the tensors AdamW updates."""
-    return {k: v.detach().clone() for k, v in net.state_dict().items()}
-
-
 class ScMoGCNWrapper(BaseRegressionMethod):
     """scMoGNN for modality prediction (counterpart: scmogcn.py:452). Takes a
     reference-style ``args`` namespace or keyword overrides of
@@ -538,7 +534,7 @@ class ScMoGCNWrapper(BaseRegressionMethod):
         val = self._score_graph(g, val_idx, y[val_idx])
         state["vals"].append(val)
         if val < state["minval"]:
-            state["minval"], state["best"] = val, _best_state(self.net)
+            state["minval"], state["best"] = val, best_state(self.net)
         self.history[-1]["val"] = val
         if epoch > 1500 and a.early_stopping > 0 \
                 and min(state["vals"][-a.early_stopping:]) > state["minval"]:
@@ -566,7 +562,7 @@ class ScMoGCNWrapper(BaseRegressionMethod):
         train_idx = torch.as_tensor(split["train"] if split else np.arange(n)).to(self.device)
         val_idx = (torch.as_tensor(split["valid"]).to(self.device)
                    if split and "valid" in split else None)
-        state = {"minval": np.inf, "best": _best_state(self.net), "vals": []}
+        state = {"minval": np.inf, "best": best_state(self.net), "vals": []}
         clock, self.history = EpochClock(self.device), []
         for epoch in range(epochs):
             clock.tick()
@@ -629,7 +625,7 @@ class ScMoGCNWrapper(BaseRegressionMethod):
         deg_f = g.deg_f.cpu().numpy()
         p_feat = deg_f / max(deg_f.sum(), 1e-12)
         rng_np = np.random.default_rng(self.seed)
-        state = {"minval": np.inf, "best": _best_state(self.net), "vals": []}
+        state = {"minval": np.inf, "best": best_state(self.net), "vals": []}
         clock, self.history = EpochClock(self.device), []
         for epoch in range(epochs):
             clock.tick()

@@ -1,1 +1,10 @@
-"""Spatial methods (counterpart: dance_tpu/modules/spatial/)."""
+"""Spatial methods (counterpart: dance_tpu/modules/spatial/): spatial
+domains (STAGATE) and cell-type deconvolution (DSTG, stdGCN)."""
+
+from dance_tpu_torch.modules.spatial.cell_type_deconvo import (DSTG, StdGCN, dstg_preprocess,
+                                                               stdGCNWrapper)
+from dance_tpu_torch.modules.spatial.spatial_domain import (Stagate, StagateNet,
+                                                            stagate_preprocess)
+
+__all__ = ["DSTG", "StdGCN", "Stagate", "StagateNet", "dstg_preprocess", "stagate_preprocess",
+           "stdGCNWrapper"]

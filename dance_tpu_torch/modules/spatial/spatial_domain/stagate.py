@@ -14,8 +14,9 @@ self-loops; CSR off the card.
 
 Where this differs from the JAX package:
 
-- optax's ``clip_by_global_norm`` is written out (:func:`_clip_by_global_norm_`):
-  it scales by ``max / norm`` only when ``norm >= max``, where
+- optax's ``clip_by_global_norm`` is written out
+  (:func:`~dance_tpu_torch.utils.optim.clip_by_global_norm_`): it scales by
+  ``max / norm`` only when ``norm >= max``, where
   ``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6`` always.
   ``torch.optim.AdamW`` is ``optax.adamw``'s math (decoupled decay, eps
   outside the square root).
@@ -47,6 +48,7 @@ from dance_tpu_torch.sc.pp import highly_variable_genes, log1p, normalize_total
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.transforms.graph import stagate_graph
 from dance_tpu_torch.utils import resolve_device
+from dance_tpu_torch.utils.optim import clip_by_global_norm_
 
 
 def _edge_attention(adj, feat, attn_src, attn_dst) -> torch.Tensor:
@@ -105,15 +107,6 @@ class StagateNet(nn.Module):
         return z, h3 @ self.w1.T
 
 
-def _clip_by_global_norm_(params, max_norm: float):
-    """optax ``clip_by_global_norm``: every gradient times ``max / norm`` when
-    the global norm is at least ``max``, untouched below; no host sync."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum((g * g).sum() for g in grads))
-    for g in grads:
-        g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
-
-
 class Stagate(BaseClusteringMethod):
     """STAGATE (counterpart: stagate.py:90). ``fit((x, adj))`` trains on
     spots x genes features ``x`` and the spot graph ``adj``; ``predict``
@@ -161,7 +154,7 @@ class Stagate(BaseClusteringMethod):
             _, x_hat = self.net(self.adj, xt)
             loss = torch.mean((xt - x_hat) ** 2)
             loss.backward()
-            _clip_by_global_norm_(params, gradient_clipping)
+            clip_by_global_norm_(params, gradient_clipping)
             opt.step()
             self.history.append({"epoch": epoch, "loss": float(loss.detach()),
                                  "seconds": time.perf_counter() - t0})

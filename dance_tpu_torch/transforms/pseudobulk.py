@@ -1,0 +1,148 @@
+"""Pseudo-spots and cell-type profiles on arrays, the host front of the
+deconvolution methods (counterpart: dance_tpu/transforms/pseudobulk.py:15-164).
+
+``get_cell_types``, ``get_agg_func`` and ``get_ct_profile`` are the JAX
+functions in numpy. :class:`PseudoMixture` and :class:`CellTopicProfile`
+keep the JAX names but take arrays and return arrays: the mixtures and their
+cell-type portions, and the (genes x types) profile. The JAX transforms read
+and write a ``Data`` container (``obsm``, ``varm``, a new split); the port
+registers nothing (see transforms/cell_feature.py). The mixtures are drawn
+from ``np.random.default_rng(random_state)`` in the JAX order, so they are
+the JAX package's bit for bit. Not ported: ``CellGiottoTopicProfile``,
+``get_giotto_dt`` and ``CellTypeNums`` (ROADMAP Queue 1, with CARD,
+SpatialDecon and SPOTlight).
+"""
+
+from functools import partial
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+
+
+def get_cell_types(ct_select: Union[str, Sequence[str]], annot) -> List[str]:
+    """The sorted cell types of ``annot`` for ``"auto"``, else ``ct_select``,
+    which must all occur in ``annot`` (counterpart: pseudobulk.py:15)."""
+    all_cts = sorted(map(str, np.unique(annot)))
+    if isinstance(ct_select, str) and ct_select == "auto":
+        return all_cts
+    if missed := sorted(set(ct_select) - set(all_cts)):
+        raise ValueError(f"Unknown cell types selected: {missed}; available: {all_cts}")
+    return list(ct_select)
+
+
+def get_agg_func(name: str, *, default: Optional[str] = None) -> Callable:
+    """The row aggregation ``"median"`` or ``"mean"`` (``"default"`` is
+    ``default``) over axis 0 (counterpart: pseudobulk.py:24)."""
+    if name == "default":
+        if default is None:
+            raise ValueError("Aggregation 'default' requested but no default provided")
+        name = default
+    if name == "median":
+        return partial(np.median, axis=0)
+    if name == "mean":
+        return partial(np.mean, axis=0)
+    raise ValueError(f"Unknown aggregation {name!r}; options: median, mean")
+
+
+def get_ct_profile(x, annot, *, batch_index=None, ct_select="auto",
+                   method: str = "mean") -> np.ndarray:
+    """Per-cell-type expression profile, (genes x types) float32 (counterpart:
+    pseudobulk.py:37): within each batch, the aggregate of the type's cells
+    over its library size; across batches, that profile's aggregate times the
+    libraries' aggregate."""
+    ct_select = get_cell_types(ct_select, annot)
+    agg = get_agg_func(method, default="mean")
+    if batch_index is None:
+        batch_index = np.zeros(x.shape[0], dtype=int)
+    batch_index = np.asarray(batch_index)
+    profile = np.zeros((x.shape[1], len(ct_select)), dtype=np.float32)
+    annot = np.asarray(annot).astype(str)
+    for i, ct in enumerate(ct_select):
+        ct_idx = np.nonzero(annot == ct)[0]
+        sub_batches = np.unique(batch_index[ct_idx])
+        per_batch = np.zeros((len(sub_batches), x.shape[1]), dtype=np.float32)
+        lib_sizes = np.zeros(len(sub_batches), dtype=np.float32)
+        for j, b in enumerate(sub_batches):
+            idx = ct_idx[batch_index[ct_idx] == b]
+            per_batch[j] = agg(x[idx])
+            lib_sizes[j] = per_batch[j].sum()
+            per_batch[j] /= max(lib_sizes[j], 1e-12)
+        profile[:, i] = agg(per_batch) * agg(lib_sizes)
+    return profile
+
+
+class PseudoMixture:
+    """Pseudo-spots for deconvolution (counterpart: pseudobulk.py:62-128):
+    ``n_pseudo`` sums of ``nc_min`` .. ``nc_max`` reference cells drawn
+    without replacement, with each mixture's cell-type portions.
+
+    ``__call__(x, annot)`` takes the reference cells (cells x genes) and
+    their labels and returns ``(mix_x, portions, cell_types)``: float32
+    (n_pseudo x genes) counts, float64 (n_pseudo x types) portions in the
+    order of ``cell_types``. ``info`` keeps each mixture's cell count and
+    total count (the JAX split's ``obs``)."""
+
+    def __init__(self, *, n_pseudo: int = 1000, nc_min: int = 2, nc_max: int = 10,
+                 ct_select: Union[str, List[str]] = "auto", random_state: Optional[int] = 0):
+        self.n_pseudo = n_pseudo
+        self.nc_min = nc_min
+        self.nc_max = nc_max
+        self.ct_select = ct_select
+        self.random_state = random_state
+        self.info: Dict[str, np.ndarray] = {}
+
+    @staticmethod
+    def gen_mix(x, annot, nc_min: int = 2, nc_max: int = 10,
+                rng: Optional[np.random.Generator] = None
+                ) -> Tuple[np.ndarray, Dict[str, int], Dict[str, float]]:
+        """One mixture: ``(counts, {type: cells}, {"cell_count", "total_umi_count"})``
+        (counterpart: pseudobulk.py:92)."""
+        rng = rng or np.random.default_rng()
+        n_mix = int(rng.integers(nc_min, nc_max + 1))
+        sample = rng.choice(x.shape[0], size=n_mix, replace=False)
+        mix_counts = x[sample].sum(0)
+        ct_counts = dict(zip(*np.unique(annot[sample], return_counts=True)))
+        info = {"cell_count": n_mix, "total_umi_count": float(mix_counts.sum())}
+        return mix_counts, ct_counts, info
+
+    def __call__(self, x, annot) -> Tuple[np.ndarray, np.ndarray, List[str]]:
+        x = np.asarray(x)
+        annot = np.asarray(annot).astype(str)
+        rng = np.random.default_rng(self.random_state)
+        ct_select = get_cell_types(self.ct_select, annot)
+        col = {ct: j for j, ct in enumerate(ct_select)}
+        mix_x = np.zeros((self.n_pseudo, x.shape[1]), dtype=np.float32)
+        counts = np.zeros((self.n_pseudo, len(ct_select)), dtype=np.float64)
+        info = np.zeros((self.n_pseudo, 2))
+        for i in range(self.n_pseudo):
+            mix_x[i], ct_counts, mix_info = self.gen_mix(x, annot, self.nc_min, self.nc_max,
+                                                         rng)
+            for ct, c in ct_counts.items():
+                if ct in col:  # JAX's DataFrame drops columns it was not given
+                    counts[i, col[ct]] = c
+            info[i] = mix_info["cell_count"], mix_info["total_umi_count"]
+        self.info = {"cell_count": info[:, 0].astype(int), "total_umi_count": info[:, 1]}
+        # the JAX DataFrame division: a mixture of none of the selected types is NaN
+        with np.errstate(invalid="ignore", divide="ignore"):
+            portions = counts / counts.sum(1, keepdims=True)
+        return mix_x, portions, ct_select
+
+
+class CellTopicProfile:
+    """Per-cell-type profile of labelled cells (counterpart: pseudobulk.py:131):
+    ``__call__(x, annot, batch=None)`` returns ``(profile, cell_types)``, the
+    (genes x types) float32 :func:`get_ct_profile` and its column names (the
+    JAX transform's ``varm`` DataFrame)."""
+
+    def __init__(self, *, ct_select: Union[str, List[str]] = "auto", method: str = "median"):
+        self.ct_select = ct_select
+        self.method = method
+
+    def __call__(self, x, annot, batch=None) -> Tuple[np.ndarray, List[str]]:
+        ct_select = get_cell_types(self.ct_select, annot)
+        return get_ct_profile(np.asarray(x), annot, batch_index=batch, ct_select=ct_select,
+                              method=self.method), ct_select
+
+
+__all__ = ["CellTopicProfile", "PseudoMixture", "get_agg_func", "get_cell_types",
+           "get_ct_profile"]

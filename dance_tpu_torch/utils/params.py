@@ -1,6 +1,6 @@
 """flax -> torch parameter transfer for the scDeepSort ``GNN``, STAGATE's
-net, ``GATConv``, graph-sc's ``GCNAE``, scTAG's net, scDSC's model and the
-scMoGNN trunk.
+net, ``GATConv``, graph-sc's ``GCNAE``, scTAG's net, scDSC's model, the
+scMoGNN trunk, DSTG's GCN and stdGCN's network and autoencoder.
 
 Parity between the two packages is checked by copying the flax parameters
 into the torch module, since the two frameworks' generators and initializers
@@ -58,6 +58,22 @@ names a list of modules ``name_{i}``):
 
 and the joint-embedding net ``_JENet`` (joint_embedding/scmogcn.py:25):
 ``trunk/...`` -> ``trunk.…`` as above, ``head`` -> ``head``.
+
+DSTG's ``_GCN`` (dstg.py:30): ``Dense_{i}/kernel`` -> ``dense_{i}.weight``.
+stdGCN's ``_ConGCN`` (stdgcn.py:225) names its layers in call order: with
+``c`` common and ``f`` head hidden layers, tower layer ``l`` of the
+expression tower is ``Dense_{2l}`` and ``_FullBatchNorm_{2l}``, of the
+spatial tower ``Dense_{2l+1}`` and ``_FullBatchNorm_{2l+1}``; head layer
+``m`` is ``Dense_{2c+2+m}`` with its norm; the output ``Dense_{2c+f+3}``:
+
+    Dense_{i}/{kernel,bias}              -> {exp,sp,fc}.{l}.{weight,bias}, out.*
+    _FullBatchNorm_{i}/{scale,bias}      -> {exp,sp,fc}_norm.{l}.{scale,bias}
+
+stdGCN's ``autoencoder`` (stdgcn.py:535), flax ``Sequential``s of
+``full_block``s:
+
+    {encoder,decoder}/layers_{i}/layers_0/{kernel,bias} -> {encoder,decoder}.{i}.0.*
+    {encoder,decoder}/layers_{i}/layers_1/{scale,bias}  -> {encoder,decoder}.{i}.1.{weight,bias}
 """
 
 from typing import Dict, Mapping
@@ -241,7 +257,58 @@ def scmogcn_je_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
-__all__ = ["flax_to_torch", "gatconv_flax_to_torch", "graphsc_flax_to_torch",
-           "scdsc_flax_to_torch", "scmogcn_flax_to_torch", "scmogcn_je_flax_to_torch",
-           "sctag_flax_to_torch", "stagate_flax_to_torch",
-           "tagconv_flax_to_torch"]
+def dstg_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax DSTG ``_GCN`` tree -> ``_GCN.state_dict()``."""
+    state = {}
+    for name, sub in params.items():
+        kind, _, idx = name.rpartition("_")
+        if kind != "Dense" or idx not in ("0", "1"):
+            raise KeyError(f"unexpected _GCN parameter {name!r}")
+        _dense(state, f"dense_{idx}", sub, bias=False)
+    return state
+
+
+def stdgcn_flax_to_torch(params: Mapping, common_hid_layers_num: int = 1,
+                         fcnn_hid_layers_num: int = 1) -> Dict[str, torch.Tensor]:
+    """A flax stdGCN ``_ConGCN`` tree -> ``_ConGCN.state_dict()``."""
+    c, f = common_hid_layers_num, fcnn_hid_layers_num
+    names = {}
+    for layer in range(c + 1):
+        names[2 * layer], names[2 * layer + 1] = f"exp.{layer}", f"sp.{layer}"
+    for m in range(f + 1):
+        names[2 * c + 2 + m] = f"fc.{m}"
+    state = {}
+    for name, sub in params.items():
+        kind, _, idx = name.rpartition("_")
+        i = int(idx)
+        if kind == "Dense" and i == 2 * c + f + 3:
+            _dense(state, "out", sub)
+        elif kind == "Dense" and i in names:
+            _dense(state, names[i], sub)
+        elif kind == "_FullBatchNorm" and i in names and set(sub) == {"scale", "bias"}:
+            tower, layer = names[i].split(".")
+            state[f"{tower}_norm.{layer}.scale"] = _t(sub["scale"])
+            state[f"{tower}_norm.{layer}.bias"] = _t(sub["bias"])
+        else:
+            raise KeyError(f"unexpected _ConGCN parameter {name!r}")
+    return state
+
+
+def autoencoder_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax stdGCN ``autoencoder`` tree -> ``autoencoder.state_dict()``."""
+    state = {}
+    for half in ("encoder", "decoder"):
+        for block, sub in params[half].items():
+            i = block.rpartition("_")[2]
+            _dense(state, f"{half}.{i}.0", sub["layers_0"])
+            state[f"{half}.{i}.1.weight"] = _t(sub["layers_1"]["scale"])
+            state[f"{half}.{i}.1.bias"] = _t(sub["layers_1"]["bias"])
+    if set(params) != {"encoder", "decoder"}:
+        raise KeyError(f"unexpected autoencoder parameters {sorted(params)}")
+    return state
+
+
+__all__ = ["autoencoder_flax_to_torch", "dstg_flax_to_torch", "flax_to_torch",
+           "gatconv_flax_to_torch", "graphsc_flax_to_torch", "scdsc_flax_to_torch",
+           "scmogcn_flax_to_torch", "scmogcn_je_flax_to_torch", "sctag_flax_to_torch",
+           "stagate_flax_to_torch", "stdgcn_flax_to_torch", "tagconv_flax_to_torch"]

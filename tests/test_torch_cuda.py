@@ -1,6 +1,6 @@
 """dance_tpu_torch on the card: the hand-written CUDA kernels against their
-plain PyTorch versions, and the scDeepSort, STAGATE, graph-sc, scTAG, scDSC
-and scMoGNN fits on the card against the CPU.
+plain PyTorch versions, and the scDeepSort, STAGATE, graph-sc, scTAG, scDSC,
+scMoGNN, DSTG and stdGCN fits on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips where ``torch.cuda.is_available()``
 is False. This file imports no JAX, so it runs on a machine with only
@@ -29,9 +29,9 @@ from dance_tpu_torch.graph import Graph
 from dance_tpu_torch.modules.single_modality.cell_type_annotation import ScDeepSort
 from dance_tpu_torch.modules.spatial.spatial_domain import Stagate
 from dance_tpu_torch.ops import bsr as tbsr
-from torch_cases import (CASES, NONFINITE_WIDTHS, bipartite_case, cell_knn_bsr, gat_inputs,
-                         gat_nonfinite_case, knn_bsr, max_edge_case, no_pad, signed, skewed_bsr,
-                         spatial_case)
+from torch_cases import (CASES, NONFINITE_WIDTHS, bipartite_case, cell_knn_bsr, deconvo_case,
+                         deconvo_tilings, gat_inputs, gat_nonfinite_case, knn_bsr, max_edge_case,
+                         no_pad, signed, skewed_bsr, spatial_case)
 
 RTOL, ATOL = 1e-5, 1e-5
 
@@ -592,3 +592,103 @@ def test_scmogcn_fit_matches_cpu(cuda, use_bsr):
     assert runs[0][3] == 0 and runs[1][3] == (5 * 11 if runs[1][4] == "bsr" else 0)
     assert runs[0][4] == ("bsr" if use_bsr is True else "csr")
     assert runs[1][4] == {True: "bsr", False: "csr", "auto": "dense"}[use_bsr]
+
+
+_DECONVO_TILINGS = {}
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("d", [8, 32, 256])
+@pytest.mark.parametrize("tiling", ["dstg", "stdgcn_exp", "stdgcn_sp"])
+def test_spmm_deconvo_tilings_match_plain_and_repeat_bit_equal(cuda, tiling, d, transposed):
+    """#1 on DSTG's link graph and stdGCN's two towers under their shared RCM
+    order, at DSTG's widths (8 types out, 32 hidden) and stdGCN's 256, below
+    and above every width the other paths run, and ``Aᵀ`` as the backward
+    runs it (through the transposed tiling, though the graphs are
+    symmetric). The two towers' tilings keep their own transposes and work
+    schedules."""
+    if not _DECONVO_TILINGS:
+        _DECONVO_TILINGS.update(deconvo_tilings())
+    bsr = _DECONVO_TILINGS[tiling].to(cuda)
+    mat = tbsr.bsr_transpose(bsr) if transposed else bsr
+    b = torch.randn((mat.shape[1], d), generator=torch.Generator().manual_seed(d)).to(cuda)
+    n = tbsr.bsr_spmm.launches
+    runs = [tbsr.bsr_spmm(mat, b) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tbsr.bsr_spmm.launches - n == 2 and torch.equal(runs[0], runs[1])
+    ref = tbsr.bsr_spmm_reference(mat.to("cpu"), b.cpu())
+    torch.testing.assert_close(runs[0].cpu(), ref, rtol=RTOL, atol=ATOL)
+    if tiling == "stdgcn_sp":
+        other = _DECONVO_TILINGS["stdgcn_exp"].to(cuda)
+        assert tbsr.bsr_transpose(other) is not tbsr.bsr_transpose(bsr)
+        dev = bsr.tiles.device
+        assert tbsr.device_schedule(other, "spmm", d, dev) is not \
+            tbsr.device_schedule(bsr, "spmm", d, dev)
+
+
+@pytest.mark.parametrize("use_bsr", [True, False])
+def test_dstg_fit_matches_cpu(cuda, use_bsr):
+    """A small DSTG fit (400 spots) on the card and on the CPU from the same
+    seed: losses and predictions; #1 runs 4 times an epoch (2 aggregations
+    forward, 2 ``Aᵀḡ``) and twice in ``predict``."""
+    from dance_tpu_torch.modules.spatial.cell_type_deconvo import DSTG, dstg_preprocess
+
+    x_ref, labels, x_spots, _, _ = deconvo_case(300, 200, 4, 300, seed=2)
+    inp = dstg_preprocess(x_ref, labels, x_spots, n_pseudo=100, k_filter=30, num_cc=10,
+                          device="cpu")
+    runs = []
+    for device in (torch.device("cpu"), cuda):
+        n = tbsr.bsr_spmm.launches
+        m = DSTG(seed=0, device=device).fit((inp.x, inp.adj), inp.y, max_epochs=20,
+                                            use_bsr=use_bsr)
+        runs.append(([h["loss"] for h in m.history], m.predict(), tbsr.bsr_spmm.launches - n))
+    np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=1e-4)
+    np.testing.assert_allclose(runs[1][1], runs[0][1], rtol=1e-4, atol=1e-5)
+    assert runs[0][2] == 0 and runs[1][2] == (4 * 20 + 2 if use_bsr else 0)
+
+
+@pytest.mark.parametrize("use_bsr", [True, "auto"])
+def test_stdgcn_fit_matches_cpu(cuda, use_bsr, monkeypatch):
+    """A small stdGCN fit (400 spots, 5 epochs, early stopping on, dropout
+    off) on the card and on the CPU from the same seed and the same graphs
+    (built on the CPU): losses and predictions within the larger of 1e-4 and
+    4 x the CPU's own spread between its CSR and dense fits, since Adam
+    moves a weight whose gradient is at rounding level by up to the learning
+    rate on it (chip_smoke.deconvo_card_vs_cpu also holds one step from the
+    same weights at 1e-5). #1 runs 12 times an epoch on BSR (4 tower
+    aggregations forward, 4 ``Aᵀḡ``, 4 in the validation forward) and 4
+    times in ``predict``; ``"auto"`` is dense on the card for these graphs."""
+    from dance_tpu_torch.modules.spatial.cell_type_deconvo import StdGCN
+    from dance_tpu_torch.modules.spatial.cell_type_deconvo import stdgcn as st
+    from dance_tpu_torch.transforms import PseudoMixture
+
+    x_ref, labels, x_spots, _, coords = deconvo_case(300, 200, 4, 300, seed=3)
+    mix, portions, _ = PseudoMixture(n_pseudo=100)(x_ref, labels)
+    feat = np.log1p(np.concatenate([mix, x_spots])).astype(np.float32)
+    y = np.concatenate([portions, np.zeros((300, 4))]).astype(np.float32)
+    graphs = st.build_stdgcn_adjacencies(feat, coords, 100, device="cpu")
+    monkeypatch.setattr(st, "build_stdgcn_adjacencies", lambda *a, **k: graphs)
+    runs = {}
+    fmt = st.resolve_adj_format
+    for label, device, flag in (("card", cuda, use_bsr), ("bsr", torch.device("cpu"), True),
+                                ("csr", torch.device("cpu"), False),
+                                ("dense", torch.device("cpu"), "dense")):
+        n = tbsr.bsr_spmm.launches
+        m = StdGCN(dropout=0.0, seed=0, device=device)
+        monkeypatch.setattr(st, "resolve_adj_format",
+                            (lambda *a, **k: "dense") if flag == "dense" else fmt)
+        m.fit((feat, coords), y, max_epochs=5, use_bsr=flag if flag != "dense" else "auto")
+        runs[label] = (np.array([h["loss"] for h in m.history]), m.predict(),
+                       tbsr.bsr_spmm.launches - n, m.fmt)
+
+    def gaps(a, b):  # relative loss gap, prediction gap
+        return np.abs(a[0] / b[0] - 1).max(), np.abs(a[1] - b[1]).max()
+
+    # the BSR fits split the labelled spots in the RCM order, the CSR and
+    # dense fits in the input order: the spread compares those two
+    got = gaps(runs["card"], runs["bsr"] if use_bsr is True else runs["dense"])
+    spread = gaps(runs["csr"], runs["dense"])
+    assert all(g <= max(1e-4, 4 * s) for g, s in zip(got, spread)), (got, spread)
+    epochs = len(runs["card"][0])
+    assert runs["card"][3] == ("bsr" if use_bsr is True else "dense")
+    assert runs["card"][2] == (12 * epochs + 4 if use_bsr is True else 0)

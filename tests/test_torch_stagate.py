@@ -301,7 +301,7 @@ def test_stagate_fit_matches_jax(use_bsr):
 def test_clip_by_global_norm_matches_optax():
     import optax
 
-    from dance_tpu_torch.modules.spatial.spatial_domain.stagate import _clip_by_global_norm_
+    from dance_tpu_torch.utils.optim import clip_by_global_norm_
 
     rng = np.random.default_rng(13)
     for scale in (0.1, 10.0):
@@ -310,7 +310,7 @@ def test_clip_by_global_norm_matches_optax():
         params = [torch.nn.Parameter(torch.zeros(g.shape)) for g in grads]
         for p, g in zip(params, grads):
             p.grad = torch.from_numpy(g.copy())
-        _clip_by_global_norm_(params, 1.0)
+        clip_by_global_norm_(params, 1.0)
         for p, w in zip(params, want):
             np.testing.assert_allclose(p.grad.numpy(), np.asarray(w), rtol=1e-6)
 

@@ -186,3 +186,47 @@ def bipartite_case(n_cells: int = 6000, n_feats: int = 1000, density: float = 0.
                   dtype=np.float32)
     a.data = rng.poisson(2.0, a.data.shape).astype(np.float32) + 1.0
     return tbsr.bipartite_bsr(a)
+
+
+def deconvo_case(n_ref: int = 150, n_genes: int = 80, n_types: int = 3, n_spots: int = 60,
+                 seed: int = 0):
+    """Reference cells and real spots for the deconvolution methods, as the
+    JAX package's tests make them (tests/modules/test_spatial.py:69-80):
+    negative-binomial-like counts with per-type marker genes, spots that are
+    Poisson draws of Dirichlet portions of the type profiles, and spot
+    coordinates in [0, 10)². Returns (x_ref, labels as strings, x_spots,
+    portions, coords)."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, n_types, n_ref)
+    rates = np.tile(rng.gamma(2.0, 0.5, n_genes), (n_ref, 1))
+    for t in range(n_types):
+        markers = rng.choice(n_genes, max(n_genes // 10, 1), replace=False)
+        rates[np.ix_(labels == t, markers)] *= 6.0
+    x_ref = rng.poisson(rates * rng.lognormal(0, 0.3, (n_ref, 1))).astype(np.float32)
+    profiles = np.stack([x_ref[labels == t].mean(0) for t in range(n_types)])
+    portions = rng.dirichlet(np.ones(n_types), n_spots)
+    x_spots = rng.poisson(portions @ profiles * 3).astype(np.float32)
+    coords = (rng.random((n_spots, 2)) * 10).astype(np.float32)
+    return x_ref, np.array([f"ct{t}" for t in labels]), x_spots, portions, coords
+
+
+def deconvo_tilings(seed: int = 0):
+    """DSTG's link graph (RCM-banded) and stdGCN's two towers under their
+    shared RCM order, tiled: 300 pseudo + 900 real spots from
+    :func:`deconvo_case` (400 cells, 200 genes, 4 types), the graphs built by
+    the port on the CPU at the models' defaults (DSTG at k_filter 30, num_cc
+    10). Returns {"dstg", "stdgcn_exp", "stdgcn_sp"} of BSR matrices."""
+    from dance_tpu_torch.modules.spatial.cell_type_deconvo import dstg_preprocess
+    from dance_tpu_torch.modules.spatial.cell_type_deconvo.stdgcn import build_stdgcn_adjacencies
+    from dance_tpu_torch.transforms import PseudoMixture
+
+    x_ref, labels, x_spots, _, coords = deconvo_case(400, 200, 4, 900, seed)
+    inp = dstg_preprocess(x_ref, labels, x_spots, n_pseudo=300, k_filter=30, num_cc=10,
+                          device="cpu")
+    mix, _, _ = PseudoMixture(n_pseudo=300)(x_ref, labels)
+    feat = np.log1p(np.concatenate([mix, x_spots])).astype(np.float32)
+    a_exp, a_sp = build_stdgcn_adjacencies(feat, coords, 300, device="cpu")
+    perm, _ = tbsr.rcm_reorder(a_exp + a_sp)
+    return {"dstg": tbsr.bsr_with_rcm(inp.adj)[1],
+            "stdgcn_exp": tbsr.bsr_from_scipy(a_exp[perm][:, perm]),
+            "stdgcn_sp": tbsr.bsr_from_scipy(a_sp[perm][:, perm])}

@@ -20,7 +20,7 @@ import torch
 
 import chip_smoke as cs
 from dance_tpu_torch.modules.spatial.spatial_domain import Stagate, stagate_preprocess
-from dance_tpu_torch.modules.spatial.spatial_domain.stagate import _clip_by_global_norm_
+from dance_tpu_torch.utils.optim import clip_by_global_norm_
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -42,7 +42,7 @@ def step():
     _, x_hat = net(tiling, xt)
     loss = torch.mean((xt - x_hat) ** 2)
     loss.backward()
-    _clip_by_global_norm_(params, 5.0)
+    clip_by_global_norm_(params, 5.0)
     opt.step()
     return float(loss.detach())
 

@@ -12,7 +12,10 @@ as ``spmm(adj, h)`` and its backward ``Aᵀḡ`` at the model's width. The
 tilings: scDeepSort's off-diagonal cell-gene graph (d = 256), graph-sc's
 graph (d = 200), scTAG's and scDSC's RCM-banded cell kNN graphs (d = 128 and
 512), scMoGNN's cell x feature matrix ``f2c`` and its transpose ``c2f`` (d =
-48 and 96). STAGATE's GAT layer (d = 512) is timed on CSR (``edge_softmax``)
+48 and 96), DSTG's RCM-banded link graph (d = 32) and stdGCN's two towers
+under the RCM order of their sum (d = 256; the pick is the rule's on that
+sum, as the model asks it), with the spatial tower under its own order
+beside them. STAGATE's GAT layer (d = 512) is timed on CSR (``edge_softmax``)
 against the fused kernels (#4 forward, #5 backward). Two sweeps on 16,384 x
 16,384 matrices bracket the crossovers: random tiles at a 2 % fill covering
 a share of the 128 x 128 tile grid from 0.2 to 1 (dense against BSR, by
@@ -163,6 +166,31 @@ def tilings(cuda):
     a = sp.csr_matrix(x)
     yield "scMoGNN f2c", a, a, False, (cs.MM_HIDDEN, 2 * cs.MM_HIDDEN), three
     yield "scMoGNN c2f", a.T.tocsr(), a.T.tocsr(), False, (cs.MM_HIDDEN, 2 * cs.MM_HIDDEN), three
+    del x, a
+
+    yield from deconvo_tilings(cuda)
+
+
+def deconvo_tilings(cuda):
+    """DSTG's link graph (d = 32, BSR or CSR) and stdGCN's two towers under
+    the RCM order of their sum, the order the model tiles both by (d = 256;
+    the rule reads the sum), and the spatial tower under its own order."""
+    from dance_tpu_torch.modules.spatial.cell_type_deconvo import dstg_preprocess
+    from dance_tpu_torch.modules.spatial.cell_type_deconvo.stdgcn import build_stdgcn_adjacencies
+
+    three = ("csr", "dense", "bsr")
+    x_ref, labels, x_real, _, coords = cs.deconvo_inputs(cs.DC_REF, cs.DC_GENES, cs.DC_TYPES,
+                                                         cs.DC_REAL, seed=5)
+    inp = dstg_preprocess(x_ref, labels, x_real, n_pseudo=cs.DC_PSEUDO, k_filter=cs.DC_K_FILTER,
+                          num_cc=cs.DC_NUM_CC, device=cuda)
+    yield "DSTG", bsr.rcm_reorder(inp.adj)[1].tocsr(), inp.adj, True, (32,), ("csr", "bsr")
+    feat, _, _ = cs.stdgcn_inputs(x_ref, labels, x_real, coords, cs.DC_PSEUDO)
+    a_exp, a_sp = build_stdgcn_adjacencies(feat, coords, cs.DC_PSEUDO, device=cuda)
+    union = (a_exp + a_sp).tocsr()
+    perm, _ = bsr.rcm_reorder(union)
+    yield "stdGCN expression (union RCM)", a_exp[perm][:, perm].tocsr(), union, True, (256,), three
+    yield "stdGCN spatial (union RCM)", a_sp[perm][:, perm].tocsr(), union, True, (256,), three
+    yield "stdGCN spatial (own RCM)", bsr.rcm_reorder(a_sp)[1].tocsr(), a_sp, True, (256,), three
 
 
 def main() -> int:
