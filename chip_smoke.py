@@ -2,7 +2,8 @@
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: scDeepSort
 training, STAGATE training, graph-sc training, graph-sc's max aggregation
 over BSR tiles, scTAG and scDSC training, scMoGNN's modality prediction and
-joint embedding, and DSTG and stdGCN deconvolution.
+joint embedding, DSTG and stdGCN deconvolution, scHeteroNet annotation with
+OOD detection and GraphSCI imputation.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -125,6 +126,31 @@ printed only when every phase passed):
    DSTG's losses and predictions; stdGCN's graphs built on each device, one
    step from the same weights, and short fits held against the CPU's own
    spread.
+23. scHeteroNet at its defaults, counts set to 0 just before it: raw counts
+   of 10,000 cells x 2,000 genes in 8 types, the last at ~3 % of the cells
+   (``annotation_counts``) -> ``scheteronet_preprocess`` (type and count
+   filters, cell_ranger HVGs, normalize_total, size factors, log1p, 5-NN
+   graph) -> ``set_split`` (the rarest type is OOD; the rest split 60/20/20)
+   -> ``scHeteroNet(seed=0).fit(use_bsr="auto")`` (hidden 64, 2 layers,
+   dropout 0.2, ZINB on, 200 epochs, lr 1e-2), which must put both the
+   one-hop and the strict two-hop adjacency on BSR tiles -> ``predict``,
+   whose test accuracy on in-distribution cells must beat the majority
+   type's share, and ``evaluate_ood`` (AUROC, AUPR, FPR@95 finite in
+   [0, 1]); then 5 epochs with the contrastive term (``cl_weight=0.1``, the
+   n x n logits on the card). Prints both tilings, the steps' times, the
+   median epoch and peak memory; ``bsr_spmm`` must run at least 8 x epochs
+   times (2 hops x 2 layers forward and their ``Aᵀḡ``).
+24. ``bsr_spmm`` on both hop tilings at d = 64 and 128, as phase 12.
+25. GraphSCI at its defaults on phase 23's counts (the JAX package's
+   10,000 x 2,000 case): ``graphsci_preprocess(seed=0)`` (gene and cell
+   filters, log1p, the entry masks, the Pearson gene graph) ->
+   ``GraphSCI(seed=0).fit`` (100 epochs; the rule picks the gene graph's
+   format, dense or CSR, never BSR) -> ``predict``: the masked entries' RMSE
+   in log space must beat the zero guess's; the per-gene mean's is printed.
+26. scHeteroNet and GraphSCI on 300 cells, card against CPU
+   (``annotation_card_vs_cpu``): one step from the same weights, then a few
+   epochs (scHeteroNet BSR on the card and CSR on the CPU; GraphSCI with the
+   same noise), losses and outputs within 1e-4.
 
 Each kernel's bound is the larger of its operations over a compute peak and
 the bytes of its inputs and outputs, each counted once, over 3.35 TB/s, for
@@ -154,7 +180,8 @@ prints the device time of the kernel's own launches (torch.profiler), as
 there is one (BSR ``@`` for the SpMM, ``sampled_addmm`` over the tiles'
 pattern for the SDDMM); the port never calls them. The SpMM's entry carries
 the other paths' tilings beside scDeepSort's (``graphsc``, ``sctag``,
-``scdsc``, ``scmogcn``, ``dstg``, ``stdgcn``) and its launches by path.
+``scdsc``, ``scmogcn``, ``dstg``, ``stdgcn``, ``scheteronet``) and its
+launches by path.
 
 PyTorch's TF32 is off for every phase (the plain versions and cuBLAS run
 IEEE float32); the tensor-core kernels hold float32 accuracy by 3xTF32.
@@ -213,6 +240,10 @@ MM_LOSS_BOUND, MM_PRED_BOUND = 1e-4, 1e-4
 # at the benchmark's k_filter and num_cc
 DC_REF, DC_GENES, DC_TYPES, DC_REAL, DC_PSEUDO = 2000, 2000, 8, 4000, 1000
 DC_K_FILTER, DC_NUM_CC = 30, 10
+# scHeteroNet and GraphSCI: the JAX package's scheteronet and graphsci cases
+# (benchmarks/matrix.py:224-241, 378-398): 10,000 cells x 2,000 genes, 8 types,
+# the last one rare (the OOD class); the small card-against-CPU size
+HN_CELLS, HN_GENES, HN_TYPES, HN_RARE, HN_SMALL = 10000, 2000, 8, 0.03, 300
 # H100 SXM: FP32 outside the tensor cores, TF32 dense on the tensor cores, HBM3
 PEAK_FLOPS, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
 PALLAS = "dance_tpu/ops/pallas_kernels.py"
@@ -1847,6 +1878,294 @@ def deconvo_phases(cuda) -> dict:
     return result
 
 
+def annotation_counts(n_cells: int, n_genes: int, n_types: int, rare: float, seed: int):
+    """Raw counts of cells in types, as :func:`clustered_counts` makes them
+    (about 15 % of the entries nonzero), dense, the last type at ``rare`` of
+    the cells and the others alike. Returns (float32 counts, types)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    share = np.r_[np.full(n_types - 1, (1 - rare) / (n_types - 1)), rare]
+    types = rng.choice(n_types, n_cells, p=share)
+    base = rng.gamma(0.4, 0.5, n_genes)
+    fold = np.exp(rng.normal(0, 1.0, (n_types, n_genes))
+                  * (rng.random((n_types, n_genes)) < 0.2))
+    depth = rng.gamma(4.0, 0.25, (n_cells, 1))
+    return rng.poisson(fold[types] * base[None] * depth).astype(np.float32), types
+
+
+def split_60_20_20(labels, seed: int) -> dict:
+    """``set_split`` of a seeded 60/20/20 permutation of the cells."""
+    import numpy as np
+
+    from dance_tpu_torch.modules.single_modality.cell_type_annotation import set_split
+
+    perm = np.random.default_rng(seed).permutation(len(labels))
+    a, b = int(0.6 * len(perm)), int(0.8 * len(perm))
+    return set_split(labels, np.sort(perm[:a]), np.sort(perm[a:b]), np.sort(perm[b:]))
+
+
+def hop_line(name: str, a, n_nodes: int) -> str:
+    return (tiling_line(name, a, n_nodes) + f", {a.nb * a.block ** 2 / edge_count(a)!r} stored "
+            f"slots per edge, {a.nb} of {(a.shape[0] // a.block) ** 2} tiles")
+
+
+def align_weights(name: str, card, cpu, lr: float, steps: int, skip=()) -> int:
+    """Hold the card's weights after ``steps`` Adam steps against the CPU's:
+    each within 2 lr a step, and all but 0.1 % of them (``skip`` aside) at
+    rtol 1e-4 / atol 1e-5. A unit within rounding of its ReLU kink gets a
+    zero gradient on one device and one at rounding level on the other, and
+    Adam steps it by about lr on that; so the card's weights outside that
+    tolerance (and ``skip``) are then set to the CPU's, for the outputs to be
+    compared. Returns how many were set."""
+    import torch
+
+    ref = dict(cpu.named_parameters())
+    off = total = 0
+    with torch.no_grad():
+        for key, p in card.named_parameters():
+            want = ref[key].detach().to(p.device)
+            gap = (p - want).abs()
+            if not float(gap.max()) <= 2 * lr * steps:
+                raise AssertionError(f"{name}: weight {key} {float(gap.max())} from the CPU's")
+            bad = torch.ones_like(gap, dtype=torch.bool) if key in skip else \
+                gap > 1e-5 + 1e-4 * want.abs()
+            if key not in skip:
+                off, total = off + int(bad.sum()), total + bad.numel()
+            p[bad] = want[bad]
+    print(f"  {name}: {off} of {total} weights outside rtol 1e-4 after {steps} steps (at most "
+          f"0.1 % allowed), set to the CPU's with {list(skip)}", flush=True)
+    if off > 1e-3 * total:
+        raise AssertionError(f"{name}: {off} of {total} weights apart from the CPU's")
+    return off
+
+
+def one_step(name: str, runs: dict):
+    """From the same weights on both devices: ``runs[label] = (loss, outputs,
+    {weight: grad})``; the loss and outputs at 1e-5 relative, the gradients
+    at GRAD_REL_BOUND of the largest."""
+    import numpy as np
+
+    (cl, co, cg), (gl, go, gg) = runs["cpu"], runs["card"]
+    loss_gap = abs(gl / cl - 1)
+    out_gap = float(np.max(np.abs(go - co))) / float(np.max(np.abs(co)))
+    scale = max(float(np.max(np.abs(g))) for g in cg.values())
+    grad_gap = max(float(np.max(np.abs(gg[k] - g))) for k, g in cg.items()) / scale
+    print(f"small {name}, one step from the same weights, card vs CPU: relative loss gap "
+          f"{loss_gap!r}, output gap relative to the largest {out_gap!r}, gradient gap relative "
+          f"to the largest {grad_gap!r} (bounds 1e-5, {REL_BOUND}, {GRAD_REL_BOUND})",
+          flush=True)
+    if not (loss_gap <= 1e-5 and out_gap <= REL_BOUND and grad_gap <= GRAD_REL_BOUND):
+        raise AssertionError(f"small {name}: the card's step disagrees with the CPU's")
+
+
+def annotation_card_vs_cpu(cuda):
+    """Phase 26: scHeteroNet (BSR on the card, CSR on the CPU) and GraphSCI
+    (the same noise tensors) on 300 cells, dropout off, the weights drawn
+    on both devices from the same CPU generator: one step from the same
+    weights, then 5 epochs whose losses agree at 1e-4, whose weights pass
+    :func:`align_weights` and whose outputs agree at 1e-4 once aligned."""
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.modules.single_modality.cell_type_annotation import (
+        scHeteroNet, scheteronet_preprocess)
+    from dance_tpu_torch.modules.single_modality.imputation import GraphSCI, graphsci_preprocess
+    from dance_tpu_torch.ops.bsr import unpermute
+
+    cpu, epochs = torch.device("cpu"), 5
+    counts, types = annotation_counts(HN_SMALL, 300, 4, 0.1, seed=17)
+    inp = scheteronet_preprocess(counts, types)
+    split = split_60_20_20(inp.labels, seed=18)
+    models, step = {}, {}
+    for label, dev, use_bsr in (("cpu", cpu, False), ("card", cuda, True)):
+        m = scHeteroNet(dropout=0.0, seed=0, device=dev)
+        kw = dict(x_raw=inp.x_raw, size_factors=inp.size_factors, train_idx=split["train_idx"],
+                  use_bsr=use_bsr)
+        m.fit(inp.graph, inp.labels, epochs=0, **kw)
+        loss = m._loss(None)
+        loss.backward()
+        logits, _ = m.net(m.adj1, m.adj2, m.x)
+        step[label] = (float(loss.detach()), unpermute(m._perm, logits.detach().cpu().numpy()),
+                       {k: p.grad.cpu().numpy() for k, p in m.net.named_parameters()})
+        m.fit(inp.graph, inp.labels, epochs=epochs, **kw)
+        models[label] = m
+    one_step("scHeteroNet", step)
+    card, ref = models["card"], models["cpu"]
+    loss_gap = float(np.max(np.abs(np.array([h["loss"] for h in card.history])
+                                   / np.array([h["loss"] for h in ref.history]) - 1)))
+    align_weights("scHeteroNet", card.net, ref.net, 1e-2, epochs)
+    prob_gap = float(np.max(np.abs(card.predict_proba() - ref.predict_proba())))
+    ood_gap = float(np.max(np.abs(card.detect() - ref.detect())) / np.max(np.abs(ref.detect())))
+    print(f"small scHeteroNet ({len(inp.labels)} cells, {inp.x.shape[1]} genes, {epochs} epochs; "
+          f"card {card.fmts}, CPU {ref.fmts}), card vs CPU: max relative loss gap {loss_gap!r}, "
+          f"max probability gap {prob_gap!r}, OOD score gap relative to the largest "
+          f"{ood_gap!r} (bounds 1e-4)", flush=True)
+    ok = loss_gap <= 1e-4 and prob_gap <= 1e-4 and ood_gap <= 1e-4 and card.fmts == ("bsr",) * 2
+
+    gs = graphsci_preprocess(counts, seed=19)
+    n_cells, n_genes = gs.x.shape
+    gen = torch.Generator().manual_seed(20)
+    noise = [torch.randn((n_genes, n_genes), generator=gen) for _ in range(epochs + 2)]
+    models, step = {}, {}
+    for label, dev in (("cpu", cpu), ("card", cuda)):
+        m = GraphSCI(n_cells, n_genes, n_epochs=0, dropout=0.0, seed=0, device=dev)
+        m.fit(gs.graph, gs.x, gs.x_raw, mask=gs.train_mask)
+        # the same normals on both devices: the fit's draws, then predict's
+        draws = iter(noise[1:epochs + 1])
+        m._noise = lambda g, draws=draws, dev=dev: next(draws, noise[-1]).to(dev)
+        loss = m._loss(noise[0].to(dev), None)
+        loss.backward()
+        step[label] = (float(loss.detach()), m.predict(), {k: p.grad.cpu().numpy()
+                                                            for k, p in m.net.named_parameters()})
+        m.n_epochs, m.net = epochs, None  # new weights, drawn as before
+        m.fit(gs.graph, gs.x, gs.x_raw, mask=gs.train_mask)
+        models[label] = m
+    one_step("GraphSCI", step)
+    card, ref = models["card"], models["cpu"]
+    loss_gap = float(np.max(np.abs(np.array([h["loss"] for h in card.history])
+                                   / np.array([h["loss"] for h in ref.history]) - 1)))
+    align_weights("GraphSCI", card.net, ref.net, 1e-3, epochs,
+                  skip=("ae.enc1.bias", "ae.enc2.bias"))  # before a full-batch norm
+    pred_gap = float(np.max(np.abs(card.predict() - ref.predict())))
+    print(f"small GraphSCI ({n_cells} cells, {n_genes} genes, {epochs} epochs, gene graph "
+          f"{card.fmt} on the card, {ref.fmt} on the CPU), card vs CPU: max relative loss gap "
+          f"{loss_gap!r}, max imputation gap (log space) {pred_gap!r} (bounds 1e-4)", flush=True)
+    ok &= loss_gap <= 1e-4 and pred_gap <= 1e-4
+    if not ok:
+        raise AssertionError("the card disagrees with the CPU on the small scHeteroNet or "
+                             "GraphSCI fit")
+
+
+def annotation_phases(cuda) -> dict:
+    """Phases 23-26; returns scHeteroNet's SpMM launches and the SpMM's
+    numbers on its two hop tilings."""
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.modules.single_modality.cell_type_annotation import (
+        scHeteroNet, scheteronet_preprocess)
+    from dance_tpu_torch.modules.single_modality.imputation import GraphSCI, graphsci_preprocess
+    from dance_tpu_torch.ops import bsr
+
+    t_phases = time.perf_counter()
+    result = {}
+    counts, types = annotation_counts(HN_CELLS, HN_GENES, HN_TYPES, HN_RARE, seed=13)
+    # -- 23. scHeteroNet at its defaults, both hops on #1 ------------------
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    inp = scheteronet_preprocess(counts, types)
+    t_pre = time.perf_counter() - t0
+    split = split_60_20_20(inp.labels, seed=14)
+    n = len(inp.labels)
+    print(f"scHeteroNet: {HN_CELLS} cells x {HN_GENES} genes in {HN_TYPES} types "
+          f"({np.bincount(types).tolist()}) -> {n} cells x {inp.x.shape[1]} genes, 5-NN graph "
+          f"{inp.graph.adj.nnz} edges; preprocessing {t_pre:.3f} s; split {len(split['train_idx'])}"
+          f" / {len(split['val_idx'])} / {len(split['test_idx'])}, OOD {len(split['ood_idx'])} "
+          f"cells", flush=True)
+    model = scHeteroNet(seed=0, device=cuda)
+    t0 = time.perf_counter()
+    model.fit(inp.graph, inp.labels, x_raw=inp.x_raw, size_factors=inp.size_factors,
+              train_idx=split["train_idx"], use_bsr="auto")
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    auto_pick("scHeteroNet one-hop, two-hop", "/".join(model.fmts))
+    if model.fmts != ("bsr", "bsr"):
+        raise AssertionError(f"scHeteroNet: use_bsr='auto' picked {model.fmts}, not BSR for both "
+                             f"hops")
+    for name, a in (("one-hop", model.adj1), ("strict two-hop", model.adj2)):
+        print(hop_line(f"scHeteroNet {name}", a, n), flush=True)
+    epochs = len(model.history)
+    losses = [h["loss"] for h in model.history]
+    print(f"scHeteroNet: hidden {model.hidden_channels}, {model.num_layers} layers, dropout "
+          f"{model.dropout}, ZINB 0.1, lr 1e-2, {epochs} epochs (the JAX defaults): fit "
+          f"{t_fit:.3f} s (graph: " + ", ".join(f"{k} {v:.3f} s"
+                                               for k, v in model.build_seconds.items())
+          + f"), first epoch {model.history[0]['seconds']!r} s, median steady epoch "
+          f"{median_epoch(model)!r} s; losses {losses[::50]} (every 50th)", flush=True)
+    t0 = time.perf_counter()
+    pred = model.predict()
+    auroc, aupr, fpr95 = model.evaluate_ood(split["id_idx"], split["ood_idx"])
+    t_pred = time.perf_counter() - t0
+    test = np.asarray(split["test_idx"])
+    acc = float((pred[test] == inp.labels[test]).mean())
+    majority = float(np.bincount(inp.labels[test]).max() / len(test))
+    print(f"scHeteroNet: test accuracy on in-distribution cells {acc!r} against the majority "
+          f"type's share {majority!r}; OOD AUROC {auroc!r}, AUPR {aupr!r}, FPR@95 {fpr95!r}; "
+          f"predict + evaluate_ood {t_pred:.3f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+    if not (np.isfinite(losses).all() and acc > majority):
+        raise AssertionError(f"scHeteroNet: accuracy {acc} not above {majority}, or non-finite "
+                             f"losses")
+    if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in (auroc, aupr, fpr95)):
+        raise AssertionError(f"scHeteroNet: OOD measures {auroc, aupr, fpr95} not in [0, 1]")
+    launches = read_launches()["bsr_spmm"]
+    # 2 hops x 2 layers forward and their Aᵀḡ an epoch; 4 in predict, 4 in detect
+    if launches < 8 * epochs:
+        raise AssertionError(f"scHeteroNet: bsr_spmm launched {launches} times, fewer than 8 x "
+                             f"{epochs}")
+    model.fit(inp.graph, inp.labels, x_raw=inp.x_raw, size_factors=inp.size_factors,
+              train_idx=split["train_idx"], use_bsr="auto", epochs=5, cl_weight=0.1)
+    torch.cuda.synchronize()
+    print(f"scHeteroNet with the contrastive term (cl_weight 0.1, {n} x {n} logits): 5 epochs, "
+          f"median epoch {median_epoch(model)!r} s, losses {[h['loss'] for h in model.history]}; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+    if not np.isfinite([h["loss"] for h in model.history]).all():
+        raise AssertionError("scHeteroNet: non-finite losses with the contrastive term")
+    result["scheteronet_launches"] = read_launches()["bsr_spmm"]
+    print(f"launches in the scHeteroNet path: {read_launches()} ({launches} before the "
+          f"contrastive epochs: 8 x {epochs} + 8)", flush=True)
+
+    # -- 24. #1 on both hop tilings at the two layers' widths --------------
+    result["one_hop"] = spmm_widths("scHeteroNet one-hop", model.adj1, (64, 128), seed=15)
+    result["two_hop"] = spmm_widths("scHeteroNet two-hop", model.adj2, (64, 128), seed=16)
+    del model, inp
+
+    # -- 25. GraphSCI at its defaults --------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gs = graphsci_preprocess(counts, seed=0)
+    t_pre = time.perf_counter() - t0
+    n_cells, n_genes = gs.x.shape
+    g = gs.graph.adj
+    fmt = bsr.choose_adj_format(g, reorder=False, device=cuda)
+    print(f"GraphSCI: {n_cells} cells x {n_genes} genes after the filters, "
+          f"{int(gs.valid_mask.sum())} entries masked; gene graph {g.nnz} edges (density "
+          f"{g.nnz / n_genes ** 2!r}, {bsr.tile_expansion(g)!r} stored slots per edge "
+          f"unreordered); preprocessing {t_pre:.3f} s; the rule says {fmt}", flush=True)
+    model = GraphSCI(n_cells, n_genes, seed=0, device=cuda)
+    t0 = time.perf_counter()
+    model.fit(gs.graph, gs.x, gs.x_raw, mask=gs.train_mask)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    auto_pick("GraphSCI gene graph", model.fmt)
+    losses = [h["loss"] for h in model.history]
+    imputed = model.predict(mask=gs.train_mask)
+    valid = gs.valid_mask
+    rmse = float(np.sqrt(((imputed - gs.x)[valid] ** 2).mean()))
+    zero = float(np.sqrt((gs.x[valid] ** 2).mean()))
+    gene_mean = np.nan_to_num((gs.x * gs.train_mask).sum(0) / gs.train_mask.sum(0))
+    mean_rmse = float(np.sqrt(((np.broadcast_to(gene_mean, gs.x.shape) - gs.x)[valid] ** 2)
+                              .mean()))
+    print(f"GraphSCI: 256 / 256 hidden, dropout 0.1, AdamW lr 1e-3, weight decay 1e-5, "
+          f"{len(losses)} epochs (the JAX defaults): fit {t_fit:.3f} s, first epoch "
+          f"{model.history[0]['seconds']!r} s, median steady epoch {median_epoch(model)!r} s; "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; losses {losses[::25]} (every "
+          f"25th); masked entries' RMSE (log space) {rmse!r} against {zero!r} for the zero guess "
+          f"and {mean_rmse!r} for the per-gene mean of the unmasked entries", flush=True)
+    if model.fmt not in ("dense", "csr") or not np.isfinite(losses).all() or not rmse < zero:
+        raise AssertionError(f"GraphSCI: format {model.fmt}, or RMSE {rmse} not below the zero "
+                             f"guess's {zero}, or non-finite losses")
+    del model, gs, counts
+
+    # -- 26. 300 cells: the card against the CPU ---------------------------
+    annotation_card_vs_cpu(cuda)
+    print(f"phases 23-26: {time.perf_counter() - t_phases:.3f} s", flush=True)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1880,6 +2199,7 @@ def main() -> int:
     clu = clustering_phases(cuda)
     mm = multimodal_phases(cuda)
     dc = deconvo_phases(cuda)
+    hn = annotation_phases(cuda)
 
     def entry(name):
         result, launched = measured[name]
@@ -1888,10 +2208,11 @@ def main() -> int:
                 "launches": launched, **result}
 
     entries = {name: entry(name) for name in KERNELS}
-    # the SpMM runs on eight main paths: its times are scDeepSort's tiling at
+    # the SpMM runs on nine main paths: its times are scDeepSort's tiling at
     # d = 256; graph-sc's tiling at d = 200, scTAG's at d = 3000 and 128,
-    # scDSC's at d = 512 and 8, scMoGNN's, DSTG's at d = 32 and 8 and
-    # stdGCN's towers at d = 256 ride beside them. The SDDMM is on no main
+    # scDSC's at d = 512 and 8, scMoGNN's, DSTG's at d = 32 and 8, stdGCN's
+    # towers at d = 256 and scHeteroNet's two hops at d = 64 and 128 ride
+    # beside them. The SDDMM is on no main
     # path (every path's tiles are constants): 0 launches.
     spmm = entries["bsr_spmm"]
     spmm["launches_by_path"] = {"scdeepsort": spmm["launches"],
@@ -1899,7 +2220,8 @@ def main() -> int:
                                 "sctag": clu["sctag_launches"], "scdsc": clu["scdsc_launches"],
                                 "scmogcn": mm["scmogcn_launches"],
                                 "scmogcn_je": mm["je_launches"],
-                                "dstg": dc["dstg_launches"], "stdgcn": dc["stdgcn_launches"]}
+                                "dstg": dc["dstg_launches"], "stdgcn": dc["stdgcn_launches"],
+                                "scheteronet": hn["scheteronet_launches"]}
     spmm["launches"] = sum(spmm["launches_by_path"].values())
     spmm["graphsc"] = gsc["graphsc_spmm"]
     spmm["sctag"] = {f"d{d}": res for d, res in clu["sctag"].items()}
@@ -1909,6 +2231,8 @@ def main() -> int:
     spmm["dstg"] = {f"d{d}": res for d, res in dc["dstg"].items()}
     spmm["stdgcn"] = {f"{tower}_d{d}": res for tower in ("exp", "sp")
                       for d, res in dc[f"stdgcn_{tower}"].items()}
+    spmm["scheteronet"] = {f"{hop}_d{d}": res for hop in ("one_hop", "two_hop")
+                           for d, res in hn[hop].items()}
     print(f"chip_smoke: {time.perf_counter() - t_start:.3f} s in all", flush=True)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,8 +6,8 @@ bit-identical; ``dance_tpu.graph`` itself cannot be imported here because it
 pulls in JAX. The bipartite cell-gene graph is homogeneous: gene nodes first
 (0..n_genes-1), then cell nodes. The device forms (``to_device``, ``to_bsr``,
 ``to_dense_adj``, ``to_adaptive_bsr``) go to the CUDA card unless the caller
-names the CPU. Not ported yet: ``from_adjacency`` and the symmetric/row
-normalizations.
+names the CPU. Not ported yet: ``from_adjacency`` and the row
+normalization.
 """
 
 from typing import Dict, NamedTuple, Optional
@@ -85,6 +85,14 @@ class Graph:
         scale = np.divide(in_deg, row_sums, out=np.zeros_like(row_sums),
                           where=row_sums != 0)
         self.adj = (sp.diags(scale) @ self.adj).tocsr()
+        return self
+
+    def normalize_edges_sym(self) -> "Graph":
+        """Symmetric ``D^-1/2 A D^-1/2``, degrees floored at 1e-12
+        (counterpart: base.py:103)."""
+        deg = np.asarray(self.adj.sum(axis=1)).ravel()
+        dinv = 1.0 / np.sqrt(np.maximum(deg, 1e-12))
+        self.adj = (sp.diags(dinv) @ self.adj @ sp.diags(dinv)).tocsr()
         return self
 
     @property

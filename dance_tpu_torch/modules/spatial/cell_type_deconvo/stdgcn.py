@@ -55,6 +55,8 @@ from torch import nn
 
 from dance_tpu_torch.modules.base import BaseRegressionMethod
 from dance_tpu_torch.nn.gnn import flax_dense_init_, flax_dropout
+# stdgcn.py:216's block, shared with scHeteroNet and GraphSCI
+from dance_tpu_torch.nn.mlp import FullBatchNorm as _FullBatchNorm
 from dance_tpu_torch.ops.bsr import (bsr_from_scipy, rcm_reorder, resolve_adj_format,
                                      unpermute)
 from dance_tpu_torch.ops.linalg import pca
@@ -263,21 +265,6 @@ A_intra_transfer = _expand_block
 # --------------------------------------------------------------------------
 # model
 # --------------------------------------------------------------------------
-
-class _FullBatchNorm(nn.Module):
-    """Batch norm on the statistics of the whole batch, every call, with no
-    running statistics: biased variance, eps 1e-5 (counterpart:
-    stdgcn.py:216). ``scale`` and ``bias`` are flax's names."""
-
-    def __init__(self, width: int):
-        super().__init__()
-        self.scale = nn.Parameter(torch.ones(width))
-        self.bias = nn.Parameter(torch.zeros(width))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean, var = x.mean(0), x.var(0, unbiased=False)
-        return (x - mean) / torch.sqrt(var + 1e-5) * self.scale + self.bias
-
 
 class _ConGCN(nn.Module):
     """The two GCN towers and the dense head (counterpart: stdgcn.py:225).

@@ -1,12 +1,14 @@
 """Marker-gene selection from a cell-type profile, on arrays (counterpart:
-``FilterGenesMarker``, dance_tpu/transforms/filter.py:358-404).
+``FilterGenesMarker``, dance_tpu/transforms/filter.py:358-404), and the
+ratio thresholds of the scanpy filters (``_get_count``, filter.py:26).
 
 A gene is a marker of a type when its log fold change against the mean of
 the other types' profiles passes ``threshold``; the filter keeps the genes
 that mark any type. The JAX transform reads the profile from ``varm``,
 writes the per-type indicator there and subsets the container's genes; the
 port returns the indicator and the mask. The other gene filters of that
-file are not ported yet (ROADMAP Queue 1).
+file are not ported yet (ROADMAP Queue 1); the modules apply ``FilterCellsType``
+and ``FilterGenesScanpy`` in their ``*_preprocess``.
 """
 
 from typing import List, Optional, Sequence, Tuple
@@ -14,6 +16,14 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from dance_tpu_torch.settings import logger
+
+
+def get_count(value, basis: int):
+    """A float in (0, 1) as that ratio of ``basis``, rounded down; any other
+    value as it is (counterpart: filter.py:26)."""
+    if isinstance(value, float) and 0 < value < 1:
+        return int(value * basis)
+    return value
 
 
 class FilterGenesMarker:
@@ -53,4 +63,4 @@ class FilterGenesMarker:
         return ind.any(1)
 
 
-__all__ = ["FilterGenesMarker"]
+__all__ = ["FilterGenesMarker", "get_count"]

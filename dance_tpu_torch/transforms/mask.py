@@ -1,0 +1,84 @@
+"""Entry masks for imputation on arrays (counterpart:
+dance_tpu/transforms/mask.py:13-98, ``CellwiseMaskData``).
+
+The JAX transform reads the feature channel of a ``Data`` container and
+writes the masks into its ``layers``; the port takes the cells x genes
+matrix and returns the masks. Both draw from ``np.random.default_rng(seed)``
+with ``scipy.stats.expon`` weights in the same order, so the masks are the
+JAX package's bit for bit.
+"""
+
+from typing import Optional, Tuple
+
+import numpy as np
+import scipy.sparse as sp
+from scipy.stats import expon
+
+from dance_tpu_torch.settings import logger
+
+
+class CellwiseMaskData:
+    """Per-cell masking of positive entries (counterpart: mask.py:13). In
+    each cell with more than ``min_gene_counts`` positive entries,
+    ``floor(mask_rate x`` that count``)`` of them leave the train mask,
+    drawn without replacement with weights ``expon.pdf(value, 0, 20)``
+    (``"exp"``) or uniform; they go to the valid mask, or with
+    ``add_test_mask`` a tenth (at least one) to valid and the rest to test.
+    ``__call__(x)`` returns ``(train_mask, valid_mask, test_mask)``."""
+
+    def __init__(self, distr: Optional[str] = "exp", mask_rate: float = 0.1,
+                 seed: Optional[int] = None, min_gene_counts: int = 5,
+                 add_test_mask: bool = False):
+        if not 0.0 <= mask_rate <= 1.0:
+            raise ValueError(f"mask_rate must be in [0, 1], got {mask_rate}")
+        self.distr = distr
+        self.mask_rate = mask_rate
+        self.seed = seed
+        self.min_gene_counts = min_gene_counts
+        self.add_test_mask = add_test_mask
+
+    def _get_probs(self, vec: np.ndarray) -> np.ndarray:
+        if self.distr == "exp":
+            prob = expon.pdf(vec, 0, 20)
+        elif self.distr == "uniform":
+            prob = np.ones(len(vec))
+        else:
+            raise ValueError(f"Unknown distribution {self.distr!r}; options: exp, uniform")
+        s = prob.sum()
+        return prob / s if s > 1e-9 else np.full(len(vec), 1.0 / max(len(vec), 1))
+
+    def __call__(self, x) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        rng = np.random.default_rng(self.seed)
+        feat = sp.csr_matrix(x)
+        n_cells, n_genes = feat.shape
+        train_mask = np.ones((n_cells, n_genes), dtype=bool)
+        valid_mask = np.zeros((n_cells, n_genes), dtype=bool)
+        test_mask = np.zeros((n_cells, n_genes), dtype=bool)
+        for c in range(n_cells):
+            start, end = feat.indptr[c], feat.indptr[c + 1]
+            ind_pos = feat.indices[start:end]
+            vals = feat.data[start:end]
+            if len(ind_pos) <= self.min_gene_counts:
+                continue
+            n_masked = int(np.floor(len(ind_pos) * self.mask_rate))
+            if n_masked <= 0:
+                continue
+            if n_masked >= len(ind_pos):
+                logger.warning("Too many genes masked for cell %d (%d/%d)", c, n_masked,
+                               len(ind_pos))
+                n_masked = 1 + int(np.floor(0.5 * len(ind_pos)))
+            chosen = rng.choice(len(ind_pos), n_masked, p=self._get_probs(vals), replace=False)
+            cols = ind_pos[chosen]
+            train_mask[c, cols] = False
+            if self.add_test_mask:
+                n_valid = max(int(round(0.1 * len(cols))), 1)
+                vm = np.zeros(len(cols), dtype=bool)
+                vm[rng.choice(len(cols), n_valid, replace=False)] = True
+                valid_mask[c, cols[vm]] = True
+                test_mask[c, cols[~vm]] = True
+            else:
+                valid_mask[c, cols] = True
+        return train_mask, valid_mask, test_mask
+
+
+__all__ = ["CellwiseMaskData"]

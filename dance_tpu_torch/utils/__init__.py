@@ -1,12 +1,14 @@
 """Seeding, device resolution, the metrics (accuracy, the adjusted Rand
-index, NMI, MSE and RMSE, k-means NMI/ARI of an embedding) and an epoch
-clock.
+index, NMI, MSE and RMSE, k-means NMI/ARI of an embedding, the OOD
+detection measures) and an epoch clock.
 
 Counterparts: ``set_seed`` dance_tpu/utils/__init__.py:99, ``get_device``
 dance_tpu/utils/__init__.py:23 (here :func:`resolve_device`, over torch
 devices), ``acc`` dance_tpu/utils/metrics.py:36, ``ari`` metrics.py:55,
 ``nmi``, ``mse`` and ``rmse`` metrics.py:92-106 and
-``labeled_clustering_evaluate`` metrics.py:168. The JAX package calls
+``labeled_clustering_evaluate`` metrics.py:168, ``ood_measures``
+metrics.py:197 (with :func:`roc_auc` and :func:`average_precision`, which it
+takes from scikit-learn). The JAX package calls
 scikit-learn for these; the port computes the same formulas in numpy.
 :class:`EpochClock` has no counterpart: the JAX package times whole scans.
 """
@@ -133,6 +135,57 @@ def rmse(true, pred) -> float:
     return float(np.sqrt(mse(true, pred)))
 
 
+def roc_auc(labels, scores) -> float:
+    """The area under the ROC curve of binary ``labels`` (1 positive) ranked
+    by ``scores`` (scikit-learn's ``roc_auc_score``): the Mann-Whitney
+    statistic, tied scores taking the average of their ranks, which is the
+    trapezoid area of the ROC curve whose points are the distinct scores."""
+    from scipy.stats import rankdata
+
+    labels = np.asarray(labels).ravel() == 1
+    n_pos, n_neg = int(labels.sum()), int((~labels).sum())
+    if n_pos == 0 or n_neg == 0:
+        raise ValueError("roc_auc needs both classes in labels")
+    ranks = rankdata(np.asarray(scores, np.float64).ravel())  # ties: the average rank
+    return float((ranks[labels].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
+
+
+def average_precision(labels, scores) -> float:
+    """Average precision of binary ``labels`` ranked by ``scores``
+    (scikit-learn's ``average_precision_score``): the step sum over the
+    distinct scores, highest first, of each step's recall gain times its
+    precision, tied scores forming one step."""
+    labels = np.asarray(labels).ravel() == 1
+    scores = np.asarray(scores, np.float64).ravel()
+    if not labels.any():
+        raise ValueError("average_precision needs a positive label")
+    order = np.argsort(scores, kind="mergesort")[::-1]
+    scores, labels = scores[order], labels[order]
+    last = np.r_[np.nonzero(np.diff(scores))[0], scores.size - 1]  # end of each tie group
+    tps = np.cumsum(labels, dtype=np.float64)[last]
+    precision = tps / (last + 1)
+    recall = tps / tps[-1]
+    return float(np.sum(np.diff(np.r_[0.0, recall]) * precision))
+
+
+def ood_measures(ind_scores, ood_scores):
+    """``(auroc, aupr, fpr@95)`` of OOD scores where in-distribution nodes
+    score higher (counterpart: metrics.py:197): AUROC and AUPR of telling
+    the in-distribution scores (positive) from the OOD ones, and the share
+    of OOD scores at or above the 5th percentile of the in-distribution
+    ones."""
+    ind = np.asarray(ind_scores, dtype=np.float64).ravel()
+    ood = np.asarray(ood_scores, dtype=np.float64).ravel()
+    if len(ind) == 0 or len(ood) == 0:
+        raise ValueError("ood_measures needs non-empty ind and ood score sets "
+                         f"(got {len(ind)} ind, {len(ood)} ood)")
+    scores = np.concatenate([ind, ood])
+    labels = np.concatenate([np.ones_like(ind), np.zeros_like(ood)])
+    thresh = np.percentile(ind, 5)  # keep 95 % of ind above the threshold
+    return (roc_auc(labels, scores), average_precision(labels, scores),
+            float((ood >= thresh).mean()))
+
+
 def labeled_clustering_evaluate(emb, true_labels, n_clusters: int = 10,
                                 random_state: int = 200, device=None) -> dict:
     """k-means (5 restarts) of an embedding scored against known labels:
@@ -181,5 +234,5 @@ class EpochClock:
         return [a.elapsed_time(b) / 1e3 for a, b in zip(self.marks[:-1], self.marks[1:])]
 
 
-__all__ = ["EpochClock", "acc", "ari", "labeled_clustering_evaluate", "mse", "nmi",
-           "resolve_device", "rmse", "set_seed"]
+__all__ = ["EpochClock", "acc", "ari", "average_precision", "labeled_clustering_evaluate", "mse",
+           "nmi", "ood_measures", "resolve_device", "rmse", "roc_auc", "set_seed"]

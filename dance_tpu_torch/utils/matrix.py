@@ -1,6 +1,6 @@
-"""Matrix normalization and pairwise distances (counterpart: ``normalize``,
-``pairwise_distance`` and ``_euclidean_pdist``, dance_tpu/utils/matrix.py:19-54,
-64-118).
+"""Matrix normalization, pairwise distances and the RBF affinity
+(counterpart: ``normalize``, ``dist_to_rbf``, ``pairwise_distance`` and
+``_euclidean_pdist``, dance_tpu/utils/matrix.py:19-74, 64-118).
 
 ``normalize`` takes a tensor and returns one on the same device, or a numpy
 array or scipy matrix and returns a numpy array (computed on the CPU), as the
@@ -48,6 +48,15 @@ def normalize(mat, *, mode: str = "normalize", axis: int = 0, eps: float = -1.0)
     return out.numpy() if as_numpy else out
 
 
+def dist_to_rbf(dist, denom: float = 1.0) -> np.ndarray:
+    """The RBF affinity ``exp(-d² / σ²)`` of a distance matrix, ``σ²`` the
+    mean of ``d²`` times ``denom`` (floored at 1e-12), in float32 on the CPU;
+    numpy in, numpy out (counterpart: matrix.py:70)."""
+    d2 = torch.as_tensor(np.asarray(dist, np.float32)) ** 2
+    sigma2 = torch.clamp(d2.mean() * denom, min=1e-12)
+    return torch.exp(-d2 / sigma2).numpy()
+
+
 def pairwise_distance(x, y=None, dist_func="euclidean") -> np.ndarray:
     """(n, m) distances between the rows of ``x`` and of ``y`` (default ``x``),
     as ``sqrt(max(|a|² + |b|² - 2 a·b, 0))``."""
@@ -60,4 +69,4 @@ def pairwise_distance(x, y=None, dist_func="euclidean") -> np.ndarray:
     return torch.sqrt(d2.clamp(min=0.0)).numpy()
 
 
-__all__ = ["NORM_MODES", "normalize", "pairwise_distance"]
+__all__ = ["NORM_MODES", "dist_to_rbf", "normalize", "pairwise_distance"]

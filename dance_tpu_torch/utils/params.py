@@ -1,6 +1,7 @@
 """flax -> torch parameter transfer for the scDeepSort ``GNN``, STAGATE's
 net, ``GATConv``, graph-sc's ``GCNAE``, scTAG's net, scDSC's model, the
-scMoGNN trunk, DSTG's GCN and stdGCN's network and autoencoder.
+scMoGNN trunk, DSTG's GCN, stdGCN's network and autoencoder, scHeteroNet's
+network and GraphSCI's network.
 
 Parity between the two packages is checked by copying the flax parameters
 into the torch module, since the two frameworks' generators and initializers
@@ -74,6 +75,20 @@ stdGCN's ``autoencoder`` (stdgcn.py:535), flax ``Sequential``s of
 
     {encoder,decoder}/layers_{i}/layers_0/{kernel,bias} -> {encoder,decoder}.{i}.0.*
     {encoder,decoder}/layers_{i}/layers_1/{scale,bias}  -> {encoder,decoder}.{i}.1.{weight,bias}
+
+scHeteroNet's ``_HeteroNet`` (scheteronet.py:101; ``setup`` names its
+layers, the decoder's compact ``Dense`` layers are numbered in call order):
+
+    feature_embed, final_project         -> feature_embed.*, final_project.*
+    bns_{i}/{scale,bias}                 -> bns.{i}.{scale,bias}
+    decoder/Dense_{0,1}                  -> decoder.hidden.{0,1}
+    decoder/Dense_{2,3,4}                -> decoder.{mean,disp,pi}
+
+GraphSCI's ``_GraphSCINet`` (graphsci.py:125): ``gnn/{w,b}{1,2,_mean,_log_std}``
+as they are (raw ``x @ w`` parameters), ``ae/mul_fc/kernel`` ->
+``ae.mul_fc.weight`` (no bias), ``ae/mul_bias`` as it is,
+``ae/{enc1,enc2,dec_pi,dec_disp,dec_mean}`` as ``Dense`` layers and
+``ae/{bn1,bn2}/{scale,bias}`` as they are.
 """
 
 from typing import Dict, Mapping
@@ -308,7 +323,51 @@ def autoencoder_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
+_HETERONET_DECODER = {"Dense_0": "hidden.0", "Dense_1": "hidden.1", "Dense_2": "mean",
+                      "Dense_3": "disp", "Dense_4": "pi"}
+
+
+def scheteronet_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax scHeteroNet ``_HeteroNet`` tree -> ``_HeteroNet.state_dict()``."""
+    state = {}
+    for name, sub in params.items():
+        kind, _, idx = name.rpartition("_")
+        if name in ("feature_embed", "final_project"):
+            _dense(state, name, sub)
+        elif kind == "bns" and set(sub) == {"scale", "bias"}:
+            state[f"bns.{idx}.scale"], state[f"bns.{idx}.bias"] = _t(sub["scale"]), _t(sub["bias"])
+        elif name == "decoder" and set(sub) <= set(_HETERONET_DECODER):
+            for dense, leaves in sub.items():
+                _dense(state, f"decoder.{_HETERONET_DECODER[dense]}", leaves)
+        else:
+            raise KeyError(f"unexpected _HeteroNet parameter {name!r}")
+    return state
+
+
+_GRAPHSCI_GNN = {f"{p}{s}" for p in "wb" for s in ("1", "2", "_mean", "_log_std")}
+
+
+def graphsci_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax GraphSCI ``_GraphSCINet`` tree -> ``_GraphSCINet.state_dict()``."""
+    if set(params) != {"gnn", "ae"} or set(params["gnn"]) != _GRAPHSCI_GNN:
+        raise KeyError(f"unexpected _GraphSCINet parameters {sorted(params)}")
+    state = {f"gnn.{k}": _t(v) for k, v in params["gnn"].items()}
+    for name, sub in params["ae"].items():
+        if name == "mul_fc":
+            _dense(state, "ae.mul_fc", sub, bias=False)
+        elif name == "mul_bias":
+            state["ae.mul_bias"] = _t(sub)
+        elif name in ("enc1", "enc2", "dec_pi", "dec_disp", "dec_mean"):
+            _dense(state, f"ae.{name}", sub)
+        elif name in ("bn1", "bn2") and set(sub) == {"scale", "bias"}:
+            state[f"ae.{name}.scale"], state[f"ae.{name}.bias"] = _t(sub["scale"]), _t(sub["bias"])
+        else:
+            raise KeyError(f"unexpected _AEModel parameter {name!r}")
+    return state
+
+
 __all__ = ["autoencoder_flax_to_torch", "dstg_flax_to_torch", "flax_to_torch",
-           "gatconv_flax_to_torch", "graphsc_flax_to_torch", "scdsc_flax_to_torch",
+           "gatconv_flax_to_torch", "graphsc_flax_to_torch", "graphsci_flax_to_torch",
+           "scdsc_flax_to_torch", "scheteronet_flax_to_torch",
            "scmogcn_flax_to_torch", "scmogcn_je_flax_to_torch", "sctag_flax_to_torch",
            "stagate_flax_to_torch", "stdgcn_flax_to_torch", "tagconv_flax_to_torch"]

@@ -1,6 +1,7 @@
 """dance_tpu_torch on the card: the hand-written CUDA kernels against their
-plain PyTorch versions, and the scDeepSort, STAGATE, graph-sc, scTAG, scDSC,
-scMoGNN, DSTG and stdGCN fits on the card against the CPU.
+plain PyTorch versions, the scDeepSort, STAGATE, graph-sc, scTAG, scDSC,
+scMoGNN, DSTG and stdGCN fits on the card against the CPU, and scHeteroNet's
+hop tilings and HetConv steps.
 
 Every test here is marked ``cuda`` and skips where ``torch.cuda.is_available()``
 is False. This file imports no JAX, so it runs on a machine with only
@@ -30,8 +31,8 @@ from dance_tpu_torch.modules.single_modality.cell_type_annotation import ScDeepS
 from dance_tpu_torch.modules.spatial.spatial_domain import Stagate
 from dance_tpu_torch.ops import bsr as tbsr
 from torch_cases import (CASES, NONFINITE_WIDTHS, bipartite_case, cell_knn_bsr, deconvo_case,
-                         deconvo_tilings, gat_inputs, gat_nonfinite_case, knn_bsr, max_edge_case,
-                         no_pad, signed, skewed_bsr, spatial_case)
+                         deconvo_tilings, gat_inputs, gat_nonfinite_case, heteronet_hops, knn_bsr,
+                         max_edge_case, no_pad, signed, skewed_bsr, spatial_case)
 
 RTOL, ATOL = 1e-5, 1e-5
 
@@ -692,3 +693,90 @@ def test_stdgcn_fit_matches_cpu(cuda, use_bsr, monkeypatch):
     epochs = len(runs["card"][0])
     assert runs["card"][3] == ("bsr" if use_bsr is True else "dense")
     assert runs["card"][2] == (12 * epochs + 4 if use_bsr is True else 0)
+
+
+_HOPS = []
+
+
+def _hops():
+    if not _HOPS:
+        _HOPS.extend(heteronet_hops())
+    return _HOPS
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hop", [0, 1])
+def test_spmm_heteronet_hops_match_plain_and_repeat_bit_equal(cuda, hop, d, transposed):
+    """#1 on scHeteroNet's one-hop and strict two-hop tilings of a 5-NN graph
+    with hub rows, at the two HetConv layers' widths, and ``Aᵀ`` as the
+    backward runs it: the two-hop stores every tile and most slots hold an
+    edge (long sums: up to ~1,500 terms a row)."""
+    bsr = _hops()[hop].to(cuda)
+    fill = int(torch.count_nonzero(bsr.tiles)) / bsr.tiles.numel()
+    assert fill > 0.5 if hop else fill < 0.05
+    mat = tbsr.bsr_transpose(bsr) if transposed else bsr
+    b = torch.randn((mat.shape[1], d), generator=torch.Generator().manual_seed(d)).to(cuda)
+    n = tbsr.bsr_spmm.launches
+    runs = [tbsr.bsr_spmm(mat, b) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tbsr.bsr_spmm.launches - n == 2 and torch.equal(runs[0], runs[1])
+    ref = tbsr.bsr_spmm_reference(mat.to("cpu"), b.cpu())
+    torch.testing.assert_close(runs[0].cpu(), ref, rtol=RTOL, atol=ATOL)
+
+
+def test_two_hops_sharing_an_order_keep_their_own_caches(cuda):
+    """The two hops tiled under one RCM order keep their own transposes and
+    work schedules, and a backward through both gives each its own ``Aᵀḡ``."""
+    one, two = (h.to(cuda) for h in _hops())
+    assert tbsr.bsr_transpose(one) is not tbsr.bsr_transpose(two)
+    dev = one.tiles.device
+    assert tbsr.device_schedule(one, "spmm", 64, dev) is not \
+        tbsr.device_schedule(two, "spmm", 64, dev)
+    h = torch.randn((one.shape[1], 64), generator=torch.Generator().manual_seed(1))
+    g = torch.randn((one.shape[0], 128), generator=torch.Generator().manual_seed(2))
+    grads = []
+    for a1, a2, x in ((one, two, h.to(cuda)), (*(m.to("cpu") for m in _hops()), h)):
+        x = x.clone().requires_grad_()
+        torch.cat([tbsr.bsr_spmm_ad(a1, x), tbsr.bsr_spmm_ad(a2, x)], 1).backward(g.to(x.device))
+        grads.append(x.grad.cpu())
+    torch.testing.assert_close(grads[0], grads[1], rtol=RTOL, atol=1e-4)
+
+
+def test_hetconv_step_with_one_hop_dense_one_bsr_matches_cpu(cuda):
+    """One scHeteroNet forward and backward of the cross-entropy with the
+    one-hop on BSR tiles and the two-hop dense (``"auto"``'s per-hop
+    upgrade), on the card against the CPU on CSR, from the same weights:
+    logits, the concatenation and the gradient of every weight the HetConv
+    stack feeds; #1 runs 2 + 2 times (the one-hop's forward and ``Aᵀḡ`` in
+    both layers). The ZINB decoder is left out: with it, a unit of its ReLU
+    layers within rounding of its kink flips between any two formats, on
+    the CPU too (6e-5 apart on an H100 and on the CPU alike)."""
+    from dance_tpu_torch.modules.single_modality.cell_type_annotation import scheteronet as sh
+    from dance_tpu_torch.ops.sparse import csr_from_scipy, dense_adj_from_scipy
+
+    from dance_tpu_torch.ops.neighbors import knn_graph
+
+    rng = np.random.default_rng(3)
+    x = np.log1p(rng.poisson(1.0, (600, 40))).astype(np.float32)
+    y = torch.from_numpy(rng.integers(0, 3, 600))
+    a1, a2 = sh.build_hop_adjacencies(tbsr.rcm_reorder(knn_graph(x, 5))[1])
+    runs = []
+    for device, hop1, hop2 in ((torch.device("cpu"), csr_from_scipy(a1), csr_from_scipy(a2)),
+                               (cuda, tbsr.bsr_from_scipy(a1), dense_adj_from_scipy(a2))):
+        net = sh._HeteroNet(40, 3, n_genes=40)
+        net.reset_parameters(torch.Generator().manual_seed(0))
+        net.to(device)
+        n = tbsr.bsr_spmm.launches
+        logits, h = net(hop1.to(device), hop2.to(device), torch.from_numpy(x).to(device))
+        torch.nn.functional.cross_entropy(logits, y.to(device)).backward()
+        torch.cuda.synchronize()
+        runs.append((logits.detach().cpu(), h.detach().cpu(),
+                     {k: p.grad.cpu() for k, p in net.named_parameters() if p.grad is not None},
+                     tbsr.bsr_spmm.launches - n))
+    torch.testing.assert_close(runs[1][0], runs[0][0], rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(runs[1][1], runs[0][1], rtol=RTOL, atol=ATOL)
+    scale = max(float(g.abs().max()) for g in runs[0][2].values())
+    for k, g in runs[0][2].items():
+        torch.testing.assert_close(runs[1][2][k], g, rtol=0, atol=1e-4 * scale, msg=k)
+    assert runs[0][3] == 0 and runs[1][3] == 4

@@ -230,3 +230,23 @@ def deconvo_tilings(seed: int = 0):
     return {"dstg": tbsr.bsr_with_rcm(inp.adj)[1],
             "stdgcn_exp": tbsr.bsr_from_scipy(a_exp[perm][:, perm]),
             "stdgcn_sp": tbsr.bsr_from_scipy(a_sp[perm][:, perm])}
+
+
+def heteronet_hops(n: int = 1500, dim: int = 100, hubs: int = 16, k: int = 5, seed: int = 0):
+    """scHeteroNet's two hop tilings under one RCM order, with hub rows:
+    ``n`` points in ``dim`` dimensions of which ``hubs`` sit near the
+    origin, so that every point's ``k`` nearest neighbours are hubs and the
+    hubs' rows of the symmetrised ``k``-NN graph are long; the strict
+    two-hop links the points that share a hub, so most of its tiles' slots
+    hold an edge (85 % at the defaults, every tile stored). Returns
+    (one-hop, two-hop) BSR matrices, GCN-normalised as the model builds
+    them."""
+    from dance_tpu_torch.modules.single_modality.cell_type_annotation.scheteronet import (
+        build_hop_adjacencies)
+    from dance_tpu_torch.ops.neighbors import knn_graph
+
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(0, 1, (n, dim)).astype(np.float32)
+    pts[rng.choice(n, hubs, replace=False)] *= 0.01
+    _, adj = tbsr.rcm_reorder(knn_graph(pts, k, mode="connectivity"))
+    return tuple(tbsr.bsr_from_scipy(a) for a in build_hop_adjacencies(adj))

@@ -12,10 +12,12 @@ as ``spmm(adj, h)`` and its backward ``Aᵀḡ`` at the model's width. The
 tilings: scDeepSort's off-diagonal cell-gene graph (d = 256), graph-sc's
 graph (d = 200), scTAG's and scDSC's RCM-banded cell kNN graphs (d = 128 and
 512), scMoGNN's cell x feature matrix ``f2c`` and its transpose ``c2f`` (d =
-48 and 96), DSTG's RCM-banded link graph (d = 32) and stdGCN's two towers
+48 and 96), DSTG's RCM-banded link graph (d = 32), stdGCN's two towers
 under the RCM order of their sum (d = 256; the pick is the rule's on that
 sum, as the model asks it), with the spatial tower under its own order
-beside them. STAGATE's GAT layer (d = 512) is timed on CSR (``edge_softmax``)
+beside them, and scHeteroNet's one-hop and strict two-hop adjacencies under
+the RCM order of its 5-NN graph (d = 64 and 128; the pick is the per-hop
+rule, no reorder, once the graph went BSR). STAGATE's GAT layer (d = 512) is timed on CSR (``edge_softmax``)
 against the fused kernels (#4 forward, #5 backward). Two sweeps on 16,384 x
 16,384 matrices bracket the crossovers: random tiles at a 2 % fill covering
 a share of the 128 x 128 tile grid from 0.2 to 1 (dense against BSR, by
@@ -169,6 +171,22 @@ def tilings(cuda):
     del x, a
 
     yield from deconvo_tilings(cuda)
+    yield from heteronet_tilings()
+
+
+def heteronet_tilings():
+    """scHeteroNet's two hops on chip_smoke's 10,000 cells, under the RCM
+    order of the 5-NN graph, at the two HetConv layers' widths."""
+    from dance_tpu_torch.modules.single_modality.cell_type_annotation.scheteronet import (
+        build_hop_adjacencies, scheteronet_preprocess)
+
+    counts, types = cs.annotation_counts(cs.HN_CELLS, cs.HN_GENES, cs.HN_TYPES, cs.HN_RARE,
+                                         seed=13)
+    inp = scheteronet_preprocess(counts, types)
+    one, two = build_hop_adjacencies(bsr.rcm_reorder(inp.graph.adj)[1])
+    three = ("csr", "dense", "bsr")
+    yield "scHeteroNet one-hop (RCM)", one.tocsr(), one, False, (64, 128), three
+    yield "scHeteroNet strict two-hop (RCM)", two.tocsr(), two, False, (64, 128), three
 
 
 def deconvo_tilings(cuda):
