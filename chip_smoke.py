@@ -3,7 +3,8 @@
 training, STAGATE training, graph-sc training, graph-sc's max aggregation
 over BSR tiles, scTAG and scDSC training, scMoGNN's modality prediction and
 joint embedding, DSTG and stdGCN deconvolution, scHeteroNet annotation with
-OOD detection and GraphSCI imputation.
+OOD detection, GraphSCI imputation, and the dense single-modality models:
+ACTINN, scDeepCluster, scDCC and DeepImpute.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -151,6 +152,38 @@ printed only when every phase passed):
    (``annotation_card_vs_cpu``): one step from the same weights, then a few
    epochs (scHeteroNet BSR on the card and CSR on the CPU; GraphSCI with the
    same noise), losses and outputs within 1e-4.
+27. ACTINN at its defaults, counts set to 0 just before phases 27-30 (they
+   reach no kernel: every count must stay 0): phase 23's counts, the genes
+   named ``g0`` ... (so that their sorted order, which the JAX filters leave
+   them in, is not their column order) -> ``actinn_preprocess``
+   (normalize_total 1e4, log2(1 + x), expressed genes, the 1-99 percentile
+   cuts on sums and coefficients of variation) -> a 60/20/20 split ->
+   ``ACTINN(random_seed=0).fit`` (hidden 100, 50, 25, batch 128, lr 0.01 with
+   the staircase decay, 50 epochs) -> ``predict`` on the test cells, whose
+   accuracy must beat the majority type's share. Prints the kept genes, the
+   steps' times, the steady epoch and peak memory.
+28. scDeepCluster on phase 11's counts at full width (``scdeepcluster_preprocess``:
+   every gene with a count, z 32, layers (256, 64) / (64, 256), batches of
+   256, sigma 1): ``DN_PRETRAIN`` AMSGrad pretrain epochs (cut from 400), k-means
+   (20 restarts), 10 DEC epochs (Adadelta, lr 1); the ARI must pass 0.1.
+   Prints the stage and epoch times, ARI and NMI against a random labelling's
+   and peak memory.
+29. scDCC on the same counts: ``scdcc_preprocess`` (2,000 genes of largest
+   variance), 10,000 pairs from ``generate_random_pair`` over all cells,
+   sigma 2.5, 50 pretrain epochs, 10 DEC epochs each followed by the
+   full-batch constraint step; as phase 28, plus the constraint step's time.
+30. DeepImpute at its defaults on phase 27's counts: ``deepimpute_preprocess``
+   (the ratio gene filter, log1p, 512-gene target blocks with 5 predictors a
+   target, 10 % entry masks) -> ``DeepImpute(seed=0).fit(x, x,
+   mask=train_mask)`` (hidden 256, dropout 0.2, batch 64, up to 100 epochs,
+   patience 5) -> ``predict``: the masked entries' RMSE must beat the zero
+   guess's; the per-gene mean's is printed. Then ``DN_REF_EPOCHS`` epochs of the
+   reference protocol.
+31. The four on 300 cells, card against CPU (``dense_card_vs_cpu``): one
+   step from the same weights, batch and noise (loss, outputs, gradients),
+   then ``DN_SMALL_EPOCHS`` epochs each (the same batch orders and noise,
+   dropout off) whose losses agree at 1e-4, whose weights pass
+   :func:`align_weights` and whose outputs agree at 1e-4 once aligned.
 
 Each kernel's bound is the larger of its operations over a compute peak and
 the bytes of its inputs and outputs, each counted once, over 3.35 TB/s, for
@@ -244,6 +277,13 @@ DC_K_FILTER, DC_NUM_CC = 30, 10
 # (benchmarks/matrix.py:224-241, 378-398): 10,000 cells x 2,000 genes, 8 types,
 # the last one rare (the OOD class); the small card-against-CPU size
 HN_CELLS, HN_GENES, HN_TYPES, HN_RARE, HN_SMALL = 10000, 2000, 8, 0.03, 300
+# ACTINN, scDeepCluster, scDCC and DeepImpute (phases 27-31) on phase 23's and
+# phase 11's counts at the JAX defaults (actinn.py:109, scdeepcluster.py:177-199,
+# scdcc.py:80-84, deepimpute.py:191): scDeepCluster's pretrain cut from 400
+# epochs to DN_PRETRAIN; scDCC's 10,000 pairs as the reference's 10X PBMC
+# command draws them; DeepImpute up to its 100 epochs (patience 5); the
+# reference protocol's epochs; the small card-against-CPU size and epochs
+DN_PRETRAIN, DN_PAIRS, DN_REF_EPOCHS, DN_SMALL, DN_SMALL_EPOCHS = 100, 10000, 3, 300, 5
 # H100 SXM: FP32 outside the tensor cores, TF32 dense on the tensor cores, HBM3
 PEAK_FLOPS, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
 PALLAS = "dance_tpu/ops/pallas_kernels.py"
@@ -2166,6 +2206,352 @@ def annotation_phases(cuda) -> dict:
     return result
 
 
+def gene_names(n_genes: int):
+    """``g0`` ... ``g{n - 1}``: names whose sorted order ("g10" before "g2")
+    is not their column order."""
+    import numpy as np
+
+    return np.array([f"g{k}" for k in range(n_genes)])
+
+
+def loss_gap(card, ref, key: str = "history") -> float:
+    """The largest relative gap between two fits' per-epoch losses."""
+    import numpy as np
+
+    a, b = (np.array([h["loss"] for h in getattr(m, key)]) for m in (card, ref))
+    return float(np.max(np.abs(a / b - 1)))
+
+
+def cpu_noise(model, seed: int):
+    """Make ``model`` draw its denoising normals on the CPU from ``seed`` and
+    move them to its device, so that the card and the CPU see the same."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    model._noise = lambda shape, _gen: torch.randn(shape, generator=gen).to(model.device)
+    return model
+
+
+def dense_card_vs_cpu(cuda):
+    """Phase 31: ACTINN, scDeepCluster, scDCC and DeepImpute on 300 cells,
+    dropout off, the weights drawn on both devices from the same CPU
+    generator, the noise drawn on the CPU: one step from the same weights,
+    batch and noise (:func:`one_step`), then ``DN_SMALL_EPOCHS`` epochs whose
+    losses agree at 1e-4, whose weights pass :func:`align_weights` and whose
+    outputs agree at 1e-4 once aligned."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.modules.single_modality.cell_type_annotation import (
+        ACTINN, actinn_preprocess)
+    from dance_tpu_torch.modules.single_modality.cell_type_annotation.actinn import actinn_loss
+    from dance_tpu_torch.modules.single_modality.clustering import (
+        ScDCC, ScDeepCluster, scdcc_preprocess, scdeepcluster_preprocess)
+    from dance_tpu_torch.modules.single_modality.imputation import (DeepImpute,
+                                                                    deepimpute_preprocess)
+    from dance_tpu_torch.modules.single_modality.imputation.deepimpute import _wmse
+    from dance_tpu_torch.transforms import generate_random_pair
+    from dance_tpu_torch.utils.loss import (cluster_kl_loss, soft_assign, target_distribution,
+                                            zinb_nll)
+
+    cpu, epochs, ok = torch.device("cpu"), DN_SMALL_EPOCHS, True
+    counts, types = annotation_counts(DN_SMALL, 300, 4, 0.1, seed=22)
+    names = gene_names(300)
+
+    def grads(module):
+        return {k: p.grad.cpu().numpy() for k, p in module.named_parameters()
+                if p.grad is not None}
+
+    # ACTINN: one step on the first 64 cells, then epochs of batches of 64
+    x, _ = actinn_preprocess(counts, names)
+    models, step = {}, {}
+    for label, dev in (("cpu", cpu), ("card", cuda)):
+        m = ACTINN(device=dev)
+        net = m._make_net(x.shape[1], 4, 0)
+        xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(types).to(dev)
+        loss = actinn_loss(net, xt[:64], yt[:64], torch.ones(64, device=dev), m.lambd)
+        loss.backward()
+        step[label] = (float(loss.detach()), net(xt).detach().cpu().numpy(), grads(net))
+        models[label] = m.fit(x, types, batch_size=64, num_epochs=epochs, seed=0)
+    one_step("ACTINN", step)
+    card, ref = models["card"], models["cpu"]
+    gap = loss_gap(card, ref)
+    align_weights("ACTINN", card.model, ref.model, 0.01, epochs * 5)
+    prob_gap = float(np.max(np.abs(card.predict_proba(x) - ref.predict_proba(x))))
+    print(f"small ACTINN ({x.shape[0]} cells, {x.shape[1]} genes, {epochs} epochs), card vs CPU: "
+          f"max relative loss gap {gap!r}, max probability gap {prob_gap!r} (bounds 1e-4)",
+          flush=True)
+    ok &= gap <= 1e-4 and prob_gap <= 1e-4
+
+    # scDeepCluster and scDCC: one DEC-loss step (scDCC: its constraint loss),
+    # then 3 pretrain and DN_SMALL_EPOCHS DEC epochs from given centres
+    random.seed(24)
+    np.random.seed(24)
+    mu0 = np.random.default_rng(25).standard_normal((4, 8)).astype(np.float32)
+    layers = dict(encodeLayer=(64, 32), decodeLayer=(32, 64))
+    for name in ("scDeepCluster", "scDCC"):
+        if name == "scDCC":
+            inp = scdcc_preprocess(counts, names, types, n_top_genes=200)
+            pairs = generate_random_pair(inp.labels, range(len(inp.labels)), 300)[:4]
+        else:
+            inp = scdeepcluster_preprocess(counts, names, types)
+        n, d = inp.x.shape
+        p0 = np.random.default_rng(26).dirichlet(np.ones(4), n).astype(np.float32)
+        noise = torch.randn((64, d), generator=torch.Generator().manual_seed(27))
+        models, step = {}, {}
+        for label, dev in (("cpu", cpu), ("card", cuda)):
+            make = (lambda: ScDCC(d, 8, 4, seed=0, device=dev, **layers)) if name == "scDCC" \
+                else (lambda: ScDeepCluster(d, 8, seed=0, device=dev, **layers))
+            m = make()
+            m.mu = torch.nn.Parameter(torch.from_numpy(mu0).to(dev))
+            xt, xr, sf = m._tensors(*inp.inputs)
+            if name == "scDCC":
+                loss = m.constraint_loss(xt, *(torch.as_tensor(a).to(dev) for a in pairs))
+                out = soft_assign(m.model.encode(xt), m.mu, m.alpha)
+            else:
+                z, mean, disp, pi = m.model(xt[:64], noise=noise.to(dev))
+                out = soft_assign(z, m.mu, m.alpha)
+                loss = (cluster_kl_loss(torch.from_numpy(p0[:64]).to(dev), out)
+                        + zinb_nll(xr[:64], mean, disp, pi, scale_factor=sf[:64, None]))
+            loss.backward()
+            g = grads(m.model)
+            g["mu"] = m.mu.grad.cpu().numpy()
+            step[label] = (float(loss.detach()), out.detach().cpu().numpy(), g)
+            m = cpu_noise(make(), 28)
+            kw = dict(pt_epochs=3, pt_batch_size=64, epochs=epochs, batch_size=64, tol=0.0)
+            if name == "scDCC":
+                m._init_centres = lambda x, k, *_, m=m: ScDeepCluster._init_centres(
+                    m, x, k, mu0, np.zeros(n, int))
+                m.fit(inp.inputs, ml_ind1=pairs[0], ml_ind2=pairs[1], cl_ind1=pairs[2],
+                      cl_ind2=pairs[3], **kw)
+            else:
+                m.fit(inp.inputs, n_clusters=4, init_centroid=mu0, y_pred_init=np.zeros(n, int),
+                      **kw)
+            models[label] = m
+        one_step(name, step)
+        card, ref = models["card"], models["cpu"]
+        gaps = (loss_gap(card, ref, "pretrain_history"), loss_gap(card, ref))
+        held = {}
+        for label, m in models.items():
+            held[label] = torch.nn.Module()
+            held[label].model, held[label].mu = m.model, m.mu
+        # AMSGrad at 1e-3, then Adadelta at lr 1, whose steps stay under ~5e-3
+        align_weights(name, held["card"], held["cpu"], 5e-3, (3 + epochs) * 5)
+        q = {}
+        for label, m in models.items():
+            with torch.no_grad():
+                xt = m._tensors(*inp.inputs)[0]
+                q[label] = soft_assign(m.model.encode(xt), m.mu, m.alpha).cpu().numpy()
+        q_gap = float(np.max(np.abs(q["card"] - q["cpu"])))
+        print(f"small {name} ({n} cells, {d} genes, 3 pretrain + {epochs} DEC epochs), card vs "
+              f"CPU: max relative loss gaps {gaps[0]!r} (pretrain), {gaps[1]!r} (DEC); max q "
+              f"gap once aligned {q_gap!r} (bounds 1e-4)", flush=True)
+        ok &= max(gaps) <= 1e-4 and q_gap <= 1e-4
+
+    # DeepImpute, both protocols: one step on the first 64 cells, then epochs
+    di = deepimpute_preprocess(counts, names, seed=29, sub_outputdim=64)
+    for protocol in (False, True):
+        models, step = {}, {}
+        for label, dev in (("cpu", cpu), ("card", cuda)):
+            m = DeepImpute(di.predictors, di.targets, sub_outputdim=64, dropout=0.0, seed=0,
+                           reference_protocol=protocol, device=dev)
+            m.fit(di.x, di.x, mask=di.train_mask, n_epochs=0)
+            xp, yt, mt = m._pregather(*(torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+                                        for a in (di.x, di.x, di.train_mask)))
+            out = m.net(xp[:, :64])
+            loss = _wmse(out, yt[:, :64], mt[:, :64]).mean()
+            loss.backward()
+            step[label] = (float(loss.detach()), out.detach().cpu().numpy(), grads(m.net))
+            models[label] = m.fit(di.x, di.x, mask=di.train_mask, n_epochs=epochs)
+        label = f"DeepImpute ({'reference' if protocol else 'default'} protocol)"
+        one_step(label, step)
+        card, ref = models["card"], models["cpu"]
+        gap = loss_gap(card, ref)
+        val_gap = float(np.max(np.abs(np.array([h["val"] for h in card.history])
+                                      / np.array([h["val"] for h in ref.history]) - 1)))
+        steps = len(card.history) * -(-int(0.95 * di.x.shape[0]) // 64)
+        align_weights(label, card.net, ref.net, 1e-3, steps)
+        pred_gap = float(np.max(np.abs(card.predict(di.x, mask=di.train_mask)
+                                       - ref.predict(di.x, mask=di.train_mask))))
+        print(f"small {label} ({di.x.shape[0]} cells, {di.x.shape[1]} genes, {len(di.targets)} "
+              f"subnets, {len(card.history)} epochs), card vs CPU: max relative loss gap "
+              f"{gap!r}, validation loss gap {val_gap!r}, max imputation gap (log space) "
+              f"{pred_gap!r} (bounds 1e-4)", flush=True)
+        ok &= gap <= 1e-4 and val_gap <= 1e-4 and pred_gap <= 1e-4
+    if not ok:
+        raise AssertionError("the card disagrees with the CPU on a small dense fit")
+
+
+def dense_phases(cuda) -> None:
+    """Phases 27-31: ACTINN, scDeepCluster, scDCC and DeepImpute. They reach
+    no TPU kernel: the launch counts, set to 0 before them, must stay 0."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.modules.single_modality.cell_type_annotation import (
+        ACTINN, actinn_preprocess)
+    from dance_tpu_torch.modules.single_modality.clustering import (
+        ScDCC, ScDeepCluster, scdcc_preprocess, scdeepcluster_preprocess)
+    from dance_tpu_torch.modules.single_modality.imputation import (DeepImpute,
+                                                                    deepimpute_preprocess)
+    from dance_tpu_torch.transforms import generate_random_pair
+    from dance_tpu_torch.utils import ari, nmi
+
+    t_phases = time.perf_counter()
+    reset_launches()
+    counts, types = annotation_counts(HN_CELLS, HN_GENES, HN_TYPES, HN_RARE, seed=13)
+    names = gene_names(HN_GENES)
+    # -- 27. ACTINN at its defaults ----------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    x, kept = actinn_preprocess(counts, names)
+    t_pre = time.perf_counter() - t0
+    perm = np.random.default_rng(21).permutation(len(types))
+    a, b = int(0.6 * len(perm)), int(0.8 * len(perm))
+    train, test = np.sort(perm[:a]), np.sort(perm[b:])
+    model = ACTINN(random_seed=0, device=cuda)
+    t0 = time.perf_counter()
+    model.fit(x[train], types[train], batch_size=128, lr=0.01, num_epochs=50)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = model.predict(x[test])
+    t_pred = time.perf_counter() - t0
+    acc = float((pred == types[test]).mean())
+    majority = float(np.bincount(types[test]).max() / len(test))
+    losses = [h["loss"] for h in model.history]
+    steps = -(-len(train) // 128)
+    print(f"ACTINN: {HN_CELLS} cells x {HN_GENES} genes in {HN_TYPES} types -> {x.shape[1]} genes "
+          f"kept (first {list(kept[:4])}, sorted by name); preprocessing {t_pre:.3f} s; train / "
+          f"test {len(train)} / {len(test)} cells; hidden {model.hidden_dims}, batch 128 "
+          f"({steps} Adam steps an epoch), lr 0.01 decayed 0.95 every 1,000 steps, 50 epochs: "
+          f"fit {t_fit:.3f} s, first epoch {model.history[0]['seconds']!r} s, median steady "
+          f"epoch {median_epoch(model)!r} s; predict {t_pred:.3f} s; test accuracy {acc!r} "
+          f"against the majority type's share {majority!r}; losses {losses[::10]} (every 10th); "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+    if not (np.isfinite(losses).all() and acc > majority):
+        raise AssertionError(f"ACTINN: accuracy {acc} not above {majority}, or non-finite losses")
+    del model
+
+    # -- 28-29. scDeepCluster and scDCC on phase 11's counts ----------------
+    ccounts, ctypes = clustered_counts(GSC_CELLS, GSC_GENES, GSC_TYPES, seed=0)
+    cnames = gene_names(GSC_GENES)
+    random_labels = np.random.default_rng(30).permutation(ctypes)
+    for name in ("scDeepCluster", "scDCC"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if name == "scDCC":
+            inp = scdcc_preprocess(ccounts, cnames, ctypes, n_top_genes=2000)
+        else:
+            inp = scdeepcluster_preprocess(ccounts, cnames, ctypes)
+        t_pre = time.perf_counter() - t0
+        n, d = inp.x.shape
+        t0 = time.perf_counter()
+        if name == "scDCC":
+            random.seed(31)
+            np.random.seed(31)
+            ml1, ml2, cl1, cl2, _ = generate_random_pair(inp.labels, range(n), DN_PAIRS)
+            t_pairs = time.perf_counter() - t0
+            model = ScDCC(d, 32, GSC_TYPES, seed=0, device=cuda)
+            t0 = time.perf_counter()
+            model.fit(inp.inputs, inp.labels, ml_ind1=ml1, ml_ind2=ml2, cl_ind1=cl1,
+                      cl_ind2=cl2)
+        else:
+            model = ScDeepCluster(d, 32, seed=0, device=cuda)
+            model.fit(inp.inputs, inp.labels, n_clusters=GSC_TYPES, pt_epochs=DN_PRETRAIN)
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        pred = model.predict()
+        scores = (ari(inp.labels, pred), nmi(inp.labels, pred))
+        chance = (ari(inp.labels, random_labels[inp.cells]),
+                  nmi(inp.labels, random_labels[inp.cells]))
+        pt_losses = [h["loss"] for h in model.pretrain_history]
+        dec_losses = [h["loss"] for h in model.history]
+        pt_epoch = statistics.median(h["seconds"] for h in model.pretrain_history[1:])
+        line = (f"{name}: {GSC_CELLS} cells x {GSC_GENES} genes -> {n} cells x {d} genes; "
+                f"preprocessing {t_pre:.3f} s; z 32, (256, 64) / (64, 256), sigma "
+                f"{model.sigma}, batch 256 ({-(-n // 256)} steps an epoch): fit {t_fit:.3f} s, "
+                f"{len(pt_losses)} AMSGrad pretrain epochs (median {pt_epoch!r} s, losses "
+                f"{pt_losses[::25]} every 25th), {len(dec_losses)} Adadelta DEC epochs (median "
+                f"{median_epoch(model, 0)!r} s, losses {dec_losses}); ARI {scores[0]!r}, NMI "
+                f"{scores[1]!r} against {chance[0]!r}, {chance[1]!r} for a random labelling; "
+                f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        if name == "scDCC":
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(5):
+                model.constraint_step()
+            end.record()
+            end.synchronize()
+            line += (f"; {len(ml1)} must-link and {len(cl1)} cannot-link pairs drawn in "
+                     f"{t_pairs:.3f} s, the constraint step {start.elapsed_time(end) / 5!r} ms "
+                     f"(5 back to back)")
+        print(line, flush=True)
+        finite = np.isfinite(pt_losses).all() and np.isfinite(dec_losses).all()
+        if not (finite and model.q.shape == (n, GSC_TYPES) and scores[0] > 0.1):
+            raise AssertionError(f"{name}: ARI {scores[0]} not above 0.1, non-finite losses or "
+                                 f"q of shape {model.q.shape}")
+        del model, inp
+
+    # -- 30. DeepImpute at its defaults on phase 27's counts -----------------
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    di = deepimpute_preprocess(counts, names, seed=0)
+    t_pre = time.perf_counter() - t0
+    n_cells, n_genes = di.x.shape
+    model = DeepImpute(di.predictors, di.targets, seed=0, device=cuda)
+    t0 = time.perf_counter()
+    model.fit(di.x, di.x, mask=di.train_mask)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    losses = [h["loss"] for h in model.history]
+    vals = [h["val"] for h in model.history]
+    imputed = model.predict(di.x, mask=di.train_mask)
+    valid = di.valid_mask
+    rmse = float(np.sqrt(((imputed - di.x)[valid] ** 2).mean()))
+    zero = float(np.sqrt((di.x[valid] ** 2).mean()))
+    gene_mean = np.nan_to_num((di.x * di.train_mask).sum(0) / di.train_mask.sum(0))
+    mean_rmse = float(np.sqrt(((np.broadcast_to(gene_mean, di.x.shape) - di.x)[valid] ** 2)
+                              .mean()))
+    p_max = max(len(p) for p in di.predictors)
+    print(f"DeepImpute: {n_cells} cells x {n_genes} genes after the filters, "
+          f"{int(valid.sum())} validation entries masked; {len(di.targets)} subnets (targets "
+          f"{[len(t) for t in di.targets]}, predictors up to {p_max}); preprocessing "
+          f"{t_pre:.3f} s; hidden 256, dropout 0.2, batch 64, Adam 1e-3, patience 5: "
+          f"{len(losses)} epochs run (of up to 100), fit {t_fit:.3f} s, first epoch "
+          f"{model.history[0]['seconds']!r} s, median steady epoch {median_epoch(model)!r} s; "
+          f"losses {losses[::5]} (every 5th), validation {vals[::5]}; masked entries' RMSE (log "
+          f"space) {rmse!r} against {zero!r} for the zero guess and {mean_rmse!r} for the "
+          f"per-gene mean of the unmasked entries; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+    if not (np.isfinite(losses).all() and rmse < zero):
+        raise AssertionError(f"DeepImpute: RMSE {rmse} not below the zero guess's {zero}, or "
+                             f"non-finite losses")
+    ref = DeepImpute(di.predictors, di.targets, seed=0, reference_protocol=True, device=cuda)
+    ref.fit(di.x, di.x, mask=di.train_mask, n_epochs=DN_REF_EPOCHS)
+    ref_losses = [h["loss"] for h in ref.history]
+    print(f"DeepImpute, reference protocol: {len(ref_losses)} epochs (accumulated gradients, "
+          f"short last batch), median epoch {median_epoch(ref, 0)!r} s, losses {ref_losses}, "
+          f"validation {[h['val'] for h in ref.history]}, {int(ref.stopped.sum())} of "
+          f"{len(di.targets)} subnets stopped", flush=True)
+    if not np.isfinite(ref_losses).all():
+        raise AssertionError("DeepImpute: non-finite losses in the reference protocol")
+    del model, ref, di
+    launched = read_launches()
+    print(f"launches in the dense paths (phases 27-30): {launched}", flush=True)
+    if any(launched.values()):
+        raise AssertionError(f"a dense path launched a BSR kernel: {launched}")
+
+    # -- 31. 300 cells: the card against the CPU ---------------------------
+    dense_card_vs_cpu(cuda)
+    print(f"phases 27-31: {time.perf_counter() - t_phases:.3f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2200,6 +2586,7 @@ def main() -> int:
     mm = multimodal_phases(cuda)
     dc = deconvo_phases(cuda)
     hn = annotation_phases(cuda)
+    dense_phases(cuda)
 
     def entry(name):
         result, launched = measured[name]

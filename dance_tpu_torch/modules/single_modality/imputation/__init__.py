@@ -1,9 +1,12 @@
 """Imputation methods (counterpart:
 dance_tpu/modules/single_modality/imputation/__init__.py). Ported so far:
-GraphSCI."""
+DeepImpute and GraphSCI."""
 
+from dance_tpu_torch.modules.single_modality.imputation.deepimpute import (
+    DeepImpute, DeepImputeInputs, NeuralNetworkModel, deepimpute_preprocess)
 from dance_tpu_torch.modules.single_modality.imputation.graphsci import (GraphSCI,
                                                                          GraphSCIInputs,
                                                                          graphsci_preprocess)
 
-__all__ = ["GraphSCI", "GraphSCIInputs", "graphsci_preprocess"]
+__all__ = ["DeepImpute", "DeepImputeInputs", "GraphSCI", "GraphSCIInputs", "NeuralNetworkModel",
+           "deepimpute_preprocess", "graphsci_preprocess"]

@@ -1,13 +1,20 @@
-"""Marker-gene selection from a cell-type profile, on arrays (counterpart:
-``FilterGenesMarker``, dance_tpu/transforms/filter.py:358-404), and the
-ratio thresholds of the scanpy filters (``_get_count``, filter.py:26).
+"""Gene filters on arrays: marker genes of a cell-type profile
+(counterpart: ``FilterGenesMarker``, dance_tpu/transforms/filter.py:358-404),
+the summary-statistic filters ``FilterGenesPercentile`` and
+``FilterGenesTopK`` (filter.py:241-354), and the ratio thresholds of the
+scanpy filters (``_get_count``, filter.py:26).
+
+The summary filters return the kept genes in **sorted-name order**, as the
+JAX transform does: it subsets its container by ``sorted(selected names)``
+(filter.py:291-297), so "g10" comes before "g2". They take the gene names
+beside the matrix for that reason.
 
 A gene is a marker of a type when its log fold change against the mean of
 the other types' profiles passes ``threshold``; the filter keeps the genes
 that mark any type. The JAX transform reads the profile from ``varm``,
 writes the per-type indicator there and subsets the container's genes; the
-port returns the indicator and the mask. The other gene filters of that
-file are not ported yet (ROADMAP Queue 1); the modules apply ``FilterCellsType``
+port returns the indicator and the mask. The file's other filters are not
+ported as transforms (ROADMAP Queue 1); the modules apply ``FilterCellsType``
 and ``FilterGenesScanpy`` in their ``*_preprocess``.
 """
 
@@ -63,4 +70,90 @@ class FilterGenesMarker:
         return ind.any(1)
 
 
-__all__ = ["FilterGenesMarker", "get_count"]
+GENE_SUMMARY_MODES = ("sum", "var", "cv", "rv")
+
+
+class FilterGenes:
+    """A gene filter on a per-gene summary statistic of a cells x genes
+    matrix (counterpart: filter.py:241). ``mode`` is ``"sum"``, ``"var"``
+    (the biased ``E[x²] - E[x]²``), ``"cv"`` (``sqrt(max(var, 0)) / mean``)
+    or ``"rv"`` (``var / mean``), non-finite ratios read as 0, in the
+    matrix's dtype as numpy computes them. ``__call__(x, gene_names)``
+    returns the kept columns and names in sorted-name order."""
+
+    def __init__(self, *, mode: str = "sum"):
+        if mode not in GENE_SUMMARY_MODES:
+            raise ValueError(f"Unknown summarization mode {mode!r}")
+        self.mode = mode
+
+    def _get_preserve_mask(self, gene_summary: np.ndarray) -> np.ndarray:
+        raise NotImplementedError
+
+    def summarize(self, x) -> np.ndarray:
+        """The per-gene summary (counterpart: filter.py:266)."""
+        x = np.asarray(x)
+        if self.mode == "sum":
+            return np.asarray(x.sum(0)).ravel()
+        mean = np.asarray(x.mean(0)).ravel()
+        msq = np.asarray((x ** 2).mean(0)).ravel()
+        var = msq - mean ** 2
+        if self.mode == "var":
+            return var
+        with np.errstate(divide="ignore", invalid="ignore"):
+            if self.mode == "cv":
+                return np.nan_to_num(np.sqrt(np.maximum(var, 0)) / mean, posinf=0, neginf=0)
+            return np.nan_to_num(var / mean, posinf=0, neginf=0)
+
+    def select(self, x, gene_names: Sequence) -> np.ndarray:
+        """Column indices of the kept genes, in sorted-name order."""
+        names = np.asarray(gene_names)
+        if len(set(names.tolist())) != len(names):
+            raise ValueError("gene names must be unique: the kept genes are ordered by name")
+        kept = np.nonzero(self._get_preserve_mask(self.summarize(x)))[0]
+        logger.info("%d genes removed", names.size - kept.size)
+        return kept[sorted(range(kept.size), key=lambda i: names[kept[i]])]
+
+    def __call__(self, x, gene_names: Sequence) -> Tuple[np.ndarray, np.ndarray]:
+        idx = self.select(x, gene_names)
+        return np.asarray(x)[:, idx], np.asarray(gene_names)[idx]
+
+
+class FilterGenesPercentile(FilterGenes):
+    """Keep the genes whose summary lies between its ``min_val`` and
+    ``max_val`` percentiles, both bounds included (counterpart:
+    filter.py:306)."""
+
+    def __init__(self, min_val: Optional[float] = 1, max_val: Optional[float] = 99, *,
+                 mode: str = "sum"):
+        super().__init__(mode=mode)
+        self.min_val = min_val
+        self.max_val = max_val
+
+    def _get_preserve_mask(self, gene_summary):
+        lo = np.percentile(gene_summary, self.min_val) if self.min_val is not None else -np.inf
+        hi = np.percentile(gene_summary, self.max_val) if self.max_val is not None else np.inf
+        return (gene_summary >= lo) & (gene_summary <= hi)
+
+
+class FilterGenesTopK(FilterGenes):
+    """Keep the ``num_genes`` genes of the largest summary (``top``) or the
+    smallest (counterpart: filter.py:327). Ties are broken as numpy's default
+    ``argsort`` breaks them, which is the JAX transform's call."""
+
+    def __init__(self, num_genes: int = 1000, top: bool = True, *, mode: str = "cv"):
+        super().__init__(mode=mode)
+        self.num_genes = num_genes
+        self.top = top
+
+    def _get_preserve_mask(self, gene_summary):
+        k = min(self.num_genes, gene_summary.size)
+        if k < self.num_genes:
+            logger.warning("num_genes=%d > total genes %d", self.num_genes, gene_summary.size)
+        order = gene_summary.argsort()
+        mask = np.zeros(gene_summary.size, dtype=bool)
+        mask[order[-k:] if self.top else order[:k]] = True
+        return mask
+
+
+__all__ = ["FilterGenes", "FilterGenesMarker", "FilterGenesPercentile", "FilterGenesTopK",
+           "get_count"]

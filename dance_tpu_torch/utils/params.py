@@ -1,7 +1,8 @@
 """flax -> torch parameter transfer for the scDeepSort ``GNN``, STAGATE's
 net, ``GATConv``, graph-sc's ``GCNAE``, scTAG's net, scDSC's model, the
 scMoGNN trunk, DSTG's GCN, stdGCN's network and autoencoder, scHeteroNet's
-network and GraphSCI's network.
+network, GraphSCI's network, ACTINN's MLP, the ZINB autoencoder of
+scDeepCluster and scDCC, and DeepImpute's stacked ensemble.
 
 Parity between the two packages is checked by copying the flax parameters
 into the torch module, since the two frameworks' generators and initializers
@@ -89,6 +90,19 @@ as they are (raw ``x @ w`` parameters), ``ae/mul_fc/kernel`` ->
 ``ae.mul_fc.weight`` (no bias), ``ae/mul_bias`` as it is,
 ``ae/{enc1,enc2,dec_pi,dec_disp,dec_mean}`` as ``Dense`` layers and
 ``ae/{bn1,bn2}/{scale,bias}`` as they are.
+
+ACTINN's ``VanillaMLP`` (mlp.py:13): ``Dense_{i}`` -> ``layers.{i}``. The
+``ZINBAutoencoder`` (zinb_ae.py:61), whose every layer is a ``TorchDense``
+wrapping one ``Dense_0``:
+
+    {encoder,decoder}/TorchDense_{i}/Dense_0 -> {encoder,decoder}.layers.{i}
+    {enc_mu,dec_mean,dec_disp,dec_pi}/Dense_0 -> {enc_mu,dec_mean,dec_disp,dec_pi}
+
+DeepImpute's ensemble (deepimpute.py:31), the subnets' trees stacked on a
+leading axis by ``jax.vmap``: ``Dense_{0,1}`` (or, in the reference
+protocol, ``TorchDense_{0,1}/Dense_0``) ``/kernel`` (n_ens, in, out) ->
+``w{1,2}`` as they are (the port computes ``x @ w`` per subnet), ``/bias``
+-> ``b{1,2}``.
 """
 
 from typing import Dict, Mapping
@@ -366,8 +380,61 @@ def graphsci_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
-__all__ = ["autoencoder_flax_to_torch", "dstg_flax_to_torch", "flax_to_torch",
+def actinn_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``VanillaMLP`` tree -> ``VanillaMLP.state_dict()``."""
+    state = {}
+    for name, sub in params.items():
+        kind, _, idx = name.rpartition("_")
+        if kind != "Dense":
+            raise KeyError(f"unexpected VanillaMLP parameter {name!r}")
+        _dense(state, f"layers.{idx}", sub)
+    return state
+
+
+def _torch_dense(state: dict, prefix: str, sub: Mapping):
+    """A flax ``TorchDense``: its one ``Dense_0``."""
+    if set(sub) != {"Dense_0"}:
+        raise KeyError(f"unexpected TorchDense parameters {sorted(sub)} under {prefix!r}")
+    _dense(state, prefix, sub["Dense_0"])
+
+
+def zinb_ae_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``ZINBAutoencoder`` tree -> ``ZINBAutoencoder.state_dict()``."""
+    state = {}
+    for name, sub in params.items():
+        if name in ("encoder", "decoder"):
+            for layer, leaves in sub.items():
+                kind, _, i = layer.rpartition("_")
+                if kind != "TorchDense":
+                    raise KeyError(f"unexpected MLPStack parameter {layer!r} under {name!r}")
+                _torch_dense(state, f"{name}.layers.{i}", leaves)
+        elif name in ("enc_mu", "dec_mean", "dec_disp", "dec_pi"):
+            _torch_dense(state, name, sub)
+        else:
+            raise KeyError(f"unexpected ZINBAutoencoder parameter {name!r}")
+    return state
+
+
+def deepimpute_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A vmapped flax ``_SubNet`` tree (either init) -> the stacked
+    ``_SubNet.state_dict()``."""
+    names = {f"Dense_{i}" for i in (0, 1)}
+    torch_names = {f"TorchDense_{i}" for i in (0, 1)}
+    if set(params) == torch_names:
+        params = {f"Dense_{i}": params[f"TorchDense_{i}"] for i in (0, 1)}
+        if any(set(sub) != {"Dense_0"} for sub in params.values()):
+            raise KeyError(f"unexpected _SubNet parameters {sorted(params)}")
+        params = {k: sub["Dense_0"] for k, sub in params.items()}
+    if set(params) != names or any(set(sub) != {"kernel", "bias"} for sub in params.values()):
+        raise KeyError(f"unexpected _SubNet parameters {sorted(params)}")
+    return {f"{kind}{i + 1}": _t(params[f"Dense_{i}"][leaf])
+            for i in (0, 1) for kind, leaf in (("w", "kernel"), ("b", "bias"))}
+
+
+__all__ = ["actinn_flax_to_torch", "autoencoder_flax_to_torch", "deepimpute_flax_to_torch",
+           "dstg_flax_to_torch", "flax_to_torch",
            "gatconv_flax_to_torch", "graphsc_flax_to_torch", "graphsci_flax_to_torch",
            "scdsc_flax_to_torch", "scheteronet_flax_to_torch",
            "scmogcn_flax_to_torch", "scmogcn_je_flax_to_torch", "sctag_flax_to_torch",
-           "stagate_flax_to_torch", "stdgcn_flax_to_torch", "tagconv_flax_to_torch"]
+           "stagate_flax_to_torch", "stdgcn_flax_to_torch", "tagconv_flax_to_torch",
+           "zinb_ae_flax_to_torch"]

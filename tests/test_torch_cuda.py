@@ -1,7 +1,9 @@
 """dance_tpu_torch on the card: the hand-written CUDA kernels against their
 plain PyTorch versions, the scDeepSort, STAGATE, graph-sc, scTAG, scDSC,
-scMoGNN, DSTG and stdGCN fits on the card against the CPU, and scHeteroNet's
-hop tilings and HetConv steps.
+scMoGNN, DSTG and stdGCN fits on the card against the CPU, scHeteroNet's
+hop tilings and HetConv steps, and the dense single-modality models
+(ACTINN, scDeepCluster, scDCC, DeepImpute) and optax's AMSGrad on the card
+against the CPU.
 
 Every test here is marked ``cuda`` and skips where ``torch.cuda.is_available()``
 is False. This file imports no JAX, so it runs on a machine with only
@@ -30,9 +32,10 @@ from dance_tpu_torch.graph import Graph
 from dance_tpu_torch.modules.single_modality.cell_type_annotation import ScDeepSort
 from dance_tpu_torch.modules.spatial.spatial_domain import Stagate
 from dance_tpu_torch.ops import bsr as tbsr
-from torch_cases import (CASES, NONFINITE_WIDTHS, bipartite_case, cell_knn_bsr, deconvo_case,
-                         deconvo_tilings, gat_inputs, gat_nonfinite_case, heteronet_hops, knn_bsr,
-                         max_edge_case, no_pad, signed, skewed_bsr, spatial_case)
+from torch_cases import (CASES, NONFINITE_WIDTHS, assert_weights, bipartite_case, cell_knn_bsr,
+                         deconvo_case, deconvo_tilings, gat_inputs, gat_nonfinite_case,
+                         heteronet_hops, knn_bsr, max_edge_case, no_pad, signed, skewed_bsr,
+                         spatial_case, typed_counts)
 
 RTOL, ATOL = 1e-5, 1e-5
 
@@ -780,3 +783,105 @@ def test_hetconv_step_with_one_hop_dense_one_bsr_matches_cpu(cuda):
     for k, g in runs[0][2].items():
         torch.testing.assert_close(runs[1][2][k], g, rtol=0, atol=1e-4 * scale, msg=k)
     assert runs[0][3] == 0 and runs[1][3] == 4
+
+
+# -- the dense single-modality models ------------------------------------------
+
+def test_amsgrad_on_card_matches_cpu(cuda):
+    from dance_tpu_torch.utils.optim import amsgrad
+
+    gen = torch.Generator().manual_seed(0)
+    p0 = torch.randn(64, 32, generator=gen)
+    grads = torch.randn(300, 64, 32, generator=gen) * torch.rand(300, 1, 1, generator=gen) * 4
+    out = {}
+    for label, dev in (("cpu", torch.device("cpu")), ("card", cuda)):
+        p = torch.nn.Parameter(p0.clone().to(dev))
+        opt = amsgrad([p], lr=1e-3)
+        for g in grads:
+            p.grad = g.to(dev)
+            opt.step()
+        out[label] = p.detach().cpu()
+    torch.testing.assert_close(out["card"], out["cpu"], rtol=0, atol=1e-6 * float(p0.abs().max()))
+
+
+def _pair(make, fit, cuda):
+    """The same model made and fitted on the CPU and on ``cuda``."""
+    return {"cpu": fit(make(torch.device("cpu"))), "card": fit(make(cuda))}
+
+
+def test_actinn_fit_matches_cpu(cuda):
+    from dance_tpu_torch.modules.single_modality.cell_type_annotation import (
+        ACTINN, actinn_preprocess)
+
+    counts, types, names = typed_counts(48, 40, seed=1)
+    x, _ = actinn_preprocess(counts, names)
+    runs = _pair(lambda dev: ACTINN(hidden_dims=(16, 8, 4), device=dev),
+                 lambda m: m.fit(x, types, batch_size=16, num_epochs=2, seed=3), cuda)
+    card, ref = runs["card"], runs["cpu"]
+    np.testing.assert_allclose([h["loss"] for h in card.history],
+                               [h["loss"] for h in ref.history], rtol=1e-5)
+    assert_weights({k: v.cpu().numpy() for k, v in card.model.state_dict().items()},
+                   {k: v.numpy() for k, v in ref.model.state_dict().items()}, 0.01, 6)
+    np.testing.assert_allclose(card.predict_proba(x), ref.predict_proba(x), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("method", ["scdeepcluster", "scdcc"])
+def test_zinb_clustering_fit_matches_cpu(cuda, method, monkeypatch):
+    """One pretrain and two DEC epochs (and scDCC's constraint steps) on both
+    devices from the same weights, centres and noise (drawn on the CPU)."""
+    from dance_tpu_torch.modules.single_modality.clustering import (
+        ScDCC, ScDeepCluster, scdcc_preprocess, scdeepcluster, scdeepcluster_preprocess)
+    from dance_tpu_torch.ops.cluster import KMeansResult
+    from dance_tpu_torch.transforms import generate_random_pair
+
+    def cpu_noise(self, shape, gen):
+        g = self.__dict__.setdefault("_test_noise", torch.Generator().manual_seed(4))
+        return torch.randn(shape, generator=g).to(self.device)
+
+    monkeypatch.setattr(ScDeepCluster, "_noise", cpu_noise)
+    counts, types, names = typed_counts(60, 40, seed=2)
+    mu0 = np.random.default_rng(5).standard_normal((3, 4)).astype(np.float32)
+    kw = dict(pt_epochs=1, pt_batch_size=16, epochs=2, batch_size=16, tol=0.0)
+    layers = dict(encodeLayer=(16, 8), decodeLayer=(8, 16))
+    if method == "scdcc":
+        inp = scdcc_preprocess(counts, names, types, n_top_genes=30)
+        ml1, ml2, cl1, cl2, _ = generate_random_pair(inp.labels, range(len(inp.labels)), 40)
+        monkeypatch.setattr(scdeepcluster, "kmeans", lambda z, k, **_: KMeansResult(
+            torch.zeros(z.shape[0], dtype=torch.long), torch.from_numpy(mu0), torch.zeros(())))
+        runs = _pair(lambda dev: ScDCC(inp.x.shape[1], 4, 3, device=dev, **layers),
+                     lambda m: m.fit(inp.inputs, ml_ind1=ml1, ml_ind2=ml2, cl_ind1=cl1,
+                                     cl_ind2=cl2, **kw), cuda)
+    else:
+        inp = scdeepcluster_preprocess(counts, names, types)
+        runs = _pair(lambda dev: ScDeepCluster(inp.x.shape[1], 4, device=dev, **layers),
+                     lambda m: m.fit(inp.inputs, n_clusters=3, init_centroid=mu0,
+                                     y_pred_init=np.zeros(len(inp.labels), int), **kw), cuda)
+    card, ref = runs["card"], runs["cpu"]
+    for stage in ("pretrain_history", "history"):
+        np.testing.assert_allclose([h["loss"] for h in getattr(card, stage)],
+                                   [h["loss"] for h in getattr(ref, stage)], rtol=1e-4)
+    np.testing.assert_allclose(card.q, ref.q, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(card.mu.detach().cpu().numpy(), ref.mu.detach().numpy(),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("reference_protocol", [False, True])
+def test_deepimpute_fit_matches_cpu(cuda, reference_protocol):
+    from dance_tpu_torch.modules.single_modality.imputation import (DeepImpute,
+                                                                    deepimpute_preprocess)
+
+    counts, _, names = typed_counts(60, 40, seed=3)
+    inp = deepimpute_preprocess(counts, names, seed=3, sub_outputdim=16, n_top=3)
+    runs = _pair(lambda dev: DeepImpute(inp.predictors, inp.targets, sub_outputdim=16,
+                                        hidden_dim=8, dropout=0.0, device=dev,
+                                        reference_protocol=reference_protocol),
+                 lambda m: m.fit(inp.x, inp.x, mask=inp.train_mask, batch_size=16,
+                                 n_epochs=3, patience=5), cuda)
+    card, ref = runs["card"], runs["cpu"]
+    for key in ("loss", "val"):
+        np.testing.assert_allclose([h[key] for h in card.history],
+                                   [h[key] for h in ref.history], rtol=1e-4)
+    assert_weights({k: v.cpu().numpy() for k, v in card.net.state_dict().items()},
+                   {k: v.numpy() for k, v in ref.net.state_dict().items()}, 1e-3, 12)
+    np.testing.assert_allclose(card.predict(inp.x, mask=inp.train_mask),
+                               ref.predict(inp.x, mask=inp.train_mask), rtol=1e-4, atol=1e-5)

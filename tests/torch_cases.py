@@ -250,3 +250,38 @@ def heteronet_hops(n: int = 1500, dim: int = 100, hubs: int = 16, k: int = 5, se
     pts[rng.choice(n, hubs, replace=False)] *= 0.01
     _, adj = tbsr.rcm_reorder(knn_graph(pts, k, mode="connectivity"))
     return tuple(tbsr.bsr_from_scipy(a) for a in build_hop_adjacencies(adj))
+
+
+def typed_counts(n: int = 160, g: int = 48, n_types: int = 3, seed: int = 0):
+    """Raw counts of ``n`` cells in ``n_types`` types sharing gene programs,
+    with a few genes never expressed and a few low-count cells, and the genes'
+    names: ``g{k}`` in a shuffled order, so that their sorted order (where
+    "g10" comes before "g2") is not their column order. Returns (float32
+    counts, types, names)."""
+    rng = np.random.default_rng(seed)
+    types = rng.integers(0, n_types, n)
+    programs = rng.gamma(1.0, 1.0, (n_types, g)) * (rng.random((n_types, g)) < 0.6)
+    depth = rng.gamma(3.0, 1.0, (n, 1))
+    counts = rng.poisson((programs[types] + 0.3) * depth).astype(np.float32)
+    counts[:, rng.choice(g, 3, replace=False)] = 0
+    counts[rng.choice(n, 2, replace=False)] = 0
+    names = np.array([f"g{k}" for k in rng.permutation(g)])
+    return counts, types, names
+
+
+def assert_weights(got: dict, want: dict, lr: float, steps: int, skip=()) -> int:
+    """Adam-trained weights of two runs from the same start: each within two
+    learning rates a step (Adam moves a weight by at most about lr a step,
+    even on a gradient at rounding level, as a ReLU unit at its kink gets),
+    and all but 0.1 % of them (``skip`` aside) at rtol 1e-4 / atol 1e-5.
+    ``got`` and ``want`` map names to numpy arrays. Returns how many were
+    outside the rtol."""
+    off = total = 0
+    for name, ref in want.items():
+        gap = np.abs(np.asarray(got[name]) - ref)
+        assert gap.max() <= 2 * lr * steps, (name, float(gap.max()))
+        if name not in skip:
+            off += int((gap > 1e-5 + 1e-4 * np.abs(ref)).sum())
+            total += ref.size
+    assert off <= 1e-3 * total, (off, total)
+    return off
