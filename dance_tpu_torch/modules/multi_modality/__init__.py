@@ -1,2 +1,3 @@
 """Multimodal methods (counterpart: dance_tpu/modules/multi_modality). Ported
-so far: scMoGNN for modality prediction and joint embedding."""
+so far: scMoGNN for modality prediction, modality matching and joint
+embedding."""

@@ -12,13 +12,14 @@ dropout rates (0.3 on edges, 0.2 in the model) are unused. The head is a
 linear layer on ``relu(z)``; the loss is the head's cross-entropy (with
 labels) plus ``1e-4 * mean(z²)``, minimised with Adam. ``score(metric="clustering")``
 clusters the embedding with k-means and gives its NMI
-(:func:`~dance_tpu_torch.utils.labeled_clustering_evaluate`).
+(:func:`~dance_tpu_torch.utils.labeled_clustering_evaluate`);
+``score(metric="openproblems")`` runs the scIB suite
+(:func:`~dance_tpu_torch.utils.metrics.integration_openproblems_evaluate`).
 
 Where this differs from the JAX package: the weights come from a CPU
 ``torch.Generator`` (parity tests copy the flax weights in); ``history``
 records each epoch's loss and seconds. Not ported yet (ROADMAP Queue 1):
-the ``"openproblems"`` metric and the reference-named propagation helpers
-(:142-202).
+the reference-named propagation helpers (:142-202).
 """
 
 import hashlib
@@ -35,6 +36,7 @@ from dance_tpu_torch.modules.multi_modality.predict_modality.scmogcn import (
 from dance_tpu_torch.nn.gnn import flax_dense_init_
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.utils import EpochClock, labeled_clustering_evaluate, resolve_device
+from dance_tpu_torch.utils.metrics import integration_openproblems_evaluate
 
 
 class _JENet(nn.Module):
@@ -128,12 +130,16 @@ class ScMoGCNWrapper(BaseRegressionMethod):
     def score(self, x, y, *, score_func=None, return_pred: bool = False,
               metric: str = "clustering", batch=None, **kwargs):
         """k-means NMI of the embedding against ``y`` (``metric="clustering"``,
-        counterpart: :123-139, with as many clusters as labels); the
-        ``"openproblems"`` suite is not ported."""
-        if metric != "clustering":
-            raise NotImplementedError(f"metric {metric!r} is not ported yet (ROADMAP Queue 1)")
+        counterpart: :122-135, with as many clusters as labels), or the scIB
+        suite's ``final_scores`` (``metric="openproblems"``; ``batch`` and the
+        suite's keyword arguments pass through, its scores and the
+        embedding with ``return_pred``)."""
         emb = self.predict()
         y = np.asarray(y)
+        if metric == "openproblems":
+            scores = integration_openproblems_evaluate(emb, y, batch, device=self.device,
+                                                       **kwargs)
+            return (scores, emb) if return_pred else scores["final_scores"]
         scores = labeled_clustering_evaluate(emb, y, n_clusters=len(np.unique(y)),
                                              device=self.device)
         return (scores, emb) if return_pred else scores["dance_nmi"]

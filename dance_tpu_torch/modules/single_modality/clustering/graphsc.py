@@ -24,9 +24,15 @@ Where this differs from the JAX package:
   ``dropout=0``.
 - ``fit`` records each epoch's loss and seconds (and ARI with
   ``eval_epoch``) in ``history``, and defines ``z`` after ``epochs=0`` too.
-- ``cluster_method="leiden"``, the multi-chip ``ShardedCSR`` adjacency and
-  the Data-container ``preprocessing_pipeline`` are not ported yet
-  (ROADMAP Queue 1); :func:`graphsc_preprocess` is the pipeline's array core.
+- The multi-chip ``ShardedCSR`` adjacency and the Data-container
+  ``preprocessing_pipeline`` are not ported yet (ROADMAP Queue 1);
+  :func:`graphsc_preprocess` is the pipeline's array core.
+
+``cluster_method="leiden"`` clusters the cell embeddings by
+:func:`~dance_tpu_torch.ops.cluster.leiden` on their 15-NN connectivity
+graph (the host C++ Louvain, then the connected-components split), as JAX
+does (graphsc.py:255-259); :func:`run_leiden` is the reference-named helper
+(:266).
 """
 
 import time
@@ -41,7 +47,8 @@ from dance_tpu_torch.graph import Graph
 from dance_tpu_torch.modules.base import BaseClusteringMethod
 from dance_tpu_torch.nn.gnn import WeightedGraphConv, flax_dense_init_, flax_dropout
 from dance_tpu_torch.ops.bsr import resolve_adj_format
-from dance_tpu_torch.ops.cluster import kmeans
+from dance_tpu_torch.ops.cluster import kmeans, leiden
+from dance_tpu_torch.ops.neighbors import knn_graph
 from dance_tpu_torch.ops.segment import AGGREGATIONS
 from dance_tpu_torch.ops.sparse import csr_from_scipy
 from dance_tpu_torch.sc.pp import (filter_cells, filter_genes, highly_variable_genes, log1p,
@@ -180,7 +187,8 @@ class GraphSC(BaseClusteringMethod):
         graphsc.py:139-249). ``use_bsr=True`` aggregates sums and means
         through the block-sparse SpMM, ``False`` on the CSR adjacency. With
         ``eval_epoch`` and labels ``y``, every epoch clusters the cell
-        embeddings (k-means on the device) and ``z`` is the embedding of the
+        embeddings (k-means on the device, or Leiden on the host with
+        ``cluster_method="leiden"``) and ``z`` is the embedding of the
         best ARI; otherwise the last one. ``batch_size`` is unused: training
         is full-graph, as in JAX."""
         if not isinstance(g, Graph):
@@ -193,8 +201,6 @@ class GraphSC(BaseClusteringMethod):
         fmt = resolve_adj_format(use_bsr, g.adj, bsr_block, device=self.device, reorder=False)
         if fmt == "bsr" and self.agg not in ("sum", "mean"):
             raise ValueError("use_bsr supports agg='sum' or 'mean'")
-        if eval_epoch and y is not None and self.cluster_method != "kmeans":
-            raise NotImplementedError("Leiden is not ported yet (ROADMAP Queue 1, slice 5)")
         n_genes = int(g.info["num_genes"])
         adj, feats, target, pos_weight, norm, degrees = self._fit_inputs(g, fmt, bsr_block)
         if self.model is None:
@@ -221,8 +227,12 @@ class GraphSC(BaseClusteringMethod):
             record = {"epoch": epoch, "loss": float(loss.detach())}
             if eval_epoch and y_true is not None:
                 z_dev = self._embed(adj, feats, degrees)[n_genes:]
-                labels = kmeans(z_dev, self.n_clusters, n_init=10, seed=5).labels
-                record["ari"] = ari(y_true, labels.cpu().numpy())
+                if self.cluster_method == "kmeans":
+                    labels = kmeans(z_dev, self.n_clusters, n_init=10, seed=5).labels
+                    record["ari"] = ari(y_true, labels.cpu().numpy())
+                else:  # Leiden on the host, as JAX scores it (graphsc.py:241-243)
+                    self.z = z_dev.cpu().numpy()
+                    record["ari"] = self.score(None, y_true)
                 aris.append(record["ari"])
                 zs.append(z_dev)
                 if show_epoch_ari:
@@ -239,15 +249,26 @@ class GraphSC(BaseClusteringMethod):
         return self.model.encode(adj, feats, degrees)
 
     def predict(self, x=None) -> np.ndarray:
-        """k-means of the cell embeddings, best of 10 restarts (counterpart:
+        """k-means of the cell embeddings, best of 10 restarts, or Leiden
+        (seeded with ``seed``) on their 15-NN connectivity graph (counterpart:
         graphsc.py:251)."""
         if self.cluster_method == "leiden":
-            raise NotImplementedError("Leiden is not ported yet (ROADMAP Queue 1, slice 5)")
+            adj = knn_graph(self.z, 15, mode="connectivity", include_self=False)
+            return leiden(adj, seed=self.seed)
         return kmeans(self.z, self.n_clusters, n_init=10, seed=5,
                       device=self.device).labels.cpu().numpy()
 
     def get_latent(self) -> np.ndarray:
         return self.z
+
+
+def run_leiden(embeddings, n_neighbors: int = 15, resolution: float = 1.0,
+               seed: int = 0) -> np.ndarray:
+    """Leiden labels of an embedding's kNN connectivity graph (counterpart:
+    graphsc.py:266, the reference's ``run_leiden``)."""
+    emb = np.asarray(embeddings, np.float32)
+    adj = knn_graph(emb, min(n_neighbors, len(emb) - 1))
+    return np.asarray(leiden(adj, resolution=resolution, seed=seed))
 
 
 def graphsc_preprocess(counts, *, n_top_genes: int = 3000,
@@ -286,4 +307,4 @@ def graphsc_preprocess(counts, *, n_top_genes: int = 3000,
     return graph, np.nonzero(cells)[0]
 
 
-__all__ = ["GCNAE", "GraphSC", "InnerProductDecoder", "graphsc_preprocess"]
+__all__ = ["GCNAE", "GraphSC", "InnerProductDecoder", "graphsc_preprocess", "run_leiden"]

@@ -15,6 +15,19 @@ of the checkout, in a file keyed by a hash of the flags, the sources and the
 headers they share (``csrc/*.cuh``), so a changed source or header rebuilds
 and an unchanged one loads at once. There is no fallback: a missing ``nvcc``
 or a failed build raises.
+
+The host library of Louvain (``csrc/host/louvain.cpp``, a copy of
+dance_tpu/native/louvain.cpp) is built the same way by the host compiler,
+with the JAX package's flags (dance_tpu/native/__init__.py:29), so that its
+floating-point contractions, and so its labels, are the same:
+
+    g++ -O3 -march=native -shared -fPIC -o build/dance_tpu_torch/liblouvain_<hash>.so \
+        csrc/host/louvain.cpp
+
+``-march=native`` ties the library to the CPU it was built on, so the key
+hashes the compiler's predefined macros under that flag (the instruction
+sets it targets) with the flags and the source. A failed build raises too:
+where the JAX package falls back to its numpy loop, the port does not.
 """
 
 import ctypes
@@ -48,6 +61,11 @@ SIGNATURES = {
 }
 
 
+HOST_DIR = CSRC_DIR / "host"
+HOST_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
+_I32, _I64, _U64, _D = ctypes.c_int32, ctypes.c_int64, ctypes.c_uint64, ctypes.c_double
+
+
 @dataclass
 class Kernels:
     """The loaded library and how it was obtained."""
@@ -55,7 +73,7 @@ class Kernels:
     lib: ctypes.CDLL
     path: Path
     build_seconds: float  # 0.0 when an existing build was loaded
-    log: str              # nvcc's output (ptxas registers / shared memory)
+    log: str              # the compiler's output (nvcc: ptxas registers / shared memory)
 
 
 def find_nvcc() -> str:
@@ -143,5 +161,56 @@ def load_kernels() -> Kernels:
     return build()
 
 
-__all__ = ["Kernels", "build", "compile_commands", "find_nvcc", "headers", "load_kernels",
-           "source_hash"]
+def find_host_compiler() -> str:
+    """``g++`` (the JAX package's compiler), else ``c++``."""
+    for name in ("g++", "c++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (g++, c++) on PATH: the Louvain library of "
+                       "dance_tpu_torch/csrc/host cannot be built")
+
+
+def host_hash(cxx: str, src: Path) -> str:
+    """Key of a host build: the flags, the source and the instruction sets
+    that ``-march=native`` selects on this machine."""
+    macros = subprocess.run([cxx, "-march=native", "-dM", "-E", "-x", "c++", os.devnull],
+                            capture_output=True, text=True, check=True).stdout
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    for part in (cxx.encode(), macros.encode(), src.read_bytes()):
+        h.update(part)
+    return h.hexdigest()[:16]
+
+
+def build_louvain(build_dir: Path = BUILD_DIR) -> Kernels:
+    """Compile ``csrc/host/louvain.cpp`` unless a build of the same key
+    exists; load it and declare ``louvain_csr``'s C signature."""
+    src = HOST_DIR / "louvain.cpp"
+    cxx = find_host_compiler()
+    path = build_dir / f"liblouvain_{host_hash(cxx, src)}.so"
+    seconds, log = 0.0, ""
+    if not path.exists():
+        build_dir.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [cxx, *HOST_FLAGS, "-o", str(tmp), str(src)]
+        t0 = time.perf_counter()
+        (rc, log), = _run_all([cmd])
+        seconds = time.perf_counter() - t0
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{cxx} failed ({rc}): {' '.join(cmd)}\n{log}")
+        os.replace(tmp, path)  # atomic: concurrent builds each write their own file
+    lib = ctypes.CDLL(str(path))
+    lib.louvain_csr.argtypes = (_P, _P, _P, _I64, _D, _U64, _I32, _I32, _P)
+    lib.louvain_csr.restype = _I32
+    return Kernels(lib, path, seconds, log)
+
+
+@functools.lru_cache(maxsize=None)
+def load_louvain() -> Kernels:
+    """The process-wide Louvain library (built at first call)."""
+    return build_louvain()
+
+
+__all__ = ["Kernels", "build", "build_louvain", "compile_commands", "find_host_compiler",
+           "find_nvcc", "headers", "host_hash", "load_kernels", "load_louvain", "source_hash"]

@@ -1,4 +1,5 @@
-"""Sparse tensor containers (counterpart: dance_tpu/ops/sparse.py:18-210).
+"""Sparse tensor containers and the CSR products ``A @ B`` and ``Aᵀ @ B``
+(counterpart: dance_tpu/ops/sparse.py:18-210).
 
 The JAX package registers these as pytrees so that ``jit`` sees static
 shapes; here they are plain dataclasses of tensors with a ``.to(device)``.
@@ -41,6 +42,25 @@ def csr_from_scipy(mat: sp.spmatrix) -> CSRMatrix:
     return CSRMatrix(torch.from_numpy(np.asarray(mat.data, np.float32)),
                      torch.from_numpy(np.asarray(mat.indices, np.int64)),
                      torch.from_numpy(np.asarray(mat.indptr, np.int64)), mat.shape)
+
+
+def csr_matmat(mat: CSRMatrix, b: torch.Tensor) -> torch.Tensor:
+    """``A @ B`` for a dense ``B`` of shape (n_cols, d) (counterpart:
+    sparse.py:92, a gather and a segment sum in XLA, outside Pallas): one
+    sparse-dense product where ``mat`` lies, which materialises no (nnz, d)
+    gather. CSR's row-major order is a coalesced COO."""
+    coo = torch.sparse_coo_tensor(torch.stack([mat.row_ids(), mat.indices]), mat.data,
+                                  size=mat.shape, is_coalesced=True, check_invariants=False)
+    return torch.sparse.mm(coo, b)
+
+
+def csr_rmatmat(mat: CSRMatrix, b: torch.Tensor) -> torch.Tensor:
+    """``Aᵀ @ B`` for a dense ``B`` of shape (n_rows, d) (counterpart:
+    sparse.py:100, a scatter-add over the columns): the entries sorted by
+    column where ``mat`` lies, then one sparse-dense product."""
+    coo = torch.sparse_coo_tensor(torch.stack([mat.indices, mat.row_ids()]), mat.data,
+                                  size=(mat.shape[1], mat.shape[0]), check_invariants=False)
+    return torch.sparse.mm(coo.coalesce(), b)
 
 
 def sym_norm_adjacency(adj) -> Tuple[sp.csr_matrix, sp.csr_matrix]:
@@ -104,5 +124,5 @@ class AdaptiveBSR:
                        gene_idx=self.gene_idx.to(device), deg=self.deg.to(device))
 
 
-__all__ = ["AdaptiveBSR", "CSRMatrix", "DenseAdj", "csr_from_scipy", "dense_adj_from_scipy",
-           "sym_norm_adjacency"]
+__all__ = ["AdaptiveBSR", "CSRMatrix", "DenseAdj", "csr_from_scipy", "csr_matmat", "csr_rmatmat",
+           "dense_adj_from_scipy", "sym_norm_adjacency"]

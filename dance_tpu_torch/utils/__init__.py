@@ -10,6 +10,8 @@ devices), ``acc`` dance_tpu/utils/metrics.py:36, ``ari`` metrics.py:55,
 metrics.py:197 (with :func:`roc_auc` and :func:`average_precision`, which it
 takes from scikit-learn). The JAX package calls
 scikit-learn for these; the port computes the same formulas in numpy.
+``nmi`` takes sklearn's ``average_method``. The matching evaluator and the
+scIB suite are in :mod:`.metrics` and :mod:`.scib_metrics`.
 :class:`EpochClock` has no counterpart: the JAX package times whole scans.
 """
 
@@ -96,11 +98,15 @@ def _entropy(labels: np.ndarray) -> float:
     return float(-np.sum((pi / total) * (np.log(pi) - np.log(total))))
 
 
-def nmi(true, pred) -> float:
-    """Normalised mutual information with ``average_method="max"``
-    (counterpart: metrics.py:92, sklearn's ``normalized_mutual_info_score``):
-    MI over the larger of the two entropies; 1 where both labelings are one
-    cluster, 0 where MI is 0."""
+def nmi(true, pred, average_method: str = "max") -> float:
+    """Normalised mutual information (counterpart: metrics.py:92, sklearn's
+    ``normalized_mutual_info_score``): MI over the ``average_method`` mean of
+    the two entropies, ``"max"`` (the JAX package's ``nmi``) or
+    ``"arithmetic"`` (``nmi_opt_louvain``, scib_metrics.py:68); 1 where both
+    labelings are one cluster, 0 where MI is 0."""
+    if average_method not in _AVERAGES:
+        raise ValueError(f"average_method must be one of {sorted(_AVERAGES)}, got "
+                         f"{average_method!r}")
     true, pred = np.asarray(true).ravel(), np.asarray(pred).ravel()
     _, ti = np.unique(true, return_inverse=True)
     _, pi = np.unique(pred, return_inverse=True)
@@ -120,7 +126,11 @@ def nmi(true, pred) -> float:
     mi = max(float(terms.sum()), 0.0)
     if mi == 0.0:
         return 0.0
-    return mi / max(_entropy(true), _entropy(pred))
+    return mi / _AVERAGES[average_method](_entropy(true), _entropy(pred))
+
+
+# sklearn's ``_generalized_average`` of the two entropies, the two the JAX package uses
+_AVERAGES = {"max": max, "arithmetic": lambda u, v: (u + v) / 2}
 
 
 def mse(true, pred) -> float:

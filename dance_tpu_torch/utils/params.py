@@ -1,8 +1,8 @@
 """flax -> torch parameter transfer for the scDeepSort ``GNN``, STAGATE's
 net, ``GATConv``, graph-sc's ``GCNAE``, scTAG's net, scDSC's model, the
-scMoGNN trunk, DSTG's GCN, stdGCN's network and autoencoder, scHeteroNet's
-network, GraphSCI's network, ACTINN's MLP, the ZINB autoencoder of
-scDeepCluster and scDCC, and DeepImpute's stacked ensemble.
+scMoGNN trunk and matching net, DSTG's GCN, stdGCN's network and
+autoencoder, scHeteroNet's network, GraphSCI's network, ACTINN's MLP, the ZINB
+autoencoder of scDeepCluster and scDCC, and DeepImpute's stacked ensemble.
 
 Parity between the two packages is checked by copying the flax parameters
 into the torch module, since the two frameworks' generators and initializers
@@ -59,7 +59,14 @@ names a list of modules ``name_{i}``):
     wt, aph                              -> wt, aph
 
 and the joint-embedding net ``_JENet`` (joint_embedding/scmogcn.py:25):
-``trunk/...`` -> ``trunk.…`` as above, ``head`` -> ``head``.
+``trunk/...`` -> ``trunk.…`` as above, ``head`` -> ``head``. The matching
+net ``ScMoGCN`` (match_modality/scmogcn.py:89) names its layers by their
+place among a stack's modules (``Dense``, ``gelu``, ``Dropout`` ...), and
+JAX keeps the hop logits beside it:
+
+    model/stacks_{j}_{k}/{kernel,bias}   -> stacks.{j}.{i}.{weight,bias}, i the
+                                            k-th Dense's rank in stack j
+    wt1, wt2                             -> wt1, wt2
 
 DSTG's ``_GCN`` (dstg.py:30): ``Dense_{i}/kernel`` -> ``dense_{i}.weight``.
 stdGCN's ``_ConGCN`` (stdgcn.py:225) names its layers in call order: with
@@ -286,6 +293,23 @@ def scmogcn_je_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
+def scmogcn_match_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``{"model": <ScMoGCN params>, "wt1", "wt2"}`` (the matching fit's
+    params, match_modality/scmogcn.py:321-325) -> the port's ``ScMoGCN``."""
+    dense: Dict[int, list] = {}
+    for key in params["model"]:
+        parts = key.split("_")
+        if len(parts) != 3 or parts[0] != "stacks":
+            raise KeyError(f"unexpected ScMoGCN parameter {key!r}")
+        dense.setdefault(int(parts[1]), []).append((int(parts[2]), key))
+    state = {}
+    for j, keys in dense.items():
+        for i, (_, key) in enumerate(sorted(keys)):
+            _dense(state, f"stacks.{j}.{i}", params["model"][key])
+    state["wt1"], state["wt2"] = _t(params["wt1"]), _t(params["wt2"])
+    return state
+
+
 def dstg_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     """A flax DSTG ``_GCN`` tree -> ``_GCN.state_dict()``."""
     state = {}
@@ -435,6 +459,7 @@ __all__ = ["actinn_flax_to_torch", "autoencoder_flax_to_torch", "deepimpute_flax
            "dstg_flax_to_torch", "flax_to_torch",
            "gatconv_flax_to_torch", "graphsc_flax_to_torch", "graphsci_flax_to_torch",
            "scdsc_flax_to_torch", "scheteronet_flax_to_torch",
-           "scmogcn_flax_to_torch", "scmogcn_je_flax_to_torch", "sctag_flax_to_torch",
+           "scmogcn_flax_to_torch", "scmogcn_je_flax_to_torch", "scmogcn_match_flax_to_torch",
+           "sctag_flax_to_torch",
            "stagate_flax_to_torch", "stdgcn_flax_to_torch", "tagconv_flax_to_torch",
            "zinb_ae_flax_to_torch"]

@@ -23,6 +23,7 @@ from dance_tpu.data import AnnData, Data
 from dance_tpu.graph import Graph as JGraph
 from dance_tpu.modules.single_modality.clustering.graphsc import GCNAE as JGCNAE
 from dance_tpu.modules.single_modality.clustering.graphsc import GraphSC as JGraphSC
+from dance_tpu.modules.single_modality.clustering.graphsc import run_leiden as jrun_leiden
 from dance_tpu.nn.gnn import WeightedGraphConv as JWeightedGraphConv
 from dance_tpu.ops import pallas_kernels as jpk
 from dance_tpu.ops.sparse import csr_from_scipy as jcsr_from_scipy
@@ -32,7 +33,7 @@ from dance_tpu.utils.matrix import normalize as jnormalize
 from dance_tpu_torch.graph import Graph
 from dance_tpu_torch.modules.single_modality.cell_type_annotation import ScDeepSort
 from dance_tpu_torch.modules.single_modality.clustering import (GCNAE, GraphSC,
-                                                                graphsc_preprocess)
+                                                                graphsc_preprocess, run_leiden)
 from dance_tpu_torch.modules.spatial.spatial_domain import Stagate
 from dance_tpu_torch.nn.gnn import WeightedGraphConv
 from dance_tpu_torch.ops import bsr as tbsr
@@ -398,10 +399,18 @@ def test_graphsc_eval_epoch_keeps_best_ari_and_predicts():
     assert pred.shape == (len(cells),) and ((pred >= 0) & (pred < 3)).all()
     assert m.score(None, y) == pytest.approx(ari(y, pred))
     assert m.get_latent() is m.z
-    leiden = GraphSC(cluster_method="leiden", device="cpu")
-    leiden.z = m.z
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        leiden.predict()
+    # Leiden on the same z: JAX's labels (15-NN connectivity graph, seed 0)
+    leiden, jleiden = GraphSC(cluster_method="leiden", device="cpu"), \
+        JGraphSC(cluster_method="leiden")
+    leiden.z = jleiden.z = m.z
+    np.testing.assert_array_equal(leiden.predict(), jleiden.predict())
+    np.testing.assert_array_equal(run_leiden(m.z, n_neighbors=10, seed=3),
+                                  jrun_leiden(m.z, n_neighbors=10, seed=3))
+    # and as the per-epoch score: the ARI of the labels on each epoch's z
+    lm = GraphSC(hidden_dim=16, hidden_1=12, cluster_method="leiden", device="cpu", seed=1)
+    lm.fit(g, y, epochs=2, lr=1e-3, eval_epoch=True)
+    assert len(lm.history) == 2
+    assert max(h["ari"] for h in lm.history) == pytest.approx(ari(y, lm.predict()))
 
 
 # --------------------------------------------------------------------------

@@ -363,7 +363,10 @@ def test_port_imports_no_jax():
         "        'dance_tpu_torch.modules.single_modality.clustering.scdcc',\n"
         "        'dance_tpu_torch.modules.single_modality.imputation.deepimpute',\n"
         "        'dance_tpu_torch.transforms.gene_holdout', 'dance_tpu_torch.transforms.preprocess',\n"
-        "        'dance_tpu_torch.nn.zinb_ae'} <= set(names)\n"
+        "        'dance_tpu_torch.nn.zinb_ae', 'dance_tpu_torch.utils.metrics',\n"
+        "        'dance_tpu_torch.utils.scib_metrics',\n"
+        "        'dance_tpu_torch.modules.multi_modality.match_modality.scmogcn',\n"
+        "        'dance_tpu_torch.modules.spatial.spatial_domain.louvain'} <= set(names)\n"
         "bad = {'jax', 'flax', 'optax', 'sklearn', 'pandas', 'h5py', 'yaml', 'dance_tpu'}\n"
         "print(len(names), sorted(m for m in sys.modules if m.split('.')[0] in bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -213,5 +213,13 @@ def test_je_fit_matches_jax(labelled, monkeypatch):
     if labelled:
         scores, emb = tw.score(None, types, return_pred=True)
         assert set(scores) == {"dance_nmi", "dance_ari"} and emb.shape == (160, 4)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tw.score(None, types, metric="openproblems")
+        # the scIB suite on the same embedding as JAX's score(metric="openproblems")
+        batch = np.arange(len(types)) % 2
+        monkeypatch.setattr(jw, "predict", lambda x=None: tw.predict())
+        got, emb = tw.score(None, types, metric="openproblems", batch=batch, return_pred=True)
+        want = jw.score(None, types, metric="openproblems", batch=batch, return_pred=True)[0]
+        assert set(got) == set(want) == {"asw_label", "asw_batch", "nmi", "graph_conn",
+                                         "final_scores"}
+        for key in want:  # silhouettes at 1e-6 of sklearn's, the rest exactly
+            assert got[key] == pytest.approx(want[key], abs=1e-6), key
+        assert tw.score(None, types, metric="openproblems", batch=batch) == got["final_scores"]
