@@ -4,9 +4,10 @@ training, STAGATE training, graph-sc training, graph-sc's max aggregation
 over BSR tiles, scTAG and scDSC training, scMoGNN's modality prediction and
 joint embedding, DSTG and stdGCN deconvolution, scHeteroNet annotation with
 OOD detection, GraphSCI imputation, the dense single-modality models
-(ACTINN, scDeepCluster, scDCC and DeepImpute), match-modality scMoGNN, and
-the community-detection ground: spatial Louvain, the scIB suite and graph-sc's
-Leiden.
+(ACTINN, scDeepCluster, scDCC and DeepImpute), match-modality scMoGNN, the
+community-detection ground (spatial Louvain, the scIB suite and graph-sc's
+Leiden), scMoGNN v2, and the multimodal autoencoders BABEL, CMAE and scMM
+with the CMAE and scMM matching heads.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -220,6 +221,34 @@ printed only when every phase passed):
 36. graph-sc with ``cluster_method="leiden"`` on phase 8's embedding: the
    15-NN graph and Leiden's seconds, the communities and the ARI against the
    types beside k-means'.
+37. scMoGNN v2 at its defaults, counts set to 0 before each of phases 37-41
+   (no TPU kernel is on these paths: every count must stay 0): the JAX
+   scmogcn_v2 case (``match_inputs``' 10,000 training cells, log1p counts of
+   2,000 genes beside 134 proteins, 8 types as strings) ->
+   ``ScMoGCNWrapperV2(seed=0).fit`` (hidden 14 x 4 layers, batch 5,000: one
+   step an epoch on 60 % of the 2,134 features drawn by degree, AdamW 1e-2,
+   up to 500 epochs with early stopping 10) -> ``score`` (k-means NMI against
+   a random labelling's, which it must beat). Prints the graph's format, the
+   epochs run, the best validation loss, the steady epoch, peak memory and
+   the epoch's profile and idle share (``tools/profile_multimodal.py``).
+38. BABEL (the JAX babel case): ``BabelWrapper(seed=0).fit`` on the counts
+   (``expm1`` of the log1p) at batch ``AE_BATCH``, hidden 64, val_ratio 0.15,
+   early stop 20, up to 100 epochs; the 2,000 test cells' RMSE must beat the
+   train-mean guess's.
+39. CMAE at its defaults (z 32, hidden 128, batch 64: 156 discriminator +
+   generator step pairs an epoch), ``CM_EPOCHS`` epochs (cut from 200); test
+   RMSE as phase 38.
+40. scMM at batch ``AE_BATCH``, z 16, ``SM_EPOCHS`` epochs (cut from 100), in
+   both ``reference_protocol`` modes; test RMSE as phase 38.
+41. The CMAE and scMM matching heads, each fitted as in phases 39-40:
+   ``predict_matching`` of the 2,000 test cells' two modalities (L1 and L2
+   nearest neighbours in the latent), ``score_matching`` against chance
+   (1/2,000), which it must beat.
+42. The four models on ``AE_SMALL`` cells, card against CPU
+   (``ae_card_vs_cpu``): one step from the same weights and batch (loss,
+   outputs, gradients), then ``AE_SMALL_EPOCHS``-epoch fits on the same
+   batch orders and normals (v2 without dropout): losses at 1e-4, weights by
+   ``align_weights``, outputs at 1e-4 once aligned.
 
 Each kernel's bound is the larger of its operations over a compute peak and
 the bytes of its inputs and outputs, each counted once, over 3.35 TB/s, for
@@ -333,6 +362,14 @@ MT_BATCHES, MT_SMALL, MT_SMALL_EPOCHS = 4, 300, 5
 # largest value (one step's loss, logits and gradients as one_step holds them,
 # its weights as align_weights does), and the 5-epoch losses and logits
 MT_STEP_BOUND, MT_FIT_BOUND = 1e-5, 1e-4
+# scMoGNN v2, BABEL, CMAE and scMM (phases 37-42): the JAX package's scmogcn_v2,
+# babel, cmae_predict, scmm, cmae_match and scmm_match cases (benchmarks/matrix.py:
+# 426-475, 502-532, 620-633) on match_inputs' 10,000 training + 2,000 test cells
+# (log1p counts, their expm1 for BABEL and scMM, <-> 134 proteins) at the JAX
+# defaults; BABEL and scMM at batch AE_BATCH as the benchmark runs them; CMAE's
+# epochs cut from 200 to CM_EPOCHS (156 discriminator + generator step pairs an
+# epoch), scMM's from 100 to SM_EPOCHS; the small card-against-CPU size and epochs
+AE_BATCH, CM_EPOCHS, SM_EPOCHS, AE_SMALL, AE_SMALL_EPOCHS = 512, 5, 30, 300, 4
 # spatial Louvain (phase 34): the JAX louvain case (benchmarks/matrix.py:694,
 # N_SPOTS = 10,000) on spatial_counts x 2,000 genes, the method's PCA and kNN
 # defaults (spatial_domain/louvain.py:26)
@@ -2870,6 +2907,316 @@ def community_phases(cuda, mm: dict, gsc: dict) -> None:
     print(f"phases 34-36: {time.perf_counter() - t_phases:.3f} s", flush=True)
 
 
+def module_grads(*modules) -> dict:
+    """Every weight's gradient, zeros where the loss does not reach it."""
+    import numpy as np
+
+    return {f"{i}.{k}": (np.zeros(tuple(p.shape), np.float32) if p.grad is None
+                         else p.grad.cpu().numpy())
+            for i, m in enumerate(modules) for k, p in m.named_parameters()}
+
+
+def ae_card_vs_cpu(cuda):
+    """Phase 42: scMoGNN v2, BABEL, CMAE and scMM on AE_SMALL cells, card
+    against CPU, the weights drawn on both devices from the same CPU
+    generator: one step from the same weights and batch (loss, outputs and
+    gradients by :func:`one_step`; scMM's normals drawn on the CPU), then
+    fits of AE_SMALL_EPOCHS epochs (their batch orders, cells and features
+    come from CPU generators on both sides, scMM's normals from one CPU
+    generator by :func:`cpu_noise`, v2 without dropout) whose losses agree at
+    1e-4, whose weights pass :func:`align_weights` and whose outputs agree at
+    1e-4 once aligned. No BSR kernel may run on the card."""
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.modules.multi_modality.joint_embedding import scmogcnv2 as V2
+    from dance_tpu_torch.modules.multi_modality.predict_modality import babel as B
+    from dance_tpu_torch.modules.multi_modality.predict_modality import cmae as C
+    from dance_tpu_torch.modules.multi_modality.predict_modality import scmm as S
+    from dance_tpu_torch.modules.multi_modality.predict_modality.scmogcn import _subgraph
+
+    cpu, epochs, ok = torch.device("cpu"), AE_SMALL_EPOCHS, True
+    counts, types = multimodal_counts(AE_SMALL, 200, 4, seed=42)
+    x2 = protein_targets(counts)
+    x1 = np.log1p(counts)
+    rows = np.arange(64)
+    reset_launches()
+
+    def gap(card, ref, key="loss"):
+        a, b = (np.array([h[key] for h in m.history], np.float64) for m in (card, ref))
+        return float(np.max(np.abs(a / b - 1)))
+
+    def out_gap(a, b):
+        return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+    # BABEL: one step on 64 cells, then a validation-selected fit
+    step, fits = {}, {}
+    for side, dev in (("cpu", cpu), ("card", cuda)):
+        m = B.BabelWrapper(hidden=16, seed=0, device=dev)
+        net = m._make_net(200, x2.shape[1])
+        t1, t2 = (torch.from_numpy(a[rows]).to(dev) for a in (counts, x2))
+        loss = B.babel_loss(net, t1, t2, t1.sum(1, keepdim=True))
+        loss.backward()
+        step[side] = (float(loss.detach()), net(t1, t2, t1.sum(1, keepdim=True))[0]["12"]
+                      .detach().cpu().numpy(), module_grads(net))
+        fits[side] = B.BabelWrapper(hidden=16, seed=0, device=dev).fit(
+            counts, x2, epochs=epochs, batch_size=64)
+    one_step("BABEL", step)
+    card, ref = fits["card"], fits["cpu"]
+    gaps = (gap(card, ref), gap(card, ref, "val"))
+    align_weights("small BABEL", card.net, ref.net, 1e-3, epochs * 4)
+    pgap = out_gap(card.predict(counts), ref.predict(counts))
+    print(f"small BABEL ({AE_SMALL} cells x 200 genes <-> {x2.shape[1]} proteins, hidden 16, "
+          f"{epochs} epochs, val_ratio 0.15), card vs CPU: relative loss gap {gaps[0]!r}, "
+          f"validation RMSE gap {gaps[1]!r}, prediction gap once aligned {pgap!r} of the "
+          f"largest (bounds 1e-4)", flush=True)
+    ok &= max(gaps) <= 1e-4 and pgap <= 1e-4
+
+    # CMAE: the generator's loss against the discriminator, then a fit
+    step, fits = {}, {}
+    for side, dev in (("cpu", cpu), ("card", cuda)):
+        m = C.CMAE(z_dim=8, hidden=32, seed=0, device=dev)
+        net, disc = m._make_nets(200, x2.shape[1])
+        t1, t2 = (torch.from_numpy(a[rows]).to(dev) for a in (x1, x2))
+        loss = C.cmae_gen_loss(net, disc, t1, t2, m.loss_weights)
+        loss.backward()
+        step[side] = (float(loss.detach()), net(t1, t2)[2].detach().cpu().numpy(),
+                      module_grads(net, disc))
+        fits[side] = C.CMAE(z_dim=8, hidden=32, seed=0, device=dev).fit(
+            x1, x2, epochs=epochs, batch_size=64)
+    one_step("CMAE", step)
+    card, ref = fits["card"], fits["cpu"]
+    gaps = (gap(card, ref, "g_loss"), gap(card, ref, "d_loss"))
+    n_steps = epochs * (AE_SMALL // 64)
+    align_weights("small CMAE generator", card.net, ref.net, 1e-3, n_steps)
+    align_weights("small CMAE discriminator", card.disc, ref.disc, 1e-3, n_steps)
+    pgap = out_gap(card.predict(x1), ref.predict(x1))
+    print(f"small CMAE (z 8, hidden 32, {epochs} epochs of {AE_SMALL // 64} step pairs), card vs "
+          f"CPU: relative generator / discriminator loss gaps {gaps[0]!r} / {gaps[1]!r}, "
+          f"prediction gap once aligned {pgap!r} of the largest (bounds 1e-4)", flush=True)
+    ok &= max(gaps) <= 1e-4 and pgap <= 1e-4
+
+    # scMM, both log-variance modes: one step with the same normals, then a fit
+    for reference in (False, True):
+        step, fits = {}, {}
+        noise = tuple(torch.randn((64, 16), generator=torch.Generator().manual_seed(s))
+                      for s in (43, 44))
+        for side, dev in (("cpu", cpu), ("card", cuda)):
+            m = S.MMVAE(seed=0, reference_protocol=reference, device=dev)
+            net = m._make_net(200, x2.shape[1])
+            t1, t2 = (torch.from_numpy(a[rows]).to(dev) for a in (counts, x2))
+            loss = S.mmvae_loss(net, t1, t2, tuple(e.to(dev) for e in noise))
+            loss.backward()
+            step[side] = (float(loss.detach()), net.cross_predict(t1).detach().cpu().numpy(),
+                          module_grads(net))
+            m = cpu_noise(S.MMVAE(seed=0, reference_protocol=reference, device=dev), 45)
+            fits[side] = m.fit(counts, x2, epochs=epochs, batch_size=64)
+        label = f"scMM (reference_protocol={reference})"
+        one_step(label, step)
+        card, ref = fits["card"], fits["cpu"]
+        lgap = gap(card, ref)
+        align_weights(f"small {label}", card.net, ref.net, 1e-3, epochs * (AE_SMALL // 64))
+        pgap = out_gap(card.predict(counts), ref.predict(counts))
+        print(f"small {label} (z 16, {epochs} epochs of {AE_SMALL // 64} steps), card vs CPU: "
+              f"relative loss gap {lgap!r}, prediction gap once aligned {pgap!r} of the largest "
+              f"(bounds 1e-4)", flush=True)
+        ok &= lgap <= 1e-4 and pgap <= 1e-4
+
+    # scMoGNN v2 without dropout: one step on fixed cells and features, then a fit
+    step, fits = {}, {}
+    x = np.concatenate([x1, x2], 1)
+    cells, feats = torch.arange(0, 256, 2), torch.arange(0, x.shape[1], 3)
+
+    def no_dropout(dev):  # the two devices draw different masks
+        m = V2.ScMoGCNWrapperV2(seed=0, device=dev)
+        m.model_dropout = m.edge_dropout = 0.0
+        return m
+
+    for side, dev in (("cpu", cpu), ("card", cuda)):
+        m = no_dropout(dev)
+        net = m._make_net(x.shape[1], x.shape[1], 4, 1, 2)
+        y = torch.from_numpy(x).to(dev)
+        g = V2.build_hetero_graph(x, use_bsr="no_bsr", device=dev)
+        ci, fi = cells.to(dev), feats.to(dev)
+        bf = torch.ones((len(cells), 1), device=dev)
+        ct = torch.from_numpy(types[cells.numpy()]).to(dev)
+        phase = torch.zeros((len(cells), 2), device=dev)
+        sub = _subgraph(g, y, None, ci, fi)
+        loss = V2.v2_loss(net, sub, bf, y[ci], ct, phase, 200, x2.shape[1])
+        loss.backward()
+        step[side] = (float(loss.detach()), net(sub, bf)[1].detach().cpu().numpy(),
+                      module_grads(net))
+        fits[side] = no_dropout(dev).fit(x1, x2, cell_type=types, epochs=epochs,
+                                         batch_size=128)
+    one_step("scMoGNN v2", step)
+    card, ref = fits["card"], fits["cpu"]
+    gaps = (gap(card, ref), gap(card, ref, "val"))
+    align_weights("small scMoGNN v2", card.net, ref.net, 1e-2, epochs * 2)
+    egap = out_gap(card.predict(), ref.predict())
+    print(f"small scMoGNN v2 ({AE_SMALL} cells x {x.shape[1]} features, no dropout, {epochs} "
+          f"epochs of 2 steps, feature format {card._cache[0].fmt} on the card), card vs CPU: "
+          f"relative loss gap {gaps[0]!r}, validation gap {gaps[1]!r}, embedding gap once "
+          f"aligned {egap!r} of the largest (bounds 1e-4)", flush=True)
+    ok &= max(gaps) <= 1e-4 and egap <= 1e-4
+    no_launches("the small multimodal autoencoders and v2 (phase 42)")
+    if not ok:
+        raise AssertionError("the card disagrees with the CPU on a small multimodal fit")
+
+
+def rmse_line(rmse: float, guess: float) -> str:
+    return f"test RMSE {rmse!r} against {guess!r} for the train-mean guess"
+
+
+def ae_phases(cuda) -> None:
+    """Phases 37-42: scMoGNN v2, BABEL, CMAE, scMM and the CMAE and scMM
+    matching heads. They reach no TPU kernel: the launch counts, set to 0
+    before each, must stay 0."""
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.modules.multi_modality import match_modality as M
+    from dance_tpu_torch.modules.multi_modality import predict_modality as P
+    from dance_tpu_torch.modules.multi_modality.joint_embedding.scmogcnv2 import (
+        ScMoGCNWrapperV2)
+    from dance_tpu_torch.utils import nmi, rmse
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from profile_multimodal import v2_profile
+
+    t_phases = time.perf_counter()
+    x1, x2, types = match_inputs()
+    tr, te = slice(0, MT_TRAIN), slice(MT_TRAIN, None)
+    counts = np.expm1(x1)
+    guess = rmse(x2[te], np.broadcast_to(x2[tr].mean(0), x2[te].shape))
+
+    # -- 37. scMoGNN v2 at its defaults --------------------------------------
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    labels = types[tr].astype(str)
+    model = ScMoGCNWrapperV2(seed=0, device=cuda)
+    t0 = time.perf_counter()
+    model.fit(x1[tr], x2[tr], cell_type=labels)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    epoch_ms = median_epoch(model) * 1e3
+    t0 = time.perf_counter()
+    score = model.score(None, labels)
+    t_score = time.perf_counter() - t0
+    chance = nmi(labels, np.random.default_rng(37).permutation(labels))
+    losses = [h["loss"] for h in model.history]
+    g = model._cache[0]
+    print(f"scMoGNN v2: {MT_TRAIN} cells, {x1.shape[1]} genes (log1p) + {x2.shape[1]} proteins "
+          f"-> {g.n_feats} feature nodes ({g.fmt}), {MM_TYPES} types; hidden "
+          f"{model.hidden_size} x {model.conv_layers} layers, batch 5,000 (1 step an epoch), "
+          f"{int(model.node_sampling_rate * g.n_feats)} features sampled a step, AdamW 1e-2 "
+          f"(decay 1e-5), early stopping {model.early_stopping}: fit {t_fit:.3f} s, "
+          f"{len(losses)} epochs run (of 500), best validation {model.best_val!r} at epoch "
+          f"{model.best_epoch}, first epoch {model.history[0]['seconds']!r} s, median steady "
+          f"epoch {epoch_ms!r} ms; peak device memory {peak / 2**20:.1f} MiB; k-means NMI "
+          f"{score!r} ({t_score:.3f} s) against {chance!r} for a random labelling; losses "
+          f"{losses[::10]} (every 10th)", flush=True)
+    if not (np.isfinite(losses).all() and score > chance):
+        raise AssertionError(f"scMoGNN v2: NMI {score} against {chance}, or non-finite losses")
+    no_launches("scMoGNN v2 (phase 37)")
+    del model
+    lines, idle = v2_profile(x1[tr], x2[tr], labels, cuda, epoch_ms)
+    print("\n".join(lines), flush=True)
+    print(f"scMoGNN v2 steady epoch: idle share {idle!r} (tools/profile_multimodal.py)",
+          flush=True)
+
+    # -- 38. BABEL: batch 512, validation-selected --------------------------
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    model = P.BabelWrapper(seed=0, device=cuda)
+    t0 = time.perf_counter()
+    model.fit(counts[tr], x2[tr], batch_size=AE_BATCH)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    score = model.score(counts[te], x2[te])
+    vals = [h["val"] for h in model.history]
+    print(f"BABEL: hidden {model.hidden}, batch {AE_BATCH} ({-(-int(0.85 * MT_TRAIN) // AE_BATCH)} "
+          f"Adam steps an epoch), val_ratio 0.15, early stop 20: fit {t_fit:.3f} s, "
+          f"{len(vals)} epochs run (of 100), best validation RMSE {model.best_val!r} at epoch "
+          f"{model.best_epoch}, median steady epoch {median_epoch(model) * 1e3!r} ms; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
+          + rmse_line(score, guess), flush=True)
+    if not (np.isfinite([h["loss"] for h in model.history]).all() and score < guess):
+        raise AssertionError(f"BABEL: test RMSE {score} not below {guess}")
+    no_launches("BABEL (phase 38)")
+
+    # -- 39. CMAE at its defaults, CM_EPOCHS epochs --------------------------
+    for name, cls in (("CMAE", P.CMAE), ("CMAE matching", M.CMAE)):
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        model = cls(seed=0, device=cuda)
+        t0 = time.perf_counter()
+        model.fit(x1[tr], x2[tr], epochs=CM_EPOCHS)
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        line = (f"{name}: z {model.z_dim}, hidden {model.hidden}, batch 64 ({MT_TRAIN // 64} "
+                f"discriminator + generator step pairs an epoch), {CM_EPOCHS} epochs (cut from "
+                f"200): fit {t_fit:.3f} s, median steady epoch {median_epoch(model) * 1e3!r} "
+                f"ms, generator losses {[h['g_loss'] for h in model.history]}, discriminator "
+                f"{[h['d_loss'] for h in model.history]}; peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; ")
+        if cls is P.CMAE:
+            score = model.score(x1[te], x2[te])
+            print(line + rmse_line(score, guess), flush=True)
+            good = score < guess
+        else:
+            score = match_score(model, x1[te], x2[te])
+            print(line + score[1], flush=True)
+            good = score[0] > 1 / MT_TEST
+        if not (np.isfinite([h["g_loss"] for h in model.history]).all() and good):
+            raise AssertionError(f"{name}: {score}")
+        no_launches(f"{name} (phase {39 if cls is P.CMAE else 41})")
+
+    # -- 40. scMM in both modes, batch 512, SM_EPOCHS epochs -----------------
+    for name, cls, reference in (("scMM", P.MMVAE, False), ("scMM", P.MMVAE, True),
+                                 ("scMM matching", M.MMVAE, False)):
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        model = cls(seed=0, reference_protocol=reference, device=cuda)
+        t0 = time.perf_counter()
+        model.fit(counts[tr], x2[tr], epochs=SM_EPOCHS, batch_size=AE_BATCH)
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        losses = [h["loss"] for h in model.history]
+        line = (f"{name} (reference_protocol={reference}): z {model.z_dim}, batch {AE_BATCH} "
+                f"({MT_TRAIN // AE_BATCH} Adam steps an epoch), {SM_EPOCHS} epochs (cut from "
+                f"100): fit {t_fit:.3f} s, median steady epoch {median_epoch(model) * 1e3!r} ms, "
+                f"losses {losses[::5]} (every 5th); peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; ")
+        if cls is P.MMVAE:
+            score = model.score(counts[te], x2[te])
+            print(line + rmse_line(score, guess), flush=True)
+            good = score < guess
+        else:
+            score = match_score(model, counts[te], x2[te])
+            print(line + score[1], flush=True)
+            good = score[0] > 1 / MT_TEST
+        if not (np.isfinite(losses).all() and good):
+            raise AssertionError(f"{name}: {score}")
+        no_launches(f"{name} (phase {40 if cls is P.MMVAE else 41})")
+
+    # -- 42. a few hundred cells: the card against the CPU -------------------
+    ae_card_vs_cpu(cuda)
+    print(f"phases 37-42: {time.perf_counter() - t_phases:.3f} s", flush=True)
+
+
+def match_score(model, x1, x2):
+    """``predict_matching`` on the test cells and its ``score_matching``:
+    (score, the printed words)."""
+    t0 = time.perf_counter()
+    matching = model.predict_matching(x1, x2)
+    seconds = time.perf_counter() - t0
+    score = model.score_matching(matching)
+    return score, (f"predict_matching on {len(x1)} test cells {seconds:.3f} s "
+                   f"({matching.shape[0]} x {matching.shape[1]}), score_matching {score!r} "
+                   f"against {1 / len(x1)!r} for chance")
+
+
 def main() -> int:
     import torch
 
@@ -2907,6 +3254,7 @@ def main() -> int:
     dense_phases(cuda)
     match_phases(cuda)
     community_phases(cuda, mm, gsc)
+    ae_phases(cuda)
 
     def entry(name):
         result, launched = measured[name]

@@ -1,3 +1,4 @@
 """Multimodal methods (counterpart: dance_tpu/modules/multi_modality). Ported
-so far: scMoGNN for modality prediction, modality matching and joint
+so far: BABEL, CMAE, scMM and scMoGNN for modality prediction; CMAE, scMM
+and scMoGNN for modality matching; scMoGNN and scMoGNN v2 for joint
 embedding."""

@@ -16,24 +16,30 @@ clusters the embedding with k-means and gives its NMI
 ``score(metric="openproblems")`` runs the scIB suite
 (:func:`~dance_tpu_torch.utils.metrics.integration_openproblems_evaluate`).
 
+The reference-named helpers (:142-202): :func:`propagation_layer_combination`
+and :func:`cell_feature_propagation` over a graph of
+:func:`~dance_tpu_torch.transforms.graph.scmogcn_graph.construct_enhanced_feature_graph`.
+
 Where this differs from the JAX package: the weights come from a CPU
 ``torch.Generator`` (parity tests copy the flax weights in); ``history``
-records each epoch's loss and seconds. Not ported yet (ROADMAP Queue 1):
-the reference-named propagation helpers (:142-202).
+records each epoch's loss and seconds.
 """
 
 import hashlib
 from typing import Dict, List, Optional
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from dance_tpu_torch.modules.base import BaseRegressionMethod
+from dance_tpu_torch.modules.multi_modality.match_modality.scmogcn import _std, _std_guarded
 from dance_tpu_torch.modules.multi_modality.predict_modality.scmogcn import (
     ScMoGCN, build_hetero_graph)
 from dance_tpu_torch.nn.gnn import flax_dense_init_
+from dance_tpu_torch.ops.sparse import csr_from_scipy, csr_matmat
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.utils import EpochClock, labeled_clustering_evaluate, resolve_device
 from dance_tpu_torch.utils.metrics import integration_openproblems_evaluate
@@ -145,4 +151,60 @@ class ScMoGCNWrapper(BaseRegressionMethod):
         return (scores, emb) if return_pred else scores["dance_nmi"]
 
 
-__all__ = ["ScMoGCNWrapper"]
+# --------------------------------------------------------------------------
+# reference-named propagation helpers (counterpart: :142-202)
+# --------------------------------------------------------------------------
+
+
+def propagation_layer_combination(X, idx, wt, from_logits: bool = True) -> torch.Tensor:
+    """The per-layer cell embeddings ``X`` at the cells ``idx``, mixed by the
+    softmax of ``wt`` (its raw values with ``from_logits=False``)
+    (counterpart: :142)."""
+    wt = torch.as_tensor(wt)
+    if from_logits:
+        wt = torch.softmax(wt, -1)
+    x = 0
+    for i in range(wt.shape[0]):
+        x = x + wt[i] * torch.as_tensor(X[i])[idx]
+    return x
+
+
+def cell_feature_propagation(g, alpha: float = 0.5, beta: float = 0.5,
+                             cell_init: Optional[str] = None, feature_init: Optional[str] = "id",
+                             device="auto", layers: int = 3) -> List[torch.Tensor]:
+    """Alternating cell <-> feature propagation over ``g``, a graph of
+    :func:`~dance_tpu_torch.transforms.graph.scmogcn_graph.construct_enhanced_feature_graph`
+    (features first), with a global standardisation (ddof 0, as ``jnp.std``)
+    after every product and every mix (counterpart: :153). Features start
+    one-hot (``"id"``) or at zero (None), cells at zero or at
+    ``info["cell_node_features"]`` (any ``cell_init``). Returns the cell
+    embeddings of layers 2 .. ``layers`` on ``device`` (the card unless the
+    CPU is named)."""
+    device = resolve_device(device)
+    n_feat, n_cell = int(g.info["num_genes"]), int(g.info["num_cells"])
+    adj = sp.csr_matrix(g.adj)
+    a_cf = csr_from_scipy(adj[n_feat:, :n_feat]).to(device)  # cell <- feature
+    a_fc = csr_from_scipy(adj[:n_feat, n_feat:]).to(device)  # feature <- cell
+    if feature_init is None:
+        width = np.asarray(g.info["cell_node_features"]).shape[1]
+        feature_x = torch.zeros((n_feat, width), device=device)
+    elif feature_init == "id":
+        feature_x = torch.eye(n_feat, device=device)
+    else:
+        raise NotImplementedError(f"Not implemented feature init feature {feature_init}.")
+    if cell_init is None:
+        cell_x = torch.zeros((n_cell, feature_x.shape[1]), device=device)
+    else:
+        cell_x = torch.from_numpy(np.asarray(g.info["cell_node_features"], np.float32)).to(device)
+    h_feature, h_cell = feature_x, cell_x
+    hcell = []
+    for _ in range(layers):
+        h1_feature = _std_guarded(csr_matmat(a_fc, h_cell))
+        h1_cell = _std_guarded(csr_matmat(a_cf, h_feature))
+        h_feature = _std(h_feature * alpha + h1_feature * (1 - alpha))
+        h_cell = _std(h_cell * beta + h1_cell * (1 - beta))
+        hcell.append(h_cell)
+    return hcell[1:]
+
+
+__all__ = ["ScMoGCNWrapper", "cell_feature_propagation", "propagation_layer_combination"]

@@ -1,0 +1,24 @@
+"""CMAE for modality matching (counterpart:
+dance_tpu/modules/multi_modality/match_modality/cmae.py): the prediction
+model's aligned latents, each cell of the second modality matched to its L1
+nearest neighbour among the first's."""
+
+import numpy as np
+
+from dance_tpu_torch.modules.multi_modality.match_modality.base import (
+    MatchingScoreMixin, nearest_neighbor_matching)
+from dance_tpu_torch.modules.multi_modality.predict_modality.cmae import CMAE as _PredCMAE
+
+
+class CMAE(MatchingScoreMixin, _PredCMAE):
+
+    _DEFAULT_METRIC = "acc"
+
+    def predict_matching(self, x1, x2, metric: str = "l1") -> np.ndarray:
+        """0/1 matching matrix (n2, n1): the nearest neighbour in the shared
+        latent, by L1 (counterpart: :19), on the model's device."""
+        return nearest_neighbor_matching(self.encode(x1, 1), self.encode(x2, 2), metric=metric,
+                                         device=self.device)
+
+
+__all__ = ["CMAE"]

@@ -50,7 +50,7 @@ from dance_tpu_torch.ops.sparse import csr_from_scipy, csr_matmat, csr_rmatmat
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.utils import EpochClock, resolve_device
 from dance_tpu_torch.utils.metrics import batch_separated_bipartite_matching
-from dance_tpu_torch.utils.optim import best_state
+from dance_tpu_torch.utils.optim import adamw, best_state
 
 
 def propagation_layer_combination(X, Y, idx, wt1, wt2, from_logits: bool = True):
@@ -204,19 +204,14 @@ def match_loss(net: ScMoGCN, H1, H2, idx, aux: int, masks=None) -> torch.Tensor:
 
 def match_train_step(net: ScMoGCN, opt: torch.optim.Optimizer, H1, H2, idx, aux: int,
                      masks=None) -> torch.Tensor:
-    """One AdamW step on :func:`match_loss` (counterpart: ``_match_train_step``,
+    """One step of ``opt`` (optax's ``adamw``, :func:`~dance_tpu_torch.utils.optim.adamw`)
+    on :func:`match_loss` (counterpart: ``_match_train_step``,
     :156); returns the loss, detached."""
     opt.zero_grad(set_to_none=True)
     loss = match_loss(net, H1, H2, idx, aux, masks)
     loss.backward()
     opt.step()
     return loss.detach()
-
-
-def adamw(net: nn.Module, lr: float) -> torch.optim.AdamW:
-    """optax's ``adamw(lr)``: weight decay 1e-4 on every weight, the biases
-    and the hop logits included (torch's default decay is 0.01)."""
-    return torch.optim.AdamW(net.parameters(), lr=lr, weight_decay=1e-4)
 
 
 @torch.no_grad()

@@ -4,8 +4,10 @@ The reference trains through torch DataLoaders with ``drop_last=False``:
 every epoch visits every cell, a partial last batch included. The JAX
 package pads the shuffled order up to ``ceil(n / batch_size) * batch_size``
 so that a scan sees equal batches; the port keeps that layout, so that both
-packages take the same number of steps on the same cells. The permutation
-comes from a ``torch.Generator`` (it is not JAX's draw).
+packages take the same number of steps on the same cells. CMAE and scMM
+drop the partial batch instead (:func:`epoch_batches_dropped`, JAX's
+``permutation(key, n)[:nb * batch_size]``). The permutation comes from a
+``torch.Generator`` (it is not JAX's draw).
 """
 
 from typing import Optional, Tuple
@@ -42,4 +44,15 @@ def epoch_batches_masked(generator: Optional[torch.Generator], n: int,
     return perm.reshape(nb, batch_size), mask.reshape(nb, batch_size)
 
 
-__all__ = ["epoch_batches", "epoch_batches_masked"]
+def epoch_batches_dropped(generator: Optional[torch.Generator], n: int,
+                          batch_size: int) -> torch.Tensor:
+    """Shuffled indices of one epoch as a (max(n // bs, 1), bs) int64
+    matrix: the permutation cut to whole batches, the partial one dropped
+    (counterpart: the epochs of predict_modality/cmae.py:139-145 and
+    scmm.py:110-113)."""
+    batch_size = min(batch_size, n)
+    nb = max(n // batch_size, 1)
+    return torch.randperm(n, generator=generator)[:nb * batch_size].reshape(nb, batch_size)
+
+
+__all__ = ["epoch_batches", "epoch_batches_dropped", "epoch_batches_masked"]

@@ -1,8 +1,10 @@
 """Optimizer helpers the models share: optax's ``clip_by_global_norm``,
 which the JAX models chain before Adam or AdamW (STAGATE stagate.py:146,
 stdGCN stdgcn.py:445), optax's AMSGrad, which scDeepCluster and scDCC
-pretrain with (scdeepcluster.py:185), and the copy of the weights that
-best-validation selection keeps (scMoGNN, stdGCN).
+pretrain with (scdeepcluster.py:185), optax's ``adamw`` with its decay on
+every weight (match-modality scMoGNN, scMoGNN v2), a learning rate set
+between epochs, and the copy of the weights that best-validation selection
+keeps (scMoGNN, stdGCN).
 
 Where torch's own optimizer is optax's, the models use it:
 
@@ -34,6 +36,26 @@ def clip_by_global_norm_(params: Iterable[torch.nn.Parameter], max_norm: float):
     norm = torch.sqrt(sum((g * g).sum() for g in grads))
     for g in grads:
         g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
+
+
+def adamw(params, lr: float, weight_decay: float = 1e-4) -> torch.optim.AdamW:
+    """optax's ``adamw(lr, weight_decay=weight_decay)`` over a module's
+    parameters (or an iterable of them): the decay on every weight, biases
+    and logits included, ``p -= lr · (adam + weight_decay · p)``, which is
+    torch's decoupled ``AdamW`` step. optax's default decay is 1e-4
+    (match-modality scMoGNN); scMoGNN v2 passes 1e-5. torch's own default
+    is 0.01."""
+    if isinstance(params, torch.nn.Module):
+        params = params.parameters()
+    return torch.optim.AdamW(params, lr=lr, weight_decay=weight_decay)
+
+
+def set_learning_rate(opt: torch.optim.Optimizer, lr: float):
+    """Set every parameter group's learning rate, between steps: optax's
+    ``inject_hyperparams`` state written before the next update (AdamW's
+    decay takes the new rate too, as optax's does)."""
+    for group in opt.param_groups:
+        group["lr"] = lr
 
 
 def best_state(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
@@ -95,4 +117,4 @@ class amsgrad(torch.optim.Optimizer):
         return loss
 
 
-__all__ = ["amsgrad", "best_state", "clip_by_global_norm_"]
+__all__ = ["adamw", "amsgrad", "best_state", "clip_by_global_norm_", "set_learning_rate"]

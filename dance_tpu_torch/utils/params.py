@@ -1,8 +1,9 @@
 """flax -> torch parameter transfer for the scDeepSort ``GNN``, STAGATE's
 net, ``GATConv``, graph-sc's ``GCNAE``, scTAG's net, scDSC's model, the
-scMoGNN trunk and matching net, DSTG's GCN, stdGCN's network and
+scMoGNN trunk, matching net and v2 net, DSTG's GCN, stdGCN's network and
 autoencoder, scHeteroNet's network, GraphSCI's network, ACTINN's MLP, the ZINB
-autoencoder of scDeepCluster and scDCC, and DeepImpute's stacked ensemble.
+autoencoder of scDeepCluster and scDCC, DeepImpute's stacked ensemble, and
+the BABEL, CMAE and scMM nets.
 
 Parity between the two packages is checked by copying the flax parameters
 into the torch module, since the two frameworks' generators and initializers
@@ -110,6 +111,20 @@ leading axis by ``jax.vmap``: ``Dense_{0,1}`` (or, in the reference
 protocol, ``TorchDense_{0,1}/Dense_0``) ``/kernel`` (n_ens, in, out) ->
 ``w{1,2}`` as they are (the port computes ``x @ w`` per subnet), ``/bias``
 -> ``b{1,2}``.
+
+The multimodal autoencoders. An ``MLPStack`` is ``TorchDense_{i}/Dense_0``
+-> ``layers.{i}``; the VAE blocks (nn/vae.py) name their stack
+``MLPStack_0`` -> ``stack`` and their heads in call order: ``Dense_0``,
+``Dense_1`` -> ``mu``, ``logvar`` (``GaussianEncoder``), ``mean``, ``disp``
+(``NBDecoder``), ``Dense_0`` -> ``out`` (``GaussianDecoder``). BABEL's
+``_Babel`` (babel.py:30): ``enc1``, ``enc2``, ``dec2_stack`` stacks,
+``dec1`` an ``NBDecoder``, ``dec2_out`` a ``Dense``. CMAE's ``_CMAENet``
+(cmae.py:28): ``{enc,dec}{1,2}`` stacks and ``{enc,dec}{1,2}_out``; its
+``_Disc`` (cmae.py:63): ``Dense_0``, ``Dense_1`` -> ``hidden``, ``out``.
+scMM's ``_MMVAENet`` (scmm.py:28): ``enc1``, ``enc2`` Gaussian encoders,
+``dec1`` NB, ``dec2`` Gaussian. scMoGNN v2's ``_ScMoGCNv2Net``
+(scmogcnv2.py:51): ``trunk/...`` as the trunk above (it has no readout),
+``decoder_{i}`` -> ``decoder.{i}``, ``c_decoder``, ``cc_decoder``.
 """
 
 from typing import Dict, Mapping
@@ -422,16 +437,21 @@ def _torch_dense(state: dict, prefix: str, sub: Mapping):
     _dense(state, prefix, sub["Dense_0"])
 
 
+def _mlp_stack(state: dict, prefix: str, sub: Mapping):
+    """An ``MLPStack``: ``TorchDense_{i}`` -> ``{prefix}.layers.{i}``."""
+    for layer, leaves in sub.items():
+        kind, _, i = layer.rpartition("_")
+        if kind != "TorchDense":
+            raise KeyError(f"unexpected MLPStack parameter {layer!r} under {prefix!r}")
+        _torch_dense(state, f"{prefix}.layers.{i}", leaves)
+
+
 def zinb_ae_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     """A flax ``ZINBAutoencoder`` tree -> ``ZINBAutoencoder.state_dict()``."""
     state = {}
     for name, sub in params.items():
         if name in ("encoder", "decoder"):
-            for layer, leaves in sub.items():
-                kind, _, i = layer.rpartition("_")
-                if kind != "TorchDense":
-                    raise KeyError(f"unexpected MLPStack parameter {layer!r} under {name!r}")
-                _torch_dense(state, f"{name}.layers.{i}", leaves)
+            _mlp_stack(state, name, sub)
         elif name in ("enc_mu", "dec_mean", "dec_disp", "dec_pi"):
             _torch_dense(state, name, sub)
         else:
@@ -455,11 +475,85 @@ def deepimpute_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
             for i in (0, 1) for kind, leaf in (("w", "kernel"), ("b", "bias"))}
 
 
-__all__ = ["actinn_flax_to_torch", "autoencoder_flax_to_torch", "deepimpute_flax_to_torch",
-           "dstg_flax_to_torch", "flax_to_torch",
+def _vae_block(state: dict, prefix: str, sub: Mapping, heads):
+    """A VAE block of nn/vae.py: ``MLPStack_0`` -> ``{prefix}.stack``, the
+    ``Dense_{k}`` heads -> ``{prefix}.{heads[k]}``."""
+    names = {f"Dense_{k}": head for k, head in enumerate(heads)}
+    for name, leaves in sub.items():
+        if name == "MLPStack_0":
+            _mlp_stack(state, f"{prefix}.stack", leaves)
+        elif name in names:
+            _dense(state, f"{prefix}.{names[name]}", leaves)
+        else:
+            raise KeyError(f"unexpected parameter {name!r} under {prefix!r}")
+
+
+_NB, _GAUSS_ENC, _GAUSS_DEC = ("mean", "disp"), ("mu", "logvar"), ("out",)
+
+
+def _tree(params: Mapping, stacks=(), dense=(), blocks=None) -> Dict[str, torch.Tensor]:
+    """Top-level ``MLPStack``s, ``Dense`` layers and VAE blocks by name; raise
+    on any other name."""
+    state, blocks = {}, blocks or {}
+    for name, sub in params.items():
+        if name in stacks:
+            _mlp_stack(state, name, sub)
+        elif name in dense:
+            _dense(state, name, sub)
+        elif name in blocks:
+            _vae_block(state, name, sub, blocks[name])
+        else:
+            raise KeyError(f"unexpected parameter {name!r}")
+    return state
+
+
+def babel_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``_Babel`` tree -> ``_Babel.state_dict()``."""
+    return _tree(params, stacks=("enc1", "enc2", "dec2_stack"), dense=("dec2_out",),
+                 blocks={"dec1": _NB})
+
+
+def cmae_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax CMAE tree -> the port's ``state_dict``: the discriminator's
+    ``_Disc`` tree (``Dense_0``, ``Dense_1``) -> ``_Disc``, the generator's
+    ``_CMAENet`` tree -> ``_CMAENet``."""
+    if set(params) == {"Dense_0", "Dense_1"}:
+        state = {}
+        _dense(state, "hidden", params["Dense_0"])
+        _dense(state, "out", params["Dense_1"])
+        return state
+    parts = [f"{side}{m}" for side in ("enc", "dec") for m in (1, 2)]
+    return _tree(params, stacks=parts, dense=[f"{p}_out" for p in parts])
+
+
+def mmvae_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``_MMVAENet`` tree -> ``_MMVAENet.state_dict()``."""
+    return _tree(params, blocks={"enc1": _GAUSS_ENC, "enc2": _GAUSS_ENC, "dec1": _NB,
+                                 "dec2": _GAUSS_DEC})
+
+
+def scmogcn_v2_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``_ScMoGCNv2Net`` tree -> ``_ScMoGCNv2Net.state_dict()``."""
+    state = {}
+    for name, sub in params.items():
+        kind, _, idx = name.rpartition("_")
+        if name == "trunk":
+            state.update({f"trunk.{k}": v for k, v in scmogcn_flax_to_torch(sub).items()})
+        elif kind == "decoder":
+            _dense(state, f"decoder.{idx}", sub)
+        elif name in ("c_decoder", "cc_decoder"):
+            _dense(state, name, sub)
+        else:
+            raise KeyError(f"unexpected _ScMoGCNv2Net parameter {name!r}")
+    return state
+
+
+__all__ = ["actinn_flax_to_torch", "autoencoder_flax_to_torch", "babel_flax_to_torch",
+           "cmae_flax_to_torch", "deepimpute_flax_to_torch", "dstg_flax_to_torch", "flax_to_torch",
            "gatconv_flax_to_torch", "graphsc_flax_to_torch", "graphsci_flax_to_torch",
-           "scdsc_flax_to_torch", "scheteronet_flax_to_torch",
+           "mmvae_flax_to_torch", "scdsc_flax_to_torch", "scheteronet_flax_to_torch",
            "scmogcn_flax_to_torch", "scmogcn_je_flax_to_torch", "scmogcn_match_flax_to_torch",
+           "scmogcn_v2_flax_to_torch",
            "sctag_flax_to_torch",
            "stagate_flax_to_torch", "stdgcn_flax_to_torch", "tagconv_flax_to_torch",
            "zinb_ae_flax_to_torch"]

@@ -269,6 +269,19 @@ def typed_counts(n: int = 160, g: int = 48, n_types: int = 3, seed: int = 0):
     return counts, types, names
 
 
+def multimodal_pair(n: int = 240, g: int = 100, p: int = 25, seed: int = 0):
+    """Raw counts of ``g`` genes in 3 types and ``p`` proteins that follow
+    their log1p, as the JAX package's benchmark makes the second modality
+    (``log1p(x) @ w / g * 4``, ``w`` uniform). Returns (counts, proteins,
+    types)."""
+    rng = np.random.default_rng(seed)
+    types = rng.integers(0, 3, n)
+    rate = rng.gamma(0.6, 1.0, (3, g))[types] * rng.gamma(4.0, 0.25, (n, 1))
+    x1 = rng.poisson(rate).astype(np.float32)
+    w = rng.random((g, p)).astype(np.float32)
+    return x1, (np.log1p(x1) @ w / g * 4).astype(np.float32), types
+
+
 def assert_weights(got: dict, want: dict, lr: float, steps: int, skip=()) -> int:
     """Adam-trained weights of two runs from the same start: each within two
     learning rates a step (Adam moves a weight by at most about lr a step,
