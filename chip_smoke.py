@@ -6,8 +6,9 @@ joint embedding, DSTG and stdGCN deconvolution, scHeteroNet annotation with
 OOD detection, GraphSCI imputation, the dense single-modality models
 (ACTINN, scDeepCluster, scDCC and DeepImpute), match-modality scMoGNN, the
 community-detection ground (spatial Louvain, the scIB suite and graph-sc's
-Leiden), scMoGNN v2, and the multimodal autoencoders BABEL, CMAE and scMM
-with the CMAE and scMM matching heads.
+Leiden), scMoGNN v2, the multimodal autoencoders BABEL, CMAE and scMM with
+the CMAE and scMM matching heads, and the joint-embedding DCCA, JAE and
+scMVAE.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -249,6 +250,28 @@ printed only when every phase passed):
    outputs, gradients), then ``AE_SMALL_EPOCHS``-epoch fits on the same
    batch orders and normals (v2 without dropout): losses at 1e-4, weights by
    ``align_weights``, outputs at 1e-4 once aligned.
+43. DCCA at its defaults, counts set to 0 before each of phases 43-46 (no
+   TPU kernel is on these paths: every count must stay 0): the JAX dcca case
+   (``match_inputs``' 10,000 training cells, log1p counts of 2,000 genes
+   beside 134 proteins) -> ``DCCA(seed=0).fit`` (NB counts, Bernoulli
+   proteins, hidden 128, z 16, cycle 1: 100 full-batch epochs of each of
+   three phases, AdamW 1e-2, nothing cut) -> ``score`` (k-means NMI against
+   a random labelling's, which it must beat). Prints each phase's last loss
+   and steady epoch, the fit's seconds and peak memory.
+44. JAE at its defaults (z 61, batch 64: 157 Adam steps an epoch) with the
+   8 cell types, ``JA_EPOCHS`` epochs (cut from 200); NMI as phase 43.
+45. scMVAE as the JAX scmvae case runs it (``n_centroids=8``, the counts'
+   and the proteins' absolute values through ``expm1``, batch 64: 157 AdamW
+   steps an epoch), ``SV_EPOCHS`` epochs (cut from 200): the mixture's warm
+   start (seconds, EM iterations), the NMI as phase 43, then the mixture on
+   the trained embedding card against CPU from the same k-means start
+   (float64; parameters within 1e-6 relative, the same iterations).
+46. The three on ``AE_SMALL`` cells, card against CPU (``je_card_vs_cpu``):
+   one step from the same weights, batch and noise (loss, outputs,
+   gradients), then short fits on the same batch orders and normals (DCCA
+   and scMVAE without dropout, JAE on the same CPU-drawn masks, scMVAE's
+   k-means start on the CPU for both): losses at 1e-4, weights by
+   ``align_weights``, outputs at 1e-4 once aligned.
 
 Each kernel's bound is the larger of its operations over a compute peak and
 the bytes of its inputs and outputs, each counted once, over 3.35 TB/s, for
@@ -370,6 +393,14 @@ MT_STEP_BOUND, MT_FIT_BOUND = 1e-5, 1e-4
 # epochs cut from 200 to CM_EPOCHS (156 discriminator + generator step pairs an
 # epoch), scMM's from 100 to SM_EPOCHS; the small card-against-CPU size and epochs
 AE_BATCH, CM_EPOCHS, SM_EPOCHS, AE_SMALL, AE_SMALL_EPOCHS = 512, 5, 30, 300, 4
+# DCCA, JAE and scMVAE (phases 43-46): the JAX package's dcca, jae and scmvae cases
+# (benchmarks/matrix.py:553-600) on match_inputs' 10,000 training cells (log1p counts
+# <-> 134 proteins; scMVAE on expm1 of both, the proteins' absolute values) at the JAX
+# defaults: DCCA nothing cut (100 epochs x 3 full-batch phases); JAE's epochs cut from 200
+# to JA_EPOCHS (157 steps of 64 an epoch), scMVAE's from 200 to SV_EPOCHS (157 steps, the
+# GMM prior's 8 centroids as the benchmark sets them); the small card-against-CPU epochs
+# (AE_SMALL cells; DCCA at 2 epochs a phase, as Adam at its rate 1e-2 grows rounding)
+JA_EPOCHS, SV_EPOCHS, SV_CENTROIDS, JE_SMALL_EPOCHS, DC_SMALL_EPOCHS = 10, 5, 8, 4, 2
 # spatial Louvain (phase 34): the JAX louvain case (benchmarks/matrix.py:694,
 # N_SPOTS = 10,000) on spatial_counts x 2,000 genes, the method's PCA and kNN
 # defaults (spatial_domain/louvain.py:26)
@@ -3205,6 +3236,263 @@ def ae_phases(cuda) -> None:
     print(f"phases 37-42: {time.perf_counter() - t_phases:.3f} s", flush=True)
 
 
+def cpu_masks(model, seed: int, rate: float):
+    """Make ``model`` draw its dropout keep masks on the CPU from ``seed`` and
+    move them to its device, so that the card and the CPU drop the same."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    model._mask = lambda shape, _gen: (torch.rand(shape, generator=gen) >= rate).to(model.device)
+    return model
+
+
+def mixture_gap(z, cuda) -> float:
+    """The card's and the CPU's EM (ops.mixture, float64) on the rows of ``z``
+    from the same k-means responsibilities: the largest gap of weights, means
+    and variances relative to each array's largest, and the iterations."""
+    import torch
+
+    from dance_tpu_torch.ops import mixture
+
+    x = torch.from_numpy(z).double()
+    resp = mixture.initial_responsibilities(x, SV_CENTROIDS, seed=0)
+    fits = [mixture.GaussianMixture(SV_CENTROIDS, reg_covar=1e-4).fit(x.to(dev), resp.to(dev))
+            for dev in (torch.device("cpu"), cuda)]
+    gap = max(float((getattr(fits[1], k).cpu() - getattr(fits[0], k)).abs().max()
+                    / getattr(fits[0], k).abs().max())
+              for k in ("weights_", "means_", "covariances_"))
+    return gap, fits[0].n_iter_, fits[1].n_iter_
+
+
+def je_card_vs_cpu(cuda):
+    """Phase 46: DCCA, JAE and scMVAE on AE_SMALL cells, card against CPU, the
+    weights drawn on both devices from the same CPU generator: one step from
+    the same weights, batch and noise (loss, outputs and gradients by
+    :func:`one_step`), then short fits on the same batch orders (CPU
+    generators on both sides), the same normals (:func:`cpu_noise`), DCCA and
+    scMVAE without dropout and JAE with the same masks (:func:`cpu_masks`; its
+    rate is fixed), scMVAE's k-means start on the CPU for both: losses at
+    1e-4, weights by :func:`align_weights`, outputs at 1e-4 once aligned. No
+    BSR kernel may run on the card."""
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.modules.multi_modality.joint_embedding import dcca as D
+    from dance_tpu_torch.modules.multi_modality.joint_embedding import jae as JA
+    from dance_tpu_torch.modules.multi_modality.joint_embedding import scmvae as SV
+    from dance_tpu_torch.ops import mixture
+
+    cpu, ok = torch.device("cpu"), True
+    counts, types = multimodal_counts(AE_SMALL, 200, 4, seed=42)
+    x2 = protein_targets(counts)
+    x1 = np.log1p(counts)
+    rows = np.arange(64)
+    reset_launches()
+
+    def gap(card, ref):
+        a, b = (np.array([h["loss"] for h in m.history], np.float64) for m in (card, ref))
+        return float(np.max(np.abs(a / b - 1)))
+
+    def out_gap(a, b):
+        return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+    def normals(*shapes, seed=43):
+        gen = torch.Generator().manual_seed(seed)
+        return [torch.randn(shape, generator=gen) for shape in shapes]
+
+    # DCCA: one attention step of modality 1, then a cycle-1 fit
+    step, fits = {}, {}
+    noise, z_pre, m_pre, lv_pre = normals((64, 8), (64, 8), (64, 8), (64, 8))
+    for side, dev in (("cpu", cpu), ("card", cuda)):
+        m = D.DCCA(layer_e_1=(32,), layer_e_2=(32,), z_dim=8, droprate=0.0, seed=0, device=dev)
+        net1, _ = m._make_nets(200, x2.shape[1])
+        t1 = torch.from_numpy(x1[rows]).to(dev)
+        lsf = torch.log(torch.clamp(torch.expm1(t1).sum(1), min=1.0))
+        loss = D.dcca_loss(net1, t1, torch.expm1(t1), lsf, 0.5, noise.to(dev), m._attn,
+                           tuple(a.to(dev) for a in (z_pre, m_pre, lv_pre)), 1.0)
+        loss.backward()
+        step[side] = (float(loss.detach()), net1(t1, lsf)["scale_x"].detach().cpu().numpy(),
+                      module_grads(net1))
+        m = cpu_noise(D.DCCA(layer_e_1=(32,), layer_e_2=(32,), z_dim=8, droprate=0.0, seed=0,
+                             device=dev), 45)
+        fits[side] = m.fit(x1, x2, epochs=DC_SMALL_EPOCHS)
+    one_step("DCCA", step)
+    card, ref = fits["card"], fits["cpu"]
+    lgap = gap(card, ref)
+    align_weights("small DCCA modality 1", card.net1, ref.net1, 1e-2, DC_SMALL_EPOCHS)
+    align_weights("small DCCA modality 2", card.net2, ref.net2, 1e-2, 2 * DC_SMALL_EPOCHS)
+    egap = out_gap(card.predict(), ref.predict())
+    print(f"small DCCA ({AE_SMALL} cells x 200 genes <-> {x2.shape[1]} proteins, hidden 32, z 8, "
+          f"cycle 1: 3 phases of {DC_SMALL_EPOCHS} full-batch epochs), card vs CPU: relative "
+          f"loss gap {lgap!r}, embedding gap once aligned {egap!r} of the largest (bounds 1e-4)",
+          flush=True)
+    ok &= lgap <= 1e-4 and egap <= 1e-4
+
+    # JAE: one step on 64 cells with the same masks, then a fit
+    step, fits = {}, {}
+    x = np.concatenate([x1, x2], 1)
+    for side, dev in (("cpu", cpu), ("card", cuda)):
+        m = cpu_masks(JA.JAEWrapper(z_dim=16, seed=0, device=dev), 44, JA.DROPOUT)
+        net = m._make_net(x.shape[1], 4, 0, 2)
+        drop = lambda h: JA.inverted_dropout(h, m._mask(h.shape, None), JA.DROPOUT)  # noqa: E731
+        tx = torch.from_numpy(x[rows]).to(dev)
+        ct = torch.from_numpy(types[rows]).to(dev)
+        loss = JA.jae_loss(net, tx, ct, torch.zeros((64, 2), device=dev), True, drop)
+        loss.backward()
+        step[side] = (float(loss.detach()), net.encode(tx).detach().cpu().numpy(),
+                      module_grads(net))
+        m = cpu_masks(JA.JAEWrapper(z_dim=16, seed=0, device=dev), 46, JA.DROPOUT)
+        fits[side] = m.fit(x1, x2, cell_type=types, epochs=JE_SMALL_EPOCHS)
+    one_step("JAE", step)
+    card, ref = fits["card"], fits["cpu"]
+    lgap = gap(card, ref)
+    steps = JE_SMALL_EPOCHS * -(-AE_SMALL // 64)
+    align_weights("small JAE", card.net, ref.net, 1e-4, steps)
+    egap = out_gap(card.predict(), ref.predict())
+    print(f"small JAE (z 16, {JE_SMALL_EPOCHS} epochs of {-(-AE_SMALL // 64)} steps, the same "
+          f"dropout masks), card vs CPU: relative loss gap {lgap!r}, embedding gap once aligned "
+          f"{egap!r} of the largest (bounds 1e-4)", flush=True)
+    ok &= lgap <= 1e-4 and egap <= 1e-4
+
+    # scMVAE: one step from the same weights and GMM prior, then a fit
+    step, fits = {}, {}
+    c2 = np.expm1(np.abs(x2))
+    noise = normals((64, 16), (64, 1), seed=47)
+    prior = normals((SV_CENTROIDS,), (16, SV_CENTROIDS), (16, SV_CENTROIDS), seed=48)
+    kmeans_start = mixture.initial_responsibilities
+    # both devices start EM from the CPU's k-means of their (equal to rounding) latents
+    mixture.initial_responsibilities = lambda z, k, seed: kmeans_start(z.cpu(), k, seed).to(z)
+    try:
+        for side, dev in (("cpu", cpu), ("card", cuda)):
+            m = SV.scMVAE(seed=0, n_centroids=SV_CENTROIDS, drop_rate=0.0, device=dev)
+            net = m._make_net(200, x2.shape[1])
+            with torch.no_grad():
+                for p, v in zip((net.pi_logit, net.mu_c, net.logvar_c), prior):
+                    p.copy_(v.to(dev) * 0.5)
+            t1 = torch.from_numpy(counts[rows]).to(dev)
+            t2 = (torch.from_numpy(c2[rows]).to(dev) > 0).float()
+            lib = SV._log_library(t1)
+            loss = SV.scmvae_loss(net, t1, t2, lib, lib, 0.5, 4.0, [a.to(dev) for a in noise])
+            loss.backward()
+            step[side] = (float(loss.detach()), net.embed(t1, t2).detach().cpu().numpy(),
+                          module_grads(net))
+            m = cpu_noise(SV.scMVAE(seed=0, n_centroids=SV_CENTROIDS, drop_rate=0.0, device=dev),
+                          49)
+            fits[side] = m.fit(counts, c2, epochs=JE_SMALL_EPOCHS)
+    finally:
+        mixture.initial_responsibilities = kmeans_start
+    one_step("scMVAE", step)
+    card, ref = fits["card"], fits["cpu"]
+    lgap = gap(card, ref)
+    align_weights("small scMVAE", card.net, ref.net, 1e-3, JE_SMALL_EPOCHS * -(-AE_SMALL // 64))
+    egap = out_gap(card.predict(), ref.predict())
+    print(f"small scMVAE ({SV_CENTROIDS} centroids, {JE_SMALL_EPOCHS} epochs of "
+          f"{-(-AE_SMALL // 64)} steps, no dropout), card vs CPU: GMM EM iterations "
+          f"{card.gmm.n_iter_} / {ref.gmm.n_iter_}, relative loss gap {lgap!r}, embedding gap "
+          f"once aligned {egap!r} of the largest (bounds 1e-4)", flush=True)
+    ok &= lgap <= 1e-4 and egap <= 1e-4
+    no_launches("the small DCCA, JAE and scMVAE (phase 46)")
+    if not ok:
+        raise AssertionError("the card disagrees with the CPU on a small joint-embedding fit")
+
+
+def je_phases(cuda) -> None:
+    """Phases 43-46: DCCA, JAE and scMVAE. They reach no TPU kernel: the
+    launch counts, set to 0 before each, must stay 0."""
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.modules.multi_modality.joint_embedding import DCCA, JAEWrapper, scMVAE
+    from dance_tpu_torch.utils import nmi
+
+    t_phases = time.perf_counter()
+    x1, x2, types = match_inputs()
+    tr = slice(0, MT_TRAIN)
+    x1, x2, labels = x1[tr], x2[tr], types[tr]
+    chance = nmi(labels, np.random.default_rng(43).permutation(labels))
+
+    def finish(name, model, t_fit, phase, extra=""):
+        t0 = time.perf_counter()
+        score = model.score(None, labels)
+        t_score = time.perf_counter() - t0
+        losses = [h["loss"] for h in model.history]
+        print(f"{name}: fit {t_fit:.3f} s{extra}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; k-means NMI {score!r} "
+              f"({t_score:.3f} s) against {chance!r} for a random labelling", flush=True)
+        if not (np.isfinite(losses).all() and score > chance):
+            raise AssertionError(f"{name}: NMI {score} against {chance}, or non-finite losses")
+        no_launches(f"{name} (phase {phase})")
+
+    # -- 43. DCCA at its defaults: 100 epochs x 3 full-batch phases -----------
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    model = DCCA(seed=0, device=cuda)
+    t0 = time.perf_counter()
+    model.fit(x1, x2)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    phases = []
+    for phase in sorted({h["phase"] for h in model.history}):
+        hs = [h for h in model.history if h["phase"] == phase]
+        phases.append(f"phase {phase} (modality {hs[0]['modality']}, attention "
+                      f"{hs[0]['attention']}): last loss {hs[-1]['loss']!r}, steady epoch "
+                      f"{statistics.median(h['seconds'] for h in hs[1:]) * 1e3!r} ms")
+    finish("DCCA", model, t_fit, 43, f" ({MT_TRAIN} cells, {x1.shape[1]} genes (NB on expm1) + "
+           f"{x2.shape[1]} proteins (Bernoulli on x > 0), hidden {model.hidden1}, z "
+           f"{model.z_dim}, AdamW 1e-2, full batch, {len(model.history)} epochs in 3 phases: "
+           + "; ".join(phases) + ")")
+    del model
+
+    # -- 44. JAE at its defaults, JA_EPOCHS epochs of batch 64 ----------------
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    model = JAEWrapper(seed=0, device=cuda)
+    t0 = time.perf_counter()
+    model.fit(x1, x2, cell_type=labels, epochs=JA_EPOCHS)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    finish("JAE", model, t_fit, 44, f" (z {model.z_dim}, hidden 150, 120, 100, batch 64: "
+           f"{-(-MT_TRAIN // 64)} Adam steps an epoch, {JA_EPOCHS} epochs (cut from 200), "
+           f"median steady epoch {median_epoch(model) * 1e3!r} ms, losses "
+           f"{[h['loss'] for h in model.history]})")
+    del model
+
+    # -- 45. scMVAE at the benchmark's settings, SV_EPOCHS epochs -------------
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    model = scMVAE(seed=0, n_centroids=SV_CENTROIDS, device=cuda)
+    gmm = {}
+    init_gmm = model.init_gmm_params
+
+    def timed_gmm():
+        t0 = time.perf_counter()
+        init_gmm()
+        torch.cuda.synchronize()
+        gmm["seconds"] = time.perf_counter() - t0
+    model.init_gmm_params = timed_gmm
+    t0 = time.perf_counter()
+    model.fit(np.expm1(x1), np.expm1(np.abs(x2)), epochs=SV_EPOCHS)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    finish("scMVAE", model, t_fit, 45, f" (z {model.z_dim}, {SV_CENTROIDS} centroids, batch 64: "
+           f"{-(-MT_TRAIN // 64)} AdamW steps an epoch, {SV_EPOCHS} epochs (cut from 200); the "
+           f"mixture's warm start {gmm['seconds']:.3f} s, {model.gmm.n_iter_} EM iterations, "
+           f"converged {model.gmm.converged_}; median steady epoch "
+           f"{median_epoch(model) * 1e3!r} ms, losses {[h['loss'] for h in model.history]}, "
+           f"best {model.best_loss!r})")
+    mgap, it_cpu, it_card = mixture_gap(model.predict(), cuda)
+    print(f"scMVAE's mixture on its {MT_TRAIN}-cell embedding, card vs CPU from the same k-means "
+          f"start: largest parameter gap {mgap!r} of the largest (bound 1e-6), EM iterations "
+          f"{it_card} / {it_cpu}", flush=True)
+    if not (mgap <= 1e-6 and it_cpu == it_card):
+        raise AssertionError(f"scMVAE's mixture: card vs CPU {mgap}, {it_card} / {it_cpu}")
+    del model
+
+    # -- 46. a few hundred cells: the card against the CPU -------------------
+    je_card_vs_cpu(cuda)
+    print(f"phases 43-46: {time.perf_counter() - t_phases:.3f} s", flush=True)
+
+
 def match_score(model, x1, x2):
     """``predict_matching`` on the test cells and its ``score_matching``:
     (score, the printed words)."""
@@ -3255,6 +3543,7 @@ def main() -> int:
     match_phases(cuda)
     community_phases(cuda, mm, gsc)
     ae_phases(cuda)
+    je_phases(cuda)
 
     def entry(name):
         result, launched = measured[name]

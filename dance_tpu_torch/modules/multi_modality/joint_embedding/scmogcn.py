@@ -41,8 +41,8 @@ from dance_tpu_torch.modules.multi_modality.predict_modality.scmogcn import (
 from dance_tpu_torch.nn.gnn import flax_dense_init_
 from dance_tpu_torch.ops.sparse import csr_from_scipy, csr_matmat
 from dance_tpu_torch.settings import logger
-from dance_tpu_torch.utils import EpochClock, labeled_clustering_evaluate, resolve_device
-from dance_tpu_torch.utils.metrics import integration_openproblems_evaluate
+from dance_tpu_torch.utils import EpochClock, resolve_device
+from dance_tpu_torch.utils.metrics import score_embedding
 
 
 class _JENet(nn.Module):
@@ -140,15 +140,8 @@ class ScMoGCNWrapper(BaseRegressionMethod):
         suite's ``final_scores`` (``metric="openproblems"``; ``batch`` and the
         suite's keyword arguments pass through, its scores and the
         embedding with ``return_pred``)."""
-        emb = self.predict()
-        y = np.asarray(y)
-        if metric == "openproblems":
-            scores = integration_openproblems_evaluate(emb, y, batch, device=self.device,
-                                                       **kwargs)
-            return (scores, emb) if return_pred else scores["final_scores"]
-        scores = labeled_clustering_evaluate(emb, y, n_clusters=len(np.unique(y)),
-                                             device=self.device)
-        return (scores, emb) if return_pred else scores["dance_nmi"]
+        return score_embedding(self.predict(), y, metric=metric, batch=batch, device=self.device,
+                               return_pred=return_pred, **kwargs)
 
 
 # --------------------------------------------------------------------------

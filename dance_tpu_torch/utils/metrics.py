@@ -2,7 +2,7 @@
 point (counterparts: ``get_bipartite_matching_adjacency_matrix``, its
 ``_mk3`` name, ``batch_separated_bipartite_matching`` and ``_softmax``,
 dance_tpu/utils/metrics.py:115-165; ``integration_openproblems_evaluate``
-metrics.py:183).
+metrics.py:183), and the joint-embedding models' shared ``score``.
 
 The evaluator is host numpy in float64 plus scipy's
 ``linear_sum_assignment``, copied from the JAX package, which it may not
@@ -71,5 +71,26 @@ def integration_openproblems_evaluate(emb, cell_type, batch=None, **kwargs):
     return integration_openproblems_suite(emb, cell_type, batch, **kwargs)
 
 
+def score_embedding(emb, y, *, metric: str = "clustering", batch=None, device=None,
+                    return_pred: bool = False, **kwargs):
+    """The joint-embedding models' ``score`` (counterpart: the ``score`` of
+    dance_tpu/modules/multi_modality/joint_embedding/{scmogcn,dcca,jae,
+    scmvae}.py): ``metric="clustering"`` gives the k-means NMI of ``emb``
+    against ``y`` with as many clusters as labels
+    (:func:`~dance_tpu_torch.utils.labeled_clustering_evaluate`);
+    ``"openproblems"`` the scIB suite's ``final_scores`` (``batch`` and the
+    suite's keyword arguments pass through). ``return_pred`` returns
+    ``(scores, emb)``; ``device`` is where the clustering runs."""
+    from dance_tpu_torch.utils import labeled_clustering_evaluate
+
+    y = np.asarray(y)
+    if metric == "openproblems":
+        scores = integration_openproblems_evaluate(emb, y, batch, device=device, **kwargs)
+        return (scores, emb) if return_pred else scores["final_scores"]
+    scores = labeled_clustering_evaluate(emb, y, n_clusters=len(np.unique(y)), device=device)
+    return (scores, emb) if return_pred else scores["dance_nmi"]
+
+
 __all__ = ["batch_separated_bipartite_matching", "get_bipartite_matching_adjacency_matrix",
-           "get_bipartite_matching_adjacency_matrix_mk3", "integration_openproblems_evaluate"]
+           "get_bipartite_matching_adjacency_matrix_mk3", "integration_openproblems_evaluate",
+           "score_embedding"]

@@ -2,9 +2,9 @@
 which the JAX models chain before Adam or AdamW (STAGATE stagate.py:146,
 stdGCN stdgcn.py:445), optax's AMSGrad, which scDeepCluster and scDCC
 pretrain with (scdeepcluster.py:185), optax's ``adamw`` with its decay on
-every weight (match-modality scMoGNN, scMoGNN v2), a learning rate set
+every weight and its ``eps`` (match-modality scMoGNN, scMoGNN v2, scMVAE), a learning rate set
 between epochs, and the copy of the weights that best-validation selection
-keeps (scMoGNN, stdGCN).
+keeps (scMoGNN, stdGCN, scMVAE's lowest training loss).
 
 Where torch's own optimizer is optax's, the models use it:
 
@@ -38,16 +38,17 @@ def clip_by_global_norm_(params: Iterable[torch.nn.Parameter], max_norm: float):
         g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
 
 
-def adamw(params, lr: float, weight_decay: float = 1e-4) -> torch.optim.AdamW:
-    """optax's ``adamw(lr, weight_decay=weight_decay)`` over a module's
-    parameters (or an iterable of them): the decay on every weight, biases
-    and logits included, ``p -= lr · (adam + weight_decay · p)``, which is
-    torch's decoupled ``AdamW`` step. optax's default decay is 1e-4
-    (match-modality scMoGNN); scMoGNN v2 passes 1e-5. torch's own default
-    is 0.01."""
+def adamw(params, lr: float, weight_decay: float = 1e-4, eps: float = 1e-8) -> torch.optim.AdamW:
+    """optax's ``adamw(lr, weight_decay=weight_decay, eps=eps)`` over a
+    module's parameters (or an iterable of them): the decay on every weight,
+    biases and logits included, ``p -= lr · (m̂ / (sqrt(v̂) + eps) +
+    weight_decay · p)``, which is torch's decoupled ``AdamW`` step (both add
+    ``eps`` outside the root; optax's ``eps_root`` is 0). optax's default
+    decay is 1e-4 (match-modality scMoGNN); scMoGNN v2 passes 1e-5, scMVAE
+    1e-6 with eps 0.01. torch's own default decay is 0.01."""
     if isinstance(params, torch.nn.Module):
         params = params.parameters()
-    return torch.optim.AdamW(params, lr=lr, weight_decay=weight_decay)
+    return torch.optim.AdamW(params, lr=lr, weight_decay=weight_decay, eps=eps)
 
 
 def set_learning_rate(opt: torch.optim.Optimizer, lr: float):

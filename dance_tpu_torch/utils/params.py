@@ -2,8 +2,8 @@
 net, ``GATConv``, graph-sc's ``GCNAE``, scTAG's net, scDSC's model, the
 scMoGNN trunk, matching net and v2 net, DSTG's GCN, stdGCN's network and
 autoencoder, scHeteroNet's network, GraphSCI's network, ACTINN's MLP, the ZINB
-autoencoder of scDeepCluster and scDCC, DeepImpute's stacked ensemble, and
-the BABEL, CMAE and scMM nets.
+autoencoder of scDeepCluster and scDCC, DeepImpute's stacked ensemble, the
+BABEL, CMAE and scMM nets, and DCCA's, JAE's and scMVAE's.
 
 Parity between the two packages is checked by copying the flax parameters
 into the torch module, since the two frameworks' generators and initializers
@@ -125,6 +125,21 @@ scMM's ``_MMVAENet`` (scmm.py:28): ``enc1``, ``enc2`` Gaussian encoders,
 ``dec1`` NB, ``dec2`` Gaussian. scMoGNN v2's ``_ScMoGCNv2Net``
 (scmogcnv2.py:51): ``trunk/...`` as the trunk above (it has no readout),
 ``decoder_{i}`` -> ``decoder.{i}``, ``c_decoder``, ``cc_decoder``.
+
+The joint-embedding autoencoders. DCCA's ``_ModalityVAE`` (dcca.py:43):
+``{encoder,decoder}/Dense_{i}`` -> ``{encoder,decoder}.layers.{i}``, and
+``fc_mean``, ``fc_logvar``, ``dec_scale``, ``dec_disp``, ``dec_drop`` as
+``Dense`` layers. JAE's ``_JAE`` (jae.py:39): ``enc_layers_{i}`` ->
+``enc_layers.{i}``, ``enc_norms_{i}/{scale,bias}`` -> ``enc_norms.{i}.*``,
+``enc_out``, ``dec1``, ``dec2``. scMVAE's ``_scMVAENet`` (scmvae.py:153):
+
+    {enc1,enc2,enc_l1,enc_l2}/_MLP_0/Dense_{i} -> {...}.mlp.layers.{i}
+    {enc1,...}/Dense_{0,1}               -> {...}.{mu,logvar}
+    share/Dense_{i}                      -> share.layers.{i}
+    {dec1,dec2}/_MLP_0/Dense_{i}         -> {dec1,dec2}.mlp.layers.{i}
+    dec1/Dense_{0,1,2} (ZINB dec2 too)   -> dec1.{scale,disp,dropout}
+    dec2/Dense_0 (the plain decoders)    -> dec2.out
+    pi_logit, mu_c, logvar_c             -> as they are
 """
 
 from typing import Dict, Mapping
@@ -548,12 +563,86 @@ def scmogcn_v2_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
+def _dropout_mlp(state: dict, prefix: str, sub: Mapping):
+    """A ``DropoutMLP`` (DCCA's and scMVAE's ``_MLP``): ``Dense_{i}`` ->
+    ``{prefix}.layers.{i}``."""
+    for layer, leaves in sub.items():
+        kind, _, i = layer.rpartition("_")
+        if kind != "Dense":
+            raise KeyError(f"unexpected _MLP parameter {layer!r} under {prefix!r}")
+        _dense(state, f"{prefix}.layers.{i}", leaves)
+
+
+def dcca_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """One flax DCCA ``_ModalityVAE`` tree -> ``_ModalityVAE.state_dict()``
+    (call it once for each modality)."""
+    state = {}
+    for name, sub in params.items():
+        if name in ("encoder", "decoder"):
+            _dropout_mlp(state, name, sub)
+        elif name in ("fc_mean", "fc_logvar", "dec_scale", "dec_disp", "dec_drop"):
+            _dense(state, name, sub)
+        else:
+            raise KeyError(f"unexpected _ModalityVAE parameter {name!r}")
+    return state
+
+
+def jae_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``_JAE`` tree -> ``_JAE.state_dict()``."""
+    state = {}
+    for name, sub in params.items():
+        kind, _, i = name.rpartition("_")
+        if kind == "enc_layers":
+            _dense(state, f"enc_layers.{i}", sub)
+        elif kind == "enc_norms":
+            if set(sub) != {"scale", "bias"}:
+                raise KeyError(f"unexpected norm parameters {sorted(sub)} under {name!r}")
+            state[f"enc_norms.{i}.scale"] = _t(sub["scale"])
+            state[f"enc_norms.{i}.bias"] = _t(sub["bias"])
+        elif name in ("enc_out", "dec1", "dec2"):
+            _dense(state, name, sub)
+        else:
+            raise KeyError(f"unexpected _JAE parameter {name!r}")
+    return state
+
+
+def scmvae_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``_scMVAENet`` tree -> ``_scMVAENet.state_dict()``: the blocks'
+    ``_MLP_0`` -> ``mlp``, their ``Dense_{k}`` heads in call order (``mu``,
+    ``logvar`` of a ``_GaussianHead``; ``scale``, ``disp``, ``dropout`` of a
+    ``_ZINBDecoder``; ``out`` of a ``_PlainDecoder``), ``share`` a
+    ``DropoutMLP``, and the GMM prior's ``pi_logit``, ``mu_c`` and
+    ``logvar_c`` as they are."""
+    heads = {"enc1": ("mu", "logvar"), "enc2": ("mu", "logvar"), "enc_l1": ("mu", "logvar"),
+             "enc_l2": ("mu", "logvar"), "dec1": ("scale", "disp", "dropout")}
+    state = {}
+    for name, sub in params.items():
+        if name in ("pi_logit", "mu_c", "logvar_c"):
+            state[name] = _t(sub)
+        elif name == "share":
+            _dropout_mlp(state, name, sub)
+        elif name in heads or name == "dec2":
+            names = heads.get(name) or (("scale", "disp", "dropout") if "Dense_2" in sub
+                                        else ("out",))
+            for block, leaves in sub.items():
+                kind, _, k = block.rpartition("_")
+                if block == "_MLP_0":
+                    _dropout_mlp(state, f"{name}.mlp", leaves)
+                elif kind == "Dense" and int(k) < len(names):
+                    _dense(state, f"{name}.{names[int(k)]}", leaves)
+                else:
+                    raise KeyError(f"unexpected parameter {block!r} under {name!r}")
+        else:
+            raise KeyError(f"unexpected _scMVAENet parameter {name!r}")
+    return state
+
+
 __all__ = ["actinn_flax_to_torch", "autoencoder_flax_to_torch", "babel_flax_to_torch",
-           "cmae_flax_to_torch", "deepimpute_flax_to_torch", "dstg_flax_to_torch", "flax_to_torch",
-           "gatconv_flax_to_torch", "graphsc_flax_to_torch", "graphsci_flax_to_torch",
+           "cmae_flax_to_torch", "dcca_flax_to_torch", "deepimpute_flax_to_torch",
+           "dstg_flax_to_torch", "flax_to_torch", "gatconv_flax_to_torch",
+           "graphsc_flax_to_torch", "graphsci_flax_to_torch", "jae_flax_to_torch",
            "mmvae_flax_to_torch", "scdsc_flax_to_torch", "scheteronet_flax_to_torch",
            "scmogcn_flax_to_torch", "scmogcn_je_flax_to_torch", "scmogcn_match_flax_to_torch",
-           "scmogcn_v2_flax_to_torch",
-           "sctag_flax_to_torch",
+           "scmogcn_v2_flax_to_torch", "scmvae_flax_to_torch", "sctag_flax_to_torch",
            "stagate_flax_to_torch", "stdgcn_flax_to_torch", "tagconv_flax_to_torch",
            "zinb_ae_flax_to_torch"]

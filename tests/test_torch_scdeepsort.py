@@ -373,18 +373,24 @@ def test_port_imports_no_jax():
         "        'dance_tpu_torch.modules.multi_modality.predict_modality.scmm',\n"
         "        'dance_tpu_torch.modules.multi_modality.match_modality.cmae',\n"
         "        'dance_tpu_torch.modules.multi_modality.match_modality.scmm',\n"
-        "        'dance_tpu_torch.modules.multi_modality.joint_embedding.scmogcnv2'} <= set(names)\n"
+        "        'dance_tpu_torch.modules.multi_modality.joint_embedding.scmogcnv2',\n"
+        "        'dance_tpu_torch.modules.multi_modality.joint_embedding.dcca',\n"
+        "        'dance_tpu_torch.modules.multi_modality.joint_embedding.jae',\n"
+        "        'dance_tpu_torch.modules.multi_modality.joint_embedding.scmvae',\n"
+        "        'dance_tpu_torch.ops.mixture'} <= set(names)\n"
         "from dance_tpu_torch.modules.multi_modality.predict_modality import (\n"
         "    BabelWrapper, CMAE, MMVAE, ScMoGCNWrapper)\n"
         "from dance_tpu_torch.modules.multi_modality.match_modality import CMAE, MMVAE\n"
         "from dance_tpu_torch.modules.multi_modality.joint_embedding.scmogcnv2 import (\n"
         "    ScMoGCNWrapperV2)\n"
+        "from dance_tpu_torch.modules.multi_modality.joint_embedding import (\n"
+        "    DCCA, JAEWrapper, ScMoGCNWrapper, scMVAE)\n"
         "bad = {'jax', 'flax', 'optax', 'sklearn', 'pandas', 'h5py', 'yaml', 'dance_tpu'}\n"
         "print(len(names), sorted(m for m in sys.modules if m.split('.')[0] in bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, check=True, env={**os.environ, "PYTHONPATH": REPO})
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 72 and bad == "[]"
+    assert int(count) >= 76 and bad == "[]"
 
 
 def test_import_settles_first_multithreaded_exp():
