@@ -7,8 +7,9 @@ OOD detection, GraphSCI imputation, the dense single-modality models
 (ACTINN, scDeepCluster, scDCC and DeepImpute), match-modality scMoGNN, the
 community-detection ground (spatial Louvain, the scIB suite and graph-sc's
 Leiden), scMoGNN v2, the multimodal autoencoders BABEL, CMAE and scMM with
-the CMAE and scMM matching heads, and the joint-embedding DCCA, JAE and
-scMVAE.
+the CMAE and scMM matching heads, the joint-embedding DCCA, JAE and
+scMVAE, and the spatial-domain SpaGCN, stLearn and EfNST with scGNN2's
+imputation.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -272,6 +273,35 @@ printed only when every phase passed):
    and scMVAE without dropout, JAE on the same CPU-drawn masks, scMVAE's
    k-means start on the CPU for both): losses at 1e-4, weights by
    ``align_weights``, outputs at 1e-4 once aligned.
+47. SpaGCN at the JAX spagcn case, counts set to 0 before each of phases
+   47-51 (no TPU kernel is on these paths: every count must stay 0):
+   ``spatial_counts`` of 10,000 spots x 2,000 genes in 7 domains, log1p,
+   the 50-d cell PCA and the 10,000² pixel distances (``spagcn_graph_2d``)
+   -> ``search_l(0.5)`` -> ``SpaGCN(seed=0).fit`` (Louvain init at res 0.4,
+   Adam 0.005, the ``tol`` stop, at most ``SG_EPOCHS`` epochs) ->
+   ``predict``. Prints the epochs run, the steady epoch, its device time and
+   idle share (traced fits of 2 and 12 epochs), and the ARI against the
+   domains beside a random labelling's, which it must beat.
+48. stLearn's SME front on those spots, with a synthetic H&E image (domain
+   colours and textures, noise): ``sme_preprocess`` (filters, normalize,
+   log1p, scale, 50-d PCA, ``morphology_feature_cnn`` on 10,000 tiles with
+   30 Adam epochs, ``sme_graph``, ``sme_feature``), each step timed, then
+   ``StKmeans(n_clusters=6)`` (10 restarts, to the tol stop) and
+   ``StLouvain``: seconds and ARI against a random labelling's.
+49. EfNST at the JAX efnst case: 10,000 spots, 232 columns (200 log1p genes
+   and 32 uniform), the 8-NN graph, ``EfNsSTRunner(n_clusters=6, z_dim=16)``
+   at the defaults (200 pretrain and 100 DEC epochs, nothing cut): the
+   steady epoch of each phase, their device time and idle share (traced
+   fits), peak memory and ARI; then the augmentation chain
+   (``augment_adata``) on 2,000 spots x 2,000 genes with its seconds.
+50. scGNN2 at the JAX scgnn2 case: ``scgnn2_preprocess`` of 10,000 cells x
+   2,000 counts (the masks), ``ScGNN2(seed=0, total_epoch=1)`` at 20 epochs
+   a stage: each stage's seconds, the clusters, and the masked RMSE beside
+   the zero guess's, which it must beat.
+51. Card against CPU on small inputs (``spatial_card_vs_cpu``): SpaGCN (300
+   spots), EfNST (300 spots), scGNN2's feature and cluster stages (300
+   cells) and the morphology encoder's features (64 tiles), each from the
+   same weights, labels and centres: outputs and losses within 1e-4.
 
 Each kernel's bound is the larger of its operations over a compute peak and
 the bytes of its inputs and outputs, each counted once, over 3.35 TB/s, for
@@ -306,9 +336,10 @@ launches by path.
 
 PyTorch's TF32 is off for every phase (the plain versions and cuBLAS run
 IEEE float32); the tensor-core kernels hold float32 accuracy by 3xTF32.
-The line before the last is a JSON object with one entry per kernel, each
-number in it measured in this run except ``bound_ms``, which is computed
-from this run's inputs; the last line is
+The card's line is printed again after the phases (a tail of the output
+names the card). The line before the last is a JSON object with one entry
+per kernel, each number in it measured in this run except ``bound_ms``,
+which is computed from this run's inputs; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without a result where there is no CUDA device, and where
 ``dance_tpu_torch`` is not importable next to this script.
@@ -405,6 +436,12 @@ JA_EPOCHS, SV_EPOCHS, SV_CENTROIDS, JE_SMALL_EPOCHS, DC_SMALL_EPOCHS = 10, 5, 8,
 # N_SPOTS = 10,000) on spatial_counts x 2,000 genes, the method's PCA and kNN
 # defaults (spatial_domain/louvain.py:26)
 LV_SPOTS, LV_GENES, LV_DIM, LV_NEIGHBORS = 10000, 2000, 50, 17
+# spatial domains and scGNN2 (phases 47-51): the JAX package's spagcn, stlearn, efnst and
+# scgnn2 cases (benchmarks/matrix.py:402-414, 646-745) at 10,000 spots or cells x 2,000
+# genes: SpaGCN to its tol stop or SG_EPOCHS; EfNST at its defaults (200 + 100 epochs);
+# scGNN2 one EM round of 20-epoch stages; the augmentation chain on AUG_SPOTS spots; the
+# small card-against-CPU inputs SP_SMALL spots or cells
+SG_EPOCHS, SG_DIM, EF_COLS, EF_NEIGHBORS, AUG_SPOTS, SP_SMALL = 200, 50, 232, 8, 2000, 300
 # H100 SXM: FP32 outside the tensor cores, TF32 dense on the tensor cores, HBM3
 PEAK_FLOPS, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
 PALLAS = "dance_tpu/ops/pallas_kernels.py"
@@ -3493,6 +3530,266 @@ def je_phases(cuda) -> None:
     print(f"phases 43-46: {time.perf_counter() - t_phases:.3f} s", flush=True)
 
 
+def slide_image(xy_pixel, dom, seed: int):
+    """A synthetic H&E image for spots at ``xy_pixel``: each pixel takes the
+    domain of its nearest spot, and a domain's colour and stripe texture,
+    plus noise; float32 in [0, 1], 40 pixels of margin."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    rng = np.random.default_rng(seed)
+    h, w = (xy_pixel.max(0) + 40).tolist()
+    pr, pc = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    pix_dom = dom[cKDTree(xy_pixel).query(np.stack([pr.ravel(), pc.ravel()], 1))[1]]
+    pix_dom = pix_dom.reshape(h, w)
+    colours = rng.uniform(0.25, 0.9, (int(dom.max()) + 1, 3))
+    texture = 0.08 * np.sin(pr[..., None] / (2.0 + pix_dom[..., None]))
+    image = colours[pix_dom] + texture + rng.normal(0, 0.03, (h, w, 3))
+    return np.clip(image, 0, 1).astype(np.float32)
+
+
+def spatial_slide_inputs(n_spots: int, n_genes: int, seed: int):
+    """``spatial_counts`` with pixel coordinates (12 pixels a unit, 40 of
+    margin) and :func:`slide_image`. Returns (counts, xy, xy_pixel, image,
+    domains)."""
+    import numpy as np
+
+    counts, xy, dom = spatial_counts(n_spots, n_genes, N_DOMAINS, seed=seed)
+    xy_pixel = (xy * 12 + 40).astype(np.int64)
+    return counts, xy, xy_pixel, slide_image(xy_pixel, dom, seed), dom
+
+
+def ari_line(name: str, truth, labels, seed: int) -> float:
+    """Print the ARI of ``labels`` beside a random labelling's; fail unless it beats it."""
+    import numpy as np
+
+    from dance_tpu_torch.utils import ari
+
+    score = ari(truth, labels)
+    chance = ari(truth, np.random.default_rng(seed).permutation(labels))
+    print(f"{name}: ARI {score!r} against the domains, {chance!r} for a random labelling",
+          flush=True)
+    if not score > chance:
+        raise AssertionError(f"{name}: ARI {score} does not beat a random labelling's {chance}")
+    return score
+
+
+def spatial_card_vs_cpu(cuda):
+    """Phase 51: SpaGCN, EfNST, scGNN2's feature and cluster stages and the
+    morphology encoder on small inputs, card against CPU from the same
+    weights, initial labels and centres: outputs and losses within 1e-4."""
+    import numpy as np
+    import torch
+
+    import dance_tpu_torch.modules.spatial.spatial_domain.EfNST as efnst
+    from dance_tpu_torch.modules.single_modality.imputation import ScGNN2
+    from dance_tpu_torch.modules.spatial.spatial_domain import SpaGCN
+    from dance_tpu_torch.ops.neighbors import knn_graph
+    from dance_tpu_torch.transforms import cell_pca, morphology_feature_cnn, spagcn_graph_2d
+
+    cpu = torch.device("cpu")
+    reset_launches()
+    counts, xy, xy_pixel, image, dom = spatial_slide_inputs(SP_SMALL, 200, seed=51)
+    x = np.log1p(counts)
+    gaps = {}
+
+    def gap(name, card, ref):
+        card, ref = np.asarray(card, np.float64), np.asarray(ref, np.float64)
+        gaps[name] = float(np.abs(card - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+    # SpaGCN: the CPU fit starts from the card's initial labels
+    emb, dist = cell_pca(x, 20, device=cpu), spagcn_graph_2d(xy_pixel, device=cpu)
+    runs, y0 = {}, {}
+    for i, dev in enumerate((cuda, cpu)):
+        m = SpaGCN(seed=0, device=dev)
+        m.set_l(m.search_l(0.5, dist))
+        init = m._init_labels
+        m._init_labels = lambda *a, init=init: y0.setdefault("y", init(*a))
+        m.fit((emb, dist), epochs=20, tol=0.0)
+        runs[i] = (m.predict_proba((emb, dist)), [h["loss"] for h in m.history])
+    gap("SpaGCN q", runs[0][0], runs[1][0])
+    gap("SpaGCN losses", runs[0][1], runs[1][1])
+    # EfNST: the CPU DEC phase starts from the card's k-means centres
+    feat = np.concatenate([x[:, :40], np.random.default_rng(0).random((SP_SMALL, 8))], 1)
+    graph = knn_graph(xy, EF_NEIGHBORS, symmetrize=False)
+    runs, centres = {}, {}
+    for i, dev in enumerate((cuda, cpu)):
+        m = efnst.EfNsSTRunner(n_clusters=4, z_dim=8, seed=0, device=dev)
+        km = m._kmeans
+        m._kmeans = lambda z, km=km: centres.setdefault("c", km(z)).to(z.device)
+        m.fit(concat_X=feat, graph_dict=graph, epochs=10, dec_epochs=5)
+        runs[i] = (m.q, [h["loss"] for h in m.history])
+    gap("EfNST q", runs[0][0], runs[1][0])
+    gap("EfNST losses", runs[0][1], runs[1][1])
+    # scGNN2's feature and cluster stages from the same weights and labels
+    runs = {}
+    labels = dom % 3
+    adj = knn_graph(x, 10, mode="connectivity", include_self=False)
+    for i, dev in enumerate((cuda, cpu)):
+        m = ScGNN2(seed=0, hidden=(64, 16), feature_epoch=5, cluster_epoch=5,
+                   reference_protocol=True, device=dev)
+        m.feature_ae, _ = (net.to(dev) for net in m._make_nets(x.shape[1]))
+        xt = torch.as_tensor(x, device=dev)
+        z, x_hat, loss = m._feature_stage(xt, None)
+        recon = m._cluster_ae_stage(x_hat, xt, labels, adj)
+        runs[i] = (x_hat.cpu().numpy(), float(loss), recon.cpu().numpy())
+    gap("scGNN2 feature stage", runs[0][0], runs[1][0])
+    gap("scGNN2 feature loss", runs[0][1], runs[1][1])
+    gap("scGNN2 cluster stage", runs[0][2], runs[1][2])
+    # the morphology encoder, 3 Adam epochs on 64 tiles
+    feats = [morphology_feature_cnn(xy_pixel[:64], image, n_components=10, train_epochs=3,
+                                    device=dev) for dev in (cuda, cpu)]
+    gap("morphology features", feats[0], feats[1])
+    no_launches("the small SpaGCN, EfNST, scGNN2 and morphology encoder (phase 51)")
+    print(f"phase 51, card vs CPU ({SP_SMALL} spots or cells; bound 1e-4 of the largest "
+          f"value): {gaps}", flush=True)
+    if not all(g <= 1e-4 for g in gaps.values()):
+        raise AssertionError(f"the card disagrees with the CPU on a small spatial fit: {gaps}")
+
+
+def spatial_domain_phases(cuda) -> None:
+    """Phases 47-51: SpaGCN, stLearn, EfNST and scGNN2. They reach no TPU
+    kernel: the launch counts, set to 0 before each, must stay 0."""
+    import numpy as np
+    import torch
+
+    import dance_tpu_torch.modules.spatial.spatial_domain.EfNST as efnst
+    from dance_tpu_torch.modules.single_modality.imputation import ScGNN2, scgnn2_preprocess
+    from dance_tpu_torch.modules.spatial.spatial_domain import (SpaGCN, StKmeans, StLouvain,
+                                                                sme_preprocess)
+    from dance_tpu_torch.modules.spatial.spatial_domain import stlearn
+    from dance_tpu_torch.ops.neighbors import knn_graph
+    from dance_tpu_torch.transforms import cell_pca, spagcn_graph_2d
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from profile_spatial import efnst_profile, spagcn_profile
+
+    t_phases = time.perf_counter()
+    counts, xy, xy_pixel, image, dom = spatial_slide_inputs(N_SPOTS, LV_GENES, seed=47)
+    x = np.log1p(counts)
+
+    def timed(fn, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # -- 47. SpaGCN -----------------------------------------------------------
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    emb, t_pca = timed(cell_pca, x, SG_DIM, device=cuda)
+    dist, t_dist = timed(spagcn_graph_2d, xy_pixel, device=cuda)
+    model = SpaGCN(seed=0, device=cuda)
+    l, t_l = timed(model.search_l, 0.5, dist)
+    model.set_l(l)
+    _, t_fit = timed(model.fit, (emb, dist), epochs=SG_EPOCHS)
+    labels = model.predict((emb, dist))
+    epoch_ms = statistics.median(h["seconds"] for h in model.history[1:]) * 1e3
+    no_launches("SpaGCN (phase 47)")
+    prof, dev_ms, idle = spagcn_profile(emb, dist, l, cuda, epoch_ms)
+    stop = "the tol stop" if model.epochs_run < SG_EPOCHS else "no tol stop"
+    setup = t_fit - sum(h["seconds"] for h in model.history)
+    print(f"SpaGCN ({N_SPOTS} spots, {SG_DIM}-d PCA {t_pca:.3f} s, the {N_SPOTS}² distances "
+          f"{t_dist:.3f} s, search_l {t_l:.3f} s -> l {l!r}): fit {t_fit:.3f} s (set-up and "
+          f"Louvain init {setup:.3f} s), {model.epochs_run} epochs ({stop}), "
+          f"{model.mu.shape[0]} initial clusters, steady "
+          f"epoch {epoch_ms!r} ms, device {dev_ms!r} ms an epoch, idle share {idle!r} "
+          f"(tools/profile_spatial.py); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+    print("\n".join(prof), flush=True)
+    ari_line("SpaGCN", dom, labels, 47)
+    del model, dist
+
+    # -- 48. stLearn: the SME front, StKmeans and StLouvain -------------------
+    reset_launches()
+    steps, originals = {}, {}
+    for name in ("cell_pca", "morphology_feature_cnn", "sme_graph", "sme_feature"):
+        originals[name] = fn = getattr(stlearn, name)  # each step timed inside the front
+
+        def step(*a, fn=fn, name=name, **k):
+            steps[name] = timed(fn, *a, **k)
+            return steps[name][0]
+        setattr(stlearn, name, step)
+    try:
+        inp, t_front = timed(sme_preprocess, counts, xy, xy_pixel, image, device=cuda)
+    finally:
+        for name, fn in originals.items():
+            setattr(stlearn, name, fn)
+    km, t_km = timed(lambda: StKmeans(n_clusters=6, device=cuda).fit(inp.feature))
+    lv, t_lv = timed(lambda: StLouvain().fit(inp.feature))
+    no_launches("stLearn (phase 48)")
+    print(f"stLearn SME front ({N_SPOTS} spots x {inp.x.shape[1]} genes, {image.shape} image): "
+          f"{t_front:.3f} s, of which " + ", ".join(f"{k} {v[1]:.3f} s" for k, v in steps.items())
+          + f"; StKmeans(6) {t_km:.3f} s, StLouvain {t_lv:.3f} s "
+          f"({len(np.unique(lv.predict()))} communities)", flush=True)
+    ari_line("StKmeans", dom, km.predict(), 48)
+    ari_line("StLouvain", dom, lv.predict(), 49)
+    del inp
+
+    # -- 49. EfNST at its defaults, then the augmentation chain ---------------
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    concat = np.concatenate([x[:, :EF_COLS - 32], np.random.default_rng(4).random(
+        (N_SPOTS, 32), dtype=np.float32)], 1)
+    graph = knn_graph(xy, EF_NEIGHBORS, symmetrize=False)
+    model = efnst.EfNsSTRunner(n_clusters=6, z_dim=16, seed=0, device=cuda)
+    _, t_fit = timed(model.fit, concat_X=concat, graph_dict=graph)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    ms = {ph: statistics.median([h["seconds"] for h in model.history
+                                 if h["phase"] == ph][1:]) * 1e3 for ph in ("pretrain", "dec")}
+    no_launches("EfNST (phase 49)")
+    prof = {ph: efnst_profile(concat, graph, ph, cuda, ms[ph]) for ph in ms}
+    print(f"EfNST ({N_SPOTS} spots x {EF_COLS} columns, {EF_NEIGHBORS}-NN graph, z 16): fit "
+          f"{t_fit:.3f} s ({len(model.history)} epochs); " + "; ".join(
+              f"{ph} steady epoch {ms[ph]!r} ms, device {prof[ph][1]!r} ms, idle share "
+              f"{prof[ph][2]!r}" for ph in ms)
+          + f" (tools/profile_spatial.py); peak device memory {peak:.1f} MiB", flush=True)
+    print("\n".join(line for ph in ms for line in prof[ph][0]), flush=True)
+    ari_line("EfNST", dom, model.predict(), 50)
+    if not np.isfinite([h["loss"] for h in model.history]).all():
+        raise AssertionError("EfNST: non-finite losses")
+    del model
+    sub = slice(0, AUG_SPOTS)
+    feat = cell_pca(x[sub], 50, device=cuda)
+    out, t_aug = timed(efnst.augment_adata, counts[sub], xy[sub], xy_pixel[sub], feat,
+                       device=cuda)
+    aug = out["augment_gene_data"]
+    no_launches("EfNST's augmentation chain (phase 49)")
+    print(f"EfNST augmentation chain ({AUG_SPOTS} spots x {LV_GENES} genes): {t_aug:.3f} s, "
+          f"{int((out['weights_matrix_all'] > 0).sum())} positive weights, augmented "
+          f"{aug.shape}", flush=True)
+    if not (np.isfinite(aug).all() and aug.shape == (AUG_SPOTS, LV_GENES)):
+        raise AssertionError("EfNST's augmentation chain: bad output")
+
+    # -- 50. scGNN2 at the JAX scgnn2 case ------------------------------------
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    cells, _ = clustered_counts(N_SPOTS, LV_GENES, 8, seed=50)
+    inp, t_prep = timed(scgnn2_preprocess, cells, seed=0)
+    model = ScGNN2(seed=0, total_epoch=1, feature_epoch=20, graph_epoch=20, cluster_epoch=20,
+                   device=cuda)
+    _, t_fit = timed(model.fit, inp.x, mask=inp.train_mask)
+    imputed = model.predict()
+    no_launches("scGNN2 (phase 50)")
+    valid = inp.valid_mask
+    rmse = float(np.sqrt(((imputed - inp.x)[valid] ** 2).mean()))
+    zero = float(np.sqrt((inp.x[valid] ** 2).mean()))
+    print(f"scGNN2 ({inp.x.shape[0]} cells x {inp.x.shape[1]} genes, preprocessing "
+          f"{t_prep:.3f} s): fit {t_fit:.3f} s; " + ", ".join(
+              f"{h['stage']} {h['round']} {h['seconds']:.3f} s" for h in model.history)
+          + f"; {int(model.labels.max()) + 1} clusters; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; masked RMSE {rmse!r} "
+          f"against {zero!r} for the zero guess", flush=True)
+    if not rmse < zero:
+        raise AssertionError(f"scGNN2: masked RMSE {rmse} does not beat the zero guess's {zero}")
+    del model
+
+    # -- 51. small inputs, card against CPU ------------------------------------
+    spatial_card_vs_cpu(cuda)
+    print(f"phases 47-51: {time.perf_counter() - t_phases:.3f} s", flush=True)
+
+
 def match_score(model, x1, x2):
     """``predict_matching`` on the test cells and its ``score_matching``:
     (score, the printed words)."""
@@ -3544,6 +3841,7 @@ def main() -> int:
     community_phases(cuda, mm, gsc)
     ae_phases(cuda)
     je_phases(cuda)
+    spatial_domain_phases(cuda)
 
     def entry(name):
         result, launched = measured[name]
@@ -3578,6 +3876,7 @@ def main() -> int:
     spmm["scheteronet"] = {f"{hop}_d{d}": res for hop in ("one_hop", "two_hop")
                            for d, res in hn[hop].items()}
     print(f"chip_smoke: {time.perf_counter() - t_start:.3f} s in all", flush=True)
+    print(card_line(), flush=True)  # again at the end, so a tail of the output names the card
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

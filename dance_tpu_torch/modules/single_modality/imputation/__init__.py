@@ -1,12 +1,15 @@
 """Imputation methods (counterpart:
-dance_tpu/modules/single_modality/imputation/__init__.py). Ported so far:
-DeepImpute and GraphSCI."""
+dance_tpu/modules/single_modality/imputation/__init__.py): DeepImpute,
+GraphSCI and scGNN2."""
 
 from dance_tpu_torch.modules.single_modality.imputation.deepimpute import (
     DeepImpute, DeepImputeInputs, NeuralNetworkModel, deepimpute_preprocess)
 from dance_tpu_torch.modules.single_modality.imputation.graphsci import (GraphSCI,
                                                                          GraphSCIInputs,
                                                                          graphsci_preprocess)
+from dance_tpu_torch.modules.single_modality.imputation.scgnn2 import (ScGNN2, ScGNN2Inputs,
+                                                                       scgnn2_preprocess)
 
 __all__ = ["DeepImpute", "DeepImputeInputs", "GraphSCI", "GraphSCIInputs", "NeuralNetworkModel",
-           "deepimpute_preprocess", "graphsci_preprocess"]
+           "ScGNN2", "ScGNN2Inputs", "deepimpute_preprocess", "graphsci_preprocess",
+           "scgnn2_preprocess"]

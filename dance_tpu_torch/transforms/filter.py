@@ -1,7 +1,8 @@
 """Gene filters on arrays: marker genes of a cell-type profile
 (counterpart: ``FilterGenesMarker``, dance_tpu/transforms/filter.py:358-404),
 the summary-statistic filters ``FilterGenesPercentile`` and
-``FilterGenesTopK`` (filter.py:241-354), and the ratio thresholds of the
+``FilterGenesTopK`` (filter.py:241-354), the name filter
+``FilterGenesMatch`` (filter.py:212-238), and the ratio thresholds of the
 scanpy filters (``_get_count``, filter.py:26).
 
 The summary filters return the kept genes in **sorted-name order**, as the
@@ -68,6 +69,37 @@ class FilterGenesMarker:
         _, ind = self.get_marker_genes(ct_profile, list(cell_types), threshold=self.threshold,
                                        eps=self.eps)
         return ind.any(1)
+
+
+class FilterGenesMatch:
+    """Drop the genes whose names start with one of ``prefixes`` or end with
+    one of ``suffixes`` (counterpart: filter.py:212). With ``case_sensitive``
+    the patterns and the names are upper-cased before matching, as the JAX
+    transform does (the flag's name says the opposite of what it does).
+    ``select(gene_names)`` is the boolean mask of the genes kept, and
+    ``__call__(x, gene_names)`` returns the kept columns and names in gene
+    order."""
+
+    def __init__(self, prefixes: Optional[List[str]] = None,
+                 suffixes: Optional[List[str]] = None, case_sensitive: bool = False):
+        self.prefixes = list(prefixes or [])
+        self.suffixes = list(suffixes or [])
+        self.case_sensitive = case_sensitive
+        if case_sensitive:
+            self.prefixes = [i.upper() for i in self.prefixes]
+            self.suffixes = [i.upper() for i in self.suffixes]
+
+    def select(self, gene_names: Sequence) -> np.ndarray:
+        names = [str(n) for n in gene_names]
+        check = [n.upper() for n in names] if self.case_sensitive else names
+        remove = np.array([n.startswith(tuple(self.prefixes)) or n.endswith(tuple(self.suffixes))
+                           for n in check], dtype=bool).reshape(len(names))
+        logger.info("Removing %d genes by name match", int(remove.sum()))
+        return ~remove
+
+    def __call__(self, x, gene_names: Sequence) -> Tuple[np.ndarray, np.ndarray]:
+        keep = np.nonzero(self.select(gene_names))[0]
+        return x[:, keep], np.asarray(gene_names)[keep]
 
 
 GENE_SUMMARY_MODES = ("sum", "var", "cv", "rv")
@@ -155,5 +187,5 @@ class FilterGenesTopK(FilterGenes):
         return mask
 
 
-__all__ = ["FilterGenes", "FilterGenesMarker", "FilterGenesPercentile", "FilterGenesTopK",
-           "get_count"]
+__all__ = ["FilterGenes", "FilterGenesMarker", "FilterGenesMatch", "FilterGenesPercentile",
+           "FilterGenesTopK", "get_count"]

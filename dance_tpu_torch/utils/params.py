@@ -3,7 +3,9 @@ net, ``GATConv``, graph-sc's ``GCNAE``, scTAG's net, scDSC's model, the
 scMoGNN trunk, matching net and v2 net, DSTG's GCN, stdGCN's network and
 autoencoder, scHeteroNet's network, GraphSCI's network, ACTINN's MLP, the ZINB
 autoencoder of scDeepCluster and scDCC, DeepImpute's stacked ensemble, the
-BABEL, CMAE and scMM nets, and DCCA's, JAE's and scMVAE's.
+BABEL, CMAE and scMM nets, DCCA's, JAE's and scMVAE's, EfNST's graph
+autoencoder, scGNN2's feature and graph autoencoders, and the morphology
+encoder's kernels and decoder.
 
 Parity between the two packages is checked by copying the flax parameters
 into the torch module, since the two frameworks' generators and initializers
@@ -637,12 +639,64 @@ def scmvae_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
+def efnst_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``_EfNSTNet`` tree (EfNST.py:53) -> ``_EfNSTNet.state_dict()``.
+    flax numbers the Dense layers as they are built: the decoder's output
+    ``Dense_2`` is built before its hidden ``Dense_3``, which it wraps, so
+    ``Dense_0, 1, 3, 2`` -> ``denses.0, 1, 2, 3`` (call order)."""
+    if set(params) != {f"Dense_{i}" for i in range(4)}:
+        raise KeyError(f"unexpected _EfNSTNet parameters {sorted(params)}")
+    state = {}
+    for i, flax_i in enumerate((0, 1, 3, 2)):
+        _dense(state, f"denses.{i}", params[f"Dense_{flax_i}"])
+    return state
+
+
+def scgnn2_feature_ae_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax scGNN2 ``_FeatureAE`` tree (scgnn2.py:40) -> ``_FeatureAE.
+    state_dict()``: ``Dense_{i}`` (or ``TorchDense_{i}/Dense_0`` under the
+    reference protocol) -> ``layers.{i}``."""
+    state = {}
+    for name, sub in params.items():
+        kind, _, i = name.rpartition("_")
+        if kind == "Dense":
+            _dense(state, f"layers.{i}", sub)
+        elif kind == "TorchDense":
+            _torch_dense(state, f"layers.{i}", sub)
+        else:
+            raise KeyError(f"unexpected _FeatureAE parameter {name!r}")
+    return state
+
+
+def scgnn2_graph_ae_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax scGNN2 ``_GraphAE`` tree (scgnn2.py:68) -> ``_GraphAE.
+    state_dict()``: ``Dense_{i}`` -> ``denses.{i}``."""
+    state = {}
+    for name, sub in params.items():
+        kind, _, i = name.rpartition("_")
+        if kind != "Dense":
+            raise KeyError(f"unexpected _GraphAE parameter {name!r}")
+        _dense(state, f"denses.{i}", sub)
+    return state
+
+
+def morphology_flax_to_torch(kernels, dec) -> Dict[str, torch.Tensor]:
+    """The JAX morphology encoder's three HWIO kernels and its (128, 3)
+    decoder (spatial_feature.py:56-61) -> ``MorphologyEncoder.state_dict()``:
+    kernels OIHW."""
+    state = {f"kernels.{i}": _t(np.transpose(np.asarray(k), (3, 2, 0, 1)))
+             for i, k in enumerate(kernels)}
+    state["dec"] = _t(dec)
+    return state
+
+
 __all__ = ["actinn_flax_to_torch", "autoencoder_flax_to_torch", "babel_flax_to_torch",
            "cmae_flax_to_torch", "dcca_flax_to_torch", "deepimpute_flax_to_torch",
-           "dstg_flax_to_torch", "flax_to_torch", "gatconv_flax_to_torch",
+           "dstg_flax_to_torch", "efnst_flax_to_torch", "flax_to_torch", "gatconv_flax_to_torch",
            "graphsc_flax_to_torch", "graphsci_flax_to_torch", "jae_flax_to_torch",
-           "mmvae_flax_to_torch", "scdsc_flax_to_torch", "scheteronet_flax_to_torch",
-           "scmogcn_flax_to_torch", "scmogcn_je_flax_to_torch", "scmogcn_match_flax_to_torch",
-           "scmogcn_v2_flax_to_torch", "scmvae_flax_to_torch", "sctag_flax_to_torch",
-           "stagate_flax_to_torch", "stdgcn_flax_to_torch", "tagconv_flax_to_torch",
-           "zinb_ae_flax_to_torch"]
+           "mmvae_flax_to_torch", "morphology_flax_to_torch", "scdsc_flax_to_torch",
+           "scgnn2_feature_ae_flax_to_torch", "scgnn2_graph_ae_flax_to_torch",
+           "scheteronet_flax_to_torch", "scmogcn_flax_to_torch", "scmogcn_je_flax_to_torch",
+           "scmogcn_match_flax_to_torch", "scmogcn_v2_flax_to_torch", "scmvae_flax_to_torch",
+           "sctag_flax_to_torch", "stagate_flax_to_torch", "stdgcn_flax_to_torch",
+           "tagconv_flax_to_torch", "zinb_ae_flax_to_torch"]

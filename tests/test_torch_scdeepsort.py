@@ -377,7 +377,13 @@ def test_port_imports_no_jax():
         "        'dance_tpu_torch.modules.multi_modality.joint_embedding.dcca',\n"
         "        'dance_tpu_torch.modules.multi_modality.joint_embedding.jae',\n"
         "        'dance_tpu_torch.modules.multi_modality.joint_embedding.scmvae',\n"
-        "        'dance_tpu_torch.ops.mixture'} <= set(names)\n"
+        "        'dance_tpu_torch.ops.mixture',\n"
+        "        'dance_tpu_torch.modules.spatial.spatial_domain.spagcn',\n"
+        "        'dance_tpu_torch.modules.spatial.spatial_domain.stlearn',\n"
+        "        'dance_tpu_torch.modules.spatial.spatial_domain.EfNST',\n"
+        "        'dance_tpu_torch.modules.single_modality.imputation.scgnn2',\n"
+        "        'dance_tpu_torch.transforms.spatial_feature',\n"
+        "        'dance_tpu_torch.transforms.graph.spatial_graph'} <= set(names)\n"
         "from dance_tpu_torch.modules.multi_modality.predict_modality import (\n"
         "    BabelWrapper, CMAE, MMVAE, ScMoGCNWrapper)\n"
         "from dance_tpu_torch.modules.multi_modality.match_modality import CMAE, MMVAE\n"
@@ -385,12 +391,17 @@ def test_port_imports_no_jax():
         "    ScMoGCNWrapperV2)\n"
         "from dance_tpu_torch.modules.multi_modality.joint_embedding import (\n"
         "    DCCA, JAEWrapper, ScMoGCNWrapper, scMVAE)\n"
+        "from dance_tpu_torch.modules.spatial.spatial_domain import (\n"
+        "    EfNsSTRunner, SpaGCN, StKmeans, StLouvain, sme_preprocess)\n"
+        "from dance_tpu_torch.modules.single_modality.imputation import ScGNN2\n"
+        "from dance_tpu_torch.transforms import (FilterGenesMatch, morphology_feature_cnn,\n"
+        "    sme_feature, sme_graph, spagcn_graph)\n"
         "bad = {'jax', 'flax', 'optax', 'sklearn', 'pandas', 'h5py', 'yaml', 'dance_tpu'}\n"
         "print(len(names), sorted(m for m in sys.modules if m.split('.')[0] in bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, check=True, env={**os.environ, "PYTHONPATH": REPO})
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 76 and bad == "[]"
+    assert int(count) >= 80 and bad == "[]"
 
 
 def test_import_settles_first_multithreaded_exp():

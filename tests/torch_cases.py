@@ -1,11 +1,21 @@
 """Shared inputs of the dance_tpu_torch tests; imports no JAX, so the card's
-tests (test_torch_cuda.py) can use it where JAX is not installed."""
+tests (test_torch_cuda.py) can use it where JAX is not installed.
+
+Importing it caps torch's CPU threads at one. pytest-xdist runs several
+workers, and each collects every test file, so each worker imports this
+module before its first test. Torch otherwise sizes its OpenMP pool to every
+core in each worker, and the workers' pools oversubscribe the CPU: one
+STAGATE fit took 3.3 s alone and 1,040 s with six copies running at once
+on 8 cores, and 4 s each with one thread.
+"""
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
 from dance_tpu_torch.ops import bsr as tbsr
+
+torch.set_num_threads(1)
 
 
 def _adj(n, m, density, seed, empty_rows=()):
@@ -298,3 +308,30 @@ def assert_weights(got: dict, want: dict, lr: float, steps: int, skip=()) -> int
             total += ref.size
     assert off <= 1e-3 * total, (off, total)
     return off
+
+
+def spatial_slide(n_rows: int = 12, n_cols: int = 10, g: int = 40, n_domains: int = 3,
+                  seed: int = 0):
+    """Spots on an ``n_rows`` x ``n_cols`` grid in domains (the Voronoi cells of
+    random centres), Poisson counts whose rates a quarter of the genes scale
+    per domain, and an H&E-like float32 image in [0, 1] whose colour and
+    texture follow the domains, plus noise. Returns (counts float32, xy array
+    coordinates, xy_pixel (row, column) int, image, domain)."""
+    rng = np.random.default_rng(seed)
+    rr, cc = np.meshgrid(np.arange(n_rows), np.arange(n_cols), indexing="ij")
+    xy = np.stack([rr.ravel(), cc.ravel()], 1).astype(np.float64)
+    xy_pixel = (xy * 12 + 20).astype(np.int64)
+    centres = rng.random((n_domains, 2)) * [n_rows, n_cols]
+    dom = ((xy[:, None, :] - centres[None]) ** 2).sum(-1).argmin(1)
+    base = rng.gamma(0.8, 1.5, g)
+    fold = np.exp(rng.normal(0, 1.0, (n_domains, g)) * (rng.random((n_domains, g)) < 0.25))
+    counts = rng.poisson(fold[dom] * base[None] * rng.gamma(4.0, 0.25, (len(dom), 1)))
+    h, w = n_rows * 12 + 40, n_cols * 12 + 40
+    pr, pc = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    pix_dom = ((np.stack([(pr - 20) / 12, (pc - 20) / 12], -1)[:, :, None, :]
+                - centres[None, None]) ** 2).sum(-1).argmin(-1)
+    colours = rng.integers(60, 230, (n_domains, 3))
+    texture = 20 * np.sin(pr[..., None] / (2 + pix_dom[..., None]))
+    image = colours[pix_dom] + texture + rng.normal(0, 8, (h, w, 3))
+    return (counts.astype(np.float32), xy, xy_pixel,
+            (np.clip(image, 0, 255) / 255).astype(np.float32), dom)
