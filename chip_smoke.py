@@ -8,8 +8,9 @@ OOD detection, GraphSCI imputation, the dense single-modality models
 community-detection ground (spatial Louvain, the scIB suite and graph-sc's
 Leiden), scMoGNN v2, the multimodal autoencoders BABEL, CMAE and scMM with
 the CMAE and scMM matching heads, the joint-embedding DCCA, JAE and
-scMVAE, and the spatial-domain SpaGCN, stLearn and EfNST with scGNN2's
-imputation.
+scMVAE, the spatial-domain SpaGCN, stLearn and EfNST with scGNN2's
+imputation, and the classical heads: SVM, CellTypist, SingleCellNet, MAGIC,
+SPOTlight, SpatialDecon and CARD.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -302,6 +303,31 @@ printed only when every phase passed):
    spots), EfNST (300 spots), scGNN2's feature and cluster stages (300
    cells) and the morphology encoder's features (64 tiles), each from the
    same weights, labels and centres: outputs and losses within 1e-4.
+52. The classical heads at the JAX svm, celltypist, singlecellnet and magic
+   cases' width (``expression_counts``: 10,000 training + 2,000 held-out
+   cells x 2,000 genes in 8 types), counts set to 0 before each of phases
+   52-59: SVM on ``svm_preprocess`` (weighted PCA 400) with the exact
+   10,000² kernel (fitted twice, the first fit's seconds printed beside),
+   then random Fourier features (``kernel_cap`` 5,000); test accuracy
+   beside the majority share.
+53. CellTypist: LR to its tol stop (the steps run), ``feature_selection``
+   (300 genes a type), then the majority vote of the held-out cells (PCA,
+   15-NN, Leiden); seconds and accuracy of each.
+54. SingleCellNet: the forest (100 trees, depth 10, 32 candidates,
+   balanced) on the log1p genes plus 100 pseudo-cells, twice, the two fits'
+   tables and leaves bit-equal; then ``singlecellnet_preprocess``'s gene
+   pairs -> the forest.
+55. MAGIC at its defaults on ``magic_preprocess``'s masked counts: seconds,
+   peak memory, the masked RMSE beside the zero guess's.
+56-58. SPOTlight (3 NMFs of 1,000 iterations), SpatialDecon (lr 1e-2, 500
+   Adam steps) and CARD (7 φ, epsilon 1e-4) on phase 19's deconvolution
+   case: the time an iteration, the loop's idle share (``loop_idle``:
+   torch.profiler's busy device time against a second, untraced run),
+   CARD's iterations and chosen φ, the portion MSE beside the uniform
+   guess's.
+59. Card against CPU on small inputs for all seven (``classical_card_vs_cpu``,
+   the same draws and starts): outputs and objectives within 1e-4, the
+   unweighted forest's tables exactly.
 
 Each kernel's bound is the larger of its operations over a compute peak and
 the bytes of its inputs and outputs, each counted once, over 3.35 TB/s, for
@@ -442,6 +468,13 @@ LV_SPOTS, LV_GENES, LV_DIM, LV_NEIGHBORS = 10000, 2000, 50, 17
 # scGNN2 one EM round of 20-epoch stages; the augmentation chain on AUG_SPOTS spots; the
 # small card-against-CPU inputs SP_SMALL spots or cells
 SG_EPOCHS, SG_DIM, EF_COLS, EF_NEIGHBORS, AUG_SPOTS, SP_SMALL = 200, 50, 232, 8, 2000, 300
+# the classical heads (phases 52-59): the JAX package's svm, celltypist, singlecellnet and
+# magic cases (benchmarks/matrix.py:154-199, 364-374) at their width: expression_counts
+# makes 12,000 cells x 2,000 genes in 8 types as their benchmark makes its 10,000 (seed 0),
+# 10,000 to train on and CL_TEST held out; the SVM's weighted PCA width and the kernel_cap of its RFF fit; SingleCellNet's
+# trees and pseudo-cells; SpatialDecon's steps (its default); the small card-against-CPU size
+CL_CELLS, CL_TEST, CL_GENES, CL_TYPES, CL_SMALL = 10000, 2000, 2000, 8, 300
+SVM_DIM, SVM_RFF_CAP, SCN_TREES, SCN_RAND, SD_ITERS = 400, 5000, 100, 100, 500
 # H100 SXM: FP32 outside the tensor cores, TF32 dense on the tensor cores, HBM3
 PEAK_FLOPS, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
 PALLAS = "dance_tpu/ops/pallas_kernels.py"
@@ -1779,6 +1812,24 @@ def multimodal_phases(cuda) -> dict:
     return result
 
 
+def expression_counts(n_cells: int, n_genes: int, n_types: int, seed: int):
+    """Counts of cells in types as the JAX package's benchmark cases make
+    them (dance_tpu/datasets/synthetic.py:16-31, seeded with ``seed``): per
+    type a tenth of the genes as markers at 4 x their gamma base rates,
+    lognormal depths, Poisson counts. Returns (float32 counts, int types)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, n_types, n_cells)
+    rates = np.tile(rng.gamma(2.0, 0.5, n_genes), (n_cells, 1))
+    markers = [rng.choice(n_genes, max(n_genes // 10, 1), replace=False)
+               for _ in range(n_types)]
+    for t in range(n_types):
+        rates[np.ix_(np.nonzero(labels == t)[0], markers[t])] *= 4.0
+    x = rng.poisson(rates * rng.lognormal(0, 0.3, n_cells)[:, None]).astype(np.float32)
+    return x, labels
+
+
 def deconvo_inputs(n_ref: int, n_genes: int, n_types: int, n_real: int, seed: int):
     """Reference cells and real spots as the JAX package's deconvolution
     cases make them (benchmarks/matrix.py:750-757, its counts from
@@ -1789,14 +1840,7 @@ def deconvo_inputs(n_ref: int, n_genes: int, n_types: int, n_real: int, seed: in
     [0, 100)². Returns (x_ref, labels as strings, x_real, portions, coords)."""
     import numpy as np
 
-    rng = np.random.default_rng(seed)
-    labels = rng.integers(0, n_types, n_ref)
-    rates = np.tile(rng.gamma(2.0, 0.5, n_genes), (n_ref, 1))
-    markers = [rng.choice(n_genes, max(n_genes // 10, 1), replace=False)
-               for _ in range(n_types)]
-    for t in range(n_types):
-        rates[np.ix_(np.nonzero(labels == t)[0], markers[t])] *= 4.0
-    x_ref = rng.poisson(rates * rng.lognormal(0, 0.3, n_ref)[:, None]).astype(np.float32)
+    x_ref, labels = expression_counts(n_ref, n_genes, n_types, seed)
     profiles = np.stack([x_ref[labels == t].mean(0) for t in range(n_types)])
     rng = np.random.default_rng(seed)
     portions = rng.dirichlet(np.ones(n_types), n_real)
@@ -3790,6 +3834,257 @@ def spatial_domain_phases(cuda) -> None:
     print(f"phases 47-51: {time.perf_counter() - t_phases:.3f} s", flush=True)
 
 
+def loop_idle(fn):
+    """Run ``fn`` once untraced (seconds between synchronisations) and once
+    under torch.profiler, whose CUDA activity gives the device's busy
+    seconds (every kernel and copy): returns (fn's result, wall seconds,
+    busy seconds, idle share = 1 - busy / wall)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    return out, wall, busy, 1 - busy / wall
+
+
+def accuracy_line(name: str, truth, pred, seconds: float) -> float:
+    """Print the accuracy beside the majority type's share; fail unless it beats it."""
+    import numpy as np
+
+    score = float((np.asarray(pred) == np.asarray(truth)).mean())
+    majority = float(np.bincount(np.asarray(truth)).max() / len(truth))
+    print(f"{name}: {seconds:.3f} s; test accuracy {score!r} against {majority!r} for the "
+          f"majority type", flush=True)
+    if not score > majority:
+        raise AssertionError(f"{name}: accuracy {score} does not beat the majority share "
+                             f"{majority}")
+    return score
+
+
+def classical_card_vs_cpu(cuda):
+    """Phase 59: the seven classical methods on small inputs, card against
+    CPU from the same inputs, draws and starts (the draws come from CPU
+    generators on both): outputs, losses and objectives within 1e-4 of the
+    largest value; the unweighted forest's tables exactly."""
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.modules.single_modality.cell_type_annotation import (SVM, Celltypist,
+                                                                              SingleCellNet)
+    from dance_tpu_torch.modules.single_modality.imputation import MAGIC, magic_preprocess
+    from dance_tpu_torch.modules.spatial.cell_type_deconvo import Card, SPOTlight, SpatialDecon
+    from dance_tpu_torch.transforms import CellTopicProfile, cell_pca
+
+    cpu = torch.device("cpu")
+    reset_launches()
+    counts, types = expression_counts(CL_SMALL, 200, 4, seed=59)
+    x = np.log1p(counts)
+    gaps, exact = {}, {}
+
+    def gap(name, card, ref):
+        card, ref = np.asarray(card, np.float64), np.asarray(ref, np.float64)
+        gaps[name] = float(np.abs(card - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+    def both(make):
+        return [make(dev) for dev in (cuda, cpu)]
+
+    feat = cell_pca(x, 20, device=cpu)
+    svm = both(lambda d: SVM(random_state=0, device=d).fit(feat, types))
+    gap("SVM decision", *(m._mdl.decision_function(feat) for m in svm))
+    ct = both(lambda d: Celltypist(device=d).fit(x, types, use_SGD=True, max_iter=200))
+    gap("CellTypist decision", *(m.predict(x, as_obj=True).decision_matrix for m in ct))
+    scn = both(lambda d: SingleCellNet(num_trees=10, max_depth=6, device=d).fit(
+        x, types, num_rand=20, stratify=False))
+    exact["SingleCellNet tables"] = all(
+        torch.equal(getattr(scn[0].model.forest, k).cpu(), getattr(scn[1].model.forest, k))
+        for k in ("feats", "thrs"))
+    gap("SingleCellNet proba", *(m.predict_proba(x) for m in scn))
+    inp = magic_preprocess(counts, seed=0)
+    gap("MAGIC", *(MAGIC(device=d).fit(inp.x, mask=inp.train_mask).predict() for d in (cuda, cpu)))
+    x_ref, labels, x_real, _, coords = deconvo_inputs(300, 300, 4, CL_SMALL, seed=59)
+    cts = sorted(set(labels))
+    spot = both(lambda d: SPOTlight(x_ref, labels, cts, rank=4, device=d).fit(x_real,
+                                                                             max_iter=100))
+    gap("SPOTlight", *(m.predict() for m in spot))
+    profile, _ = CellTopicProfile(method="median")(x_ref, labels)
+    sd = both(lambda d: SpatialDecon(profile, cts, device=d).fit(x_real, lr=1e-2, max_iter=100))
+    gap("SpatialDecon", *(m.predict() for m in sd))
+    mean_profile, _ = CellTopicProfile(method="mean")(x_ref, labels)
+    card = both(lambda d: Card(mean_profile, device=d).fit((x_real, coords), max_iter=30,
+                                                           epsilon=0.0))
+    gap("CARD portions", *(m.predict() for m in card))
+    gap("CARD objectives", *([h["obj"] for h in m.history] for m in card))
+    exact["CARD phi"] = card[0].best_phi == card[1].best_phi
+    no_launches("the small classical methods (phase 59)")
+    print(f"phase 59, card vs CPU ({CL_SMALL} cells or spots; bound 1e-4 of the largest value): "
+          f"{gaps}; exact: {exact}", flush=True)
+    if not (all(g <= 1e-4 for g in gaps.values()) and all(exact.values())):
+        raise AssertionError(f"the card disagrees with the CPU on a classical method: {gaps}, "
+                             f"{exact}")
+
+
+def classical_phases(cuda) -> None:
+    """Phases 52-59: SVM, CellTypist, SingleCellNet, MAGIC, SPOTlight,
+    SpatialDecon and CARD. They reach no TPU kernel: the launch counts, set
+    to 0 before each, must stay 0."""
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.modules.single_modality.cell_type_annotation import (
+        SVM, Celltypist, SingleCellNet, singlecellnet_preprocess, svm_preprocess)
+    from dance_tpu_torch.modules.single_modality.imputation import MAGIC, magic_preprocess
+    from dance_tpu_torch.modules.spatial.cell_type_deconvo import Card, SPOTlight, SpatialDecon
+    from dance_tpu_torch.ops.linear_model import DeviceSVC
+    from dance_tpu_torch.transforms import CellTopicProfile
+
+    t_phases = time.perf_counter()
+
+    def timed(fn, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    counts, types = expression_counts(CL_CELLS + CL_TEST, CL_GENES, CL_TYPES, seed=0)
+    x = np.log1p(counts)
+    train, test = np.arange(CL_CELLS), np.arange(CL_CELLS, CL_CELLS + CL_TEST)
+    y_test = types[test]
+
+    # -- 52. SVM: weighted gene PCA, the exact kernel, then RFF --------------
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    feat, t_pca = timed(svm_preprocess, x, train, SVM_DIM, device=cuda)
+    # twice: a process's first fits on new shapes run slower (PERF.md §7)
+    fits = [timed(lambda: SVM(random_state=0, device=cuda).fit(feat[train], types[train]))
+            for _ in range(2)]
+    model, t_fit = fits[1]
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    accuracy_line(f"SVM, exact kernel ({CL_CELLS} training cells, weighted PCA {SVM_DIM} in "
+                  f"{t_pca:.3f} s, 300 Adam steps on the {CL_CELLS}² Gram, first fit "
+                  f"{fits[0][1]:.3f} s, peak device memory {peak:.1f} MiB)", y_test,
+                  model.predict(feat[test]), t_fit)
+    rff, t_rff = timed(lambda: DeviceSVC(random_state=0, kernel_cap=SVM_RFF_CAP,
+                                         device=cuda).fit(feat[train], types[train]))
+    accuracy_line(f"SVM, {rff.n_components} random Fourier features (kernel_cap "
+                  f"{SVM_RFF_CAP} < {CL_CELLS})", y_test, rff.predict(feat[test]), t_rff)
+    no_launches("SVM (phase 52)")
+    del fits, model, rff
+
+    # -- 53. CellTypist: LR to its tol stop, feature selection, majority vote --
+    reset_launches()
+    model, t_fit = timed(lambda: Celltypist(device=cuda).fit(x[train], types[train]))
+    accuracy_line(f"CellTypist LR ({CL_CELLS} cells x {CL_GENES} genes; the tol stop after "
+                  f"{model.classifier.steps_run} of at most 1000 steps)", y_test,
+                  model.predict(x[test]), t_fit)
+    fs, t_fs = timed(lambda: Celltypist(device=cuda).fit(x[train], types[train],
+                                                         feature_selection=True, top_genes=300))
+    genes = fs.classifier.features.astype(int)
+    accuracy_line(f"CellTypist feature selection ({len(genes)} genes, two SGD fits of 1000 "
+                  f"full-batch steps)", y_test, fs.predict(x[test][:, genes]), t_fs)
+    model.majority_voting = True
+    res, t_mv = timed(model.predict, x[test], as_obj=True)
+    n_clusters = len(np.unique(res.predicted_labels["over_clustering"]))
+    accuracy_line(f"CellTypist majority voting ({CL_TEST} query cells: PCA 50, 15-NN, Leiden, "
+                  f"{n_clusters} over-clusters)", y_test, res.predicted_labels["majority_voting"],
+                  t_mv)
+    no_launches("CellTypist (phase 53)")
+    del model, fs
+
+    # -- 54. SingleCellNet: the forest on the genes, twice, then the pairs --
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    fits = [timed(lambda: SingleCellNet(num_trees=SCN_TREES, device=cuda).fit(
+        x[train], types[train], num_rand=SCN_RAND)) for _ in range(2)]
+    _, t_rand = timed(SingleCellNet.randomize, x[train], SCN_RAND, np.random.default_rng(100))
+    forests = [m.model.forest for m, _ in fits]
+    equal = all(torch.equal(getattr(forests[0], k), getattr(forests[1], k))
+                for k in ("feats", "thrs", "leaf_probs"))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f"SingleCellNet: two fits of {SCN_TREES} trees (depth 10, 32 candidates, balanced) on "
+          f"{CL_CELLS} + {SCN_RAND} cells x {CL_GENES} genes: bit-equal tables and leaves "
+          f"{equal}; {fits[0][1]:.3f} s and {fits[1][1]:.3f} s, of which the pseudo-cells "
+          f"(host) {t_rand:.3f} s; peak device memory {peak:.1f} MiB", flush=True)
+    if not equal:
+        raise AssertionError("SingleCellNet: two fits on the card differ")
+    accuracy_line("SingleCellNet on the genes", y_test, fits[0][0].predict(x[test]), fits[0][1])
+    (pairs, names), t_pre = timed(singlecellnet_preprocess, counts,
+                                  np.array([f"g{i}" for i in range(CL_GENES)]),
+                                  types.astype(str), train)
+    model, t_fit = timed(lambda: SingleCellNet(num_trees=SCN_TREES, device=cuda).fit(
+        pairs[train], types[train], num_rand=SCN_RAND))
+    accuracy_line(f"SingleCellNet on {len(names)} gene pairs (SCNFeature {t_pre:.3f} s)", y_test,
+                  model.predict(pairs[test]), t_fit)
+    no_launches("SingleCellNet (phase 54)")
+    del fits, forests, model
+
+    # -- 55. MAGIC at its defaults on the masked counts ----------------------
+    reset_launches()
+    inp, t_prep = timed(magic_preprocess, counts[train], seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    model, t_fit = timed(lambda: MAGIC(device=cuda).fit(inp.x, mask=inp.train_mask))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    valid = inp.valid_mask
+    rmse = float(np.sqrt(((model.predict() - inp.x)[valid] ** 2).mean()))
+    zero = float(np.sqrt((inp.x[valid] ** 2).mean()))
+    no_launches("MAGIC (phase 55)")
+    print(f"MAGIC (t 3, k 10, ka 4, rescale 99; {inp.x.shape[0]} cells x {inp.x.shape[1]} genes, "
+          f"preprocessing {t_prep:.3f} s): fit {t_fit:.3f} s, peak device memory {peak:.1f} MiB; "
+          f"masked RMSE {rmse!r} against {zero!r} for the zero guess", flush=True)
+    if not rmse < zero:
+        raise AssertionError(f"MAGIC: masked RMSE {rmse} does not beat the zero guess's {zero}")
+    del model
+
+    # -- 56-58. the deconvolution case: SPOTlight, SpatialDecon, CARD ------------
+    x_ref, labels, x_real, portions, coords = deconvo_inputs(DC_REF, DC_GENES, DC_TYPES,
+                                                             DC_REAL, seed=5)
+    cts = sorted(set(labels))
+    reset_launches()
+    spot, wall, busy, idle = loop_idle(lambda: SPOTlight(x_ref, labels, cts, rank=DC_TYPES,
+                                                         device=cuda).fit(x_real))
+    no_launches("SPOTlight (phase 56)")
+    print(f"SPOTlight ({DC_REF} reference cells, {DC_REAL} spots x {DC_GENES} genes, rank "
+          f"{DC_TYPES}, 3 NMFs of 1000 iterations): fit {wall:.3f} s, {wall / 3e3 * 1e3!r} ms "
+          f"an NMF iteration; device busy {busy:.3f} s, idle share {idle!r}", flush=True)
+    portion_mse("SPOTlight", portions, spot.predict())
+    reset_launches()
+    profile, _ = CellTopicProfile(method="median")(x_ref, labels)
+    sd, wall, busy, idle = loop_idle(lambda: SpatialDecon(profile, cts, device=cuda).fit(
+        x_real, lr=1e-2, max_iter=SD_ITERS))
+    no_launches("SpatialDecon (phase 57)")
+    print(f"SpatialDecon ({DC_REAL} spots, lr 1e-2, {SD_ITERS} Adam steps): fit {wall:.3f} s, "
+          f"{wall / SD_ITERS * 1e3!r} ms a step; device busy {busy:.3f} s, idle share {idle!r}",
+          flush=True)
+    portion_mse("SpatialDecon", portions, sd.predict())
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    mean_profile, _ = CellTopicProfile(method="mean")(x_ref, labels)
+    card, wall, busy, idle = loop_idle(lambda: Card(mean_profile, device=cuda).fit(
+        (x_real, coords)))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    iters = sum(h["iterations"] for h in card.history)
+    no_launches("CARD (phase 58)")
+    print(f"CARD ({DC_REAL} spots, the {DC_REAL}² kernel, 7 phi of at most 100 iterations, "
+          f"epsilon 1e-4): fit {wall:.3f} s, {iters} iterations ("
+          + ", ".join(f"phi {h['phi']}: {h['iterations']}" for h in card.history)
+          + f"), {wall / iters * 1e3!r} ms an iteration with set-up; device busy {busy:.3f} s, "
+          f"idle share {idle!r}; chosen phi {card.best_phi}; peak device memory {peak:.1f} MiB",
+          flush=True)
+    portion_mse("CARD", portions, card.predict())
+
+    # -- 59. small inputs, card against CPU ------------------------------------
+    classical_card_vs_cpu(cuda)
+    print(f"phases 52-59: {time.perf_counter() - t_phases:.3f} s", flush=True)
+
+
 def match_score(model, x1, x2):
     """``predict_matching`` on the test cells and its ``score_matching``:
     (score, the printed words)."""
@@ -3842,6 +4137,7 @@ def main() -> int:
     ae_phases(cuda)
     je_phases(cuda)
     spatial_domain_phases(cuda)
+    classical_phases(cuda)
 
     def entry(name):
         result, launched = measured[name]

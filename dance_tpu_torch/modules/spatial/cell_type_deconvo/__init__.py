@@ -1,9 +1,13 @@
 """Cell-type deconvolution of spatial spots (counterpart:
-dance_tpu/modules/spatial/cell_type_deconvo/__init__.py); the graph methods
-DSTG and stdGCN so far. CARD, SpatialDecon and SPOTlight are not ported yet
-(ROADMAP Queue 1)."""
+dance_tpu/modules/spatial/cell_type_deconvo/__init__.py): CARD, DSTG,
+SpatialDecon, SPOTlight and stdGCN, every method of the JAX package."""
 
+from dance_tpu_torch.modules.spatial.cell_type_deconvo.card import Card, card_preprocess
 from dance_tpu_torch.modules.spatial.cell_type_deconvo.dstg import DSTG, dstg_preprocess
+from dance_tpu_torch.modules.spatial.cell_type_deconvo.spatialdecon import (
+    SpatialDecon, spatialdecon_preprocess)
+from dance_tpu_torch.modules.spatial.cell_type_deconvo.spotlight import SPOTlight
 from dance_tpu_torch.modules.spatial.cell_type_deconvo.stdgcn import StdGCN, stdGCNWrapper
 
-__all__ = ["DSTG", "StdGCN", "dstg_preprocess", "stdGCNWrapper"]
+__all__ = ["Card", "DSTG", "SPOTlight", "SpatialDecon", "StdGCN", "card_preprocess",
+           "dstg_preprocess", "spatialdecon_preprocess", "stdGCNWrapper"]

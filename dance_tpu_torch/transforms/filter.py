@@ -2,8 +2,9 @@
 (counterpart: ``FilterGenesMarker``, dance_tpu/transforms/filter.py:358-404),
 the summary-statistic filters ``FilterGenesPercentile`` and
 ``FilterGenesTopK`` (filter.py:241-354), the name filter
-``FilterGenesMatch`` (filter.py:212-238), and the ratio thresholds of the
-scanpy filters (``_get_count``, filter.py:26).
+``FilterGenesMatch`` (filter.py:212-238), the genes common to several groups
+of cells ``FilterGenesCommon`` (filter.py:178-208), and the ratio thresholds
+of the scanpy filters (``_get_count``, filter.py:26).
 
 The summary filters return the kept genes in **sorted-name order**, as the
 JAX transform does: it subsets its container by ``sorted(selected names)``
@@ -22,6 +23,7 @@ and ``FilterGenesScanpy`` in their ``*_preprocess``.
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import scipy.sparse as sp
 
 from dance_tpu_torch.settings import logger
 
@@ -100,6 +102,38 @@ class FilterGenesMatch:
     def __call__(self, x, gene_names: Sequence) -> Tuple[np.ndarray, np.ndarray]:
         keep = np.nonzero(self.select(gene_names))[0]
         return x[:, keep], np.asarray(gene_names)[keep]
+
+
+class FilterGenesCommon:
+    """The genes expressed in every group of cells (counterpart:
+    filter.py:178). The JAX transform groups one container's cells by split
+    or batch; here each group is a ``(matrix, gene_names)`` pair, so the
+    groups may name different genes. ``select(groups)`` returns the names
+    with a nonzero absolute sum in every group, in sorted-name order as the
+    JAX transform subsets by them; ``__call__(groups)`` returns each group's
+    ``(columns, names)`` of those genes in that order."""
+
+    @staticmethod
+    def select(groups: Sequence[Tuple[object, Sequence]]) -> np.ndarray:
+        keep_sets = []
+        for i, (x, names) in enumerate(groups):
+            x = abs(x) if sp.issparse(x) else np.abs(np.asarray(x))
+            abs_sum = np.asarray(x.sum(0)).ravel()
+            keep_sets.append(set(np.asarray(names)[abs_sum > 0].tolist()))
+            logger.info("%d genes found in group %d", len(keep_sets[-1]), i)
+        common = sorted(set.intersection(*keep_sets))
+        logger.info("Found %d common genes", len(common))
+        return np.asarray(common)
+
+    def __call__(self, groups: Sequence[Tuple[object, Sequence]]) -> List[Tuple[object,
+                                                                               np.ndarray]]:
+        common = self.select(groups)
+        out = []
+        for x, names in groups:
+            col = {g: j for j, g in enumerate(np.asarray(names).tolist())}
+            idx = np.asarray([col[g] for g in common.tolist()], dtype=np.int64)
+            out.append((x[:, idx], common))
+        return out
 
 
 GENE_SUMMARY_MODES = ("sum", "var", "cv", "rv")
@@ -187,5 +221,5 @@ class FilterGenesTopK(FilterGenes):
         return mask
 
 
-__all__ = ["FilterGenes", "FilterGenesMarker", "FilterGenesMatch", "FilterGenesPercentile",
-           "FilterGenesTopK", "get_count"]
+__all__ = ["FilterGenes", "FilterGenesCommon", "FilterGenesMarker", "FilterGenesMatch",
+           "FilterGenesPercentile", "FilterGenesTopK", "get_count"]

@@ -8,9 +8,10 @@ cell-type portions, and the (genes x types) profile. The JAX transforms read
 and write a ``Data`` container (``obsm``, ``varm``, a new split); the port
 registers nothing (see transforms/cell_feature.py). The mixtures are drawn
 from ``np.random.default_rng(random_state)`` in the JAX order, so they are
-the JAX package's bit for bit. Not ported: ``CellGiottoTopicProfile``,
-``get_giotto_dt`` and ``CellTypeNums`` (ROADMAP Queue 1, with CARD,
-SpatialDecon and SPOTlight).
+the JAX package's bit for bit. Giotto's detection profile
+(``get_giotto_dt``, :167), :class:`CellGiottoTopicProfile` (:180) and
+:class:`CellTypeNums` (:216) return arrays where the JAX transforms write
+``varm`` and ``uns``.
 """
 
 from functools import partial
@@ -144,5 +145,49 @@ class CellTopicProfile:
                               method=self.method), ct_select
 
 
-__all__ = ["CellTopicProfile", "PseudoMixture", "get_agg_func", "get_cell_types",
-           "get_ct_profile"]
+def get_giotto_dt(x, annot, detection_threshold: float = -1, *,
+                  ct_select="auto") -> np.ndarray:
+    """Each type's share of cells above ``detection_threshold`` per gene,
+    (genes x types) float32 (counterpart: pseudobulk.py:167)."""
+    ct_select = get_cell_types(ct_select, annot)
+    annot = np.asarray(annot).astype(str)
+    profile = np.zeros((x.shape[1], len(ct_select)), dtype=np.float32)
+    for i, ct in enumerate(ct_select):
+        idx = np.nonzero(annot == ct)[0]
+        profile[:, i] = (x[idx] > detection_threshold).mean(0)
+    return profile
+
+
+class CellGiottoTopicProfile:
+    """Giotto's mean and detection profiles per type (counterpart:
+    pseudobulk.py:180): ``__call__(x, annot)`` returns ``(mean_profile,
+    detection_profile, cell_types)``, both (genes x types) float32."""
+
+    def __init__(self, *, ct_select: Union[str, List[str]] = "auto",
+                 detection_threshold: float = -1):
+        self.ct_select = ct_select
+        self.detection_threshold = detection_threshold
+
+    def __call__(self, x, annot) -> Tuple[np.ndarray, np.ndarray, List[str]]:
+        x = np.asarray(x)
+        ct_select = get_cell_types(self.ct_select, annot)
+        mean_profile = get_ct_profile(x, annot, ct_select=ct_select, method="mean")
+        det_profile = get_giotto_dt(x, annot, self.detection_threshold, ct_select=ct_select)
+        return mean_profile, det_profile, ct_select
+
+
+class CellTypeNums:
+    """The cell count of each type (counterpart: pseudobulk.py:216):
+    ``__call__(annot)`` returns ``(counts, cell_types)``."""
+
+    def __init__(self, *, ct_select: Union[str, List[str]] = "auto"):
+        self.ct_select = ct_select
+
+    def __call__(self, annot) -> Tuple[np.ndarray, List[str]]:
+        ct_select = get_cell_types(self.ct_select, annot)
+        annot = np.asarray(annot).astype(str)
+        return np.asarray([int((annot == ct).sum()) for ct in ct_select]), ct_select
+
+
+__all__ = ["CellGiottoTopicProfile", "CellTopicProfile", "CellTypeNums", "PseudoMixture",
+           "get_agg_func", "get_cell_types", "get_ct_profile", "get_giotto_dt"]

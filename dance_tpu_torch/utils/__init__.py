@@ -33,6 +33,12 @@ def set_seed(seed: int):
     torch.manual_seed(seed)
 
 
+def as_numpy(x) -> np.ndarray:
+    """A tensor copied to the host, anything else through ``np.asarray``
+    (counterpart: dance_tpu/utils/wrappers.py, ``as_numpy``)."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def resolve_device(device: Union[str, torch.device] = "auto") -> torch.device:
     """``"auto"`` is the current CUDA device. The CPU is used only when the
     caller names it: with no card, ``"auto"`` and CUDA devices raise instead
@@ -244,5 +250,5 @@ class EpochClock:
         return [a.elapsed_time(b) / 1e3 for a, b in zip(self.marks[:-1], self.marks[1:])]
 
 
-__all__ = ["EpochClock", "acc", "ari", "average_precision", "labeled_clustering_evaluate", "mse",
+__all__ = ["EpochClock", "acc", "ari", "as_numpy", "average_precision", "labeled_clustering_evaluate", "mse",
            "nmi", "ood_measures", "resolve_device", "rmse", "roc_auc", "set_seed"]

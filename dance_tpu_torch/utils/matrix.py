@@ -1,17 +1,23 @@
 """Matrix normalization, pairwise distances and the RBF affinity
-(counterpart: ``normalize``, ``dist_to_rbf``, ``pairwise_distance`` and
-``_euclidean_pdist``, dance_tpu/utils/matrix.py:19-74, 64-118).
+(counterpart: ``normalize``, ``dist_to_rbf``, ``pairwise_distance`` and its
+``_euclidean_pdist``, ``_pearson_pdist``, ``_rankdata`` and
+``_spearman_pdist``, and the single-pair distances, dance_tpu/utils/
+matrix.py:19-153).
 
 ``normalize`` takes a tensor and returns one on the same device, or a numpy
 array or scipy matrix and returns a numpy array (computed on the CPU), as the
 JAX version returns what it was given. ``pairwise_distance`` takes and
-returns host numpy, as in the JAX package. Its Euclidean metric is computed
-in float32 (the JAX package pins ``Precision.HIGHEST`` for the same
-full-precision product); its ``"cosine"`` and ``"correlation"`` metrics are
-scikit-learn's ``pairwise_distances`` ones, in float64, which the JAX
-package's EfNST calls (EfNST.py:214-272). The Pearson and Spearman metrics
-(:75-101) are not ported yet and raise. The arithmetic runs on the CPU unless
-a ``device`` is named.
+returns host numpy, as in the JAX package. Its Euclidean, Pearson and
+Spearman metrics (the names or the codes 0, 1 and 2) are computed in float32
+as JAX computes them (it pins ``Precision.HIGHEST`` for the full-precision
+products): the Pearson norms are clamped at 1e-12, so a constant row is at
+distance 1, and Spearman correlates average-tie ranks. The ``"cosine"`` and
+``"correlation"`` metrics are scikit-learn's ``pairwise_distances`` ones, in
+float64 (a constant row gives NaN there), which the JAX package's EfNST
+calls (EfNST.py:214-272). The arithmetic runs on the CPU unless a
+``device`` is named. ``euclidean_distance``, ``pearson_distance``,
+``mean_rank_data`` and ``spearman_distance`` are the host numpy helpers of
+one pair of vectors.
 """
 
 import numpy as np
@@ -60,22 +66,46 @@ def dist_to_rbf(dist, denom: float = 1.0) -> np.ndarray:
     return torch.exp(-d2 / sigma2).numpy()
 
 
+def _pearson_pdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``1 - xn ynᵀ`` of the centred rows over their norms clamped at 1e-12
+    (counterpart: matrix.py:75)."""
+    def unit(m):
+        m = m - m.mean(1, keepdim=True)
+        return m / torch.clamp(torch.linalg.vector_norm(m, dim=1, keepdim=True), min=1e-12)
+    return 1.0 - unit(x) @ unit(y).T
+
+
+def _rankdata(x: torch.Tensor) -> torch.Tensor:
+    """Average-tie ranks along each row, 1-based, float32: ``(#{< v} +
+    #{<= v} + 1) / 2`` (counterpart: matrix.py:84)."""
+    sx = torch.sort(x, dim=1).values
+    lo = torch.searchsorted(sx, x.contiguous(), side="left")
+    hi = torch.searchsorted(sx, x.contiguous(), side="right")
+    return (lo + hi + 1).to(torch.float32) / 2.0
+
+
 def pairwise_distance(x, y=None, dist_func="euclidean", *, device=None) -> np.ndarray:
     """(n, m) distances between the rows of ``x`` and of ``y`` (default ``x``):
-    ``"euclidean"`` as ``sqrt(max(|a|² + |b|² - 2 a·b, 0))`` in float32;
-    ``"cosine"`` as ``1 - a·b / (|a| |b|)`` clipped to [0, 2] (a zero row
-    taken as norm 1) and ``"correlation"`` as ``1 - ac·bc / (|ac| |bc|)`` of
-    the rows less their means (NaN for a constant row, as scipy gives it),
-    both in float64 with the diagonal set to 0 when ``y`` is None, as
-    scikit-learn's ``pairwise_distances`` gives them."""
-    if dist_func in ("euclidean", 0):
+    ``"euclidean"`` (0) as ``sqrt(max(|a|² + |b|² - 2 a·b, 0))``, ``"pearson"``
+    (1) as one less the correlation of the rows, ``"spearman"`` (2) as that of
+    their average-tie ranks, all in float32; ``"cosine"`` as ``1 - a·b /
+    (|a| |b|)`` clipped to [0, 2] (a zero row taken as norm 1) and
+    ``"correlation"`` as ``1 - ac·bc / (|ac| |bc|)`` of the rows less their
+    means (NaN for a constant row, as scipy gives it), both in float64 with
+    the diagonal set to 0 when ``y`` is None, as scikit-learn's
+    ``pairwise_distances`` gives them."""
+    if dist_func in ("euclidean", 0, "pearson", 1, "spearman", 2):
         x = torch.as_tensor(np.asarray(x, np.float32), device=device)
         y = x if y is None else torch.as_tensor(np.asarray(y, np.float32), device=device)
+        if dist_func in ("pearson", 1):
+            return _pearson_pdist(x, y).cpu().numpy()
+        if dist_func in ("spearman", 2):
+            return _pearson_pdist(_rankdata(x), _rankdata(y)).cpu().numpy()
         d2 = (x ** 2).sum(1)[:, None] + (y ** 2).sum(1)[None, :] - 2 * (x @ y.T)
         return torch.sqrt(d2.clamp(min=0.0)).cpu().numpy()
     if dist_func not in ("cosine", "correlation"):
-        raise NotImplementedError(f"dist_func {dist_func!r} is not ported yet; 'euclidean', "
-                                  f"'cosine' and 'correlation' are (ROADMAP Queue 1)")
+        raise ValueError(f"Unknown dist_func {dist_func!r}, options: euclidean|pearson|"
+                         f"spearman|cosine|correlation")
     same = y is None
     a = torch.as_tensor(np.asarray(x, np.float64), device=device)
     b = a if same else torch.as_tensor(np.asarray(y, np.float64), device=device)
@@ -93,4 +123,34 @@ def pairwise_distance(x, y=None, dist_func="euclidean", *, device=None) -> np.nd
     return d.cpu().numpy()
 
 
-__all__ = ["NORM_MODES", "dist_to_rbf", "normalize", "pairwise_distance"]
+def euclidean_distance(t1, t2) -> float:
+    """Euclidean distance of two vectors (counterpart: matrix.py:127)."""
+    return float(np.sqrt(np.sum((np.asarray(t1) - np.asarray(t2)) ** 2)))
+
+
+def pearson_distance(a, b) -> float:
+    """One less the Pearson correlation, in float64 (counterpart: matrix.py:132)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    ac, bc = a - a.mean(), b - b.mean()
+    denom = np.sqrt((ac ** 2).sum() * (bc ** 2).sum())
+    return float(1.0 - (ac @ bc) / max(denom, 1e-300))
+
+
+def mean_rank_data(x) -> np.ndarray:
+    """Average-tie ranks, 1-based, scipy's ``"average"`` (counterpart: matrix.py:140)."""
+    x = np.asarray(x)
+    sx = np.sort(x)
+    lo = np.searchsorted(sx, x, side="left")
+    hi = np.searchsorted(sx, x, side="right")
+    return (lo + hi + 1) / 2.0
+
+
+def spearman_distance(x, y) -> float:
+    """One less the Spearman rank correlation (counterpart: matrix.py:149)."""
+    if len(x) != len(y):
+        raise ValueError("x and y must have the same length")
+    return pearson_distance(mean_rank_data(x), mean_rank_data(y))
+
+
+__all__ = ["NORM_MODES", "dist_to_rbf", "euclidean_distance", "mean_rank_data", "normalize",
+           "pairwise_distance", "pearson_distance", "spearman_distance"]

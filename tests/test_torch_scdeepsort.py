@@ -383,7 +383,17 @@ def test_port_imports_no_jax():
         "        'dance_tpu_torch.modules.spatial.spatial_domain.EfNST',\n"
         "        'dance_tpu_torch.modules.single_modality.imputation.scgnn2',\n"
         "        'dance_tpu_torch.transforms.spatial_feature',\n"
-        "        'dance_tpu_torch.transforms.graph.spatial_graph'} <= set(names)\n"
+        "        'dance_tpu_torch.transforms.graph.spatial_graph',\n"
+        "        'dance_tpu_torch.ops.linear_model', 'dance_tpu_torch.ops.forest',\n"
+        "        'dance_tpu_torch.ops.nmf', 'dance_tpu_torch.transforms.stats',\n"
+        "        'dance_tpu_torch.transforms.scn_feature',\n"
+        "        'dance_tpu_torch.modules.single_modality.cell_type_annotation.svm',\n"
+        "        'dance_tpu_torch.modules.single_modality.cell_type_annotation.celltypist',\n"
+        "        'dance_tpu_torch.modules.single_modality.cell_type_annotation.singlecellnet',\n"
+        "        'dance_tpu_torch.modules.single_modality.imputation.magic',\n"
+        "        'dance_tpu_torch.modules.spatial.cell_type_deconvo.spotlight',\n"
+        "        'dance_tpu_torch.modules.spatial.cell_type_deconvo.spatialdecon',\n"
+        "        'dance_tpu_torch.modules.spatial.cell_type_deconvo.card'} <= set(names)\n"
         "from dance_tpu_torch.modules.multi_modality.predict_modality import (\n"
         "    BabelWrapper, CMAE, MMVAE, ScMoGCNWrapper)\n"
         "from dance_tpu_torch.modules.multi_modality.match_modality import CMAE, MMVAE\n"
@@ -393,7 +403,13 @@ def test_port_imports_no_jax():
         "    DCCA, JAEWrapper, ScMoGCNWrapper, scMVAE)\n"
         "from dance_tpu_torch.modules.spatial.spatial_domain import (\n"
         "    EfNsSTRunner, SpaGCN, StKmeans, StLouvain, sme_preprocess)\n"
-        "from dance_tpu_torch.modules.single_modality.imputation import ScGNN2\n"
+        "from dance_tpu_torch.modules.single_modality.imputation import MAGIC, ScGNN2\n"
+        "from dance_tpu_torch.modules.single_modality.cell_type_annotation import (\n"
+        "    SVM, Celltypist, SingleCellNet, singlecellnet_preprocess, svm_preprocess)\n"
+        "from dance_tpu_torch.modules.spatial.cell_type_deconvo import (\n"
+        "    Card, SPOTlight, SpatialDecon, card_preprocess)\n"
+        "from dance_tpu_torch.transforms import (CellGiottoTopicProfile, CellTypeNums,\n"
+        "    FilterGenesCommon, GeneStats, SCNFeature)\n"
         "from dance_tpu_torch.transforms import (FilterGenesMatch, morphology_feature_cnn,\n"
         "    sme_feature, sme_graph, spagcn_graph)\n"
         "bad = {'jax', 'flax', 'optax', 'sklearn', 'pandas', 'h5py', 'yaml', 'dance_tpu'}\n"

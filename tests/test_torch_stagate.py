@@ -96,8 +96,12 @@ def test_radius_graph_and_pairwise_distance_match_jax():
     np.testing.assert_allclose(pairwise_distance(xy) ** 2, jpairwise_distance(xy) ** 2,
                                rtol=1e-5, atol=1e-3)
     _csr_equal(tnb.radius_graph(xy, 1.5), jnb.radius_graph(xy, 1.5))
-    with pytest.raises(NotImplementedError, match="euclidean"):
-        pairwise_distance(xy, dist_func="pearson")
+    # Pearson is ported since the classical-heads slice (its own tests are in
+    # test_torch_deconvo_classic.py); an unknown metric raises as in JAX
+    np.testing.assert_allclose(pairwise_distance(xy, dist_func="pearson"),
+                               jpairwise_distance(xy, dist_func="pearson"), rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="euclidean"):
+        pairwise_distance(xy, dist_func="minkowski")
 
 
 @pytest.mark.parametrize("model", ["radius", "knn"])
