@@ -21,20 +21,34 @@ printed only when every phase passed):
    torch/CUDA versions, and builds the CUDA kernels of
    ``dance_tpu_torch/csrc`` with nvcc for sm_90a (timed).
 2. scDeepSort at bench width, with every kernel launch count set to 0 just
-   before it: a 12,000-cell x 2,000-gene expression matrix at density 0.025
-   -> ``weighted_feature_pca`` (k = 256) -> ``Graph.from_cell_feature_matrix``
-   -> ``ScDeepSort(dim_in=256, dim_hid=256, num_layers=2).fit(epochs=5,
-   val_ratio=0.2, use_bsr=True)`` on cuda -> ``predict``. Checks finite
-   losses, output shapes and probabilities, and that the ``bsr_spmm`` kernel
-   ran at least 4 x epochs times.
+   before each fit: a 12,000-cell x 2,000-gene expression matrix at density
+   0.025 -> ``weighted_feature_pca`` (k = 256) ->
+   ``Graph.from_cell_feature_matrix`` -> ``ScDeepSort(dim_in=256,
+   dim_hid=256, num_layers=2).fit(epochs=5, val_ratio=0.2, use_bsr=True)``
+   on cuda -> ``predict``; then the same fit with
+   ``bsr_dtype=torch.bfloat16``. Checks finite losses, output shapes and
+   probabilities, and that the ``bsr_spmm`` kernel ran at least 4 x epochs
+   times (in bf16 in the second fit); prints each fit's median epoch, losses,
+   validation accuracies and peak memory, and the first-epoch loss gap of
+   bf16 to float32 (finite; not bounded).
 3. Each SpMM kernel against its plain PyTorch version on the bench tiling
-   (d = 256): ``bsr_spmm`` on A and on its transpose, ``bsr_sddmm``; the max
-   error of each under its stated bound; median times of kernel and plain
-   version (CUDA events, synchronised around each run: a call's host work
-   counts), and of the kernel over 10 calls queued back to back (its
-   device time, ``stream_ms``).
+   (d = 256): ``bsr_spmm`` on A and on its transpose, in float32 and bf16
+   (``compute_dtype``; the plain version on the same rounded operands),
+   ``bsr_sddmm`` in float32 and bf16; the max error of each under its
+   stated bound; median times of kernel and plain version (CUDA events,
+   synchronised around each run: a call's host work counts), of the kernel
+   over 10 calls queued back to back (``stream_ms``) and, for the bf16 SpMM
+   and both SDDMMs, the device time of its kernels (``device_ms``); two runs
+   bit-equal; the bounds (#2's on every stored slot, which it writes) and
+   the library calls (``sparse_bsr_tensor @``, ``sampled_addmm``; ``null``
+   where torch refuses bf16).
+3b. Three gradient steps through ``bsr_spmm_ad`` with trainable tiles on the
+   bench tiling, in float32 and in bf16, counts set to 0 just before: each
+   backward runs ``bsr_sddmm`` for dA and ``bsr_spmm`` on Aᵀ for dB, both
+   held against their plain versions; ``bsr_sddmm`` must launch.
 4. scDeepSort on a small graph, fitted on the card and on the CPU (the plain
-   versions) from the same seed: losses and probabilities must agree.
+   versions) from the same seed, in float32 and in bf16: losses and
+   probabilities must agree.
 5. STAGATE at its published width, counts set to 0 just before it: raw
    Poisson counts of 10,000 spots x 5,000 genes in 7 spatial domains,
    coordinates in [0, 100)^2 -> ``stagate_preprocess`` (seurat_v3 HVGs ->
@@ -334,7 +348,9 @@ the bytes of its inputs and outputs, each counted once, over 3.35 TB/s, for
 the inputs of its timing (H100 SXM data sheet). The operations are counted
 on the edges (the nonzero slots), not on the stored tiles' slots, which are
 mostly empty: 2 per multiply-add (or multiply-max) of an edge and a feature
-column, so 2 nnz d for #1-#4 and #6 and 4 nnz d for #5 (two products). The
+column, so 2 nnz d for #1, #3, #4 and #6 and 4 nnz d for #5 (two products).
+#2 writes every slot of every stored tile, each a d-long dot product, so
+its operations are counted on the slots: 2 x tiles x 128² x d. The
 bytes are what the call must move: the tiles for a kernel that reads them
 (#1, #6; #2 writes tiles), the edge bits (#3/#4) or edge lists (#5) for one
 that reads those instead, and the features in and out. The ``bound:`` line
@@ -342,6 +358,8 @@ prints the edge count it was computed from. For the products (#1-#5) the
 compute peak is the faster of two ways the card computes them at float32
 accuracy: IEEE float32 on the CUDA cores (67 TFLOP/s) or 3xTF32 on the
 tensor cores (495 / 3 = 165 TFLOP/s: three TF32 products per float32 one);
+a bf16 product (``compute_dtype``) takes the bf16 peak, 989 TFLOP/s, with
+its operands' bytes at two a value;
 the masked max (#6) has no tensor-core form and takes the CUDA cores'. The
 ``bound:`` line names the peak that set it and the CUDA-core bound beside
 it. For the kernels that run a work schedule (``bsr_spmm``,
@@ -357,8 +375,10 @@ prints the device time of the kernel's own launches (torch.profiler), as
 there is one (BSR ``@`` for the SpMM, ``sampled_addmm`` over the tiles'
 pattern for the SDDMM); the port never calls them. The SpMM's entry carries
 the other paths' tilings beside scDeepSort's (``graphsc``, ``sctag``,
-``scdsc``, ``scmogcn``, ``dstg``, ``stdgcn``, ``scheteronet``) and its
-launches by path.
+``scdsc``, ``scmogcn``, ``dstg``, ``stdgcn``, ``scheteronet``), its bf16
+instantiation (``bf16``, with its own launches) and its launches by path;
+the SDDMM's carries ``f32`` and ``bf16`` results, its launches those of
+phase 3b.
 
 PyTorch's TF32 is off for every phase (the plain versions and cuBLAS run
 IEEE float32); the tensor-core kernels hold float32 accuracy by 3xTF32.
@@ -475,8 +495,10 @@ SG_EPOCHS, SG_DIM, EF_COLS, EF_NEIGHBORS, AUG_SPOTS, SP_SMALL = 200, 50, 232, 8,
 # trees and pseudo-cells; SpatialDecon's steps (its default); the small card-against-CPU size
 CL_CELLS, CL_TEST, CL_GENES, CL_TYPES, CL_SMALL = 10000, 2000, 2000, 8, 300
 SVM_DIM, SVM_RFF_CAP, SCN_TREES, SCN_RAND, SD_ITERS = 400, 5000, 100, 100, 500
-# H100 SXM: FP32 outside the tensor cores, TF32 dense on the tensor cores, HBM3
-PEAK_FLOPS, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
+# H100 SXM: FP32 outside the tensor cores, TF32 and bf16 dense on the tensor cores, HBM3
+PEAK_FLOPS, PEAK_TF32, PEAK_BF16, PEAK_BYTES = 67e12, 495e12, 989e12, 3.35e12
+# differentiable steps through bsr_spmm_ad with trainable tiles (phase 3b), each dtype
+AD_STEPS = 3
 PALLAS = "dance_tpu/ops/pallas_kernels.py"
 KERNELS = ("bsr_spmm", "bsr_sddmm", "bsr_gat", "bsr_gat_stats", "bsr_gat_grads",
            "bsr_spmm_max")
@@ -581,17 +603,29 @@ def compare(name: str, kernel, plain, bound: float = REL_BOUND) -> dict:
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "stream_ms": stream_ms}
 
 
+# the wrappers that count their bf16 launches (among all their launches) too
+BF16_KERNELS = ("bsr_spmm", "bsr_sddmm")
+
+
 def reset_launches():
     from dance_tpu_torch.ops import bsr
 
     for name in KERNELS:
         getattr(bsr, name).launches = 0
+    for name in BF16_KERNELS:
+        getattr(bsr, name).launches_bf16 = 0
 
 
 def read_launches() -> dict:
     from dance_tpu_torch.ops import bsr
 
     return {name: getattr(bsr, name).launches for name in KERNELS}
+
+
+def read_bf16_launches() -> dict:
+    from dance_tpu_torch.ops import bsr
+
+    return {name: getattr(bsr, name).launches_bf16 for name in BF16_KERNELS}
 
 
 def edge_count(a) -> int:
@@ -602,26 +636,31 @@ def edge_count(a) -> int:
 
 
 def roofline(edges: int, ops_per_edge_column: int, d: int, tensors,
-             tensor_cores: bool = True) -> dict:
+             tensor_cores: bool = True, bf16: bool = False, what: str = "edges") -> dict:
     """The least time for ``ops_per_edge_column`` operations per edge and
     feature column of ``edges`` edges at width ``d``, on ``tensors`` (the
-    inputs and outputs, each moved once): the larger of the operations over
-    the compute peak and the bytes over the HBM rate. With ``tensor_cores``
-    (a product) the compute peak is the faster of float32 on the CUDA cores
-    and 3xTF32 on the tensor cores; without (the masked max) the CUDA
-    cores'."""
+    inputs and outputs, each moved once, in the types they have): the larger
+    of the operations over the compute peak and the bytes over the HBM rate.
+    With ``tensor_cores`` (a product) the compute peak is the faster of
+    float32 on the CUDA cores and 3xTF32 on the tensor cores, or the bf16
+    peak for a product of bf16 operands (``bf16``); without (the masked max)
+    the CUDA cores'. ``what`` names what ``edges`` counts (``"slots"``: every
+    slot of the stored tiles, where the function writes every slot)."""
     flop = ops_per_edge_column * edges * d
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     fp32_ms, bytes_ms = flop / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    tf32x3_ms = 3 * flop / PEAK_TF32 * 1e3
-    ops_ms = min(fp32_ms, tf32x3_ms) if tensor_cores else fp32_ms
-    peak = "tf32x3" if ops_ms < fp32_ms else "fp32"
-    print(f"  bound: {edges} edges x {ops_per_edge_column} x d={d} = {flop / 1e9:.4f} GFLOP "
-          f"-> fp32 {fp32_ms!r} ms"
-          + (f", tf32x3 {tf32x3_ms!r} ms" if tensor_cores else "")
+    tf32x3_ms, bf16_ms = 3 * flop / PEAK_TF32 * 1e3, flop / PEAK_BF16 * 1e3
+    if bf16:
+        ops_ms, peak = bf16_ms, "bf16"
+    else:
+        ops_ms = min(fp32_ms, tf32x3_ms) if tensor_cores else fp32_ms
+        peak = "tf32x3" if ops_ms < fp32_ms else "fp32"
+    print(f"  bound: {edges} {what} x {ops_per_edge_column} x d={d} = {flop / 1e9:.4f} GFLOP "
+          f"-> " + (f"bf16 {bf16_ms!r} ms" if bf16 else f"fp32 {fp32_ms!r} ms"
+                    + (f", tf32x3 {tf32x3_ms!r} ms" if tensor_cores else ""))
           + f"; {nbytes / 1e6:.1f} MB -> {bytes_ms!r} ms; set by "
           + (peak if ops_ms >= bytes_ms else "bytes")
-          + f"; fp32 bound {max(fp32_ms, bytes_ms)!r} ms", flush=True)
+          + ("" if bf16 else f"; fp32 bound {max(fp32_ms, bytes_ms)!r} ms"), flush=True)
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
@@ -753,6 +792,54 @@ def protein_targets(counts, n_proteins: int = MM_PROTEINS):
     return (np.log1p(counts) @ w / counts.shape[1] * 4).astype(np.float32)
 
 
+def scdeepsort_fit(name: str, graph, labels, cuda, bsr_dtype=None) -> tuple:
+    """Fit and predict scDeepSort at bench width on the card with every launch
+    count set to 0 just before; check and print it. Returns (model, the
+    launches, the bf16 launches)."""
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.modules.single_modality.cell_type_annotation import ScDeepSort
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    model = ScDeepSort(dim_in=DIM, dim_hid=DIM, num_layers=2, seed=0, device=cuda)
+    t0 = time.perf_counter()
+    model.fit(graph, labels, epochs=EPOCHS, val_ratio=0.2, use_bsr=True, bsr_dtype=bsr_dtype)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = model.predict(graph)
+    probs = model.predict_proba(graph)
+    t_pred = time.perf_counter() - t0
+    launches, bf16 = read_launches(), read_bf16_launches()
+
+    losses = [h["loss"] for h in model.history]
+    epoch_s = [h["seconds"] for h in model.history]
+    print(f"{name}: fit {t_fit:.3f} s, predict {t_pred:.3f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+    print(f"{name} losses {losses}", flush=True)
+    print(f"{name} val acc {[h['val_acc'] for h in model.history]}", flush=True)
+    print(f"{name} epoch seconds {epoch_s}; after the first epoch: median "
+          f"{statistics.median(epoch_s[1:])!r} s/epoch", flush=True)
+    print(f"launches in the {name} path: {launches}, bf16 among them {bf16}", flush=True)
+    if len(losses) != EPOCHS or not np.isfinite(losses).all():
+        raise AssertionError(f"{name}: non-finite or missing losses: {losses}")
+    if pred.shape != (N_CELLS,) or probs.shape != (N_CELLS, N_LABELS):
+        raise AssertionError(f"{name}: prediction shapes {pred.shape}, {probs.shape}")
+    if not (np.isfinite(probs).all() and np.allclose(probs.sum(1), 1.0, atol=1e-4)):
+        raise AssertionError(f"{name}: predict_proba rows are not probabilities")
+    if not ((pred >= -1) & (pred < N_LABELS)).all():
+        raise AssertionError(f"{name}: predictions out of range")
+    if launches["bsr_spmm"] < 4 * EPOCHS:
+        raise AssertionError(f"{name}: bsr_spmm launched {launches['bsr_spmm']} times, "
+                             f"fewer than 4 x {EPOCHS} epochs")
+    if bsr_dtype is not None and bf16["bsr_spmm"] < 4 * EPOCHS:
+        raise AssertionError(f"{name}: the bf16 bsr_spmm launched {bf16['bsr_spmm']} times, "
+                             f"fewer than 4 x {EPOCHS} epochs")
+    return model, launches, bf16
+
+
 def scdeepsort_phases(cuda) -> dict:
     """Phases 2-4; returns the kernel entries' numbers and launch counts."""
     import numpy as np
@@ -764,61 +851,45 @@ def scdeepsort_phases(cuda) -> dict:
     from dance_tpu_torch.ops import bsr
     from dance_tpu_torch.transforms import weighted_feature_pca
 
-    # -- 2. the main path at bench width -----------------------------------
+    bf16 = torch.bfloat16
+    # -- 2. the main path at bench width, in float32 and in bf16 -----------
     rng = np.random.default_rng(0)
     expr = sp.random(N_CELLS, N_GENES, density=DENSITY, random_state=0, dtype=np.float32,
                      format="csr")
     labels = rng.integers(0, N_LABELS, N_CELLS)
     reset_launches()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cell_feat, gene_feat = weighted_feature_pca(expr, expr, DIM, device=cuda)
     t_pca = time.perf_counter() - t0
     t0 = time.perf_counter()
     graph = Graph.from_cell_feature_matrix(expr, cell_feat, gene_feat)
     t_graph = time.perf_counter() - t0
-    auto_pick("scDeepSort", bsr.resolve_adj_format("auto", graph.adj, device=cuda,
-                                                   reorder=False))
-    model = ScDeepSort(dim_in=DIM, dim_hid=DIM, num_layers=2, seed=0, device=cuda)
-    t0 = time.perf_counter()
-    model.fit(graph, labels, epochs=EPOCHS, val_ratio=0.2, use_bsr=True)
-    torch.cuda.synchronize()
-    t_fit = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pred = model.predict(graph)
-    probs = model.predict_proba(graph)
-    t_pred = time.perf_counter() - t0
-    launches = read_launches()
-
-    losses = [h["loss"] for h in model.history]
-    epoch_s = [h["seconds"] for h in model.history]
-    print(f"scDeepSort: pca {t_pca:.3f} s, graph {t_graph:.3f} s "
-          f"({graph.num_nodes} nodes, {graph.num_edges} edges), fit {t_fit:.3f} s, "
-          f"predict {t_pred:.3f} s, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
-    print(f"losses {losses}", flush=True)
-    print(f"val acc {[h['val_acc'] for h in model.history]}", flush=True)
-    print(f"epoch seconds {epoch_s}; after the first epoch: median "
-          f"{statistics.median(epoch_s[1:])!r} s/epoch", flush=True)
-    print(f"launches in the scDeepSort path: {launches}", flush=True)
+    print(f"scDeepSort: pca {t_pca:.3f} s, graph {t_graph:.3f} s ({graph.num_nodes} nodes, "
+          f"{graph.num_edges} edges)", flush=True)
     if cell_feat.shape != (N_CELLS, DIM) or gene_feat.shape != (N_GENES, DIM) \
             or not (np.isfinite(cell_feat).all() and np.isfinite(gene_feat).all()):
         raise AssertionError("weighted_feature_pca: wrong shape or non-finite features")
-    if len(losses) != EPOCHS or not np.isfinite(losses).all():
-        raise AssertionError(f"non-finite or missing losses: {losses}")
-    if pred.shape != (N_CELLS,) or probs.shape != (N_CELLS, N_LABELS):
-        raise AssertionError(f"prediction shapes {pred.shape}, {probs.shape}")
-    if not (np.isfinite(probs).all() and np.allclose(probs.sum(1), 1.0, atol=1e-4)):
-        raise AssertionError("predict_proba rows are not probabilities")
-    if not ((pred >= -1) & (pred < N_LABELS)).all():
-        raise AssertionError("predictions out of range")
-    if launches["bsr_spmm"] < 4 * EPOCHS:
-        raise AssertionError(f"bsr_spmm launched {launches['bsr_spmm']} times, "
-                             f"fewer than 4 x {EPOCHS} epochs")
+    auto_pick("scDeepSort", bsr.resolve_adj_format("auto", graph.adj, device=cuda,
+                                                   reorder=False))
+    model, launches, _ = scdeepsort_fit("scDeepSort", graph, labels, cuda)
+    history = model.history
+    del model  # its device graph would count in the bf16 fit's peak memory
+    model16, _, launches16 = scdeepsort_fit("scDeepSort bf16", graph, labels, cuda,
+                                            bsr_dtype=bf16)
+    epochs = [statistics.median(h["seconds"] for h in hist[1:])
+              for hist in (history, model16.history)]
+    gap = abs(model16.history[0]["loss"] - history[0]["loss"])
+    print(f"scDeepSort bf16 against float32: median epoch {epochs[1]!r} s against "
+          f"{epochs[0]!r} s ({epochs[1] / epochs[0]!r}x); first-epoch loss gap {gap!r} (the "
+          f"same seed and weights; printed, not bounded)", flush=True)
+    if not np.isfinite(gap):
+        raise AssertionError("the bf16 fit's first loss is not finite")
+    del model16
 
     # -- 3. kernels against their plain versions on the bench tiling -------
     a = graph.to_adaptive_bsr(device=cuda).bsr
     at = bsr.bsr_transpose(a)
+    nnz, slots = edge_count(a), a.nb * a.block * a.block
     print(f"bench tiling: {a.nb} tiles of {a.block}x{a.block}, {a.shape[0] // a.block} "
           f"block-rows, {a.nb * a.block * a.block * 4 / 1e6:.1f} MB, "
           f"{2 * a.nb * a.block * a.block * DIM / 1e9:.2f} GFLOP per SpMM at d={DIM}",
@@ -830,29 +901,86 @@ def scdeepsort_phases(cuda) -> dict:
                    lambda: bsr.bsr_spmm_reference(a, b))
     spmm_t = compare("bsr_spmm At@G", lambda: bsr.bsr_spmm(at, g),
                      lambda: bsr.bsr_spmm_reference(at, g))
-    sddmm = compare("bsr_sddmm", lambda: bsr.bsr_sddmm(a.block_rows, a.block_cols, g, b),
-                    lambda: bsr.bsr_sddmm_reference(a.block_rows, a.block_cols, g, b))
     spmm["max_abs_err"] = max(spmm["max_abs_err"], spmm_t["max_abs_err"])
     work_launch("bsr_spmm A@B", a, "spmm", DIM)
     work_launch("bsr_spmm At@G", at, "spmm", DIM)
     bit_equal("bsr_spmm A@B", lambda: bsr.bsr_spmm(a, b))
     bit_equal("bsr_spmm At@G", lambda: bsr.bsr_spmm(at, g))
     spmm["transpose_ms"] = spmm_t["ms"]
-    nnz = edge_count(a)
     out = bsr.bsr_spmm(a, b)
     spmm.update(roofline(nnz, 2, DIM, (a.tiles, a.block_cols, a.rowptr, b, out)))
     spmm["library_ms"] = library("bsr_spmm: torch.sparse_bsr_tensor @ b", a, b, out)
-    dtiles = bsr.bsr_sddmm(a.block_rows, a.block_cols, g, b)
-    sddmm.update(roofline(nnz, 2, DIM, (a.block_rows, a.block_cols, g, b, dtiles)))
+
+    # bf16 #1 against its plain version on the same rounded operands
+    s16 = compare("bsr_spmm bf16 A@B", lambda: bsr.bsr_spmm(a, b, compute_dtype=bf16),
+                  lambda: bsr.bsr_spmm_reference(a, b, bf16))
+    s16_t = compare("bsr_spmm bf16 At@G", lambda: bsr.bsr_spmm(at, g, compute_dtype=bf16),
+                    lambda: bsr.bsr_spmm_reference(at, g, bf16))
+    s16["max_abs_err"] = max(s16["max_abs_err"], s16_t["max_abs_err"])
+    s16["transpose_ms"] = s16_t["ms"]
+    work_launch("bsr_spmm bf16 A@B", a, "spmm_bf16", DIM)
+    bit_equal("bsr_spmm bf16 A@B", lambda: bsr.bsr_spmm(a, b, compute_dtype=bf16))
+    bit_equal("bsr_spmm bf16 At@G", lambda: bsr.bsr_spmm(at, g, compute_dtype=bf16))
+    s16["device_ms"] = device_ms(lambda: bsr.bsr_spmm(a, b, compute_dtype=bf16),
+                                 ("bsr_spmm_bf16_kernel", "bsr_spmm_reduce_kernel"))
+    out16 = bsr.bsr_spmm(a, b, compute_dtype=bf16)
+    b16 = b.to(bf16)
+    s16.update(roofline(nnz, 2, DIM, (bsr.bsr_compute_tiles(a, bf16), a.block_cols, a.rowptr,
+                                      b16, out16), bf16=True))
+    print("  (the same work counted on every slot of the stored tiles:)", flush=True)
+    s16["slot_bound_ms"] = roofline(slots, 2, DIM, (bsr.bsr_compute_tiles(a, bf16),
+                                                    a.block_cols, a.rowptr, b16, out16),
+                                    bf16=True, what="slots")["bound_ms"]
+    s16["library_ms"] = library("bsr_spmm bf16: torch.sparse_bsr_tensor (bf16) @ b (bf16)", a,
+                                b, out16, dtype=bf16)
+    print(f"bsr_spmm bf16 A@B: {s16['ms']!r} ms against float32 {spmm['ms']!r} ms "
+          f"({s16['ms'] / spmm['ms']!r}x); back to back {s16['stream_ms']!r} against "
+          f"{spmm['stream_ms']!r}", flush=True)
+    spmm["bf16"] = s16
+
+    # #2 in float32 and in bf16, bounded on every slot of the stored tiles
+    sddmm = {}
     pattern, to_tiles = tile_pattern_csr(a)
-    bt = b.T.contiguous()
-    sampled = to_tiles(torch.sparse.sampled_addmm(pattern, g, bt, beta=0.0).values())
-    print(f"library bsr_sddmm: torch.sparse.sampled_addmm over the tiles' pattern "
-          f"({pattern._nnz()} entries), max |sampled - kernel| "
-          f"{float((sampled - dtiles).abs().max())!r}", flush=True)
-    sddmm["library_ms"] = median_ms(lambda: torch.sparse.sampled_addmm(pattern, g, bt, beta=0.0))
-    print(f"time bsr_sddmm library: {sddmm['library_ms']!r} ms", flush=True)
-    del pattern, sampled
+    for label, dt in (("f32", None), ("bf16", bf16)):
+        res = compare(f"bsr_sddmm {label}",
+                      lambda: bsr.bsr_sddmm(a.block_rows, a.block_cols, g, b, compute_dtype=dt),
+                      lambda: bsr.bsr_sddmm_reference(a.block_rows, a.block_cols, g, b, dt))
+        bit_equal(f"bsr_sddmm {label}",
+                  lambda: bsr.bsr_sddmm(a.block_rows, a.block_cols, g, b, compute_dtype=dt))
+        res["device_ms"] = device_ms(
+            lambda: bsr.bsr_sddmm(a.block_rows, a.block_cols, g, b, compute_dtype=dt),
+            ("bsr_sddmm_kernel",))
+        dtiles = bsr.bsr_sddmm(a.block_rows, a.block_cols, g, b, compute_dtype=dt)
+        ins = (g, b) if dt is None else (g.to(dt), b.to(dt))
+        res.update(roofline(slots, 2, DIM, (a.block_rows, a.block_cols, *ins, dtiles),
+                            bf16=dt is not None, what="slots"))
+        print("  (counted on the edges only, as earlier PRs did:)", flush=True)
+        res["edge_bound_ms"] = roofline(nnz, 2, DIM, (a.block_rows, a.block_cols, *ins, dtiles),
+                                        bf16=dt is not None)["bound_ms"]
+        gl, bl = ins
+        try:
+            sampled = to_tiles(torch.sparse.sampled_addmm(
+                pattern.to(gl.dtype), gl, bl.T.contiguous(), beta=0.0).values())
+        except (RuntimeError, NotImplementedError, TypeError) as exc:
+            print(f"library bsr_sddmm {label}: torch.sparse.sampled_addmm refuses it: {exc}",
+                  flush=True)
+            res["library_ms"] = None
+        else:
+            print(f"library bsr_sddmm {label}: torch.sparse.sampled_addmm over the tiles' "
+                  f"pattern ({pattern._nnz()} entries), max |sampled - kernel| "
+                  f"{float((sampled.float() - dtiles).abs().max())!r}", flush=True)
+            pat, blt = pattern.to(gl.dtype), bl.T.contiguous()
+            res["library_ms"] = median_ms(
+                lambda: torch.sparse.sampled_addmm(pat, gl, blt, beta=0.0))
+            print(f"time bsr_sddmm {label} library: {res['library_ms']!r} ms", flush=True)
+            del sampled, pat, blt
+        sddmm[label] = res
+        del dtiles, ins
+    del pattern
+    sddmm_entry = {**sddmm["f32"], "max_abs_err": max(r["max_abs_err"] for r in sddmm.values()),
+                   "f32": sddmm["f32"], "bf16": sddmm["bf16"]}
+    sddmm_launches = differentiable_tiles(a, cuda)
+    del a, at, b, g, out, out16, b16
 
     # -- 4. a small graph: the card against the CPU's plain versions --------
     srng = np.random.default_rng(1)
@@ -862,28 +990,79 @@ def scdeepsort_phases(cuda) -> dict:
                                            srng.random((300, 32), dtype=np.float32),
                                            srng.random((140, 32), dtype=np.float32))
     small_labels = srng.integers(0, 5, 300)
-    runs = {}
-    for label, device in (("cpu", torch.device("cpu")), ("cuda", cuda)):
-        m = ScDeepSort(dim_in=32, dim_hid=64, num_layers=2, seed=0, device=device)
-        m.fit(small, small_labels, epochs=3, lr=1e-2, use_bsr=True)
-        runs[label] = ([h["loss"] for h in m.history], m.predict_proba(small))
-    loss_gap = float(np.max(np.abs(np.subtract(runs["cuda"][0], runs["cpu"][0]))))
-    prob_gap = float(np.max(np.abs(runs["cuda"][1] - runs["cpu"][1])))
-    print(f"small graph, card vs CPU: max loss gap {loss_gap!r}, max probability gap "
-          f"{prob_gap!r} (bounds 1e-4, 1e-4)", flush=True)
-    if not (loss_gap <= 1e-4 and prob_gap <= 1e-4):
-        raise AssertionError("the card disagrees with the CPU on the small graph")
+    for name, dt in (("float32", None), ("bf16", bf16)):
+        runs = {}
+        for label, device in (("cpu", torch.device("cpu")), ("cuda", cuda)):
+            m = ScDeepSort(dim_in=32, dim_hid=64, num_layers=2, seed=0, device=device)
+            m.fit(small, small_labels, epochs=3, lr=1e-2, use_bsr=True, bsr_dtype=dt)
+            runs[label] = ([h["loss"] for h in m.history], m.predict_proba(small))
+        loss_gap = float(np.max(np.abs(np.subtract(runs["cuda"][0], runs["cpu"][0]))))
+        prob_gap = float(np.max(np.abs(runs["cuda"][1] - runs["cpu"][1])))
+        print(f"small graph {name}, card vs CPU: max loss gap {loss_gap!r}, max probability "
+              f"gap {prob_gap!r} (bounds 1e-4, 1e-4)", flush=True)
+        if not (loss_gap <= 1e-4 and prob_gap <= 1e-4):
+            raise AssertionError(f"the card disagrees with the CPU on the small graph ({name})")
+    spmm["bf16"]["launches"] = launches16["bsr_spmm"]
     return {"bsr_spmm": (spmm, launches["bsr_spmm"]),
-            "bsr_sddmm": (sddmm, launches["bsr_sddmm"])}
+            "bsr_sddmm": (sddmm_entry, sddmm_launches)}
 
 
-def library(name: str, a, b, out) -> float:
-    """Time ``torch.sparse_bsr_tensor(...) @ b``, the PyTorch call that
-    computes ``bsr_spmm``'s function, after checking it against ``out``."""
+def differentiable_tiles(a, cuda) -> int:
+    """Phase 3b: AD_STEPS gradient steps through ``bsr_spmm_ad`` with
+    trainable tiles on the bench tiling ``a``, in float32 and in bf16, launch
+    counts set to 0 just before: each backward runs #2 for dA and #1 on the
+    transposed tiles for dB. dA and dB are held against the plain versions of
+    the same backward (``bsr_sddmm_reference``, ``bsr_spmm_reference`` on the
+    transpose) on the same inputs. Returns #2's launches."""
     import torch
 
-    mat = torch.sparse_bsr_tensor(a.rowptr, a.block_cols, a.tiles, size=a.shape)
-    err = float((mat @ b - out).abs().max())
+    from dance_tpu_torch.ops import bsr
+
+    gen = torch.Generator().manual_seed(3)
+    w = torch.randn((a.shape[0], DIM), generator=gen).to(cuda)
+    b0 = torch.randn((a.shape[1], DIM), generator=gen).to(cuda)
+    reset_launches()
+    worst = 0.0
+    for label, dt in (("f32", None), ("bf16", torch.bfloat16)):
+        tiles = a.tiles.detach().clone().requires_grad_(True)
+        mat = bsr.bsr_like(a, tiles)
+        b = b0.clone().requires_grad_(True)
+        for step in range(AD_STEPS):
+            out = bsr.bsr_spmm_ad(mat, b, compute_dtype=dt)
+            tiles.grad = b.grad = None
+            (out * w).sum().backward()
+            with torch.no_grad():
+                d_tiles = bsr.bsr_sddmm_reference(a.block_rows, a.block_cols, w, b, dt)
+                d_b = bsr.bsr_spmm_reference(bsr.bsr_transpose(mat), w, dt)
+                worst = max(worst, check(f"bsr_spmm_ad {label} step {step} (dA, dB)",
+                                         [tiles.grad, b.grad], [d_tiles, d_b]))
+                tiles -= 1e-3 * tiles.grad
+                b -= 1e-3 * b.grad
+        del tiles, mat, b, out, d_tiles, d_b
+    launches, bf16 = read_launches(), read_bf16_launches()
+    print(f"phase 3b, {AD_STEPS} steps a dtype with trainable tiles: launches {launches}, bf16 "
+          f"among them {bf16}; max |kernel - plain| {worst!r}", flush=True)
+    if launches["bsr_sddmm"] < 2 * AD_STEPS or bf16["bsr_sddmm"] < AD_STEPS \
+            or bf16["bsr_spmm"] < 2 * AD_STEPS:
+        raise AssertionError(f"phase 3b: too few launches of #2 or of bf16 #1: {launches}, {bf16}")
+    return launches["bsr_sddmm"]
+
+
+def library(name: str, a, b, out, dtype=None):
+    """Time ``torch.sparse_bsr_tensor(...) @ b``, the PyTorch call that
+    computes ``bsr_spmm``'s function, after checking it against ``out``;
+    with ``dtype`` (bf16) on the tiles and ``b`` in that type. Where torch
+    refuses the dtype, print its error and return None."""
+    import torch
+
+    tiles = a.tiles if dtype is None else a.tiles.to(dtype)
+    b = b if dtype is None else b.to(dtype)
+    try:
+        mat = torch.sparse_bsr_tensor(a.rowptr, a.block_cols, tiles, size=a.shape)
+        err = float((mat @ b - out).abs().max())
+    except (RuntimeError, NotImplementedError, TypeError) as exc:
+        print(f"library {name}: torch refuses it: {exc}", flush=True)
+        return None
     ms = median_ms(lambda: mat @ b)
     print(f"library {name}: max |library - kernel| {err!r}; {ms!r} ms", flush=True)
     return ms
@@ -4150,10 +4329,12 @@ def main() -> int:
     # d = 256; graph-sc's tiling at d = 200, scTAG's at d = 3000 and 128,
     # scDSC's at d = 512 and 8, scMoGNN's, DSTG's at d = 32 and 8, stdGCN's
     # towers at d = 256 and scHeteroNet's two hops at d = 64 and 128 ride
-    # beside them. The SDDMM is on no main
-    # path (every path's tiles are constants): 0 launches.
+    # beside them, and its bf16 instantiation at d = 256 (``bf16``). Every
+    # main path's tiles are constants, so the SDDMM's launches are phase 3b's
+    # trainable tiles', in float32 and bf16.
     spmm = entries["bsr_spmm"]
     spmm["launches_by_path"] = {"scdeepsort": spmm["launches"],
+                                "scdeepsort_bf16": spmm["bf16"]["launches"],
                                 "graphsc": gsc["graphsc_launches"],
                                 "sctag": clu["sctag_launches"], "scdsc": clu["scdsc_launches"],
                                 "scmogcn": mm["scmogcn_launches"],

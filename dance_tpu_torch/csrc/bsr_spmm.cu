@@ -34,9 +34,26 @@
 // and the dependent mma chains want more warps than 2 blocks of 8 per SM;
 // a layout with fewer instructions per HMMA but 1 block per SM ran slower.
 // wgmma (both operands K-major in shared memory) is the next step.
+//
+// bf16 (`dtt_bsr_spmm_bf16`): the `compute_dtype=jnp.bfloat16` branch of the
+// same TPU kernel (pallas_kernels.py:118-120), which casts the tiles and B
+// and accumulates in float32. Here the wrapper keeps a bf16 copy of the
+// tiles and casts B at every call, its rows padded to a multiple of 8
+// columns (16 bytes). One mma.sync.m16n8k16 bf16 takes the place of three
+// m16n8k8 TF32 products over half the depth, with no split: at the bench
+// tiling a call is still 25.5 GFLOP (0.026 ms at the bf16 peak), and the
+// tile stream halves to ~100 MB, so bytes set its bound (~0.036 ms with B
+// and the float32 output). Same schedule, scratch and chunk-ordered sums
+// as the float32 kernel (two runs bit-equal), the same 3-stage cp.async
+// ring over (128 x 64 A slice, 64 x slab B slice); A fragments by
+// ldmatrix, B fragments by ldmatrix.trans since B is N-major; two k = 16
+// steps summed in the mma, then added in float32 on the CUDA cores
+// (bf16_mma.cuh).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -174,6 +191,125 @@ bsr_spmm_kernel(const float* __restrict__ tiles, const int* __restrict__ bcols,
     }
 }
 
+// The bf16 kernel's stage: a (128 x 64) slice of a tile and (64 x slab) of B.
+constexpr int kBK16 = 64;
+constexpr int kSteps16 = kBlock / kBK16;
+constexpr int kAStride16 = kBK16 + 8;   // 144 bytes = 16 (mod 128): ldmatrix without conflicts
+constexpr int kBStride16 = kSlab + 8;   // 272 bytes, likewise
+constexpr int kStageHalves = kBlock * kAStride16 + kBK16 * kBStride16;
+constexpr size_t kSmemBytes16 = size_t(kStages) * kStageHalves * sizeof(uint16_t);
+
+// bf16 tiles and B (row stride `ldb`, a multiple of 8, columns d..ldb zero);
+// float32 out and scratch as in bsr_spmm_kernel. Warps as there: 4 along the
+// rows (2 m-tiles each), 2 along the columns, each taking the n-tile pairs
+// wn, wn + 2, ... of the slab (one ldmatrix.x4.trans loads a pair).
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+bsr_spmm_bf16_kernel(const uint16_t* __restrict__ tiles, const int* __restrict__ bcols,
+                     const int4* __restrict__ items, const uint16_t* __restrict__ b,
+                     float* __restrict__ out, float* __restrict__ scratch, int d, int ldb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* smem = reinterpret_cast<uint16_t*>(smem_raw);
+  const int ns = tf32x3::n_slabs(d, kSlab), w = tf32x3::slab_width(d, kSlab);
+  const int4 item = items[blockIdx.x / ns];
+  const int n0 = (blockIdx.x % ns) * w;
+  const int nnt = (min(w, d - n0) + 7) / 8;  // live n-tiles of this slab
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wm = warp % kWarpsM, wn = warp / kWarpsM;
+
+  // 16-byte pieces: A rows a_row + 32 i at column a_col, B rows b_row + 16 i
+  // at column b_col
+  const int a_row = tid / (kBK16 / 8), a_col = (tid % (kBK16 / 8)) * 8;
+  const int b_row = tid / (kSlab / 8), b_col = (tid % (kSlab / 8)) * 8;
+  const bool b_live = b_col < w, b_in = n0 + b_col < ldb;
+  auto load = [&](int step, int stage) {
+    const int t = item.y + step / kSteps16, k0 = (step % kSteps16) * kBK16;
+    uint16_t* as = smem + stage * kStageHalves;
+    uint16_t* bs = as + kBlock * kAStride16;
+    const uint16_t* a = tiles + static_cast<size_t>(t) * kBlock * kBlock + k0;
+#pragma unroll
+    for (int i = 0; i < kBlock * kBK16 / 8 / kThreads; ++i) {
+      const int m = a_row + i * (kThreads / (kBK16 / 8));
+      tf32x3::cp_async16(as + m * kAStride16 + a_col, a + m * kBlock + a_col, true);
+    }
+    const uint16_t* bt = b + (static_cast<size_t>(bcols[t]) * kBlock + k0) * ldb + n0;
+    if (b_live) {
+#pragma unroll
+      for (int i = 0; i < kBK16 * kSlab / 8 / kThreads; ++i) {
+        const int k = b_row + i * (kThreads / (kSlab / 8));
+        tf32x3::cp_async16(bs + k * kBStride16 + b_col, b_in ? bt + k * ldb + b_col : b, b_in);
+      }
+    }
+  };
+
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int total = (item.z - item.y) * kSteps16;
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < total) load(i, i);
+    tf32x3::cp_async_commit();
+  }
+  for (int s = 0; s < total; ++s) {
+    tf32x3::cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage s has landed; stage s - 1 is free for step s + 2
+    if (s + kStages - 1 < total) load(s + kStages - 1, (s + kStages - 1) % kStages);
+    tf32x3::cp_async_commit();
+    const uint16_t* as = smem + (s % kStages) * kStageHalves;
+    const uint16_t* bs = as + kBlock * kAStride16;
+#pragma unroll
+    for (int kk = 0; kk < kBK16; kk += 32) {  // two k = 16 steps an add
+      uint32_t af[2][kMT][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+          bf16mma::ldmatrix_x4(af[h][mt], as + ((wm * kMT + mt) * 16 + (lane & 15)) * kAStride16 +
+                                              kk + 16 * h + (lane >> 4) * 8);
+#pragma unroll
+      for (int q = 0; q < kNT / 2; ++q) {
+        const int p = wn + kWarpsN * q;  // n-tiles 2p and 2p + 1
+        if (2 * p < nnt) {
+          uint32_t bf[2][4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            bf16mma::ldmatrix_x4_trans(bf[h], bs + (kk + 16 * h + (lane & 15)) * kBStride16 +
+                                                  (2 * p + (lane >> 4)) * 8);
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            bf16mma::mma2(acc[mt][2 * q], af[0][mt], bf[0][0], bf[0][1], af[1][mt], bf[1][0],
+                          bf[1][1]);
+            bf16mma::mma2(acc[mt][2 * q + 1], af[0][mt], bf[0][2], bf[0][3], af[1][mt],
+                          bf[1][2], bf[1][3]);
+          }
+        }
+      }
+    }
+  }
+  tf32x3::cp_async_wait<0>();
+
+  float* dst = item.w < 0 ? out + static_cast<size_t>(item.x) * kBlock * d
+                          : scratch + static_cast<size_t>(item.w) * kBlock * d;
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int q = 0; q < kNT; ++q) {
+      const int j = 2 * (wn + kWarpsN * (q / 2)) + q % 2, col = n0 + j * 8 + 2 * t4;
+      const int row = (wm * kMT + mt) * 16 + g;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row + (e / 2) * 8, c = col + e % 2;
+        if (j < nnt && c < d) dst[static_cast<size_t>(r) * d + c] = acc[mt][q][e];
+      }
+    }
+}
+
 // rows[i] = {block-row, first scratch slot, chunks}: out's block-row is the
 // sum of its chunks' partials, added in chunk order.
 __global__ void __launch_bounds__(256)
@@ -223,6 +359,35 @@ extern "C" int dtt_bsr_spmm_f32(const float* tiles, const int* bcols, const int*
   return static_cast<int>(cudaGetLastError());
 }
 
+// The same for bf16 `tiles` (nb, 128, 128) and `b` (n_cols_padded, ldb),
+// ldb a multiple of 8 at least d, columns d..ldb zero, both 16-byte
+// aligned; `out` and `scratch` float32 of width d.
+extern "C" int dtt_bsr_spmm_bf16(const void* tiles, const int* bcols, const int* items,
+                                 int n_items, const int* rows, int n_rows, const void* b,
+                                 float* out, float* scratch, int d, int ldb, int device,
+                                 void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_items <= 0 || d <= 0) return static_cast<int>(cudaSuccess);
+  if (ldb < d || ldb % 8 || reinterpret_cast<size_t>(b) % 16 ||
+      reinterpret_cast<size_t>(tiles) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(bsr_spmm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemBytes16));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto s = static_cast<cudaStream_t>(stream);
+  bsr_spmm_bf16_kernel<<<n_items * blocks_per_item(d), kThreads, kSmemBytes16, s>>>(
+      static_cast<const uint16_t*>(tiles), bcols, reinterpret_cast<const int4*>(items),
+      static_cast<const uint16_t*>(b), out, scratch, d, ldb);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_rows == 0) return static_cast<int>(err);
+  const dim3 grid(n_rows, (kBlock / 4 * d + 255) / 256);
+  bsr_spmm_reduce_kernel<<<grid, 256, 0, s>>>(reinterpret_cast<const int4*>(rows),
+                                              reinterpret_cast<const float4*>(scratch),
+                                              reinterpret_cast<float4*>(out), d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // What the launch at width `d` looks like on CUDA device `device`:
 // info = {threads, dynamic shared memory bytes, blocks resident per SM,
 // registers per thread, feature slabs, slab width, thread blocks per work
@@ -241,6 +406,26 @@ extern "C" int dtt_bsr_spmm_info(int d, int* info, int device) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int vals[7] = {kThreads, static_cast<int>(kSmemBytes), blocks, attr.numRegs,
+                       tf32x3::n_slabs(d, kSlab), tf32x3::slab_width(d, kSlab),
+                       blocks_per_item(d)};
+  for (int i = 0; i < 7; ++i) info[i] = vals[i];
+  return static_cast<int>(cudaSuccess);
+}
+
+// The same for the bf16 kernel.
+extern "C" int dtt_bsr_spmm_bf16_info(int d, int* info, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess || d <= 0) return static_cast<int>(err ? err : cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(bsr_spmm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemBytes16));
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, bsr_spmm_bf16_kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, bsr_spmm_bf16_kernel, kThreads,
+                                                        kSmemBytes16);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vals[7] = {kThreads, static_cast<int>(kSmemBytes16), blocks, attr.numRegs,
                        tf32x3::n_slabs(d, kSlab), tf32x3::slab_width(d, kSlab),
                        blocks_per_item(d)};
   for (int i = 0; i < 7; ++i) info[i] = vals[i];

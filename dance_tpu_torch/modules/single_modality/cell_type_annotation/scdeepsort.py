@@ -5,7 +5,8 @@ Counterpart: dance_tpu/modules/single_modality/cell_type_annotation/scdeepsort.p
 lives on the device and every epoch is one forward/backward and one Adam step.
 With ``use_bsr=True`` each AdaptiveSAGE layer is one block-sparse SpMM, run by
 the hand-written CUDA kernel on the card (forward, and on the transposed tiles
-for the backward). ``use_bsr="auto"`` (the default, as in JAX) takes the
+for the backward); ``bsr_dtype=torch.bfloat16`` streams it in bf16 with
+float32 sums. ``use_bsr="auto"`` (the default, as in JAX) takes the
 format :func:`~dance_tpu_torch.ops.bsr.resolve_adj_format` picks for the
 graph in its natural order: BSR, a dense off-diagonal (one cuBLAS product)
 or CSR; CSR off the card.
@@ -15,8 +16,7 @@ Where this differs from the JAX package:
 - With ``val_ratio=0`` the JAX ``fit`` returns the untrained initial weights
   (``best_params`` is only replaced under ``if num_val:``, scdeepsort.py:178-195).
   Here ``fit`` keeps the last weights when there is no validation split.
-- ``bsr_dtype`` (bf16 streaming) raises ``NotImplementedError``;
-  ``fit_with_sampling``/``predict_sampled`` and the
+- ``fit_with_sampling``/``predict_sampled`` and the
   Data-container ``preprocessing_pipeline`` are not ported yet (ROADMAP).
 - Weights are drawn from a ``torch.Generator`` seeded with ``seed``, not from
   ``jax.random``: the same seed gives other initial weights. Parity tests
@@ -33,7 +33,7 @@ from torch import nn
 from dance_tpu_torch.graph import Graph
 from dance_tpu_torch.modules.base import BaseClassificationMethod
 from dance_tpu_torch.nn.gnn import AdaptiveSAGE
-from dance_tpu_torch.ops.bsr import resolve_adj_format
+from dance_tpu_torch.ops.bsr import compute_dtype_of, resolve_adj_format
 from dance_tpu_torch.ops.sparse import csr_from_scipy
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.utils import resolve_device
@@ -45,11 +45,13 @@ class GNN(nn.Module):
     takes it as ``dim_in``."""
 
     def __init__(self, dim_in: int, dim_out: int, dim_hid: int, n_layers: int,
-                 gene_num: int, dropout: float = 0.0):
+                 gene_num: int, dropout: float = 0.0,
+                 bsr_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.alpha = nn.Parameter(torch.ones(gene_num + 2))
         self.layers = nn.ModuleList(
-            AdaptiveSAGE(dim_in if i == 0 else dim_hid, dim_hid, dropout=dropout)
+            AdaptiveSAGE(dim_in if i == 0 else dim_hid, dim_hid, dropout=dropout,
+                         bsr_dtype=bsr_dtype)
             for i in range(n_layers))
         self.head = nn.Linear(dim_hid, dim_out)
 
@@ -111,12 +113,14 @@ class ScDeepSort(BaseClassificationMethod):
         scdeepsort.py:99-196). ``use_bsr=True`` runs AdaptiveSAGE through the
         block-sparse SpMM, ``False`` through the CSR edge gather, ``"auto"``
         as :func:`resolve_adj_format` picks (natural order).
+        ``bsr_dtype=torch.bfloat16`` streams that SpMM in bf16 with float32
+        sums; it is kept only where the adjacency is BSR or dense, as JAX's
+        ``bsr_dtype if use_bsr else None`` (scdeepsort.py:148-150), and stays
+        on the model, so ``predict`` streams as well.
         ``epochs=0`` builds the model and optimizer and returns."""
         fmt = resolve_adj_format(use_bsr, graph.adj, bsr_block, device=self.device,
                                  reorder=False)
-        if bsr_dtype is not None:
-            raise NotImplementedError("bf16 BSR streaming (bsr_dtype) is not ported yet "
-                                      "(ROADMAP Queue 1, 'left out of slice 1')")
+        bsr_dtype = compute_dtype_of("ScDeepSort.fit", bsr_dtype) if fmt != "csr" else None
         labels = np.asarray(labels)
         if labels.ndim == 2:
             labels = labels.argmax(1)
@@ -135,7 +139,7 @@ class ScDeepSort(BaseClassificationMethod):
         train_mask = np.isin(np.arange(len(full_labels)), train_idx).astype(np.float32)
 
         self.model = GNN(feats.shape[1], self.num_labels, self.hidden_dim, self.n_layers,
-                         num_genes, dropout=self.dropout)
+                         num_genes, dropout=self.dropout, bsr_dtype=bsr_dtype)
         self.model.reset_parameters(torch.Generator().manual_seed(self.seed))
         self.model.to(self.device)
         params = self.model.parameters()

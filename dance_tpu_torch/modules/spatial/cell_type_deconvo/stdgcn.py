@@ -200,7 +200,7 @@ def data_integration(feat: np.ndarray, n_pseudo: int, *, method: Optional[str] =
     x = np.asarray(feat, np.float32)
     if batch_removal == "combat":
         raise NotImplementedError("batch_removal='combat' needs sc.pp.combat, which is not "
-                                  "ported yet (ROADMAP Queue 1, item 6's remainder)")
+                                  "ported yet (ROADMAP Queue 1, item 8)")
     if batch_removal is not None:
         raise ValueError(f"unknown batch removal {batch_removal!r}")
     if method in ("pca", "PCA"):

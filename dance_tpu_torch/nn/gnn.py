@@ -16,8 +16,9 @@ AdaptiveSAGE has two branches, as in the JAX package:
 - a :class:`~dance_tpu_torch.ops.sparse.CSRMatrix` gathers per-edge messages
   and mean-aggregates them with ``index_add_``.
 
-The sharded-CSR branch (gnn.py:134-140) waits for a later slice, as do bf16
-streaming (``bsr_dtype``) and ``use_norm=False``, which no model sets.
+``bsr_dtype=torch.bfloat16`` streams the BSR branch's SpMM in bf16 with
+float32 sums (gnn.py:90, :125-130); the dense and CSR branches ignore it, as
+JAX's do. The sharded-CSR branch (gnn.py:134-140) waits for a later slice.
 flax's ``LayerNorm`` eps is 1e-6, and torch's default 1e-5 is overridden.
 
 GATConv, too: a :class:`~dance_tpu_torch.ops.bsr.BSRMatrix` runs each head as
@@ -112,22 +113,28 @@ class WeightedGraphConv(nn.Module):
 
 class AdaptiveSAGE(nn.Module):
     """Each edge's message is ``h_src * alpha[edge_type_index] * edge_weight``,
-    mean-aggregated, then Dropout -> Linear -> ReLU -> LayerNorm.
+    mean-aggregated, then Dropout -> Linear -> ReLU -> LayerNorm (none with
+    ``use_norm=False``, gnn.py:88, :147-148).
 
     ``alpha`` (n_genes + 2,) is shared across layers and owned by the caller
-    (the reference's per-gene beta plus gene/cell self-loop strengths)."""
+    (the reference's per-gene beta plus gene/cell self-loop strengths).
+    ``bsr_dtype`` (``None`` or ``torch.bfloat16``) is the BSR SpMM's
+    ``compute_dtype``."""
 
-    def __init__(self, in_dim: int, out_dim: int, dropout: float = 0.1):
+    def __init__(self, in_dim: int, out_dim: int, dropout: float = 0.1, use_norm: bool = True,
+                 bsr_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dropout = nn.Dropout(dropout)
         self.linear = nn.Linear(in_dim, out_dim)
-        self.norm = nn.LayerNorm(out_dim, eps=1e-6)
+        self.norm = nn.LayerNorm(out_dim, eps=1e-6) if use_norm else None
+        self.bsr_dtype = bsr_dtype
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """flax's init: xavier-uniform kernel, zero bias, unit LayerNorm."""
         nn.init.xavier_uniform_(self.linear.weight, generator=generator)
         nn.init.zeros_(self.linear.bias)
-        self.norm.reset_parameters()
+        if self.norm is not None:
+            self.norm.reset_parameters()
 
     @staticmethod
     def edge_alpha_index(adj_rows, adj_indices, gene_id, n_genes: int) -> torch.Tensor:
@@ -159,7 +166,8 @@ class AdaptiveSAGE(nn.Module):
                 neigh = s[:, None] * (adj.bsr.mat @ (s[:, None] * h))
             else:
                 hp = nn.functional.pad(s[:, None] * h, (0, 0, 0, adj.bsr.shape[1] - n))
-                neigh = s[:, None] * bsr_spmm_ad(adj.bsr, hp)[:n]
+                neigh = s[:, None] * bsr_spmm_ad(adj.bsr, hp,
+                                                 compute_dtype=self.bsr_dtype)[:n]
             z = neigh + (adj.w_diag * self_alpha)[:, None] * h
             z = z / adj.deg.clamp(min=1.0)[:, None]
         elif isinstance(adj, CSRMatrix):
@@ -170,7 +178,8 @@ class AdaptiveSAGE(nn.Module):
             z = aggregate(adj, msgs, op="mean")
         else:
             raise TypeError(f"AdaptiveSAGE takes an AdaptiveBSR or a CSRMatrix, got {type(adj)}")
-        return self.norm(torch.relu(self.linear(self.dropout(z))))
+        z = torch.relu(self.linear(self.dropout(z)))
+        return z if self.norm is None else self.norm(z)
 
 
 class GATConv(nn.Module):

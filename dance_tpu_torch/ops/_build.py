@@ -50,12 +50,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # would pass them as 32-bit ints)
 SIGNATURES = {
     "dtt_bsr_spmm_f32": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P),
+    "dtt_bsr_spmm_bf16": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P),
     "dtt_bsr_sddmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "dtt_bsr_sddmm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "dtt_bsr_spmm_max_f32": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P),
     "dtt_bsr_gat_f32": (_P, _P, _P, _I, _P, _I) + (_P,) * 7 + (_I, _I, _F, _I, _P),
     "dtt_bsr_gat_stats_f32": (_P, _P, _P, _I, _P, _I) + (_P,) * 9 + (_I, _I, _F, _I, _P),
     "dtt_bsr_gat_grads_f32": (_P,) * 20 + (_I,) * 6 + (_F, _I, _P),
     "dtt_bsr_spmm_info": (_I, _P, _I),
+    "dtt_bsr_spmm_bf16_info": (_I, _P, _I),
     "dtt_bsr_gat_info": (_I, _P, _I),
     "dtt_bsr_spmm_max_info": (_I, _P, _I),
 }
@@ -90,7 +93,7 @@ def sources():
 
 
 def headers():
-    """The shared headers the sources include (``tf32x3.cuh``)."""
+    """The shared headers the sources include (``tf32x3.cuh``, ``bf16_mma.cuh``)."""
     return sorted(CSRC_DIR.glob("*.cuh"))
 
 

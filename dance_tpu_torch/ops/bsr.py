@@ -3,9 +3,9 @@
 Counterpart: the host side and the kernels of
 dance_tpu/ops/pallas_kernels.py — ``BSRMatrix`` (:29), ``bsr_from_scipy``
 (:53), ``bsr_spmm`` (:101), ``bsr_sddmm`` (:159), ``bsr_transpose`` (:207),
-``bsr_spmm_ad`` (:219-270), the fused GAT ``bsr_gat`` (:354),
-``bsr_gat_stats`` (:426), ``bsr_gat_grads`` (:507) and ``bsr_gat_ad``
-(:615-650), ``rcm_reorder``/``bsr_with_rcm`` (:653-674), ``unpermute``
+``bsr_spmm_ad`` (:219-270) with their ``compute_dtype`` (bf16 streaming),
+the fused GAT ``bsr_gat`` (:354), ``bsr_gat_stats`` (:426), ``bsr_gat_grads``
+(:507) and ``bsr_gat_ad`` (:615-650), ``rcm_reorder``/``bsr_with_rcm`` (:653-674), ``unpermute``
 (:775), ``bipartite_bsr`` (:677-695), the format rule ``tile_expansion``,
 ``resolve_use_bsr`` and ``choose_adj_format`` (:697-772) and the max
 aggregation ``bsr_spmm_max`` (:786-863).
@@ -20,16 +20,22 @@ wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel (``csrc/bsr_spmm.cu``, ``csrc/bsr_sddmm.cu``,
 ``csrc/bsr_gat.cu``, ``csrc/bsr_gat_bwd.cu``, ``csrc/bsr_spmm_max.cu``) or
 raises. Each wrapper counts its launches in a plain int attribute, e.g.
-``bsr_spmm.launches``. The max aggregation ``bsr_spmm_max`` (:826) is
+``bsr_spmm.launches``, and the SpMM and SDDMM wrappers their bf16 launches
+among them in ``launches_bf16``. The max aggregation ``bsr_spmm_max`` (:826) is
 forward-only, as in JAX: differentiating through it raises.
 
 The format rule keeps JAX's shape and parameters; its default crossovers
 were measured on an H100 (``tools/time_formats.py``, PERF.md), not carried
 over from the TPU. Off the card ``"auto"`` is CSR, as JAX's is off the TPU.
 
-Not ported yet (ROADMAP Queue 1): ``compute_dtype`` bf16 streaming and the
-pure-XLA ``bsr_gat_scan`` (the GAT plain versions take its place as the
-oracle).
+``compute_dtype=torch.bfloat16`` (JAX's ``compute_dtype=jnp.bfloat16``)
+rounds the tiles and the dense operands to bf16 (round to nearest even, as
+JAX's ``astype``) and sums their products in float32; the output stays
+float32. JAX also takes float16 there; the port raises on any dtype but
+bf16 and float32 (ROADMAP Queue 1, item 11).
+
+Not ported yet (ROADMAP Queue 1): the pure-XLA ``bsr_gat_scan`` (the GAT
+plain versions take its place as the oracle).
 """
 
 import functools
@@ -52,8 +58,9 @@ class BSRMatrix:
 
     ``shape`` is the padded (n_rows, n_cols), multiples of the tile edge.
     Unless the tiles require grad, the transposed tiling is computed once and
-    kept (:func:`bsr_transpose`), as are the edge bits (:func:`bsr_edge_mask`)
-    and the edge lists (:func:`bsr_edges`); the kernels' work schedules
+    kept (:func:`bsr_transpose`), as are the edge bits (:func:`bsr_edge_mask`),
+    the edge lists (:func:`bsr_edges`) and the tiles in bf16
+    (:func:`bsr_compute_tiles`); the kernels' work schedules
     (:func:`device_schedule`) are kept always. Each kept value is stamped with
     the tensors it was built from and their version counters (the tiles,
     block rows and block columns; ``rowptr`` for the schedules), and is built
@@ -71,6 +78,7 @@ class BSRMatrix:
     _schedules: dict = field(default_factory=dict, repr=False, compare=False)
     _edge_mask: Optional[torch.Tensor] = field(default=None, repr=False, compare=False)
     _edges: Optional["BSREdges"] = field(default=None, repr=False, compare=False)
+    _tiles_bf16: Optional[torch.Tensor] = field(default=None, repr=False, compare=False)
     # the tile order of the transpose (by block column, stable), kept with it
     _transpose_order: Optional[torch.Tensor] = field(default=None, repr=False, compare=False)
     # the matrix whose pattern this one shares (:func:`bsr_like`)
@@ -101,13 +109,14 @@ def _stale(stamp: tuple, tensors) -> bool:
 
 def _drop_stale(bsr: "BSRMatrix"):
     """Forget the values kept on ``bsr`` whose inputs changed since they were
-    built: the transpose, edge bits and edge lists when the tiles, block rows
-    or block columns were replaced or edited in place, the work schedules when
+    built: the transpose, edge bits, edge lists and bf16 tiles when the tiles,
+    block rows or block columns were replaced or edited in place, the work schedules when
     ``rowptr`` was. JAX arrays cannot change under a kept value; torch
     tensors can, and a stale transpose gave the old ``Aᵀḡ`` silently."""
     tiles = (bsr.tiles, bsr.block_rows, bsr.block_cols)
     if _stale(bsr._tiles_stamp, tiles):
         bsr._transpose = bsr._transpose_order = bsr._edge_mask = bsr._edges = None
+        bsr._tiles_bf16 = None
         bsr._tiles_stamp = tuple((t, t._version) for t in tiles)
     if _stale(bsr._rowptr_stamp, (bsr.rowptr,)):
         bsr._schedules.clear()
@@ -256,16 +265,16 @@ def work_schedule(rowptr, slots: int, blocks_per_item: int = 1) -> WorkSchedule:
 
 
 # the kernels that run a work schedule, by the C symbol that reports their launch
-_INFO_SYMBOLS = {"spmm": "dtt_bsr_spmm_info", "gat": "dtt_bsr_gat_info",
-                 "max": "dtt_bsr_spmm_max_info"}
+_INFO_SYMBOLS = {"spmm": "dtt_bsr_spmm_info", "spmm_bf16": "dtt_bsr_spmm_bf16_info",
+                 "gat": "dtt_bsr_gat_info", "max": "dtt_bsr_spmm_max_info"}
 _INFO_FIELDS = ("threads", "smem_bytes", "blocks_per_sm", "registers", "slabs", "slab_width",
                 "blocks_per_item")
 
 
 @functools.lru_cache(maxsize=None)
 def launch_geometry(kernel: str, d: int, device_index: int) -> dict:
-    """How the scheduled kernel ``kernel`` (``"spmm"``, ``"gat"`` or
-    ``"max"``) launches at width ``d`` on CUDA device ``device_index``, as the
+    """How the scheduled kernel ``kernel`` (``"spmm"``, ``"spmm_bf16"``,
+    ``"gat"`` or ``"max"``) launches at width ``d`` on CUDA device ``device_index``, as the
     compiled kernel reports it (``dtt_bsr_{spmm,gat,spmm_max}_info``): threads, dynamic shared
     memory, thread blocks resident per SM, registers, feature slabs and
     their width, thread blocks per work item; and the card's SMs. Kept per
@@ -295,7 +304,7 @@ class DeviceSchedule:
 
 
 def device_schedule(bsr: BSRMatrix, kernel: str, d: int, device: torch.device) -> DeviceSchedule:
-    """The work schedule that ``kernel`` (``"spmm"``, ``"gat"`` or ``"max"``) runs on
+    """The work schedule that ``kernel`` (a key of :func:`launch_geometry`) runs on
     ``bsr`` at width ``d`` on ``device``: :func:`work_schedule` for the
     card's resident thread blocks and the kernel's blocks per item, from
     :func:`launch_geometry`. Kept on the matrix until its ``rowptr`` changes,
@@ -377,6 +386,36 @@ def bsr_edges(bsr: BSRMatrix) -> BSREdges:
     if not bsr.tiles.requires_grad:
         bsr._edges = edges
     return edges
+
+
+def compute_dtype_of(name: str, compute_dtype) -> Optional[torch.dtype]:
+    """The dtype a SpMM or SDDMM streams its operands in: ``None`` (float32)
+    for ``None`` or ``torch.float32``, ``torch.bfloat16`` for itself. JAX
+    takes float16 too (pallas_kernels.py:118-120); the port raises on it and
+    on any other dtype."""
+    if compute_dtype is None or compute_dtype == torch.float32:
+        return None
+    if compute_dtype == torch.bfloat16:
+        return torch.bfloat16
+    raise ValueError(f"{name}: compute_dtype must be torch.bfloat16 or None (float32), got "
+                     f"{compute_dtype!r}; float16 streaming is not ported (ROADMAP Queue 1, "
+                     f"item 11)")
+
+
+def bsr_compute_tiles(bsr: BSRMatrix, compute_dtype: torch.dtype) -> torch.Tensor:
+    """``bsr.tiles`` in ``compute_dtype`` (bf16), rounded to nearest even as
+    JAX's ``astype``. JAX casts at every call (pallas_kernels.py:118-119);
+    here the copy is made once and kept on the matrix until its tiles
+    change, unless they require grad, as the transpose is."""
+    _drop_stale(bsr)
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(f"bsr_compute_tiles: bf16 only, got {compute_dtype!r}")
+    if bsr._tiles_bf16 is not None:
+        return bsr._tiles_bf16
+    tiles = bsr.tiles.detach().to(torch.bfloat16).contiguous()
+    if not bsr.tiles.requires_grad:
+        bsr._tiles_bf16 = tiles
+    return tiles
 
 
 # The defaults of the format rule on the card: crossovers measured on an H100
@@ -518,12 +557,22 @@ def unpermute(perm, arr: np.ndarray) -> np.ndarray:
 # --------------------------------------------------------------------------
 
 
-def bsr_spmm_reference(bsr: BSRMatrix, b: torch.Tensor) -> torch.Tensor:
-    """``A @ B`` as a tile gather, ``bmm`` and ``index_add_`` over block-rows."""
+def _rounded(t: torch.Tensor, compute_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``t`` rounded to ``compute_dtype`` and back to float32 (``t`` itself
+    for ``None``): the product of two bf16 values is exact in float32, so a
+    float32 product of the rounded operands is what the kernels sum."""
+    return t if compute_dtype is None else t.to(compute_dtype).float()
+
+
+def bsr_spmm_reference(bsr: BSRMatrix, b: torch.Tensor,
+                       compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``A @ B`` as a tile gather, ``bmm`` and ``index_add_`` over block-rows;
+    with ``compute_dtype`` (bf16) on the rounded tiles and B, in float32."""
+    compute_dtype = compute_dtype_of("bsr_spmm_reference", compute_dtype)
     n_rows, n_cols = bsr.shape
     blk, d = bsr.block, b.shape[1]
-    b3 = b.reshape(n_cols // blk, blk, d)
-    prod = torch.bmm(bsr.tiles, b3[bsr.block_cols.long()])
+    b3 = _rounded(b, compute_dtype).reshape(n_cols // blk, blk, d)
+    prod = torch.bmm(_rounded(bsr.tiles, compute_dtype), b3[bsr.block_cols.long()])
     out = torch.zeros((n_rows // blk, blk, d), dtype=prod.dtype, device=prod.device)
     return out.index_add_(0, bsr.block_rows.long(), prod).reshape(n_rows, d)
 
@@ -569,11 +618,14 @@ def bsr_spmm_max_reference(bsr: BSRMatrix, b: torch.Tensor, *,
 
 
 def bsr_sddmm_reference(block_rows: torch.Tensor, block_cols: torch.Tensor,
-                        g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``out[k] = g[rows of tile k] @ b[cols of tile k]ᵀ`` as two gathers and a ``bmm``."""
+                        g: torch.Tensor, b: torch.Tensor,
+                        compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``out[k] = g[rows of tile k] @ b[cols of tile k]ᵀ`` as two gathers and a
+    ``bmm``; with ``compute_dtype`` (bf16) on the rounded g and b, in float32."""
+    compute_dtype = compute_dtype_of("bsr_sddmm_reference", compute_dtype)
     d = g.shape[1]
-    g3 = g.reshape(-1, BLOCK, d)
-    b3 = b.reshape(-1, BLOCK, d)
+    g3 = _rounded(g, compute_dtype).reshape(-1, BLOCK, d)
+    b3 = _rounded(b, compute_dtype).reshape(-1, BLOCK, d)
     return torch.bmm(g3[block_rows.long()], b3[block_cols.long()].transpose(1, 2))
 
 
@@ -703,10 +755,13 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
                      f"the CPU; got {sorted(str(t.device) for t in tensors)}")
 
 
-def _check_cuda_args(name: str, floats, ints):
+def _check_cuda_args(name: str, floats, ints, dtype: torch.dtype = torch.float32):
+    """What a kernel reads: ``floats`` in ``dtype`` (float32, or bf16 for the
+    operands of the bf16 kernels), ``ints`` int32, all contiguous."""
     for t in floats:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: float32 tensors only, got {t.dtype}")
+        if t.dtype != dtype:
+            kind = "float32" if dtype == torch.float32 else str(dtype)
+            raise TypeError(f"{name}: {kind} tensors only, got {t.dtype}")
     for t in ints:
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: int32 index tensors only, got {t.dtype}")
@@ -739,63 +794,104 @@ def _check_tiling(name: str, bsr: BSRMatrix):
         raise ValueError(f"{name}: tiles must be 16-byte aligned")
 
 
-def bsr_spmm(bsr: BSRMatrix, b: torch.Tensor) -> torch.Tensor:
+def _streamed(t: torch.Tensor, dtype: torch.dtype, multiple: int) -> torch.Tensor:
+    """``t`` in ``dtype``, its columns zero-padded to a multiple of
+    ``multiple``, contiguous and 16-byte aligned, so that the kernels copy its
+    rows in 16-byte pieces; ``t`` itself when it is all that already."""
+    t = t.to(dtype)
+    if t.shape[1] % multiple:
+        t = F.pad(t, (0, -t.shape[1] % multiple))
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def bsr_spmm(bsr: BSRMatrix, b: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
     """``out = A @ B`` with A in BSR form and B (n_cols_padded, d) float32;
     returns (n_rows_padded, d) float32 (counterpart: pallas_kernels.py:101).
 
     Any ``d`` is taken; the kernel masks the ragged feature slab itself. On
     the card it runs the work items of :func:`device_schedule` (kept on the
     matrix) and needs a (slots, 128, d) float32 scratch buffer for the
-    partial sums of split block-rows, allocated here."""
+    partial sums of split block-rows, allocated here.
+
+    ``compute_dtype=torch.bfloat16`` streams the tiles (:func:`bsr_compute_tiles`,
+    kept on the matrix) and B (cast at every call, its columns padded to a
+    multiple of 8) in bf16 and sums in float32; float32 is ``None``."""
     n_rows, n_cols = bsr.shape
     if b.dim() != 2 or b.shape[0] != n_cols:
         raise ValueError(f"bsr_spmm: b must be ({n_cols}, d), got {tuple(b.shape)}")
+    compute_dtype = compute_dtype_of("bsr_spmm", compute_dtype)
     if _on_cpu(bsr.tiles, bsr.block_cols, bsr.rowptr, b):
-        return bsr_spmm_reference(bsr, b)
+        return bsr_spmm_reference(bsr, b, compute_dtype)
     _check_tiling("bsr_spmm", bsr)
     _check_cuda_args("bsr_spmm", (bsr.tiles, b), (bsr.block_cols, bsr.rowptr))
     d = b.shape[1]
     out = torch.empty((n_rows, d), dtype=torch.float32, device=b.device)
     if n_rows == 0 or d == 0:
         return out
-    sched = device_schedule(bsr, "spmm", d, b.device)
+    kernel = "spmm" if compute_dtype is None else "spmm_bf16"
+    sched = device_schedule(bsr, kernel, d, b.device)
     scratch = torch.empty((sched.schedule.n_slots, BLOCK, d), dtype=torch.float32,
                           device=b.device)
-    _launch("dtt_bsr_spmm_f32", b.device, bsr.tiles.data_ptr(), bsr.block_cols.data_ptr(),
-            sched.items.data_ptr(), sched.items.shape[0], sched.rows.data_ptr(),
-            sched.rows.shape[0], b.data_ptr(), out.data_ptr(), scratch.data_ptr(), d)
+    items = (sched.items.data_ptr(), sched.items.shape[0], sched.rows.data_ptr(),
+             sched.rows.shape[0])
+    if compute_dtype is None:
+        _launch("dtt_bsr_spmm_f32", b.device, bsr.tiles.data_ptr(), bsr.block_cols.data_ptr(),
+                *items, b.data_ptr(), out.data_ptr(), scratch.data_ptr(), d)
+    else:
+        tiles, bq = bsr_compute_tiles(bsr, compute_dtype), _streamed(b, compute_dtype, 8)
+        _check_cuda_args("bsr_spmm", (tiles, bq), (), dtype=compute_dtype)
+        _launch("dtt_bsr_spmm_bf16", b.device, tiles.data_ptr(), bsr.block_cols.data_ptr(),
+                *items, bq.data_ptr(), out.data_ptr(), scratch.data_ptr(), d, bq.shape[1])
+        bsr_spmm.launches_bf16 += 1
     bsr_spmm.launches += 1
     return out
 
 
-bsr_spmm.launches = 0
+bsr_spmm.launches = 0       # every launch of #1
+bsr_spmm.launches_bf16 = 0  # the bf16 ones among them
 
 
 def bsr_sddmm(block_rows: torch.Tensor, block_cols: torch.Tensor, g: torch.Tensor,
-              b: torch.Tensor) -> torch.Tensor:
+              b: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
     """``out[k] = g[rows_k] @ b[cols_k]ᵀ`` for each nonzero tile k: the dA term
     of the SpMM backward (counterpart: pallas_kernels.py:159). ``g`` is
-    (n_rows_padded, d), ``b`` (n_cols_padded, d); returns (nb, 128, 128)."""
+    (n_rows_padded, d), ``b`` (n_cols_padded, d), float32; returns (nb, 128,
+    128) float32. ``compute_dtype=torch.bfloat16`` rounds g and b to bf16
+    and sums in float32.
+
+    On the card g and b are copied only where the kernel needs it: cast to
+    bf16, or their columns zero-padded to a multiple of 4 (float32) or 8
+    (bf16) so that rows start on 16 bytes; zero columns add nothing."""
     if g.dim() != 2 or b.dim() != 2 or g.shape[1] != b.shape[1] \
             or g.shape[0] % BLOCK or b.shape[0] % BLOCK:
         raise ValueError(f"bsr_sddmm: g and b must be (n_padded, d) with the same d, "
                          f"got {tuple(g.shape)} and {tuple(b.shape)}")
     if block_rows.shape != block_cols.shape or block_rows.dim() != 1:
         raise ValueError("bsr_sddmm: block_rows and block_cols must be (nb,)")
+    compute_dtype = compute_dtype_of("bsr_sddmm", compute_dtype)
     if _on_cpu(block_rows, block_cols, g, b):
-        return bsr_sddmm_reference(block_rows, block_cols, g, b)
+        return bsr_sddmm_reference(block_rows, block_cols, g, b, compute_dtype)
     _check_cuda_args("bsr_sddmm", (g, b), (block_rows, block_cols))
     nb = block_rows.shape[0]
     out = torch.empty((nb, BLOCK, BLOCK), dtype=torch.float32, device=g.device)
     if nb == 0:
         return out
-    _launch("dtt_bsr_sddmm_f32", g.device, g.data_ptr(), b.data_ptr(),
-            block_rows.data_ptr(), block_cols.data_ptr(), out.data_ptr(), nb, g.shape[1])
+    dtype = torch.float32 if compute_dtype is None else compute_dtype
+    multiple = 16 // dtype.itemsize
+    gq, bq = _streamed(g, dtype, multiple), _streamed(b, dtype, multiple)
+    _check_cuda_args("bsr_sddmm", (gq, bq), (), dtype=dtype)
+    _launch("dtt_bsr_sddmm_f32" if compute_dtype is None else "dtt_bsr_sddmm_bf16", g.device,
+            gq.data_ptr(), bq.data_ptr(), block_rows.data_ptr(), block_cols.data_ptr(),
+            out.data_ptr(), nb, gq.shape[1])
     bsr_sddmm.launches += 1
+    if compute_dtype is not None:
+        bsr_sddmm.launches_bf16 += 1
     return out
 
 
-bsr_sddmm.launches = 0
+bsr_sddmm.launches = 0       # every launch of #2
+bsr_sddmm.launches_bf16 = 0  # the bf16 ones among them
 
 
 def _gat_forward(name: str, bsr: BSRMatrix, er, el, h, negative_slope: float, act: str,
@@ -943,32 +1039,37 @@ class BSRSpMM(torch.autograd.Function):
 
     Backward: ``dB = Aᵀ ḡ`` with the SpMM kernel on the transposed tiling, and
     ``dA[k] = ḡ[row_k] B[col_k]ᵀ`` with the SDDMM kernel, only when the tiles
-    require grad (AdaptiveBSR's tiles are constants)."""
+    require grad (AdaptiveBSR's tiles are constants), both in the forward's
+    ``compute_dtype`` as in JAX (:251-262). JAX takes dA from an einsum in
+    float32 and from the SDDMM kernel only under a compute dtype; the port
+    always takes it from the kernel."""
 
     @staticmethod
-    def forward(ctx, tiles, b, bsr):
+    def forward(ctx, tiles, b, bsr, compute_dtype):
         # ``tiles`` is ``bsr.tiles``, passed on its own so that autograd tracks it
-        ctx.mat = bsr
+        ctx.mat, ctx.compute_dtype = bsr, compute_dtype
         ctx.save_for_backward(b if tiles.requires_grad else None)
-        return bsr_spmm(bsr, b)
+        return bsr_spmm(bsr, b, compute_dtype=compute_dtype)
 
     @staticmethod
     def backward(ctx, grad):
         (b,) = ctx.saved_tensors
         grad = grad.contiguous()
-        mat = ctx.mat
+        mat, dtype = ctx.mat, ctx.compute_dtype
         d_tiles = d_b = None
         if ctx.needs_input_grad[0]:
-            d_tiles = bsr_sddmm(mat.block_rows, mat.block_cols, grad, b)
+            d_tiles = bsr_sddmm(mat.block_rows, mat.block_cols, grad, b, compute_dtype=dtype)
         if ctx.needs_input_grad[1]:
-            d_b = bsr_spmm(bsr_transpose(mat), grad)
-        return d_tiles, d_b, None
+            d_b = bsr_spmm(bsr_transpose(mat), grad, compute_dtype=dtype)
+        return d_tiles, d_b, None, None
 
 
-def bsr_spmm_ad(bsr: BSRMatrix, b: torch.Tensor) -> torch.Tensor:
+def bsr_spmm_ad(bsr: BSRMatrix, b: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
     """Differentiable ``A @ B`` (counterpart: pallas_kernels.py:219). Gradients
-    reach ``b`` and, where ``bsr.tiles`` requires grad, the tiles."""
-    return BSRSpMM.apply(bsr.tiles, b, bsr)
+    reach ``b`` and, where ``bsr.tiles`` requires grad, the tiles.
+    ``compute_dtype=torch.bfloat16`` streams both directions in bf16 with
+    float32 sums (:func:`bsr_spmm`, :func:`bsr_sddmm`)."""
+    return BSRSpMM.apply(bsr.tiles, b, bsr, compute_dtype_of("bsr_spmm_ad", compute_dtype))
 
 
 class BSRSpMMMax(torch.autograd.Function):
@@ -1031,9 +1132,10 @@ __all__ = ["BLOCK", "BSREdges", "BSRGat", "BSRMatrix", "BSRSpMM", "BSRSpMMMax",
            "DeviceSchedule", "GAT_ACTS", "MAX_EXPANSION", "WorkSchedule",
            "bipartite_bsr", "bsr_edge_mask", "bsr_edges", "bsr_from_scipy", "bsr_gat",
            "bsr_gat_ad", "bsr_gat_grads", "bsr_gat_grads_reference",
-           "bsr_gat_reference", "bsr_gat_stats", "bsr_like", "bsr_sddmm",
+           "bsr_compute_tiles", "bsr_gat_reference", "bsr_gat_stats", "bsr_like", "bsr_sddmm",
            "bsr_sddmm_reference", "bsr_spmm", "bsr_spmm_ad", "bsr_spmm_max",
            "bsr_spmm_max_reference", "bsr_spmm_reference", "bsr_transpose",
-           "bsr_with_rcm", "choose_adj_format", "device_schedule", "launch_geometry",
+           "bsr_with_rcm", "choose_adj_format", "compute_dtype_of", "device_schedule",
+           "launch_geometry",
            "rcm_reorder", "resolve_adj_format", "resolve_use_bsr", "tile_expansion", "unpermute",
            "work_schedule"]

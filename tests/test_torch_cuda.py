@@ -20,7 +20,10 @@ version uses torch.exp (each within an ulp or two), so the same bounds hold.
 The GAT backward walks the edges (dot products by warp reductions, sums in
 edge order), so it sums in another order still: atol 1e-4 as before. The
 BSR max kernel and its plain version take the max of the same float32
-products, so they agree exactly (NaN where either has NaN).
+products, so they agree exactly (NaN where either has NaN). The bf16 SpMM
+and SDDMM (``compute_dtype``) are held against the plain versions on the
+same rounded operands, whose products are exact in float32: the same
+bounds hold.
 """
 
 import numpy as np
@@ -885,3 +888,152 @@ def test_deepimpute_fit_matches_cpu(cuda, reference_protocol):
                    {k: v.numpy() for k, v in ref.net.state_dict().items()}, 1e-3, 12)
     np.testing.assert_allclose(card.predict(inp.x, mask=inp.train_mask),
                                ref.predict(inp.x, mask=inp.train_mask), rtol=1e-4, atol=1e-5)
+
+
+# bf16 streaming (compute_dtype) and #2 written for the tensor cores: the
+# kernels against the plain versions on the rounded operands, which sum the
+# same exact float32 products in another order (RTOL, atol 1e-4 as above)
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("d", [1, 50, 96, 200, 256])
+@pytest.mark.parametrize("pad_tiles", [True, False])
+def test_spmm_bf16_matches_plain(cuda, case, d, pad_tiles):
+    bsr = tbsr.bsr_from_scipy(CASES[case]())
+    bsr = bsr if pad_tiles else no_pad(bsr)
+    b = torch.randn((bsr.shape[1], d), generator=torch.Generator().manual_seed(d))
+    ref = tbsr.bsr_spmm_reference(bsr, b, BF16)
+    n = tbsr.bsr_spmm.launches, tbsr.bsr_spmm.launches_bf16
+    out = tbsr.bsr_spmm(bsr.to(cuda), b.to(cuda), compute_dtype=BF16)
+    torch.cuda.synchronize()
+    assert (tbsr.bsr_spmm.launches, tbsr.bsr_spmm.launches_bf16) == (n[0] + 1, n[1] + 1)
+    torch.testing.assert_close(out.cpu(), ref, rtol=RTOL, atol=1e-4)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("d", [1, 8, 50, 200, 257])
+def test_spmm_bf16_skewed_matches_plain_and_repeats_bit_equal(cuda, d, transposed):
+    bsr = skewed_bsr(seed=d)
+    bsr = tbsr.bsr_transpose(bsr) if transposed else bsr
+    b = torch.randn((bsr.shape[1], d), generator=torch.Generator().manual_seed(d))
+    ref = tbsr.bsr_spmm_reference(bsr, b, BF16)
+    dev, bd = bsr.to(cuda), b.to(cuda)
+    runs = [tbsr.bsr_spmm(dev, bd, compute_dtype=BF16) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    torch.testing.assert_close(runs[0].cpu(), ref, rtol=RTOL, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [None, BF16])
+@pytest.mark.parametrize("case", ["square_with_empty_block_rows", "skewed"])
+@pytest.mark.parametrize("d", [1, 50, 96, 130, 200, 256])
+def test_sddmm_tensor_cores_match_plain_and_repeat_bit_equal(cuda, dtype, case, d):
+    """#2 in float32 (3xTF32) and bf16, ragged widths included (the wrapper
+    pads g and b with zero columns to 16-byte rows)."""
+    bsr = skewed_bsr(seed=d) if case == "skewed" else tbsr.bsr_from_scipy(CASES[case]())
+    g = torch.randn((bsr.shape[0], d), generator=torch.Generator().manual_seed(d))
+    b = torch.randn((bsr.shape[1], d), generator=torch.Generator().manual_seed(d + 1))
+    ref = tbsr.bsr_sddmm_reference(bsr.block_rows, bsr.block_cols, g, b, dtype)
+    rows, cols, gd, bd = (t.to(cuda) for t in (bsr.block_rows, bsr.block_cols, g, b))
+    n = tbsr.bsr_sddmm.launches, tbsr.bsr_sddmm.launches_bf16
+    runs = [tbsr.bsr_sddmm(rows, cols, gd, bd, compute_dtype=dtype) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (tbsr.bsr_sddmm.launches, tbsr.bsr_sddmm.launches_bf16) == \
+        (n[0] + 2, n[1] + 2 * (dtype is not None))
+    assert torch.equal(runs[0], runs[1])
+    torch.testing.assert_close(runs[0].cpu(), ref, rtol=RTOL, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [None, BF16])
+def test_sddmm_nonfinite_inputs_match_plain(cuda, dtype):
+    """±inf and NaN (the card's full-payload NaN too) in g and b: #2 gives
+    what the float32 product of the (rounded) operands gives, 0 * inf = NaN
+    included; the 3xTF32 split passes them through as #1's does."""
+    bsr = tbsr.bsr_from_scipy(CASES["rectangular"]())
+    g = torch.randn((bsr.shape[0], 40), generator=torch.Generator().manual_seed(5))
+    b = torch.randn((bsr.shape[1], 40), generator=torch.Generator().manual_seed(6))
+    g[3, 0], g[130, 1], b[5, 2] = torch.inf, -torch.inf, torch.nan
+    b[:, 3] = torch.inf
+    g.view(torch.int32)[9, 5] = 0x7FFFFFFF
+    b[11, 6] = 1e30
+    ref = tbsr.bsr_sddmm_reference(bsr.block_rows, bsr.block_cols, g, b, dtype)
+    out = tbsr.bsr_sddmm(bsr.block_rows.to(cuda), bsr.block_cols.to(cuda), g.to(cuda),
+                         b.to(cuda), compute_dtype=dtype).cpu()
+    assert torch.isinf(ref).any() and torch.isnan(ref).any()
+    torch.testing.assert_close(out, ref, rtol=RTOL, atol=1e-4, equal_nan=True)
+
+
+def test_spmm_ad_bf16_grads_match_cpu(cuda):
+    adj = CASES["rectangular"]()
+    grads = []
+    for device in (torch.device("cpu"), cuda):
+        bsr = tbsr.bsr_from_scipy(adj).to(device)
+        bsr.tiles.requires_grad_(True)
+        b = torch.linspace(-1, 1, bsr.shape[1] * 40).reshape(-1, 40).to(device)
+        b.requires_grad_(True)
+        (tbsr.bsr_spmm_ad(bsr, b, compute_dtype=BF16) ** 2).sum().backward()
+        grads.append((b.grad.cpu(), bsr.tiles.grad.cpu()))
+    for got, want in zip(grads[1], grads[0]):
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=1e-4)
+
+
+def test_spmm_ad_bf16_grad_follows_in_place_tile_edit(cuda):
+    """The bf16 tiles and the transpose kept on the matrix are built again
+    after ``tiles.mul_``: the second bf16 ``dB = Aᵀḡ`` is twice the first."""
+    bsr = cell_knn_bsr(n=600).to(cuda)
+    g = torch.randn((bsr.shape[0], 16), generator=torch.Generator().manual_seed(1)).to(cuda)
+
+    def grad_b():
+        b = torch.linspace(-1, 1, bsr.shape[1] * 16, device=cuda).reshape(-1, 16)
+        b.requires_grad_(True)
+        (tbsr.bsr_spmm_ad(bsr, b, compute_dtype=BF16) * g).sum().backward()
+        return b.grad
+
+    first = grad_b()
+    kept = tbsr.bsr_compute_tiles(bsr, BF16)
+    bsr.tiles.mul_(2.0)
+    second = grad_b()
+    assert tbsr.bsr_compute_tiles(bsr, BF16) is not kept
+    torch.testing.assert_close(second, 2 * first, rtol=0, atol=0)
+    want = tbsr.bsr_spmm_reference(tbsr.bsr_transpose(bsr.to("cpu")), g.cpu(), BF16)
+    torch.testing.assert_close(second.cpu(), want, rtol=RTOL, atol=ATOL)
+
+
+def test_bf16_wrappers_reject_bad_inputs(cuda):
+    bsr = tbsr.bsr_from_scipy(CASES["rectangular"]()).to(cuda)
+    b = torch.zeros((bsr.shape[1], 4), device=cuda)
+    g = torch.zeros((bsr.shape[0], 4), device=cuda)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        tbsr.bsr_spmm(bsr, b, compute_dtype=torch.float16)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        tbsr.bsr_sddmm(bsr.block_rows, bsr.block_cols, g, b, compute_dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32"):
+        tbsr.bsr_spmm(bsr, b.to(torch.float64), compute_dtype=BF16)
+    with pytest.raises(TypeError, match="float32"):
+        tbsr.bsr_sddmm(bsr.block_rows, bsr.block_cols, g.to(BF16), b, compute_dtype=BF16)
+    with pytest.raises(ValueError, match="same d"):
+        tbsr.bsr_sddmm(bsr.block_rows, bsr.block_cols, g, b[:, :3], compute_dtype=BF16)
+    with pytest.raises(ValueError, match="must be"):
+        tbsr.bsr_spmm(bsr, b[:-1], compute_dtype=BF16)
+    with pytest.raises(ValueError, match="one CUDA device or all on the CPU"):
+        tbsr.bsr_sddmm(bsr.block_rows, bsr.block_cols, g.cpu(), b, compute_dtype=BF16)
+
+
+def test_bf16_fit_matches_cpu(cuda):
+    rng = np.random.default_rng(14)
+    expr = sp.random(300, 140, density=0.1, random_state=14, dtype=np.float32, format="csr")
+    graph = Graph.from_cell_feature_matrix(expr, rng.random((300, 32), dtype=np.float32),
+                                           rng.random((140, 32), dtype=np.float32))
+    labels = rng.integers(0, 5, 300)
+    runs = []
+    for device in (torch.device("cpu"), cuda):
+        m = ScDeepSort(dim_in=32, dim_hid=64, num_layers=2, seed=0, device=device)
+        n = tbsr.bsr_spmm.launches_bf16
+        m.fit(graph, labels, epochs=3, lr=1e-2, use_bsr=True, bsr_dtype=BF16)
+        runs.append(([h["loss"] for h in m.history], m.predict_proba(graph),
+                     tbsr.bsr_spmm.launches_bf16 - n))
+    np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=1e-4)
+    np.testing.assert_allclose(runs[1][1], runs[0][1], rtol=1e-4, atol=1e-5)
+    assert runs[0][2] == 0 and runs[1][2] >= 4 * 3

@@ -173,7 +173,7 @@ def test_build_key_covers_every_kernel_source(monkeypatch, tmp_path):
 
     assert {p.name for p in _build.sources()} == {"bsr_spmm.cu", "bsr_sddmm.cu", "bsr_gat.cu",
                                                   "bsr_gat_bwd.cu", "bsr_spmm_max.cu"}
-    assert {p.name for p in _build.headers()} == {"tf32x3.cuh"}
+    assert {p.name for p in _build.headers()} == {"tf32x3.cuh", "bf16_mma.cuh"}
     text = "".join(p.read_text() for p in _build.sources())
     for symbol in _build.SIGNATURES:
         assert f'extern "C" int {symbol}(' in text

@@ -184,14 +184,24 @@ def _jax_train_state(model: JScDeepSort, graph: JGraph, labels, val_ratio=0.2):
     return conv_adj, dg.ndata["features"], gene_id, jnp.asarray(full), jnp.asarray(mask)
 
 
-@pytest.mark.parametrize("use_bsr,weight_decay", [(True, 0.0), (True, 1e-2), (False, 0.0)])
-def test_slice_three_steps_match_jax(use_bsr, weight_decay):
+@pytest.mark.parametrize("use_bsr,weight_decay,bf16", [
+    pytest.param(True, 0.0, False, id="True-0.0"),
+    pytest.param(True, 1e-2, False, id="True-0.01"),
+    pytest.param(False, 0.0, False, id="False-0.0"),
+    pytest.param(True, 0.0, True, id="True-0.0-bf16")])
+def test_slice_three_steps_match_jax(use_bsr, weight_decay, bf16):
+    """Three Adam steps of each package from the same weights; with ``bf16``
+    both stream the SpMM in bf16 (``bsr_dtype``), forward and backward."""
     j, t, rng = _graphs(1, n_cells=80, n_genes=30)
     labels = rng.integers(0, 3, 80)
     jm = JScDeepSort(dim_in=6, dim_hid=16, num_layers=2, seed=0)
-    jm.fit(j, labels, epochs=0, lr=1e-2, weight_decay=weight_decay, use_bsr=use_bsr)
+    jm.fit(j, labels, epochs=0, lr=1e-2, weight_decay=weight_decay, use_bsr=use_bsr,
+           bsr_dtype=jnp.bfloat16 if bf16 else None)
     tm = ScDeepSort(dim_in=6, dim_hid=16, num_layers=2, seed=0, device="cpu")
-    tm.fit(t, labels, epochs=0, lr=1e-2, weight_decay=weight_decay, use_bsr=use_bsr)
+    tm.fit(t, labels, epochs=0, lr=1e-2, weight_decay=weight_decay, use_bsr=use_bsr,
+           bsr_dtype=torch.bfloat16 if bf16 else None)
+    assert all(layer.bsr_dtype == (torch.bfloat16 if bf16 else None)
+               for layer in tm.model.layers)
     tm.model.load_state_dict(flax_to_torch(_np_tree(jm.params)))
 
     adj, feats, gene_id, full, mask = _jax_train_state(jm, j, labels)
@@ -253,9 +263,9 @@ def test_fit_counts_one_spmm_per_layer_and_direction(monkeypatch):
     spmm, sddmm = tbsr.bsr_spmm, tbsr.bsr_sddmm
 
     def count(name, fn):
-        def wrapped(*args):
+        def wrapped(*args, **kwargs):
             calls[name] += 1
-            return fn(*args)
+            return fn(*args, **kwargs)
         return wrapped
 
     monkeypatch.setattr(tbsr, "bsr_spmm", count("spmm", spmm))
@@ -297,8 +307,14 @@ def test_fit_rejects_options_outside_the_slice():
     m = ScDeepSort(dim_in=6, dim_hid=8, num_layers=2, device="cpu")
     with pytest.raises(ValueError, match="use_bsr must be"):
         m.fit(t, rng.integers(0, 3, 60), epochs=1, use_bsr="sometimes")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.fit(t, rng.integers(0, 3, 60), epochs=1, bsr_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        m.fit(t, rng.integers(0, 3, 60), epochs=1, use_bsr=True, bsr_dtype=torch.float16)
+    # bsr_dtype is dropped off the BSR and dense formats, as JAX drops it
+    # (``bsr_dtype if use_bsr else None``, scdeepsort.py:148-150)
+    m.fit(t, rng.integers(0, 3, 60), epochs=1, use_bsr=False, bsr_dtype=torch.bfloat16)
+    assert all(layer.bsr_dtype is None for layer in m.model.layers)
+    m.fit(t, rng.integers(0, 3, 60), epochs=1, use_bsr=True, bsr_dtype=torch.bfloat16)
+    assert all(layer.bsr_dtype is torch.bfloat16 for layer in m.model.layers)
 
 
 def test_save_load_score_and_unsure_predict(tmp_path):
