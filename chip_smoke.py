@@ -9,8 +9,9 @@ community-detection ground (spatial Louvain, the scIB suite and graph-sc's
 Leiden), scMoGNN v2, the multimodal autoencoders BABEL, CMAE and scMM with
 the CMAE and scMM matching heads, the joint-embedding DCCA, JAE and
 scMVAE, the spatial-domain SpaGCN, stLearn and EfNST with scGNN2's
-imputation, and the classical heads: SVM, CellTypist, SingleCellNet, MAGIC,
-SPOTlight, SpatialDecon and CARD.
+imputation, the classical heads: SVM, CellTypist, SingleCellNet, MAGIC,
+SPOTlight, SpatialDecon and CARD, stdGCN with ComBat's integration and its
+marker genes, and the scanpy surface (``sc.pp`` and ``sc.tl``).
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -342,6 +343,34 @@ printed only when every phase passed):
 59. Card against CPU on small inputs for all seven (``classical_card_vs_cpu``,
    the same draws and starts): outputs and objectives within 1e-4, the
    unweighted forest's tables exactly.
+60. stdGCN with ComBat's integration on phase 21's input (counts set to 0
+   just before it): ComBat of the pseudo and real blocks timed alone, then
+   ``fit(batch_removal_method="combat", use_bsr=True,
+   early_stopping_patience=0)`` (300 epochs; ``bsr_spmm`` at least 8 x
+   epochs + 4), the towers' tilings, the MSE, which must beat the uniform
+   guess's; then ``bsr_spmm`` on each tower's tiling at d = 256, as phase
+   12; then ``stdgcn_marker_genes`` on phase 19's 2,000 reference cells
+   (normalised to 10⁴, log1p): seconds, genes kept per type, and no launch.
+61. The scanpy flow on phase 52's 10,000 training cells x 2,000 genes, half
+   of them a second batch (each gene scaled by a seeded factor in [0.5,
+   2]): ``calculate_qc_metrics``, ``normalize_total``, ``log1p``, seurat
+   HVGs over the batches (``SC_HVG``), ``regress_out(total_counts)``,
+   ``combat``, ``scale``, ``pca(50)``, ``neighbors(15)``, ``leiden``,
+   ``umap`` (200 epochs), Wilcoxon ``rank_genes_groups`` with ``pts``,
+   ``score_genes_cell_cycle``, then ``scrublet`` on the counts and
+   ``subsample(0.5)``: each step's seconds; Leiden's ARI beside a random
+   labelling's (which it must beat); the share of the 50-d PCA's 15-NN kept
+   in UMAP, in its spectral start (``umap(n_epochs=0)``) and in the first
+   two PCs, and of 2-d 15-NN of the same type (the 200 epochs must beat the
+   spectral start on both); the types with a generator marker among their
+   top 20.
+   Every count stays 0.
+62. Card against CPU on 300 cells (``scanpy_card_vs_cpu``): ComBat's and
+   regress-out's float64 cores and the Wilcoxon statistics within 1e-9; the
+   neighbour graph, Scrublet's scores (on the cells whose neighbours, from
+   the search inside ``scrublet`` on each device, are the same set on both:
+   at least 98 %; the others' near tie is printed) and 5 UMAP epochs from
+   handed-in negatives within 1e-4.
 
 Each kernel's bound is the larger of its operations over a compute peak and
 the bytes of its inputs and outputs, each counted once, over 3.35 TB/s, for
@@ -375,7 +404,8 @@ prints the device time of the kernel's own launches (torch.profiler), as
 there is one (BSR ``@`` for the SpMM, ``sampled_addmm`` over the tiles'
 pattern for the SDDMM); the port never calls them. The SpMM's entry carries
 the other paths' tilings beside scDeepSort's (``graphsc``, ``sctag``,
-``scdsc``, ``scmogcn``, ``dstg``, ``stdgcn``, ``scheteronet``), its bf16
+``scdsc``, ``scmogcn``, ``dstg``, ``stdgcn``, ``stdgcn_combat``,
+``scheteronet``), its bf16
 instantiation (``bf16``, with its own launches) and its launches by path;
 the SDDMM's carries ``f32`` and ``bf16`` results, its launches those of
 phase 3b.
@@ -495,6 +525,9 @@ SG_EPOCHS, SG_DIM, EF_COLS, EF_NEIGHBORS, AUG_SPOTS, SP_SMALL = 200, 50, 232, 8,
 # trees and pseudo-cells; SpatialDecon's steps (its default); the small card-against-CPU size
 CL_CELLS, CL_TEST, CL_GENES, CL_TYPES, CL_SMALL = 10000, 2000, 2000, 8, 300
 SVM_DIM, SVM_RFF_CAP, SCN_TREES, SCN_RAND, SD_ITERS = 400, 5000, 100, 100, 500
+# the scanpy surface (phases 61-62): HVGs kept of phase 52's 2,000 genes, and the small
+# card-against-CPU size
+SC_HVG, SC_SMALL = 1000, 300
 # H100 SXM: FP32 outside the tensor cores, TF32 and bf16 dense on the tensor cores, HBM3
 PEAK_FLOPS, PEAK_TF32, PEAK_BF16, PEAK_BYTES = 67e12, 495e12, 989e12, 3.35e12
 # differentiable steps through bsr_spmm_ad with trainable tiles (phase 3b), each dtype
@@ -4264,6 +4297,264 @@ def classical_phases(cuda) -> None:
     print(f"phases 52-59: {time.perf_counter() - t_phases:.3f} s", flush=True)
 
 
+def expression_markers(n_cells: int, n_genes: int, n_types: int, seed: int):
+    """The marker genes of each type that :func:`expression_counts` draws
+    with the same arguments (its draws replayed up to them)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rng.integers(0, n_types, n_cells)
+    rng.gamma(2.0, 0.5, n_genes)
+    return [rng.choice(n_genes, max(n_genes // 10, 1), replace=False) for _ in range(n_types)]
+
+
+def preserved_neighbours(ref_idx, emb, k: int) -> float:
+    """The mean share of each cell's ``k`` nearest in a reference (indices
+    ``ref_idx``, (n, k)) that are among its ``k`` nearest in ``emb``."""
+    import numpy as np
+
+    from dance_tpu_torch.ops.neighbors import knn
+
+    idx = knn(np.asarray(emb, np.float32), k, include_self=False)[1]
+    hits = (idx[:, :, None] == ref_idx[:, None, :]).any(1).sum(1)
+    return float(hits.mean() / k)
+
+
+def stdgcn_combat_phase(cuda) -> dict:
+    """Phase 60: stdGCN with ComBat's integration on phase 21's input, #1 on
+    its towers' tilings, then stdGCN's marker genes on phase 19's reference
+    cells. Returns the fit's SpMM launches and the SpMM's numbers on the
+    towers."""
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.modules.spatial.cell_type_deconvo import StdGCN, stdgcn_marker_genes
+    from dance_tpu_torch.sc.pp import combat, log1p, normalize_total
+
+    t_phase = time.perf_counter()
+    result = {}
+    x_ref, labels, x_real, portions, coords = deconvo_inputs(DC_REF, DC_GENES, DC_TYPES,
+                                                             DC_REAL, seed=5)
+    feat, coords_all, y = stdgcn_inputs(x_ref, labels, x_real, coords, DC_PSEUDO)
+    batch = np.array(["pseudo"] * DC_PSEUDO + ["real"] * DC_REAL)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    combat(feat, batch, device=cuda)
+    t_combat = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    model = StdGCN(seed=0, device=cuda)
+    t0 = time.perf_counter()
+    model.fit((feat, coords_all), y, use_bsr=True, early_stopping_patience=0,
+              batch_removal_method="combat")
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    pred = model.predict()
+    launches = read_launches()
+    epochs = len(model.history)
+    print(f"stdGCN under ComBat ({len(feat)} spots x {feat.shape[1]} genes; ComBat of the pseudo "
+          f"and real blocks alone {t_combat:.3f} s): use_bsr=True, early_stopping_patience=0: "
+          f"fit {t_fit:.3f} s (graph {model.graph_seconds:.3f} s), {epochs} epochs, median "
+          f"steady epoch {median_epoch(model)!r} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; launches {launches}", flush=True)
+    for tower, a in (("expression", model.adj_exp), ("spatial", model.adj_sp)):
+        print(tiling_line(f"stdGCN ComBat {tower} tower (union RCM order)", a, len(feat))
+              + f", {a.nb * a.block ** 2 / edge_count(a)!r} stored slots per edge", flush=True)
+    if not np.isfinite([h["loss"] for h in model.history]).all():
+        raise AssertionError("stdGCN under ComBat: non-finite losses")
+    portion_mse("stdGCN under ComBat (BSR, 300 epochs)", portions, pred[DC_PSEUDO:])
+    # 2 layers x 2 towers forward and their 4 Aᵀḡ an epoch, 4 in predict
+    if launches["bsr_spmm"] < 8 * epochs + 4:
+        raise AssertionError(f"stdGCN under ComBat: bsr_spmm launched {launches['bsr_spmm']} "
+                             f"times, fewer than 8 x {epochs} + 4")
+    result["stdgcn_combat_launches"] = launches["bsr_spmm"]
+    result["stdgcn_combat_exp"] = spmm_widths("stdGCN ComBat expression", model.adj_exp,
+                                              (model.nhid,), seed=12)
+    result["stdgcn_combat_sp"] = spmm_widths("stdGCN ComBat spatial", model.adj_sp,
+                                             (model.nhid,), seed=13)
+    del model
+
+    reset_launches()
+    ref = log1p(normalize_total(x_ref, target_sum=1e4))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gene_list, gene_dict = stdgcn_marker_genes(ref, labels, gene_names(DC_GENES), device=cuda)
+    t_mark = time.perf_counter() - t0
+    no_launches("stdGCN's marker genes (phase 60)")
+    print(f"stdgcn_marker_genes ({DC_REF} reference cells x {DC_GENES} genes, {DC_TYPES} types, "
+          f"Wilcoxon with BH and nonzero shares): {t_mark:.3f} s; genes kept per type "
+          f"{ {t: len(g) for t, g in gene_dict.items()} }, list of {len(gene_list)}", flush=True)
+    if not (gene_list == sorted(set().union(*gene_dict.values()))
+            and all(len(g) <= 20 for g in gene_dict.values())):
+        raise AssertionError("stdgcn_marker_genes: the list is not the union of the types'")
+    print(f"phase 60: {time.perf_counter() - t_phase:.3f} s", flush=True)
+    return result
+
+
+def scanpy_phase(cuda) -> None:
+    """Phase 61: the scanpy flow on phase 52's training cells with a second
+    batch made from half of them. No TPU kernel is on it: every count stays
+    0."""
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.sc import pp, tl
+    from dance_tpu_torch.utils import ari
+
+    t_phase = time.perf_counter()
+    counts, types = expression_counts(CL_CELLS + CL_TEST, CL_GENES, CL_TYPES, seed=0)
+    counts, types = counts[:CL_CELLS], types[:CL_CELLS]
+    markers = expression_markers(CL_CELLS + CL_TEST, CL_GENES, CL_TYPES, seed=0)
+    names = gene_names(CL_GENES)
+    rng = np.random.default_rng(61)
+    second = rng.random(CL_CELLS) < 0.5
+    counts = counts.copy()
+    counts[second] *= rng.uniform(0.5, 2.0, CL_GENES).astype(np.float32)
+    batch = np.where(second, "b", "a")
+    reset_launches()
+    seconds = {}
+
+    def step(name, fn, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    obs, _ = step("calculate_qc_metrics", pp.calculate_qc_metrics, counts, device=cuda)
+    x = step("normalize_total", pp.normalize_total, counts, target_sum=1e4)
+    x = step("log1p", pp.log1p, x)
+    hv = step("highly_variable_genes", pp.highly_variable_genes, x, flavor="seurat",
+              n_top_genes=SC_HVG, batch_key=batch)["highly_variable"]
+    xh = step("regress_out", pp.regress_out, x[:, hv], obs["total_counts"], device=cuda)
+    xh = step("combat", pp.combat, xh, batch, device=cuda)
+    xh = step("scale", pp.scale, xh, max_value=10)[0]
+    emb = step("pca", pp.pca, xh, n_comps=50, device=cuda)[0]
+    _, conn = step("neighbors", pp.neighbors, emb, n_neighbors=15, device=cuda)
+    clusters = step("leiden", tl.leiden, conn)
+    layout = step("umap", tl.umap, conn, n_epochs=200, device=cuda)
+    res = step("rank_genes_groups", tl.rank_genes_groups, x, types.astype(str),
+               method="wilcoxon", pts=True, gene_names=names, device=cuda)
+    s_score, g2m_score, phase = step("score_genes_cell_cycle", tl.score_genes_cell_cycle, x,
+                                     names[markers[0]], names[markers[1]], names, device=cuda)
+    score, doublet, thr = step("scrublet", pp.scrublet, counts, device=cuda)
+    idx, _ = step("subsample", pp.subsample, counts, fraction=0.5)
+    no_launches("the scanpy flow (phase 61)")
+    print(f"scanpy flow ({CL_CELLS} cells x {CL_GENES} genes, {CL_TYPES} types, 2 batches, "
+          f"{int(hv.sum())} HVGs): " + ", ".join(f"{k} {v:.3f} s" for k, v in seconds.items())
+          + f"; {sum(seconds.values()):.3f} s in all", flush=True)
+    score_ari = ari(types, clusters)
+    chance = ari(types, np.random.default_rng(61).permutation(clusters))
+    print(f"Leiden: {int(clusters.max()) + 1} clusters, ARI {score_ari!r} against the types, "
+          f"{chance!r} for a random labelling", flush=True)
+    if not score_ari > chance:
+        raise AssertionError(f"Leiden: ARI {score_ari} does not beat a random labelling's "
+                             f"{chance}")
+    from dance_tpu_torch.ops.neighbors import knn
+
+    # the epochs must move the layout: 200 of them against the spectral
+    # start alone (0 epochs), on the PCA's 15-NN and on the types
+    start = tl.umap(conn, n_epochs=0, device=cuda)
+    ref_idx = knn(emb, 15, include_self=False, device=cuda)[1]
+    kept_umap, kept_start, kept_pca2 = (preserved_neighbours(ref_idx, z, 15)
+                                        for z in (layout, start, emb[:, :2]))
+    same_umap, same_start, same_pca2 = (
+        float((types[knn(z.astype(np.float32), 15, include_self=False)[1]]
+               == types[:, None]).mean()) for z in (layout, start, emb[:, :2]))
+    print(f"UMAP (200 epochs): 15-NN of the 50-d PCA kept {kept_umap!r}, against "
+          f"{kept_start!r} for the spectral start (0 epochs) and {kept_pca2!r} for the PCA's "
+          f"first two components; 2-d 15-NN of the same type {same_umap!r}, against "
+          f"{same_start!r} and {same_pca2!r}", flush=True)
+    if not (np.isfinite(layout).all() and kept_umap > kept_start and same_umap > same_start):
+        raise AssertionError(f"UMAP: non-finite layout, or 200 epochs do not beat the spectral "
+                             f"start: 15-NN kept {kept_umap} against {kept_start}, of the same "
+                             f"type {same_umap} against {same_start}")
+    found = sum(bool(set(res["names"][str(t)][:20]) & set(names[markers[t]]))
+                for t in range(CL_TYPES))
+    print(f"rank_genes_groups (Wilcoxon, {CL_TYPES} types): {found} of {CL_TYPES} types have a "
+          f"generator marker among their top 20; cell-cycle phases "
+          f"{ {p: int((phase == p).sum()) for p in ('G1', 'S', 'G2M')} }; Scrublet threshold "
+          f"{thr!r}, {int(doublet.sum())} predicted doublets; subsample kept {len(idx)}",
+          flush=True)
+    if not (np.isfinite(s_score).all() and np.isfinite(g2m_score).all()
+            and np.isfinite(score).all() and found > 0):
+        raise AssertionError("the scanpy flow: non-finite scores or no marker found")
+    print(f"phase 61: {time.perf_counter() - t_phase:.3f} s", flush=True)
+
+
+def scanpy_card_vs_cpu(cuda) -> None:
+    """Phase 62: the scanpy surface on small inputs, card against CPU from
+    the same inputs and draws: ComBat's and regress-out's float64 cores and
+    the Wilcoxon statistics within 1e-9; the neighbour graph, Scrublet's
+    scores and 5 UMAP epochs from handed-in negatives within 1e-4 of the
+    largest value."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from dance_tpu_torch.sc import pp, tl
+
+    cpu = torch.device("cpu")
+    reset_launches()
+    counts, types = expression_counts(SC_SMALL, 200, 4, seed=62)
+    x = np.log1p(counts)
+    batch = np.array(["a", "b"])[np.random.default_rng(62).integers(0, 2, SC_SMALL)]
+    covs = np.column_stack([np.ones(SC_SMALL), counts.sum(1), np.full(SC_SMALL, 2.0)])
+    tight, loose = {}, {}
+
+    def gap(store, name, card, ref):
+        card, ref = np.asarray(card, np.float64), np.asarray(ref, np.float64)
+        store[name] = float(np.abs(card - ref).max() / max(np.abs(ref).max(), 1e-300))
+
+    x64 = x.astype(np.float64)
+    gap(tight, "combat", *(pp._combat(torch.from_numpy(x64).to(d), batch).cpu() for d in
+                           (cuda, cpu)))
+    gap(tight, "regress_out", *(pp._regress_out(torch.from_numpy(x64).to(d),
+                                                torch.from_numpy(covs).to(d)).cpu()
+                                for d in (cuda, cpu)))
+    res = [tl.rank_genes_groups(x, types.astype(str), method="wilcoxon", pts=True, device=d)
+           for d in (cuda, cpu)]
+    for key in ("scores", "pvals", "pvals_adj", "logfoldchanges", "pts"):
+        gap(tight, f"wilcoxon {key}", *(np.concatenate([r[key][g] for g in r[key]])
+                                        for r in res))
+    names_equal = all(np.array_equal(res[0]["names"][g], res[1]["names"][g])
+                      for g in res[1]["names"])
+    emb = pp.pca(x, n_comps=20, device=cpu)[0]
+    graphs = [pp.neighbors(emb, n_neighbors=10, device=d) for d in (cuda, cpu)]
+    gap(loose, "neighbors distances", *(g[0].toarray() - np.diag(g[0].diagonal())
+                                        for g in graphs))
+    gap(loose, "neighbors connectivities", *(g[1].toarray() for g in graphs))
+    # Scrublet: the scores of the cells whose neighbours (the search inside
+    # `scrublet`, on each device) are the same set on both, at least 98 % of
+    # them. The embeddings are float32, so a near tie at the last neighbour
+    # can fall either way: for the other cells, the gap between the two
+    # sets' farthest members in the CPU's embedding is printed
+    nbrs = [pp._scrublet_knn(counts, 2.0, None, 0, d)[0] for d in (cuda, cpu)]
+    same = np.array([set(a) == set(b) for a, b in zip(*nbrs)])
+    scores = [pp.scrublet(counts, device=d)[0] for d in (cuda, cpu)]
+    gap(loose, "scrublet", scores[0][same], scores[1][same])
+    emb_s = pp._scrublet_embedding(torch.from_numpy(counts.astype(np.float64)),
+                                   *pp.scrublet_pairs(SC_SMALL)).numpy().astype(np.float64)
+    far = [np.linalg.norm(emb_s[nb[~same]] - emb_s[:SC_SMALL][~same][:, None], axis=2).max(1)
+           for nb in nbrs]
+    tie_gap = float((np.abs(far[0] - far[1]) / far[1]).max()) if (~same).any() else 0.0
+    conn = graphs[1][1]
+    negs = np.random.default_rng(62).integers(
+        0, SC_SMALL, (5, sp.triu(conn.maximum(conn.T), k=1).nnz))
+    gap(loose, "umap 5 epochs", *(tl.umap(conn, n_epochs=5, negatives=negs, device=d)
+                                  for d in (cuda, cpu)))
+    no_launches("the small scanpy surface (phase 62)")
+    print(f"phase 62, card vs CPU ({SC_SMALL} cells x 200 genes): within 1e-9 {tight}; within "
+          f"1e-4 {loose}; Wilcoxon names equal {names_equal}; Scrublet's neighbours the same "
+          f"set for {same.mean()!r} of the cells, the others' farthest neighbours within "
+          f"{tie_gap!r} of each other (relative)", flush=True)
+    if not (all(g <= 1e-9 for g in tight.values()) and all(g <= 1e-4 for g in loose.values())
+            and names_equal and same.mean() >= 0.98):
+        raise AssertionError(f"the card disagrees with the CPU on the scanpy surface: {tight}, "
+                             f"{loose}, names equal {names_equal}")
+
+
 def match_score(model, x1, x2):
     """``predict_matching`` on the test cells and its ``score_matching``:
     (score, the printed words)."""
@@ -4317,6 +4608,11 @@ def main() -> int:
     je_phases(cuda)
     spatial_domain_phases(cuda)
     classical_phases(cuda)
+    dc.update(stdgcn_combat_phase(cuda))
+    t_phases = time.perf_counter()
+    scanpy_phase(cuda)
+    scanpy_card_vs_cpu(cuda)
+    print(f"phases 61-62: {time.perf_counter() - t_phases:.3f} s", flush=True)
 
     def entry(name):
         result, launched = measured[name]
@@ -4325,13 +4621,14 @@ def main() -> int:
                 "launches": launched, **result}
 
     entries = {name: entry(name) for name in KERNELS}
-    # the SpMM runs on nine main paths: its times are scDeepSort's tiling at
+    # the SpMM runs on ten main paths: its times are scDeepSort's tiling at
     # d = 256; graph-sc's tiling at d = 200, scTAG's at d = 3000 and 128,
     # scDSC's at d = 512 and 8, scMoGNN's, DSTG's at d = 32 and 8, stdGCN's
-    # towers at d = 256 and scHeteroNet's two hops at d = 64 and 128 ride
-    # beside them, and its bf16 instantiation at d = 256 (``bf16``). Every
-    # main path's tiles are constants, so the SDDMM's launches are phase 3b's
-    # trainable tiles', in float32 and bf16.
+    # towers at d = 256 (and under ComBat's integration, phase 60) and
+    # scHeteroNet's two hops at d = 64 and 128 ride beside them, and its bf16
+    # instantiation at d = 256 (``bf16``). Every main path's tiles are
+    # constants, so the SDDMM's launches are phase 3b's trainable tiles', in
+    # float32 and bf16.
     spmm = entries["bsr_spmm"]
     spmm["launches_by_path"] = {"scdeepsort": spmm["launches"],
                                 "scdeepsort_bf16": spmm["bf16"]["launches"],
@@ -4340,6 +4637,7 @@ def main() -> int:
                                 "scmogcn": mm["scmogcn_launches"],
                                 "scmogcn_je": mm["je_launches"],
                                 "dstg": dc["dstg_launches"], "stdgcn": dc["stdgcn_launches"],
+                                "stdgcn_combat": dc["stdgcn_combat_launches"],
                                 "scheteronet": hn["scheteronet_launches"]}
     spmm["launches"] = sum(spmm["launches_by_path"].values())
     spmm["graphsc"] = gsc["graphsc_spmm"]
@@ -4350,6 +4648,8 @@ def main() -> int:
     spmm["dstg"] = {f"d{d}": res for d, res in dc["dstg"].items()}
     spmm["stdgcn"] = {f"{tower}_d{d}": res for tower in ("exp", "sp")
                       for d, res in dc[f"stdgcn_{tower}"].items()}
+    spmm["stdgcn_combat"] = {f"{tower}_d{d}": res for tower in ("exp", "sp")
+                             for d, res in dc[f"stdgcn_combat_{tower}"].items()}
     spmm["scheteronet"] = {f"{hop}_d{d}": res for hop in ("one_hop", "two_hop")
                            for d, res in hn[hop].items()}
     print(f"chip_smoke: {time.perf_counter() - t_start:.3f} s in all", flush=True)

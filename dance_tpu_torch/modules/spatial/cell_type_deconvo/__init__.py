@@ -7,7 +7,10 @@ from dance_tpu_torch.modules.spatial.cell_type_deconvo.dstg import DSTG, dstg_pr
 from dance_tpu_torch.modules.spatial.cell_type_deconvo.spatialdecon import (
     SpatialDecon, spatialdecon_preprocess)
 from dance_tpu_torch.modules.spatial.cell_type_deconvo.spotlight import SPOTlight
-from dance_tpu_torch.modules.spatial.cell_type_deconvo.stdgcn import StdGCN, stdGCNWrapper
+from dance_tpu_torch.modules.spatial.cell_type_deconvo.stdgcn import (StdGCN, stdGCNMarkGenes,
+                                                                      stdGCNWrapper,
+                                                                      stdgcn_marker_genes)
 
 __all__ = ["Card", "DSTG", "SPOTlight", "SpatialDecon", "StdGCN", "card_preprocess",
-           "dstg_preprocess", "spatialdecon_preprocess", "stdGCNWrapper"]
+           "dstg_preprocess", "spatialdecon_preprocess", "stdGCNMarkGenes", "stdGCNWrapper",
+           "stdgcn_marker_genes"]

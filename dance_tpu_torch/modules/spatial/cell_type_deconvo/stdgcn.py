@@ -1,22 +1,22 @@
 """stdGCN: a two-tower GCN over expression and spatial spot graphs.
 
-Counterpart: dance_tpu/modules/spatial/cell_type_deconvo/stdgcn.py (the
-graph builders :42-213, ``_FullBatchNorm`` :216, ``_ConGCN`` :225,
-``StdGCN`` :264-499, ``get_idx``/``full_block``/``autoencoder``/``auto_train``
-:516-591). An expression tower over ``adj_exp`` (mutual-NN links between real
-and pseudo-spots in an integrated embedding, plus each split's expression
-kNN) and a spatial tower over ``adj_sp`` (the real spots' inverse-distance
-kNN) each run GCN layers of Dense → aggregate → full-batch norm → ELU →
-dropout; their outputs are concatenated into a dense head with a
+Counterpart: dance_tpu/modules/spatial/cell_type_deconvo/stdgcn.py (the graph
+builders :42-213, ``_FullBatchNorm`` :216, ``_ConGCN`` :225, ``StdGCN``
+:264-499, ``get_idx``/``full_block``/``autoencoder``/``auto_train`` :516-591,
+``stdGCNMarkGenes`` :603-658). An expression tower over ``adj_exp`` (mutual-NN
+links between real and pseudo-spots in an integrated embedding, plus each
+split's expression kNN) and a spatial tower over ``adj_sp`` (the real spots'
+inverse-distance kNN) each run GCN layers of Dense → aggregate → full-batch
+norm → ELU → dropout; their outputs are concatenated into a dense head with a
 log-softmax over the cell types, trained with KL divergence against the
 pseudo-spots' portions under global-norm clipping and Adam, with early
 stopping on a 10 % validation split of the pseudo-spots. Every aggregation
-goes through :func:`~dance_tpu_torch.ops.segment.spmm`: one matrix product
-on a dense adjacency, the block-sparse SpMM (the CUDA kernel #1 on the card,
-forward and ``Aᵀḡ``) on BSR tiles, which both towers take under one shared
-RCM order of ``adj_exp + adj_sp``. ``use_bsr="auto"`` (the default, as in
-JAX) lets :func:`~dance_tpu_torch.ops.bsr.resolve_adj_format` pick dense,
-BSR or CSR for that sum; CSR off the card.
+goes through :func:`~dance_tpu_torch.ops.segment.spmm`: one matrix product on
+a dense adjacency, the block-sparse SpMM (the CUDA kernel #1 on the card,
+forward and ``Aᵀḡ``) on BSR tiles, which both towers take under one shared RCM
+order of ``adj_exp + adj_sp``. ``use_bsr="auto"`` (the default, as in JAX)
+lets :func:`~dance_tpu_torch.ops.bsr.resolve_adj_format` pick dense, BSR or
+CSR for that sum; CSR off the card.
 
 Where this differs from the JAX package:
 
@@ -27,9 +27,11 @@ Where this differs from the JAX package:
   does. The PCA and the kNN run on ``device`` (the card unless the CPU is
   named) and are the port's: see transforms/graph/dstg_graph.py for what
   that means for ties.
-- ``batch_removal="combat"`` raises: ``sc.pp.combat`` is not ported
-  (ROADMAP Queue 1). ``stdGCNMarkGenes`` (Wilcoxon ``rank_genes_groups``)
-  is not ported either; the model's pipeline uses ``FilterGenesMarker``.
+- ``batch_removal="combat"`` runs :func:`dance_tpu_torch.sc.pp.combat` on
+  the pseudo and real blocks on ``device``, in float64, as JAX runs
+  ``sc.pp.combat`` on the host. ``stdGCNMarkGenes`` is the function
+  :func:`stdgcn_marker_genes` on arrays (a thin class keeps the name); the
+  model's pipeline uses ``FilterGenesMarker``.
 - Plain ``max_epochs`` training (``early_stopping_patience=0``) is an epoch
   loop; JAX runs it as one compiled scan.
 - The weights are drawn at each ``fit`` from a CPU ``torch.Generator``
@@ -63,6 +65,8 @@ from dance_tpu_torch.ops.linalg import pca
 from dance_tpu_torch.ops.neighbors import _knn_block
 from dance_tpu_torch.ops.segment import spmm
 from dance_tpu_torch.ops.sparse import csr_from_scipy, dense_adj_from_scipy
+from dance_tpu_torch.sc.pp import combat
+from dance_tpu_torch.sc.tl import rank_genes_groups
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.utils import EpochClock, resolve_device
 from dance_tpu_torch.utils.optim import best_state, clip_by_global_norm_
@@ -195,13 +199,16 @@ def data_integration(feat: np.ndarray, n_pseudo: int, *, method: Optional[str] =
     (counterpart: stdgcn.py:133): with ``"pca"`` the PCA of the standardised
     spots, with ``"autoencoder"`` the :func:`auto_train` embedding
     standardised, with ``None`` the spots standardised; ``min(min_dim,
-    genes // 2)`` dimensions. ``feat`` is ordered [pseudo; real]."""
+    genes // 2)`` dimensions. ``feat`` is ordered [pseudo; real]. With
+    ``batch_removal="combat"`` the spots are first corrected by
+    :func:`~dance_tpu_torch.sc.pp.combat` on ``device``, the pseudo-spots and
+    the real spots its two batches."""
     dim = min(min_dim, max(1, feat.shape[1] // 2))
     x = np.asarray(feat, np.float32)
     if batch_removal == "combat":
-        raise NotImplementedError("batch_removal='combat' needs sc.pp.combat, which is not "
-                                  "ported yet (ROADMAP Queue 1, item 8)")
-    if batch_removal is not None:
+        batch = np.array(["pseudo"] * n_pseudo + ["real"] * (len(x) - n_pseudo))
+        x = combat(x, batch, device=device)
+    elif batch_removal is not None:
         raise ValueError(f"unknown batch removal {batch_removal!r}")
     if method in ("pca", "PCA"):
         if scale:
@@ -542,7 +549,67 @@ def auto_train(x, epoch_n: int = 2000, lr: float = 1e-3, latent_size: Optional[i
         return net(xt)[0].cpu().numpy()
 
 
+def stdgcn_marker_genes(x, cell_types, gene_names, *, filter_wilcoxon_marker_genes: bool = True,
+                        top_gene_per_type: int = 20,
+                        pvals_adj_threshold: Optional[float] = 0.10,
+                        log_fold_change_threshold: Optional[float] = 1.0,
+                        min_within_group_fraction_threshold: Optional[float] = 0.7,
+                        max_between_group_fraction_threshold: Optional[float] = 0.3,
+                        device="auto") -> Tuple[List[str], Dict[str, List[str]]]:
+    """stdGCN's marker genes of the reference cells ``x`` (log data, cells x
+    genes) in types ``cell_types`` (counterpart: ``stdGCNMarkGenes``,
+    stdgcn.py:603-658): Wilcoxon :func:`~dance_tpu_torch.sc.tl.rank_genes_groups`
+    with BH correction and nonzero shares on ``device``; per type the genes
+    ordered by adjusted p-value (ties by gene index: JAX's unstable sort
+    leaves them in numpy's order), kept where the adjusted p-value is under
+    ``pvals_adj_threshold``, the log fold change at least
+    ``log_fold_change_threshold``, the share of the type's cells expressing
+    it at least ``min_within_group_fraction_threshold`` and the other cells'
+    share under ``max_between_group_fraction_threshold`` (each filter off
+    when None, all off without ``filter_wilcoxon_marker_genes``), the first
+    ``top_gene_per_type``. Returns ``(gene_list, gene_dict)``: the sorted
+    union of the kept genes and each type's list (JAX's ``uns["gene_list"]``
+    and ``uns["gene_dict"]``). The reference's ``marker_gene_method`` is not
+    taken: it runs Wilcoxon whatever that option says."""
+    names = np.asarray(gene_names)
+    res = rank_genes_groups(x, cell_types, method="wilcoxon", pts=True, gene_names=names,
+                            device=device)
+    index = {name: i for i, name in enumerate(names.tolist())}
+    gene_dict, gene_list = {}, []
+    for name in res["names"]:
+        padj = res["pvals_adj"][name]
+        ranked = res["names"][name]
+        order = np.lexsort((np.array([index[g] for g in ranked.tolist()]), padj))
+        keep = np.ones(len(order), bool)
+        if filter_wilcoxon_marker_genes:
+            if pvals_adj_threshold is not None:
+                keep &= padj[order] < pvals_adj_threshold
+            if log_fold_change_threshold is not None:
+                keep &= res["logfoldchanges"][name][order] >= log_fold_change_threshold
+            if min_within_group_fraction_threshold is not None:
+                keep &= res["pts"][name][order] >= min_within_group_fraction_threshold
+            if max_between_group_fraction_threshold is not None:
+                keep &= res["pts_rest"][name][order] < max_between_group_fraction_threshold
+        sel = ranked[order][keep][:top_gene_per_type]
+        gene_dict[name] = list(sel)
+        gene_list = sorted(set(gene_list) | set(sel))
+    return gene_list, gene_dict
+
+
+class stdGCNMarkGenes:
+    """The reference's transform name over :func:`stdgcn_marker_genes`: its
+    keyword options at construction, ``(x, cell_types, gene_names)`` at the
+    call (counterpart: stdgcn.py:603, which reads the reference split of a
+    ``Data`` and writes ``uns``)."""
+
+    def __init__(self, **kwargs):
+        self.kwargs = kwargs
+
+    def __call__(self, x, cell_types, gene_names):
+        return stdgcn_marker_genes(x, cell_types, gene_names, **self.kwargs)
+
+
 __all__ = ["A_intra_transfer", "StdGCN", "adj_normalize", "auto_train", "autoencoder",
            "build_stdgcn_adjacencies", "conGCN", "data_integration", "find_mutual_nn",
            "full_block", "get_idx", "inter_adj", "intra_dist_adj", "intra_exp_adj",
-           "stdGCNWrapper"]
+           "stdGCNMarkGenes", "stdGCNWrapper", "stdgcn_marker_genes"]

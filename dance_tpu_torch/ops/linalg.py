@@ -1,5 +1,5 @@
-"""Truncated SVD, PCA and the SVD embedding (counterpart:
-dance_tpu/ops/linalg.py:19-122).
+"""Truncated SVD, PCA, the PCA projection, the SVD embedding and the
+Gaussian random projection (counterpart: dance_tpu/ops/linalg.py:19-128).
 
 ``solver="auto"`` takes the exact SVD when ``min(m, n) <= 1024`` and the
 randomized range finder (Halko et al.) otherwise, as the JAX package does.
@@ -10,6 +10,8 @@ path (``_rsvd_sparse``, linalg.py:74) is not part of this slice.
 """
 
 from typing import NamedTuple
+
+import math
 
 import torch
 
@@ -73,6 +75,13 @@ def pca(x: torch.Tensor, n_components: int, *, seed: int = 0) -> PCAResult:
     return PCAResult(u * s[None, :], vt, mean, s ** 2 / (x.shape[0] - 1))
 
 
+def pca_transform(x, result: PCAResult) -> torch.Tensor:
+    """New rows projected onto a fitted PCA, ``(x - mean) componentsᵀ``, in
+    float32 on the result's device (counterpart: linalg.py:113)."""
+    x = torch.as_tensor(x, dtype=torch.float32).to(result.mean.device)
+    return (x - result.mean[None, :]) @ result.components.T
+
+
 def svd_embedding(x: torch.Tensor, n_components: int, **kwargs):
     """TruncatedSVD's embedding, without centring: ``(U S, Vt)`` of
     :func:`randomized_svd` (counterpart: linalg.py:118)."""
@@ -80,4 +89,16 @@ def svd_embedding(x: torch.Tensor, n_components: int, **kwargs):
     return u * s[None, :], vt
 
 
-__all__ = ["PCAResult", "pca", "randomized_svd", "svd_embedding"]
+def gram_schmidt_gauss_proj(generator: torch.Generator, n_features: int, n_components: int,
+                            dtype=torch.float32) -> torch.Tensor:
+    """A random Gaussian projection, (n_features, n_components) standard
+    normals over sqrt(n_components), drawn from ``generator`` on its device
+    (counterpart: linalg.py:124, which draws from a ``jax.random`` key; the
+    draws differ, the law is the same)."""
+    z = torch.randn((n_features, n_components), generator=generator, dtype=dtype,
+                    device=generator.device)
+    return z / math.sqrt(n_components)
+
+
+__all__ = ["PCAResult", "gram_schmidt_gauss_proj", "pca", "pca_transform", "randomized_svd",
+           "svd_embedding"]

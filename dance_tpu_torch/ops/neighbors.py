@@ -1,7 +1,8 @@
 """Exact k-nearest neighbours and neighbour graphs (counterpart:
 dance_tpu/ops/neighbors.py:46-129).
 
-Host numpy in, host scipy out, computed on the CPU. Two branches, as in the
+Host numpy in, host scipy out, computed on the CPU unless :func:`knn` is
+given a device. Two branches, as in the
 JAX package: a KD-tree (scipy) for 2-3-D coordinates, which gives the same
 graphs bit for bit, and a blocked torch distance matrix plus ``topk`` for
 high-dimensional features (``method="device"`` keeps the JAX name). The
@@ -25,10 +26,11 @@ def _knn_block(q: torch.Tensor, x: torch.Tensor, k: int):
 
 
 def knn(x, k: int, *, include_self: bool = True, block_size: int = 4096,
-        method: str = "auto") -> Tuple[np.ndarray, np.ndarray]:
+        method: str = "auto", device=None) -> Tuple[np.ndarray, np.ndarray]:
     """Exact kNN over the rows of ``x``: ``(distances, indices)``, each (n, k),
     float32 and int64 (counterpart: neighbors.py:46). ``method`` is
-    ``"kdtree"``, ``"device"`` or ``"auto"`` (KD-tree iff dim <= 3)."""
+    ``"kdtree"``, ``"device"`` or ``"auto"`` (KD-tree iff dim <= 3);
+    ``"device"`` computes on ``device`` (the CPU when None)."""
     n = x.shape[0]
     kq = k if include_self else k + 1
     if kq > n:
@@ -47,10 +49,10 @@ def knn(x, k: int, *, include_self: bool = True, block_size: int = 4096,
         if kq == 1:
             d, i = d[:, None], i[:, None]
     elif method == "device":
-        xd = torch.as_tensor(np.asarray(x, np.float32))
+        xd = torch.as_tensor(np.asarray(x, np.float32)).to(device or "cpu")
         blocks = [_knn_block(xd[s:s + block_size], xd, kq) for s in range(0, n, block_size)]
-        d = torch.cat([b[0] for b in blocks]).numpy()
-        i = torch.cat([b[1] for b in blocks]).numpy()
+        d = torch.cat([b[0] for b in blocks]).cpu().numpy()
+        i = torch.cat([b[1] for b in blocks]).cpu().numpy()
     else:
         raise ValueError(f"Unknown method {method!r}")
     if not include_self:

@@ -1037,3 +1037,76 @@ def test_bf16_fit_matches_cpu(cuda):
     np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=1e-4)
     np.testing.assert_allclose(runs[1][1], runs[0][1], rtol=1e-4, atol=1e-5)
     assert runs[0][2] == 0 and runs[1][2] >= 4 * 3
+
+
+# --------------------------------------------------------------------------
+# the scanpy surface on the card against the CPU, and #1 on stdGCN's towers
+# under ComBat's integration
+# --------------------------------------------------------------------------
+
+_COMBAT_TILINGS = {}
+
+
+@pytest.mark.parametrize("tiling", ["stdgcn_exp", "stdgcn_sp"])
+def test_spmm_stdgcn_combat_tilings_match_plain(cuda, tiling):
+    """#1 at stdGCN's width 256 on its towers under the shared RCM order of
+    the graphs that ComBat's integration gives, and their transposes."""
+    if not _COMBAT_TILINGS:
+        _COMBAT_TILINGS.update(deconvo_tilings(batch_removal="combat"))
+    bsr = _COMBAT_TILINGS[tiling].to(cuda)
+    for mat in (bsr, tbsr.bsr_transpose(bsr)):
+        b = torch.randn((mat.shape[1], 256), generator=torch.Generator().manual_seed(7)).to(cuda)
+        n = tbsr.bsr_spmm.launches
+        out = tbsr.bsr_spmm(mat, b)
+        torch.cuda.synchronize()
+        assert tbsr.bsr_spmm.launches - n == 1
+        torch.testing.assert_close(out.cpu(), tbsr.bsr_spmm_reference(mat.to("cpu"), b.cpu()),
+                                   rtol=RTOL, atol=ATOL)
+
+
+def test_combat_regress_out_and_wilcoxon_match_cpu(cuda):
+    """float64 on both: ComBat, regress-out (before their float32 cast) and
+    the Wilcoxon statistics within 1e-9."""
+    from dance_tpu_torch.sc import pp as tpp
+    from dance_tpu_torch.sc import tl as ttl
+
+    counts, types, names = typed_counts(n=300, g=60, n_types=4, seed=21)
+    x = np.log1p(counts)
+    batch = np.array(["a", "b"])[np.random.default_rng(21).integers(0, 2, len(x))]
+    cpu = torch.device("cpu")
+    covs = np.column_stack([np.ones(len(x)), counts.sum(1), np.full(len(x), 2.0)])
+    for fn in (lambda d: tpp._combat(torch.from_numpy(x.astype(np.float64)).to(d), batch),
+               lambda d: tpp._regress_out(torch.from_numpy(x.astype(np.float64)).to(d),
+                                          torch.from_numpy(covs).to(d))):
+        card, ref = fn(cuda).cpu().numpy(), fn(cpu).numpy()
+        np.testing.assert_allclose(card, ref, rtol=1e-9, atol=1e-9)
+    res = [ttl.rank_genes_groups(x, types.astype(str), method="wilcoxon", pts=True,
+                                 gene_names=names, device=d) for d in (cuda, cpu)]
+    for key in ("scores", "pvals", "pvals_adj", "logfoldchanges", "pts", "pts_rest"):
+        for g in res[1][key]:
+            np.testing.assert_array_equal(res[0]["names"][g], res[1]["names"][g])
+            np.testing.assert_allclose(res[0][key][g], res[1][key][g], rtol=1e-9, atol=1e-300,
+                                       err_msg=f"{g} {key}")
+
+
+def test_umap_epochs_and_scrublet_match_cpu(cuda):
+    """Five UMAP epochs from the same handed-in negatives, and Scrublet's
+    scores (cells with counts: no coinciding points), within 1e-4."""
+    from dance_tpu_torch.sc import pp as tpp
+    from dance_tpu_torch.sc import tl as ttl
+
+    rng = np.random.default_rng(22)
+    rep = (rng.standard_normal((3, 8)) * 4)[rng.integers(0, 3, 200)] + rng.standard_normal(
+        (200, 8))
+    _, conn = tpp.neighbors((rep - rep.mean(0)).astype(np.float32), n_neighbors=10,
+                            device="cpu")
+    n_edges = sp.triu(conn.maximum(conn.T), k=1).nnz
+    negs = rng.integers(0, 200, (5, n_edges))
+    card, ref = (ttl.umap(conn, n_epochs=5, negatives=negs, device=d)
+                 for d in (cuda, torch.device("cpu")))
+    np.testing.assert_allclose(card, ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max())
+    counts = typed_counts(n=200, g=60, seed=22)[0]
+    counts = counts[counts.sum(1) > 0]
+    (s_card, _, t_card), (s_ref, _, t_ref) = (tpp.scrublet(counts, device=d)
+                                              for d in (cuda, torch.device("cpu")))
+    np.testing.assert_allclose(s_card, s_ref, atol=1e-4)

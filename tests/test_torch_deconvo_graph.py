@@ -156,7 +156,7 @@ def test_knn_matches_jax():
     rng = np.random.default_rng(6)
     q, base = rng.standard_normal((50, 8)), rng.standard_normal((90, 8))
     want = np.asarray(jdstg_graph._knn(q, base, 7))
-    np.testing.assert_array_equal(tdstg_graph._knn(q, base, 7, device=CPU), want)
+    np.testing.assert_array_equal(tdstg_graph.query_knn(base, 7, q, device=CPU)[1], want)
 
 
 @pytest.mark.parametrize("k_filter", [200, 3])
@@ -279,8 +279,15 @@ def test_data_integration_matches_jax(shared_neighbours):
         want = jstdgcn.data_integration(feat, 40, method=method, min_dim=10)
         got = tstdgcn.data_integration(feat, 40, method=method, min_dim=10, device=CPU)
         np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="combat"):
-        tstdgcn.data_integration(feat, 40, batch_removal="combat", device=CPU)
+    # ComBat over the pseudo and real blocks first (float64 inside, float32 out)
+    for method in ("pca", None):
+        want = jstdgcn.data_integration(feat, 40, method=method, min_dim=10,
+                                        batch_removal="combat")
+        got = tstdgcn.data_integration(feat, 40, method=method, min_dim=10,
+                                       batch_removal="combat", device=CPU)
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="batch removal"):
+        tstdgcn.data_integration(feat, 40, batch_removal="harmony", device=CPU)
 
 
 # --------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Port parity for DSTG (dance_tpu_torch.modules.spatial.cell_type_deconvo.dstg):
 the GCN's forward and gradients, the weight transfer, 3-epoch fits from the
 same weights on CSR and on BSR tiles, BSR against CSR, the validation split,
-the masked cross-entropy, the SpMM launches of a fit, and the device
-defaults.
+the masked cross-entropy, the SpMM launches of a fit, the device defaults,
+and the reference-named link-graph helpers on arrays (the CCA, its top
+genes, the kNN bundle, MNN pairs, the gene-confirmed edge list).
 
 Inputs are made with numpy from a seed and handed to both packages; flax
 weights are copied into the torch net (dstg_flax_to_torch, through a
@@ -186,3 +187,101 @@ def test_dstg_needs_a_card_unless_cpu_is_named(monkeypatch):
     with pytest.raises(RuntimeError, match="device='auto'"):
         DSTG()
     assert DSTG(device="cpu").device == CPU
+
+
+# --------------------------------------------------------------------------
+# the reference-named link-graph helpers on arrays (dstg_graph.py:119-202,
+# preprocess.py:292-368): the JAX side on pandas frames of genes x spots with
+# named spots and genes, the port on the arrays, spots and genes by index.
+# Float64 on both sides: the CCA at 1e-8 (two SVDs of one matrix), the kNN
+# bundles and edge lists exactly; top-gene sets as sets (JAX returns
+# ``list(set(...))``, whose order follows string hashes).
+# --------------------------------------------------------------------------
+
+def _link_case(seed=0, n_genes=60, n1=70, n2=50):
+    from torch_cases import deconvo_case
+
+    x_ref, _, x_spots, _, _ = deconvo_case(n_ref=n1, n_genes=n_genes, n_spots=n2, seed=seed)
+    return np.log1p(x_ref).T.astype(np.float64), np.log1p(x_spots).T.astype(np.float64)
+
+
+def _frames(pseudo, real):
+    import pandas as pd
+
+    genes = [f"gene{j}" for j in range(pseudo.shape[0])]
+    return (pd.DataFrame(pseudo, index=genes, columns=[f"p{i}" for i in range(pseudo.shape[1])]),
+            pd.DataFrame(real, index=genes, columns=[f"r{i}" for i in range(real.shape[1])]))
+
+
+def test_l2norm_and_cca_embed_match_jax():
+    from dance_tpu.transforms import preprocess as jpre
+    from dance_tpu_torch.transforms import preprocess as tpre
+
+    pseudo, real = _link_case(seed=1)
+    rows = np.vstack([pseudo[:5], np.zeros((1, pseudo.shape[1]))])
+    np.testing.assert_array_equal(tpre.l2norm(rows), jpre.l2norm(rows))
+    (jemb, jd), jload = jpre.ccaEmbed(*_frames(pseudo, real), num_cc=8)
+    (emb, d), load = tpre.ccaEmbed(pseudo, real, num_cc=8, device=CPU)
+    np.testing.assert_allclose(emb, jemb.to_numpy(), rtol=1e-8, atol=1e-10)
+    np.testing.assert_allclose(d, jd, rtol=1e-10)
+    np.testing.assert_allclose(load, jload.to_numpy(), rtol=1e-8, atol=1e-8)
+    assert (emb[0] >= 0).all() and emb.shape == (120, 8)
+
+
+@pytest.mark.parametrize("dim_genes,max_genes", [(100, 200), (6, 20)])
+def test_sort_and_select_top_genes_match_jax(dim_genes, max_genes):
+    import pandas as pd
+
+    from dance_tpu.transforms import preprocess as jpre
+    from dance_tpu_torch.transforms import preprocess as tpre
+
+    load = np.random.default_rng(2).standard_normal((60, 5))
+    frame = pd.DataFrame(load, index=[f"gene{j}" for j in range(60)])
+    for dim, num in ((0, 7), (3, 10)):
+        want = [int(g[4:]) for g in jpre.sortGenes(frame, dim, num)]
+        np.testing.assert_array_equal(tpre.sortGenes(load, dim, num), want)
+    want = {int(g[4:]) for g in jpre.selectTopGenes(frame, range(5), dim_genes, max_genes)}
+    got = tpre.selectTopGenes(load, range(5), dim_genes, max_genes)
+    assert set(got.tolist()) == want and list(got) == sorted(got)
+
+
+def test_query_knn_knn_and_mnn_match_jax():
+    import pandas as pd
+
+    from dance_tpu.transforms.graph import dstg_graph as jdg
+    from dance_tpu_torch.transforms.graph import dstg_graph as tdg
+
+    emb = np.random.default_rng(3).standard_normal((90, 6))
+    names = np.array([f"s{i}" for i in range(90)])
+    frame = pd.DataFrame(emb, index=names)
+    s1, s2 = np.arange(50), np.arange(50, 90)
+    want = jdg.knn(frame, names[s1], names[s2], k=6)
+    got = tdg.knn(emb, s1, s2, k=6)
+    for w, g in zip(want[:4], got[:4]):
+        np.testing.assert_array_equal(g[1], w[1])
+        np.testing.assert_array_equal(g[0], w[0])
+    d1, i1 = tdg.query_knn(emb, 1)
+    assert i1.shape == (90, 1) and (i1[:, 0] == np.arange(90)).all() and (d1 == 0).all()
+    colnames = names[np.r_[0:40, 50:90]]  # ten spots of set 1 missing: they have no pairs
+    want_e = jdg.mnn(want, colnames, 5).to_numpy()
+    got_e = tdg.mnn(got, np.r_[0:40, 50:90])
+    np.testing.assert_array_equal(got_e, want_e)
+    assert len(got_e) > 0 and got_e[:, 0].max() < 40
+
+
+def test_filter_edge_construct_link_graph_and_preprocess_adj_match_jax():
+    from dance_tpu.transforms.graph import dstg_graph as jdg
+    from dance_tpu_torch.transforms.graph import dstg_graph as tdg
+
+    pseudo, real = _link_case(seed=4)
+    jp, jr = _frames(pseudo, real)
+    for k_filter in (200, 8):
+        want = jdg.construct_link_graph(jp, jr, k_filter=k_filter, num_cc=10)
+        got = tdg.construct_link_graph(pseudo, real, k_filter=k_filter, num_cc=10, device=CPU)
+        np.testing.assert_array_equal(got, want[["spot1", "spot2"]].to_numpy())
+        assert len(got) > 0
+    adj = sp.random(30, 30, density=0.2, random_state=4)
+    adj = adj + adj.T
+    for a in (adj, adj.toarray()):
+        want, got = jdg.preprocess_adj(a), tdg.preprocess_adj(a)
+        np.testing.assert_array_equal(got.toarray(), want.toarray())

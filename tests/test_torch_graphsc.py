@@ -177,8 +177,18 @@ def test_cell_ranger_hvg_matches_jax(sparse, n_top_genes):
 
 
 def test_hvg_seurat_flavor_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpp.highly_variable_genes(np.ones((4, 4)), flavor="seurat")
+    """The seurat flavour is ported now (the port's default, as JAX's; its
+    parity: tests/test_torch_sc_pp.py): on a constant matrix every
+    dispersion is NaN and no gene is kept, as in JAX; an unknown flavour
+    raises."""
+    ones = np.ones((4, 4), np.float32)
+    got = tpp.highly_variable_genes(ones, flavor="seurat")
+    want = jpp.highly_variable_genes(AnnData(X=ones), flavor="seurat", inplace=False)
+    for key in ("highly_variable", "dispersions_norm"):
+        np.testing.assert_array_equal(got[key], want[key].to_numpy())
+    assert not got["highly_variable"].any()
+    with pytest.raises(ValueError, match="flavor"):
+        tpp.highly_variable_genes(ones, flavor="pearson")
 
 
 def test_weighted_feature_pca_standardize_matches_jax():

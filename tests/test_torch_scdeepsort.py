@@ -409,7 +409,8 @@ def test_port_imports_no_jax():
         "        'dance_tpu_torch.modules.single_modality.imputation.magic',\n"
         "        'dance_tpu_torch.modules.spatial.cell_type_deconvo.spotlight',\n"
         "        'dance_tpu_torch.modules.spatial.cell_type_deconvo.spatialdecon',\n"
-        "        'dance_tpu_torch.modules.spatial.cell_type_deconvo.card'} <= set(names)\n"
+        "        'dance_tpu_torch.modules.spatial.cell_type_deconvo.card',\n"
+        "        'dance_tpu_torch.sc.pp', 'dance_tpu_torch.sc.tl'} <= set(names)\n"
         "from dance_tpu_torch.modules.multi_modality.predict_modality import (\n"
         "    BabelWrapper, CMAE, MMVAE, ScMoGCNWrapper)\n"
         "from dance_tpu_torch.modules.multi_modality.match_modality import CMAE, MMVAE\n"
@@ -428,6 +429,16 @@ def test_port_imports_no_jax():
         "    FilterGenesCommon, GeneStats, SCNFeature)\n"
         "from dance_tpu_torch.transforms import (FilterGenesMatch, morphology_feature_cnn,\n"
         "    sme_feature, sme_graph, spagcn_graph)\n"
+        "from dance_tpu_torch.sc.pp import (calculate_qc_metrics, combat, neighbors, pca,\n"
+        "    regress_out, scrublet, subsample)\n"
+        "from dance_tpu_torch.sc.tl import (leiden, louvain, rank_genes_groups, score_genes,\n"
+        "    score_genes_cell_cycle, umap)\n"
+        "from dance_tpu_torch.modules.spatial.cell_type_deconvo import (stdGCNMarkGenes,\n"
+        "    stdgcn_marker_genes)\n"
+        "from dance_tpu_torch.transforms.graph.dstg_graph import (construct_link_graph,\n"
+        "    filter_edge, mnn, preprocess_adj, query_knn)\n"
+        "from dance_tpu_torch.transforms.preprocess import ccaEmbed, l2norm, selectTopGenes\n"
+        "from dance_tpu_torch.ops.linalg import gram_schmidt_gauss_proj, pca_transform\n"
         "bad = {'jax', 'flax', 'optax', 'sklearn', 'pandas', 'h5py', 'yaml', 'dance_tpu'}\n"
         "print(len(names), sorted(m for m in sys.modules if m.split('.')[0] in bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

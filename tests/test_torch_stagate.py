@@ -148,8 +148,10 @@ def test_seurat_v3_hvg_matches_jax(sparse):
     for key in ("highly_variable", "means", "variances", "variances_norm"):
         np.testing.assert_array_equal(got[key], ad.var[key].to_numpy())
     assert got["highly_variable"].sum() == 120
-    with pytest.raises(NotImplementedError, match="seurat_v3"):
-        tpp.highly_variable_genes(x, flavor="seurat")
+    # the other flavours are no longer refused: seurat's parity is
+    # tests/test_torch_sc_pp.py; an unknown one raises
+    with pytest.raises(ValueError, match="flavor"):
+        tpp.highly_variable_genes(x, flavor="seurat_v4")
 
 
 def test_stagate_preprocess_matches_jax_steps():

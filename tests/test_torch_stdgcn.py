@@ -335,10 +335,10 @@ def test_graph_cache_and_formats(monkeypatch):
     gives the CSR fit (within Adam's rounding spread, see
     test_fit_matches_jax); BSR trains on another 90/10 split (the labelled
     spots are split in the RCM order, as in JAX)."""
-    builds = []
+    builds, builds_kw = [], []
     build = tstdgcn.build_stdgcn_adjacencies
     monkeypatch.setattr(tstdgcn, "build_stdgcn_adjacencies",
-                        lambda *a, **k: builds.append(1) or build(*a, **k))
+                        lambda *a, **k: builds.append(1) or builds_kw.append(k) or build(*a, **k))
     feat, coords, y = _inputs(4)
     m = stdGCNWrapper(hidden=(8,), dropout=0.0, seed=0, device="cpu")
     kw = dict(max_epochs=2, inter_k=8, intra_exp_k=5, space_k=6)
@@ -354,13 +354,87 @@ def test_graph_cache_and_formats(monkeypatch):
     np.testing.assert_allclose(m.predict().sum(1), 1.0, rtol=1e-5)
     m.fit((feat * 1.5, coords), y, use_bsr=True, **kw)
     assert len(builds) == 3
-    with pytest.raises(NotImplementedError, match="combat"):
-        m.fit((feat, coords), y, batch_removal_method="combat", **kw)
+    # ComBat's integration is another graph option: it builds again, and trains
+    # (its graphs and fit against JAX's: test_combat_fit_matches_jax)
+    m.fit((feat, coords), y, batch_removal_method="combat", use_bsr=True, **kw)
+    assert len(builds) == 4 and builds_kw[-1]["integration_batch_removal"] == "combat"
+    np.testing.assert_allclose(m.predict().sum(1), 1.0, rtol=1e-5)
     d = StdGCN(hidden=(8,), dropout=0.0, seed=0, device="cpu")
     monkeypatch.setattr(tstdgcn, "resolve_adj_format", lambda *a, **k: "dense")
     d.fit((feat, coords), y, **kw)
     assert isinstance(d.adj_exp, DenseAdj)
     np.testing.assert_allclose(d.predict(), first, atol=1e-3)
+
+
+def _jax_neighbours(monkeypatch):
+    """The port's builders given JAX's kNN and PCA (their float32 answers
+    differ at rounding, which can move a kNN tie), as
+    tests/test_torch_deconvo_graph.py does, so that ComBat and the assembly
+    are what is compared."""
+    from dance_tpu.ops import linalg as jlinalg
+    from dance_tpu.ops.neighbors import _knn_block
+    from dance_tpu_torch.ops.linalg import PCAResult
+
+    def knn(q, x, k, device):
+        d, i = _knn_block(np.asarray(q, np.float32), np.asarray(x, np.float32), min(k, len(x)))
+        return np.asarray(d), np.asarray(i)
+
+    def pca(x, n, seed=0):
+        res = jlinalg.pca(x.cpu().numpy(), n, seed=seed)
+        return PCAResult(*(torch.from_numpy(np.array(a)) for a in res))
+
+    monkeypatch.setattr(tstdgcn, "_knn", knn)
+    monkeypatch.setattr(tstdgcn, "pca", pca)
+
+
+def test_combat_fit_matches_jax(monkeypatch):
+    """``batch_removal_method="combat"``: each package builds its own graphs
+    (ComBat over the pseudo and real blocks, then the PCA integration), which
+    agree; then 3 epochs from the same weights, dropout off, early stopping
+    on: the losses at 1e-4 and the predictions within the larger of 1e-4
+    and 4 times JAX's own spread between its CSR and dense fits, as
+    test_fit_matches_jax holds them."""
+    _jax_neighbours(monkeypatch)
+    feat, coords, y = _inputs(6)
+    coords_all = np.concatenate([np.zeros((N_PSEUDO, 2), np.float32), coords])
+    kw = dict(inter_k=8, intra_exp_k=5, space_k=6)
+    want = jstdgcn.build_stdgcn_adjacencies(feat, coords, N_PSEUDO,
+                                            integration_batch_removal="combat", **kw)
+    got = tstdgcn.build_stdgcn_adjacencies(feat, coords, N_PSEUDO, device=CPU,
+                                           integration_batch_removal="combat", **kw)
+    plain = tstdgcn.build_stdgcn_adjacencies(feat, coords, N_PSEUDO, device=CPU, **kw)
+    for g, w in zip(got, want):
+        w = w if hasattr(w, "toarray") else np.asarray(w)
+        np.testing.assert_allclose(g.toarray(), w.toarray() if hasattr(w, "toarray") else w,
+                                   rtol=1e-6, atol=1e-7)
+    assert (got[0] != plain[0]).nnz > 0  # ComBat moves the real-pseudo links
+
+    def jax_fit(fmt):
+        losses = []
+        step = jstdgcn.StdGCN._step
+
+        def record(self, *args, **k):
+            out = step(self, *args, **k)
+            losses.append(float(out[2]))
+            return out
+
+        with monkeypatch.context() as mp:
+            mp.setattr(jstdgcn.StdGCN, "_step", record)
+            mp.setattr(jpk, "choose_adj_format", lambda *a, **k: fmt)
+            jm = jstdgcn.StdGCN(hidden=(16,), dropout=0.0, seed=0)
+            jm.fit((feat, coords_all), y, max_epochs=3, batch_removal_method="combat", **kw)
+        return jm, losses
+
+    jm, losses = jax_fit("csr")
+    spread = np.abs(jax_fit("dense")[0].predict() - jm.predict()).max()
+    _, init = _jax_net(feat, y, adjs=tuple(jcsr_from_scipy(a) for a in want))
+    tm = StdGCN(hidden=(16,), dropout=0.0, seed=0, device="cpu")
+    _load_into(tm, stdgcn_flax_to_torch(_np_tree(init)), monkeypatch)
+    tm.fit((feat, coords_all), y, max_epochs=3, batch_removal_method="combat", use_bsr=False,
+           **kw)
+    np.testing.assert_allclose([h["loss"] for h in tm.history], losses, rtol=1e-4)
+    gap = np.abs(tm.predict() - jm.predict()).max()
+    assert gap <= max(1e-4, 4 * spread), (gap, spread)
 
 
 def test_autoencoder_and_auto_train_match_jax(monkeypatch):

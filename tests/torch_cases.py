@@ -220,12 +220,13 @@ def deconvo_case(n_ref: int = 150, n_genes: int = 80, n_types: int = 3, n_spots:
     return x_ref, np.array([f"ct{t}" for t in labels]), x_spots, portions, coords
 
 
-def deconvo_tilings(seed: int = 0):
+def deconvo_tilings(seed: int = 0, batch_removal=None):
     """DSTG's link graph (RCM-banded) and stdGCN's two towers under their
     shared RCM order, tiled: 300 pseudo + 900 real spots from
     :func:`deconvo_case` (400 cells, 200 genes, 4 types), the graphs built by
     the port on the CPU at the models' defaults (DSTG at k_filter 30, num_cc
-    10). Returns {"dstg", "stdgcn_exp", "stdgcn_sp"} of BSR matrices."""
+    10; stdGCN's integration with ``batch_removal``, e.g. ``"combat"``).
+    Returns {"dstg", "stdgcn_exp", "stdgcn_sp"} of BSR matrices."""
     from dance_tpu_torch.modules.spatial.cell_type_deconvo import dstg_preprocess
     from dance_tpu_torch.modules.spatial.cell_type_deconvo.stdgcn import build_stdgcn_adjacencies
     from dance_tpu_torch.transforms import PseudoMixture
@@ -235,7 +236,8 @@ def deconvo_tilings(seed: int = 0):
                           device="cpu")
     mix, _, _ = PseudoMixture(n_pseudo=300)(x_ref, labels)
     feat = np.log1p(np.concatenate([mix, x_spots])).astype(np.float32)
-    a_exp, a_sp = build_stdgcn_adjacencies(feat, coords, 300, device="cpu")
+    a_exp, a_sp = build_stdgcn_adjacencies(feat, coords, 300, device="cpu",
+                                           integration_batch_removal=batch_removal)
     perm, _ = tbsr.rcm_reorder(a_exp + a_sp)
     return {"dstg": tbsr.bsr_with_rcm(inp.adj)[1],
             "stdgcn_exp": tbsr.bsr_from_scipy(a_exp[perm][:, perm]),
