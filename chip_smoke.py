@@ -11,7 +11,8 @@ the CMAE and scMM matching heads, the joint-embedding DCCA, JAE and
 scMVAE, the spatial-domain SpaGCN, stLearn and EfNST with scGNN2's
 imputation, the classical heads: SVM, CellTypist, SingleCellNet, MAGIC,
 SPOTlight, SpatialDecon and CARD, stdGCN with ComBat's integration and its
-marker genes, and the scanpy surface (``sc.pp`` and ``sc.tl``).
+marker genes, the scanpy surface (``sc.pp`` and ``sc.tl``), ScTransform,
+GCNConv on #1 and the rest of the transform surface.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -371,6 +372,31 @@ printed only when every phase passed):
    the search inside ``scrublet`` on each device, are the same set on both:
    at least 98 %; the others' near tie is printed) and 5 UMAP epochs from
    handed-in negatives within 1e-4.
+63. ScTransform at a real size, counts set to 0 just before it (no TPU
+   kernel on it: every count stays 0): 10,000 cells x 3,000 genes of
+   negative-binomial counts (``nb_counts``) -> ``ScTransform(n_genes=2000,
+   bw_adjust=3)`` on the card and on the CPU from the same step-1 draw: each
+   stage's seconds (attributes, the GLM + θ solve, the outlier flags, the
+   regularisation, the residuals), the step-1 outlier flags that differ,
+   β within 1e-3 and θ within rtol 1e-2 (float32 GLM and Newton steps), the
+   residuals within 1e-3; then the analytic flavour within 1e-5.
+64. One ``GCNConv`` at d = 256, forward and backward, on graph-sc's tiling
+   from phase 8 (counts set to 0 just before: #1 must run for A@H and
+   Aᵀ@G; its launches are ``launches_by_path["gcnconv"]``), held against the
+   same layer on the CSR and dense forms on the card at 1e-4 (output and
+   every gradient); the three forms' forward + backward times; ``SAGEConv``
+   on the CSR form, and its raise on the BSR form, as JAX's dispatch
+   raises; then #1 on the tiling at d = 256, as phase 12 measures it.
+65. The rest of the transform surface, card against CPU, each step timed,
+   every count 0: on 10,000 cells x 2,000 genes (log1p) ``CellSVD``,
+   ``WeightedFeatureSVD``, ``CellSparsePCA`` (up to sign, 1e-3),
+   ``GaussRandProjFeature`` (the card's projection handed to both, 1e-5)
+   and ``BatchFeature`` (host); ``lsiTransformer`` on a 10,000 x 20,000 peak
+   matrix at 3 % (up to sign, 1e-3); ``SC3Feature`` on 2,000 cells (the mean
+   consensus entry within 0.01); ``RESEPTGraph`` on one Visium slide's 4,992
+   spots (the same edges, weights within 1e-12); ``feature_propagation``
+   on that graph (1e-5); ``device_ari`` of a k-means labelling against the
+   host ``ari`` (1e-6).
 
 Each kernel's bound is the larger of its operations over a compute peak and
 the bytes of its inputs and outputs, each counted once, over 3.35 TB/s, for
@@ -405,7 +431,7 @@ there is one (BSR ``@`` for the SpMM, ``sampled_addmm`` over the tiles'
 pattern for the SDDMM); the port never calls them. The SpMM's entry carries
 the other paths' tilings beside scDeepSort's (``graphsc``, ``sctag``,
 ``scdsc``, ``scmogcn``, ``dstg``, ``stdgcn``, ``stdgcn_combat``,
-``scheteronet``), its bf16
+``scheteronet``, ``gcnconv``), its bf16
 instantiation (``bf16``, with its own launches) and its launches by path;
 the SDDMM's carries ``f32`` and ``bf16`` results, its launches those of
 phase 3b.
@@ -528,6 +554,10 @@ SVM_DIM, SVM_RFF_CAP, SCN_TREES, SCN_RAND, SD_ITERS = 400, 5000, 100, 100, 500
 # the scanpy surface (phases 61-62): HVGs kept of phase 52's 2,000 genes, and the small
 # card-against-CPU size
 SC_HVG, SC_SMALL = 1000, 300
+# phases 63-65: ScTransform's size, GCNConv's width, the LSI peak matrix, SC3's cells
+SCT_CELLS, SCT_GENES, SCT_STEP1 = 10000, 3000, 2000
+GCN_DIM = 256
+LSI_PEAKS, LSI_DENSITY, SC3_CELLS = 20000, 0.03, 2000
 # H100 SXM: FP32 outside the tensor cores, TF32 and bf16 dense on the tensor cores, HBM3
 PEAK_FLOPS, PEAK_TF32, PEAK_BF16, PEAK_BYTES = 67e12, 495e12, 989e12, 3.35e12
 # differentiable steps through bsr_spmm_ad with trainable tiles (phase 3b), each dtype
@@ -1480,7 +1510,8 @@ def graphsc_phases(cuda) -> dict:
         raise AssertionError("the card disagrees with the CPU on the small graph-sc fit")
     return {"bsr_spmm_max": (result, max_launches),
             "graphsc_launches": launches["bsr_spmm"], "graphsc_spmm": spmm,
-            "graphsc_z": z, "graphsc_types": types[cells], "graphsc_ari": ari_kmeans}
+            "graphsc_z": z, "graphsc_types": types[cells], "graphsc_ari": ari_kmeans,
+            "graphsc_graph": g}
 
 
 def tiling_line(name: str, a, n_nodes: int) -> str:
@@ -4415,12 +4446,7 @@ def scanpy_phase(cuda) -> None:
     seconds = {}
 
     def step(name, fn, *a, **k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*a, **k)
-        torch.cuda.synchronize()
-        seconds[name] = time.perf_counter() - t0
-        return out
+        return timed(seconds, name, fn, *a, **k)
 
     obs, _ = step("calculate_qc_metrics", pp.calculate_qc_metrics, counts, device=cuda)
     x = step("normalize_total", pp.normalize_total, counts, target_sum=1e4)
@@ -4555,6 +4581,343 @@ def scanpy_card_vs_cpu(cuda) -> None:
                              f"{loose}, names equal {names_equal}")
 
 
+def nb_counts(n_cells: int, n_genes: int, seed: int):
+    """Negative-binomial counts (size 5) as a gamma-Poisson mixture: per
+    gene a gamma base rate, per cell a lognormal depth. float32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mean = rng.gamma(0.6, 2.0, n_genes)[None, :] * np.exp(rng.normal(0, 0.3, n_cells))[:, None]
+    return rng.poisson(rng.gamma(5.0, mean / 5.0)).astype(np.float32)
+
+
+def timed(seconds: dict, name: str, fn, *a, **k):
+    """``fn(*a, **k)``, its wall time (the card synchronised before and
+    after) kept under ``name``."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*a, **k)
+    torch.cuda.synchronize()
+    seconds[name] = time.perf_counter() - t0
+    return out
+
+
+def rel_gap(card, ref) -> float:
+    """max |card - ref| over max |ref|, in float64."""
+    import numpy as np
+
+    card, ref = np.asarray(card, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(card - ref).max() / max(np.abs(ref).max(), 1e-300))
+
+
+def sign_gap(card, ref) -> float:
+    """:func:`rel_gap` after each column of ``card`` takes the sign that
+    matches ``ref``'s (an SVD's vectors are defined up to sign)."""
+    import numpy as np
+
+    card, ref = np.asarray(card, np.float64), np.asarray(ref, np.float64)
+    signs = np.sign((card * ref).sum(0))
+    signs[signs == 0] = 1
+    return rel_gap(card * signs, ref)
+
+
+def sctransform_phase(cuda) -> None:
+    """Phase 63: ScTransform at a real size, both flavours, card against CPU.
+    No TPU kernel is on it: every count stays 0."""
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.transforms.normalize import ScTransform
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    x = nb_counts(SCT_CELLS, SCT_GENES, seed=63)
+    t_make = time.perf_counter() - t0
+    reset_launches()
+    runs, seconds = {}, {}
+    for label, device in (("card", cuda), ("cpu", torch.device("cpu"))):
+        sct = ScTransform(n_genes=SCT_STEP1, bw_adjust=3.0, random_state=0, device=device)
+        runs[label] = timed(seconds, f"glm {label}", sct, x)
+        print(f"ScTransform glm on the {label} ({SCT_CELLS} cells x {SCT_GENES} genes, "
+              f"{SCT_STEP1} step-1 genes): {seconds[f'glm {label}']:.3f} s; stages "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in sct.seconds.items()), flush=True)
+    card, ref = runs["card"], runs["cpu"]
+    step1 = ~np.isnan(ref["var"]["genes_step1_sct"])
+    flags = int((np.isnan(card["var"]["genes_step1_sct"]) != ~step1).sum())
+    both = step1 & ~np.isnan(card["var"]["genes_step1_sct"])
+    gaps = {"beta": max(rel_gap(card["var"][k][both], ref["var"][k][both])
+                        for k in ("Intercept_step1_sct", "log_umi_step1_sct")),
+            "theta": float(np.nanmax(np.abs(card["var"]["theta_sct"] / ref["var"]["theta_sct"]
+                                            - 1))),
+            "residuals": float(np.abs(card["X"] - ref["X"]).max())}
+    # A float32 gap in the GLM can flip a step-1 gene's outlier flag, which
+    # changes the regression's inputs: the card then regularises and
+    # computes the residuals again from the CPU's kept parameters, and those
+    # residuals are held against the CPU's own. The whole run's residuals
+    # are held at 1e-3 when no flag differs.
+    staged = sct_from_params(ref, x, cuda)
+    gaps["staged residuals"] = float(np.abs(staged - ref["X"]).max())
+    print(f"ScTransform glm card vs CPU: step-1 genes kept {int(step1.sum())} of {SCT_STEP1}, "
+          f"outlier flags that differ {flags}; beta rel gap {gaps['beta']!r} (bound 1e-3), "
+          f"theta rtol {gaps['theta']!r} (bound 1e-2), residuals max abs gap "
+          f"{gaps['residuals']!r} (bound 1e-3 when no flag differs; clip "
+          f"{float(np.sqrt(SCT_CELLS / 30))!r}); the card's regularisation and residuals from "
+          f"the CPU's step-1 parameters: max abs gap {gaps['staged residuals']!r} (bound 1e-3)",
+          flush=True)
+    if not (np.isfinite(card["X"]).all() and card["X"].shape == x.shape and gaps["beta"] <= 1e-3
+            and gaps["theta"] <= 1e-2 and gaps["staged residuals"] <= 1e-3
+            and (flags > 0 or gaps["residuals"] <= 1e-3)):
+        raise AssertionError(f"ScTransform glm: the card disagrees with the CPU: {gaps}")
+    an = {label: timed(seconds, f"analytic {label}",
+                       ScTransform(flavor="analytic", device=device), x)
+          for label, device in (("card", cuda), ("cpu", torch.device("cpu")))}
+    an_gap = rel_gap(an["card"]["X"], an["cpu"]["X"])
+    print(f"ScTransform analytic: card {seconds['analytic card']:.3f} s, CPU "
+          f"{seconds['analytic cpu']:.3f} s, {int(an['card']['genes_kept'].sum())} genes kept, "
+          f"rel gap {an_gap!r} (bound 1e-5)", flush=True)
+    if not (an_gap <= 1e-5 and np.array_equal(an["card"]["genes_kept"],
+                                               an["cpu"]["genes_kept"])):
+        raise AssertionError(f"ScTransform analytic: the card disagrees with the CPU: {an_gap}")
+    no_launches("ScTransform (phase 63)")
+    print(f"phase 63: {time.perf_counter() - t_phase:.3f} s (counts made in {t_make:.3f} s)",
+          flush=True)
+
+
+def sct_from_params(res: dict, x, device):
+    """ScTransform's regularisation and residuals on ``device`` from the
+    step-1 parameters a run kept (its ``var`` columns), in float64."""
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.transforms.normalize import sct_regularize, sct_residuals
+
+    var, obs = res["var"], res["obs"]
+    genes = ~np.isnan(var["log10_gmean_sct"])
+    step1 = ~np.isnan(var["genes_step1_sct"])
+    pars = np.column_stack([var[k][step1] for k in ("Intercept_step1_sct", "log_umi_step1_sct",
+                                                     "dispersion_step1_sct")])
+    full, theta = sct_regularize(torch.from_numpy(pars).to(device),
+                                 var["log10_gmean_sct"][step1], var["log10_gmean_sct"][genes],
+                                 3.0)
+    xt = torch.from_numpy(np.asarray(x, np.float64)[:, genes]).to(device)
+    resid = sct_residuals(xt, full, theta, torch.from_numpy(obs["log_umi_sct"]).to(device))
+    out = np.zeros(x.shape, np.float32)
+    out[:, genes] = resid.to(torch.float32).cpu().numpy()
+    return out
+
+
+def gcnconv_phase(cuda, graph) -> dict:
+    """Phase 64: one GCNConv at d = 256, forward and backward, on graph-sc's
+    tiling through #1 (counts set to 0 just before), held against the same
+    layer on the CSR and dense forms on the card; SAGEConv on the CSR form,
+    and its raise on the BSR form. Returns the launches and #1's numbers on
+    the tiling."""
+    import torch
+
+    from dance_tpu_torch.nn.gnn import GCNConv, SAGEConv
+
+    t_phase = time.perf_counter()
+    tiling = graph.to_bsr(device=cuda)
+    forms = {"bsr": tiling, "csr": graph.to_device(cuda).adj,
+             "dense": graph.to_dense_adj(device=cuda)}
+    n = graph.adj.shape[0]
+    gen = torch.Generator().manual_seed(64)
+    layer = GCNConv(GCN_DIM, GCN_DIM)
+    layer.reset_parameters(gen)
+    layer.to(cuda)
+    h = torch.randn((n, GCN_DIM), generator=gen).to(cuda)
+    g = torch.randn((n, GCN_DIM), generator=gen).to(cuda)
+
+    def step(adj):
+        layer.zero_grad()
+        hh = h.clone().requires_grad_(True)
+        out = layer(adj, hh)
+        (out * g).sum().backward()
+        return [out.detach(), hh.grad, layer.linear.weight.grad.clone(),
+                layer.linear.bias.grad.clone()]
+
+    reset_launches()
+    got = step(forms["bsr"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"GCNConv d={GCN_DIM} on graph-sc's tiling ({n} nodes, {tiling.nb} tiles, "
+          f"{edge_count(tiling)} edges): forward and backward, launches {launches}", flush=True)
+    if launches["bsr_spmm"] < 2:
+        raise AssertionError(f"GCNConv on BSR: bsr_spmm launched {launches['bsr_spmm']} times, "
+                             "fewer than 2 (A@H forward, Aᵀ@G backward)")
+    for name in ("csr", "dense"):
+        check(f"GCNConv BSR vs {name} (out, dh, dW, db)", got, step(forms[name]),
+              bound=GRAD_REL_BOUND)
+    times = {name: median_ms(lambda: step(a), reps=10) for name, a in forms.items()}
+    print("GCNConv forward + backward: " + ", ".join(f"{k} {v!r} ms" for k, v in times.items()),
+          flush=True)
+    sage = SAGEConv(GCN_DIM, GCN_DIM)
+    sage.reset_parameters(gen)
+    sage.to(cuda)
+    out = sage(forms["csr"], h)
+    try:
+        sage(tiling, h)
+    except ValueError as e:
+        print(f"SAGEConv on BSR raises as JAX's dispatch does: {e}", flush=True)
+    else:
+        raise AssertionError("SAGEConv on a BSR adjacency did not raise")
+    if not (torch.isfinite(out).all() and out.shape == (n, GCN_DIM)):
+        raise AssertionError("SAGEConv on CSR: non-finite output or wrong shape")
+    t_layer = time.perf_counter() - t_phase
+    result = {"gcnconv_launches": launches["bsr_spmm"], "gcnconv_ms": times,
+              "gcnconv": spmm_widths("GCNConv graph-sc", tiling, (GCN_DIM,), seed=64)}
+    print(f"phase 64: {time.perf_counter() - t_phase:.3f} s (the layer's checks and times "
+          f"{t_layer:.3f} s, then #1's measurements)", flush=True)
+    return result
+
+
+def surface_phase(cuda) -> None:
+    """Phase 65: the rest of the transform surface at real sizes, each step
+    timed on the card and on the CPU with its gap printed. No TPU kernel is
+    on it: every count stays 0."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from dance_tpu_torch.ops.cluster import kmeans
+    from dance_tpu_torch.transforms import cell_feature as C
+    from dance_tpu_torch.transforms.graph import RESEPTGraph
+    from dance_tpu_torch.transforms.graph_construct import feature_propagation
+    from dance_tpu_torch.transforms.preprocess import lsiTransformer
+    from dance_tpu_torch.transforms.sc3_feature import SC3Feature
+    from dance_tpu_torch.utils import ari
+    from dance_tpu_torch.utils.metrics import device_ari
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    counts, types = expression_counts(CL_CELLS, CL_GENES, CL_TYPES, seed=65)
+    x = np.log1p(counts)
+    reset_launches()
+    seconds, gaps, bounds = {}, {}, {}
+
+    def both(name, make, compare_fn, bound):
+        card = timed(seconds, f"{name} card", make(cuda))
+        ref = timed(seconds, f"{name} cpu", make(cpu))
+        gaps[name], bounds[name] = compare_fn(card, ref), bound
+        return card, ref
+
+    both("CellSVD(50)", lambda d: lambda: C.CellSVD(50, device=d)(x), sign_gap, 1e-3)
+    both("WeightedFeatureSVD(50)", lambda d: lambda: C.WeightedFeatureSVD(50, device=d)(x)[1],
+         sign_gap, 1e-3)
+    both("CellSparsePCA(20)", lambda d: lambda: C.CellSparsePCA(20, device=d)(x)[1], sign_gap,
+         1e-3)
+    gen = torch.Generator(device=cuda).manual_seed(65)
+    from dance_tpu_torch.ops.linalg import gram_schmidt_gauss_proj
+
+    proj = gram_schmidt_gauss_proj(gen, CL_GENES, 400).cpu().numpy()
+    both("GaussRandProjFeature(400)",
+         lambda d: lambda: C.GaussRandProjFeature(400, device=d)(x, proj=proj), rel_gap, 1e-5)
+    batches = np.arange(CL_CELLS) % 4
+    bf = timed(seconds, "BatchFeature host", C.BatchFeature(), counts, batches)
+    peaks = lsi_peaks(CL_CELLS, LSI_PEAKS, LSI_DENSITY, CL_TYPES, seed=65)
+    both("lsiTransformer(20)", lambda d: lambda: lsiTransformer(20, device=d).fit_transform(
+        peaks), lsi_gap, 1e-3)
+    sc3_x = x[:SC3_CELLS, :500]
+    # k-means on the card and on the CPU start from the same draws, but a
+    # float32 near tie can send a run elsewhere (the runs on one or two
+    # columns cannot separate 8 types): the consensus of 90 runs is held on
+    # its mean entry, which one run that differs moves by at most 1/90
+    sc3 = both("SC3Feature", lambda d: lambda: SC3Feature(n_cluster=CL_TYPES, device=d)(
+        sc3_x), lambda a, b: float(np.abs(a - b).mean()), 0.02)
+    spots, xy = visium_spots()
+    emb = C.cell_pca(np.log1p(nb_counts(len(xy), 200, seed=66)), 30, device=cuda)
+    adj, _ = both("RESEPTGraph(10)", lambda d: lambda: RESEPTGraph(10, device=d)(xy, emb),
+                  graph_gap, 1e-12)
+    both("feature_propagation(3)", lambda d: lambda: feature_propagation(adj, emb, device=d),
+         rel_gap, 1e-5)
+    labels = kmeans(torch.from_numpy(C.CellSVD(50, device=cuda)(x)).to(cuda), CL_TYPES,
+                    seed=65).labels
+    dev_ari = float(timed(seconds, "device_ari card", device_ari, types, labels, CL_TYPES,
+                          CL_TYPES))
+    host_ari = timed(seconds, "ari host", ari, types, labels.cpu().numpy())
+    gaps["device_ari"], bounds["device_ari"] = abs(dev_ari - host_ari), 1e-6
+    no_launches("the transform surface (phase 65)")
+    print(f"transform surface ({CL_CELLS} cells x {CL_GENES} genes; {LSI_PEAKS} peaks at "
+          f"{LSI_DENSITY}; SC3 on {SC3_CELLS} cells; RESEPT on {spots} Visium spots): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in seconds.items()), flush=True)
+    print("card vs CPU gaps (bound): " + ", ".join(f"{k} {v!r} ({bounds[k]})"
+                                                   for k, v in gaps.items()), flush=True)
+    print(f"BatchFeature {bf.shape}; SC3 consensus entries equal on card and CPU "
+          f"{float((sc3[0] == sc3[1]).mean())!r}, correlation "
+          f"{float(np.corrcoef(sc3[0].ravel(), sc3[1].ravel())[0, 1])!r}; RESEPT graph "
+          f"{adj.nnz} edges; k-means ARI of the SVD embedding {host_ari!r} on the host, "
+          f"{dev_ari!r} on the card",
+          flush=True)
+    if not all(gaps[k] <= bounds[k] for k in gaps):
+        raise AssertionError(f"the transform surface: the card disagrees with the CPU: {gaps}")
+    print(f"phase 65: {time.perf_counter() - t_phase:.3f} s", flush=True)
+
+
+def lsi_peaks(n_cells: int, n_peaks: int, density: float, n_types: int, seed: int):
+    """A cells x peaks count matrix (1 or 2 reads) open at ``density``, plus
+    per type a set of its own peaks open in a fifth of its cells; types and
+    peak sets of unequal sizes, so the LSI spectrum has gaps. scipy CSR."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    types = rng.choice(n_types, n_cells, p=np.arange(1, n_types + 1) / (n_types * (n_types + 1)
+                                                                         / 2))
+    x = sp.random(n_cells, n_peaks, density=density, format="lil", dtype=np.float32,
+                  random_state=rng)
+    x = sp.csr_matrix(x)
+    blocks = []
+    for t in range(n_types):
+        cells = np.nonzero(types == t)[0]
+        own = rng.choice(n_peaks, 200 * (t + 1), replace=False)
+        mask = rng.random((len(cells), len(own))) < 0.2
+        r, c = np.nonzero(mask)
+        blocks.append(sp.csr_matrix((np.ones(len(r), np.float32), (cells[r], own[c])),
+                                    shape=(n_cells, n_peaks)))
+    x = (x + sum(blocks)).tocsr()
+    x.data = 1.0 + (x.data > 0.8).astype(np.float32)
+    return x
+
+
+def lsi_gap(card, ref) -> float:
+    """The LSI embeddings' gap: their column norms (the singular values)
+    relative to the CPU's, and, up to sign, each column whose singular value
+    stands at least 2 % from its neighbours' (the vectors of nearly equal
+    singular values are not determined)."""
+    import numpy as np
+
+    s_card, s_ref = np.linalg.norm(card, axis=0), np.linalg.norm(ref, axis=0)
+    ratio = s_ref[:-1] / s_ref[1:]
+    apart = np.ones(len(s_ref), bool)
+    apart[:-1] &= ratio > 1.02
+    apart[1:] &= ratio > 1.02
+    print(f"  LSI singular values (CPU) {np.round(s_ref, 3).tolist()}; columns held up to sign: "
+          f"{np.nonzero(apart)[0].tolist()}", flush=True)
+    return max(rel_gap(s_card, s_ref), sign_gap(card[:, apart], ref[:, apart]))
+
+
+def graph_gap(a, b) -> float:
+    """:func:`rel_gap` of two CSR graphs' weights; infinite when their
+    edges differ."""
+    import numpy as np
+
+    if not (np.array_equal(a.indptr, b.indptr) and np.array_equal(a.indices, b.indices)):
+        return float("inf")
+    return rel_gap(a.data, b.data)
+
+
+def visium_spots():
+    """One Visium slide's spot centres: 78 rows x 64 columns of a hexagonal
+    grid, 4,992 spots. Returns (count, float32 (n, 2) coordinates)."""
+    import numpy as np
+
+    rows, cols = np.meshgrid(np.arange(78), np.arange(64), indexing="ij")
+    xy = np.stack([cols * 2 + rows % 2, rows * np.sqrt(3)], -1).reshape(-1, 2) * 50
+    return len(xy), xy.astype(np.float32)
+
+
 def match_score(model, x1, x2):
     """``predict_matching`` on the test cells and its ``score_matching``:
     (score, the printed words)."""
@@ -4613,6 +4976,11 @@ def main() -> int:
     scanpy_phase(cuda)
     scanpy_card_vs_cpu(cuda)
     print(f"phases 61-62: {time.perf_counter() - t_phases:.3f} s", flush=True)
+    t_phases = time.perf_counter()
+    sctransform_phase(cuda)
+    gcn = gcnconv_phase(cuda, gsc.pop("graphsc_graph"))
+    surface_phase(cuda)
+    print(f"phases 63-65: {time.perf_counter() - t_phases:.3f} s", flush=True)
 
     def entry(name):
         result, launched = measured[name]
@@ -4638,7 +5006,8 @@ def main() -> int:
                                 "scmogcn_je": mm["je_launches"],
                                 "dstg": dc["dstg_launches"], "stdgcn": dc["stdgcn_launches"],
                                 "stdgcn_combat": dc["stdgcn_combat_launches"],
-                                "scheteronet": hn["scheteronet_launches"]}
+                                "scheteronet": hn["scheteronet_launches"],
+                                "gcnconv": gcn["gcnconv_launches"]}
     spmm["launches"] = sum(spmm["launches_by_path"].values())
     spmm["graphsc"] = gsc["graphsc_spmm"]
     spmm["sctag"] = {f"d{d}": res for d, res in clu["sctag"].items()}
@@ -4652,6 +5021,8 @@ def main() -> int:
                              for d, res in dc[f"stdgcn_combat_{tower}"].items()}
     spmm["scheteronet"] = {f"{hop}_d{d}": res for hop in ("one_hop", "two_hop")
                            for d, res in hn[hop].items()}
+    spmm["gcnconv"] = {f"d{d}": res for d, res in gcn["gcnconv"].items()}
+    spmm["gcnconv"]["layer_ms"] = gcn["gcnconv_ms"]
     print(f"chip_smoke: {time.perf_counter() - t_start:.3f} s in all", flush=True)
     print(card_line(), flush=True)  # again at the end, so a tail of the output names the card
     print(json.dumps({"kernels": list(entries.values())}), flush=True)

@@ -3,8 +3,8 @@ dance_tpu/modules/base.py:21-232).
 
 ``fit``/``predict``/``score``/``fit_predict``, and for clustering
 ``score``/``fit_score`` over ``valid_idx``/``test_idx``. The ``acc``, ``ari``,
-``nmi``, ``mse`` and ``rmse`` metrics are ported; any other metric name
-raises. ``BasePretrain``
+``nmi``, ``mse``, ``rmse`` and ``mape`` metrics are ported; any other metric
+name raises. ``BasePretrain``
 loads a pretrained model from ``pretrain_path`` or pretrains and saves it;
 ``NNPretrain`` freezes named submodules of the model's ``torch.nn.Module``
 and saves its ``state_dict``. Not ported yet: the Data-container
@@ -22,9 +22,9 @@ import numpy as np
 import torch
 
 from dance_tpu_torch.settings import logger
-from dance_tpu_torch.utils import acc, ari, mse, nmi, rmse
+from dance_tpu_torch.utils import acc, ari, mape, mse, nmi, rmse
 
-_METRICS = {"acc": acc, "ari": ari, "mse": mse, "nmi": nmi, "rmse": rmse}
+_METRICS = {"acc": acc, "ari": ari, "mape": mape, "mse": mse, "nmi": nmi, "rmse": rmse}
 
 
 def resolve_score_func(score_func: Optional[Union[str, Callable]]) -> Callable:

@@ -40,7 +40,8 @@ Where this differs from the JAX package:
 - The Data-container ``preprocessing_pipeline`` is not ported:
   :func:`scheteronet_preprocess` is its array core and :func:`set_split`
   the array form of ``set_split``. ``get_genename`` and
-  ``print_statistics`` read an AnnData and are not ported.
+  ``print_statistics`` take the columns and labels they read from an
+  AnnData in JAX.
 """
 
 import hashlib
@@ -474,6 +475,26 @@ def scheteronet_preprocess(counts, labels, *, n_top_genes: int = 4000) -> Hetero
                            cells, genes)
 
 
+def get_genename(var_names, gene_id=None, symbol=None):
+    """The gene names: the ``gene_id`` column when given, else ``symbol``,
+    else the index (counterpart: scheteronet.py:499, which reads them from
+    ``var``)."""
+    if gene_id is not None:
+        return np.asarray(gene_id)
+    if symbol is not None:
+        return np.asarray(symbol)
+    return np.asarray(var_names)
+
+
+def print_statistics(n_cells: int, n_genes: int, labels=None, name: str = "dataset"):
+    """Log the matrix size and, given the cells' labels, each class's count
+    (counterpart: scheteronet.py:551, which reads them from an AnnData)."""
+    logger.info("%s: %d cells x %d genes", name, n_cells, n_genes)
+    if labels is not None:
+        counts = Counter(np.asarray(labels).tolist())
+        logger.info("%s class counts: %s", name, dict(sorted(counts.items())))
+
+
 def set_split(labels, train_idx=(), val_idx=(), test_idx=()) -> Dict[str, List[int]]:
     """The splits of ``set_split`` (scheteronet.py:510) on a label vector
     (codes or one-hot rows): the rarest type (the first seen among equals)
@@ -593,5 +614,5 @@ class NCDataset:
 
 __all__ = ["HeteroNet", "HeteroNetInputs", "HetConv", "MLP", "NCDataset", "ZINBDecoder",
            "build_hop_adjacencies", "contrastive_loss", "eval_acc", "fpr_and_fdr_at_recall",
-           "get_measures", "scHeteroNet", "scheteronet_preprocess", "set_graph_split",
-           "set_split", "stable_cumsum"]
+           "get_genename", "get_measures", "print_statistics", "scHeteroNet",
+           "scheteronet_preprocess", "set_graph_split", "set_split", "stable_cumsum"]

@@ -25,9 +25,11 @@ Where this differs from the JAX package:
 - Weights are drawn from a ``torch.Generator`` seeded with ``seed``, not from
   ``jax.random``; parity tests copy the flax weights in
   (:func:`dance_tpu_torch.utils.params.stagate_flax_to_torch`).
-- ``BasePretrain`` (``pretrain_path``) and the Data-container
-  ``preprocessing_pipeline`` are not ported yet (ROADMAP Queue 1);
-  :func:`stagate_preprocess` is its array counterpart.
+- The Data-container ``preprocessing_pipeline`` is not ported (ROADMAP
+  Queue 1 item 11); :func:`stagate_preprocess` is its array counterpart.
+
+``Stagate`` takes ``pretrain_path`` and the ``BasePretrain`` mixin, as the
+JAX class does (stagate.py:90-99); as there, ``fit`` does not pretrain.
 """
 
 import time
@@ -38,7 +40,7 @@ import scipy.sparse as sp
 import torch
 from torch import nn
 
-from dance_tpu_torch.modules.base import BaseClusteringMethod
+from dance_tpu_torch.modules.base import BaseClusteringMethod, BasePretrain
 from dance_tpu_torch.ops.bsr import (BSRMatrix, bsr_from_scipy, bsr_gat_ad, rcm_reorder,
                                      resolve_use_bsr, unpermute)
 from dance_tpu_torch.ops.cluster import kmeans
@@ -107,7 +109,7 @@ class StagateNet(nn.Module):
         return z, h3 @ self.w1.T
 
 
-class Stagate(BaseClusteringMethod):
+class Stagate(BasePretrain, BaseClusteringMethod):
     """STAGATE (counterpart: stagate.py:90). ``fit((x, adj))`` trains on
     spots x genes features ``x`` and the spot graph ``adj``; ``predict``
     clusters the embedding with k-means."""
@@ -115,8 +117,9 @@ class Stagate(BaseClusteringMethod):
     _DISPLAY_ATTRS = ("hidden_dims",)
 
     def __init__(self, hidden_dims: Tuple[int, ...] = (3000, 512, 30), device="auto",
-                 seed: int = 0):
+                 pretrain_path: Optional[str] = None, seed: int = 0):
         self.hidden_dims = tuple(hidden_dims)
+        self.pretrain_path = pretrain_path
         self.seed = seed
         self.device = resolve_device(device)
         self.net = StagateNet(self.hidden_dims)

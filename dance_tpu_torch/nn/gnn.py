@@ -1,8 +1,9 @@
-"""Graph layers: graph-sc's WeightedGraphConv, scDeepSort's AdaptiveSAGE, the
-GAT convolution and scTAG's TAGConv (counterparts: dance_tpu/nn/gnn.py:35-61,
+"""Graph layers: the GCN and GraphSAGE convolutions, graph-sc's
+WeightedGraphConv, scDeepSort's AdaptiveSAGE, the GAT convolution and
+scTAG's TAGConv (counterparts: dance_tpu/nn/gnn.py:20-32, 35-61, 64-72,
 75-163, 166-203, 206-219).
 
-WeightedGraphConv and TAGConv aggregate through
+GCNConv, SAGEConv, WeightedGraphConv and TAGConv aggregate through
 :func:`~dance_tpu_torch.ops.segment.spmm`, so their adjacency may be CSR,
 dense or BSR: on a BSR adjacency a sum or mean is the SpMM kernel and a max
 the forward-only max kernel.
@@ -70,6 +71,51 @@ def flax_dense_init_(linear: nn.Linear, generator: Optional[torch.Generator] = N
     truncated_normal_(linear.weight, math.sqrt(1.0 / linear.in_features), generator)
     if linear.bias is not None:
         nn.init.zeros_(linear.bias)
+
+
+class GCNConv(nn.Module):
+    """Kipf and Welling's GCN layer on a (symmetrically) normalised
+    adjacency, ``act(A @ linear(h))`` (counterpart: gnn.py:20): the product
+    through :func:`spmm`, so a BSR adjacency runs the SpMM kernel forward
+    and for ``Aᵀḡ``. flax's init: a glorot-uniform kernel and a zero bias.
+    flax infers the input width; torch takes it."""
+
+    def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True, activation=None):
+        super().__init__()
+        self.linear = nn.Linear(in_dim, out_dim, bias=use_bias)
+        self.activation = activation
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        nn.init.xavier_uniform_(self.linear.weight, generator=generator)
+        if self.linear.bias is not None:
+            nn.init.zeros_(self.linear.bias)
+
+    def forward(self, adj, h: torch.Tensor) -> torch.Tensor:
+        out = spmm(adj, self.linear(h))
+        return self.activation(out) if self.activation is not None else out
+
+
+class SAGEConv(nn.Module):
+    """GraphSAGE with mean aggregation, ``linear_self(h) +
+    linear_neigh(mean of the in-neighbours' h)`` (counterpart: gnn.py:64):
+    the mean through :func:`spmm` without ``degrees``, as JAX calls it, so a
+    BSR adjacency raises as JAX's dispatch does. flax's ``Dense`` init for
+    both kernels; the neighbour one has no bias."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.fc_self = nn.Linear(in_dim, out_dim)
+        self.fc_neigh = nn.Linear(in_dim, out_dim, bias=False)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        flax_dense_init_(self.fc_self, generator)
+        flax_dense_init_(self.fc_neigh, generator)
+
+    def forward(self, adj, h: torch.Tensor) -> torch.Tensor:
+        neigh = spmm(adj, h, op="mean")
+        return self.fc_self(h) + self.fc_neigh(neigh)
 
 
 class WeightedGraphConv(nn.Module):
@@ -261,5 +307,5 @@ class TAGConv(nn.Module):
         return out
 
 
-__all__ = ["AdaptiveSAGE", "GATConv", "GRAPH_CONV_NORMS", "TAGConv", "WeightedGraphConv",
-           "flax_dense_init_", "truncated_normal_"]
+__all__ = ["AdaptiveSAGE", "GATConv", "GCNConv", "GRAPH_CONV_NORMS", "SAGEConv", "TAGConv",
+           "WeightedGraphConv", "flax_dense_init_", "truncated_normal_"]

@@ -1,5 +1,7 @@
-"""Sparse tensor containers and the CSR products ``A @ B`` and ``Aᵀ @ B``
-(counterpart: dance_tpu/ops/sparse.py:18-210).
+"""Sparse tensor containers, the CSR conversions, products and scalings
+(counterpart: dance_tpu/ops/sparse.py:18-210; ``csr_from_dense``,
+``csr_to_scipy``, ``csr_to_dense``, ``csr_matvec``, ``csr_row_sums``,
+``csr_col_sums``, ``csr_scale_rows`` and ``csr_scale_cols`` :62-120).
 
 The JAX package registers these as pytrees so that ``jit`` sees static
 shapes; here they are plain dataclasses of tensors with a ``.to(device)``.
@@ -42,6 +44,53 @@ def csr_from_scipy(mat: sp.spmatrix) -> CSRMatrix:
     return CSRMatrix(torch.from_numpy(np.asarray(mat.data, np.float32)),
                      torch.from_numpy(np.asarray(mat.indices, np.int64)),
                      torch.from_numpy(np.asarray(mat.indptr, np.int64)), mat.shape)
+
+
+def csr_from_dense(x) -> CSRMatrix:
+    """The nonzero entries of a dense matrix as a CSR matrix on the CPU
+    (counterpart: sparse.py:68)."""
+    x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return csr_from_scipy(sp.csr_matrix(x))
+
+
+def csr_to_scipy(mat: CSRMatrix) -> sp.csr_matrix:
+    """Counterpart: sparse.py:72."""
+    return sp.csr_matrix((mat.data.cpu().numpy(), mat.indices.cpu().numpy(),
+                          mat.indptr.cpu().numpy()), shape=mat.shape)
+
+
+def csr_to_dense(mat: CSRMatrix) -> torch.Tensor:
+    """The dense matrix where ``mat`` lies, duplicate entries summed
+    (counterpart: sparse.py:77)."""
+    out = mat.data.new_zeros(mat.shape)
+    return out.index_put_((mat.row_ids(), mat.indices), mat.data, accumulate=True)
+
+
+def csr_matvec(mat: CSRMatrix, v: torch.Tensor) -> torch.Tensor:
+    """``A @ v`` by a gather and a segment sum (counterpart: sparse.py:83)."""
+    prod = mat.data * v.index_select(0, mat.indices)
+    return prod.new_zeros(mat.shape[0]).index_add_(0, mat.row_ids(), prod)
+
+
+def csr_row_sums(mat: CSRMatrix) -> torch.Tensor:
+    """Counterpart: sparse.py:108."""
+    return mat.data.new_zeros(mat.shape[0]).index_add_(0, mat.row_ids(), mat.data)
+
+
+def csr_col_sums(mat: CSRMatrix) -> torch.Tensor:
+    """Counterpart: sparse.py:112."""
+    return mat.data.new_zeros(mat.shape[1]).index_add_(0, mat.indices, mat.data)
+
+
+def csr_scale_rows(mat: CSRMatrix, scale: torch.Tensor) -> CSRMatrix:
+    """Row ``i`` times ``scale[i]``, without densifying (counterpart:
+    sparse.py:116)."""
+    return replace(mat, data=mat.data * scale.index_select(0, mat.row_ids()))
+
+
+def csr_scale_cols(mat: CSRMatrix, scale: torch.Tensor) -> CSRMatrix:
+    """Column ``j`` times ``scale[j]`` (counterpart: sparse.py:121)."""
+    return replace(mat, data=mat.data * scale.index_select(0, mat.indices))
 
 
 def csr_matmat(mat: CSRMatrix, b: torch.Tensor) -> torch.Tensor:
@@ -124,5 +173,7 @@ class AdaptiveBSR:
                        gene_idx=self.gene_idx.to(device), deg=self.deg.to(device))
 
 
-__all__ = ["AdaptiveBSR", "CSRMatrix", "DenseAdj", "csr_from_scipy", "csr_matmat", "csr_rmatmat",
+__all__ = ["AdaptiveBSR", "CSRMatrix", "DenseAdj", "csr_col_sums", "csr_from_dense",
+           "csr_from_scipy", "csr_matmat", "csr_matvec", "csr_rmatmat", "csr_row_sums",
+           "csr_scale_cols", "csr_scale_rows", "csr_to_dense", "csr_to_scipy",
            "dense_adj_from_scipy", "sym_norm_adjacency"]

@@ -1,11 +1,12 @@
 """Entry masks for imputation on arrays (counterpart:
-dance_tpu/transforms/mask.py:13-98, ``CellwiseMaskData``).
+dance_tpu/transforms/mask.py, ``CellwiseMaskData`` :12-84 and ``MaskData``
+:87-111).
 
-The JAX transform reads the feature channel of a ``Data`` container and
-writes the masks into its ``layers``; the port takes the cells x genes
+The JAX transforms read the feature channel of a ``Data`` container and
+write the masks into its ``layers``; the port takes the cells x genes
 matrix and returns the masks. Both draw from ``np.random.default_rng(seed)``
-with ``scipy.stats.expon`` weights in the same order, so the masks are the
-JAX package's bit for bit.
+(with ``scipy.stats.expon`` weights for ``CellwiseMaskData``) in the same
+order, so the masks are the JAX package's bit for bit.
 """
 
 from typing import Optional, Tuple
@@ -81,4 +82,26 @@ class CellwiseMaskData:
         return train_mask, valid_mask, test_mask
 
 
-__all__ = ["CellwiseMaskData"]
+class MaskData:
+    """Global masking of nonzero entries (counterpart: mask.py:87):
+    ``floor(mask_rate x`` the number of nonzero entries``)`` of them, drawn
+    uniformly without replacement in row-major order, leave the train mask.
+    ``__call__(x)`` returns ``(train_mask, valid_mask)``, the second the
+    first's complement, as JAX writes them."""
+
+    def __init__(self, mask_rate: float = 0.1, seed: Optional[int] = None):
+        self.mask_rate = mask_rate
+        self.seed = seed
+
+    def __call__(self, x) -> Tuple[np.ndarray, np.ndarray]:
+        rng = np.random.default_rng(self.seed)
+        feat = np.asarray(x.toarray() if sp.issparse(x) else x)
+        train_mask = np.ones(feat.shape, dtype=bool)
+        row, col = np.nonzero(feat)
+        n_masked = int(np.floor(len(row) * self.mask_rate))
+        idx = rng.choice(len(row), size=n_masked, replace=False)
+        train_mask[row[idx], col[idx]] = False
+        return train_mask, ~train_mask
+
+
+__all__ = ["CellwiseMaskData", "MaskData"]

@@ -5,7 +5,7 @@ detection measures) and an epoch clock.
 Counterparts: ``set_seed`` dance_tpu/utils/__init__.py:99, ``get_device``
 dance_tpu/utils/__init__.py:23 (here :func:`resolve_device`, over torch
 devices), ``acc`` dance_tpu/utils/metrics.py:36, ``ari`` metrics.py:55,
-``nmi``, ``mse`` and ``rmse`` metrics.py:92-106 and
+``nmi``, ``mse``, ``rmse`` and ``mape`` metrics.py:92-112 and
 ``labeled_clustering_evaluate`` metrics.py:168, ``ood_measures``
 metrics.py:197 (with :func:`roc_auc` and :func:`average_precision`, which it
 takes from scikit-learn). The JAX package calls
@@ -151,6 +151,16 @@ def rmse(true, pred) -> float:
     return float(np.sqrt(mse(true, pred)))
 
 
+def mape(true, pred) -> float:
+    """Mean absolute percentage error, ``|pred - true| / max(|true|, eps)``
+    (float64 eps) averaged over each column, then over the columns
+    (counterpart: metrics.py:111, scikit-learn's
+    ``mean_absolute_percentage_error``)."""
+    true, pred = np.asarray(true, np.float64), np.asarray(pred, np.float64)
+    err = np.abs(pred - true) / np.maximum(np.abs(true), np.finfo(np.float64).eps)
+    return float(err.mean(axis=0).mean() if err.ndim == 2 else err.mean())
+
+
 def roc_auc(labels, scores) -> float:
     """The area under the ROC curve of binary ``labels`` (1 positive) ranked
     by ``scores`` (scikit-learn's ``roc_auc_score``): the Mann-Whitney
@@ -250,5 +260,6 @@ class EpochClock:
         return [a.elapsed_time(b) / 1e3 for a, b in zip(self.marks[:-1], self.marks[1:])]
 
 
-__all__ = ["EpochClock", "acc", "ari", "as_numpy", "average_precision", "labeled_clustering_evaluate", "mse",
-           "nmi", "ood_measures", "resolve_device", "rmse", "roc_auc", "set_seed"]
+__all__ = ["EpochClock", "acc", "ari", "as_numpy", "average_precision",
+           "labeled_clustering_evaluate", "mape", "mse", "nmi", "ood_measures", "resolve_device",
+           "rmse", "roc_auc", "set_seed"]

@@ -2,8 +2,16 @@
 zero-inflated negative binomial likelihoods of the ZINB autoencoders, the DEC
 soft assignment, its target distribution and KL loss, the latent distance
 barrier, graph-sc's ``binary_ce_logits`` (:22-126), the GMM negative
-log-likelihood (:133), scMVAE's GMM ELBO term ``GMM_loss`` (:475) and DCCA's
-distillation / attention-transfer family (:493-600).
+log-likelihood (:133), the masked losses, the similarity losses and the
+standard-normal KL (:144-178), the warm-ups (:181-210, :405-440), BABEL's
+paired and quad losses and the reference-named surface (:216-472: ``kld_loss``,
+the BCE/MSE/RMSE/``DistanceProbLoss`` classes, ``total_variation``, the
+NB/ZINB factories and classes, the scVI log-likelihoods,
+``PairedLossInvertible``), scMVAE's GMM ELBO term ``GMM_loss`` (:475), DCCA's
+distillation / attention-transfer family (:493-600) and the scMVAE/scMM
+helpers (:602-666: ``binary_cross_entropy``, ``log_nb_positive``,
+``log_zinb_positive``, ``NB_loss``, ``mse_loss``, ``poisson_loss``,
+``adjust_learning_rate``, ``get_mean``).
 
 Plain functions and callables on tensors, with the JAX package's ``EPS``
 placement and its ``x < 1e-8`` zero case; ``jax.lax.lgamma`` is
@@ -11,15 +19,20 @@ placement and its ``x < 1e-8`` zero case; ``jax.lax.lgamma`` is
 the callable classes' names. Of the distillation losses ``Eucli_dis``,
 ``L1_dis``, ``KL_diver`` and ``Attention`` return a value per cell, the
 others a scalar. ``KL_diver`` takes log-variances as Normal *scales*, as JAX
-and the reference do (loss.py:566-576): kept so. The rest of the JAX file
-(masked and BABEL losses, warm-ups) waits for the models that use it
-(ROADMAP Queue 1).
+and the reference do (loss.py:566-576): kept so. The warm-ups are host
+Python, as in JAX. ``adjust_learning_rate`` returns the step's rate, as JAX
+does, and also sets it on a torch optimizer when one is given, as the
+reference does (JAX's optax schedules have no optimizer to set). The NB and
+ZINB factories' and classes' ``debug`` flags, which JAX never reads, are not
+taken.
 """
 
 import math
 from typing import Optional, Union
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 EPS = 1e-10
 
@@ -247,7 +260,396 @@ def cdisttf(data_1: torch.Tensor, data_2: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.clamp(d2, min=0.0))
 
 
-__all__ = ["Attention", "Correlation", "EPS", "Eucli_dis", "FactorTransfer", "GMM_loss",
-           "KL_diver", "L1_dis", "NBLoss", "NSTLoss", "Similarity", "ZINBLoss",
-           "binary_ce_logits", "cdisttf", "cluster_kl_loss", "dist_loss", "gmm_nll", "nb_nll",
-           "soft_assign", "target_distribution", "zinb_nll"]
+def masked_mse(pred, true, mask) -> torch.Tensor:
+    """The squared error over the masked entries (at least one) (counterpart:
+    loss.py:145)."""
+    mask = mask.to(pred.dtype)
+    return torch.sum((pred - true) ** 2 * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def masked_rmse(pred, true, mask) -> torch.Tensor:
+    """Counterpart: loss.py:150."""
+    return torch.sqrt(masked_mse(pred, true, mask))
+
+
+def _unit_rows(a: torch.Tensor) -> torch.Tensor:
+    return a / torch.clamp(torch.linalg.vector_norm(a, dim=-1, keepdim=True), min=EPS)
+
+
+def cosine_similarity_loss(a, b) -> torch.Tensor:
+    """One less the mean cosine similarity of the rows (counterpart:
+    loss.py:158)."""
+    return 1.0 - torch.mean(torch.sum(_unit_rows(a) * _unit_rows(b), dim=-1))
+
+
+def sce_loss(a, b, alpha: float = 2.0) -> torch.Tensor:
+    """The scaled cosine error, mean of ``(1 - cos)^alpha`` (counterpart:
+    loss.py:164)."""
+    return torch.mean((1.0 - torch.sum(_unit_rows(a) * _unit_rows(b), dim=-1)) ** alpha)
+
+
+def kl_divergence(mu, logvar) -> torch.Tensor:
+    """The standard-normal KL of a diagonal Gaussian, summed over the last
+    axis, averaged over the rows (counterpart: loss.py:171)."""
+    return -0.5 * torch.mean(torch.sum(1 + logvar - mu ** 2 - torch.exp(logvar), dim=-1))
+
+
+class SigmoidWarmup:
+    """``maximum / (1 + exp(-(t - midpoint) / scale))`` at step t = 1, 2, ...
+    (counterpart: loss.py:181)."""
+
+    def __init__(self, midpoint: int, scale: float = 1.0, maximum: float = 1.0):
+        self.midpoint, self.scale, self.maximum = midpoint, scale, maximum
+        self.t = 0
+
+    def step(self) -> float:
+        self.t += 1
+        return float(self.maximum / (1.0 + np.exp(-(self.t - self.midpoint) / self.scale)))
+
+
+class LinearWarmup:
+    """``min(t / interval, 1) maximum`` at step t = 1, 2, ... (counterpart:
+    loss.py:192)."""
+
+    def __init__(self, interval: int, maximum: float = 1.0):
+        self.interval, self.maximum = interval, maximum
+        self.t = 0
+
+    def step(self) -> float:
+        self.t += 1
+        return float(min(self.t / self.interval, 1.0) * self.maximum)
+
+
+class NullWarmup:
+    """Always ``maximum`` (counterpart: loss.py:203)."""
+
+    def __init__(self, maximum: float = 1.0):
+        self.maximum = maximum
+
+    def step(self) -> float:
+        return self.maximum
+
+
+def _mean_sq(p, t):
+    return torch.mean((p - t) ** 2)
+
+
+class PairedLoss:
+    """``w1 loss1(p11, t1) + w2 loss2(p12, t2)``, MSE by default
+    (counterpart: loss.py:216)."""
+
+    def __init__(self, loss1=None, loss2=None, w1: float = 1.0, w2: float = 1.0):
+        self.loss1 = loss1 or _mean_sq
+        self.loss2 = loss2 or _mean_sq
+        self.w1, self.w2 = w1, w2
+
+    def __call__(self, preds, targets):
+        (p11, p12), (t1, t2) = preds, targets
+        return self.w1 * self.loss1(p11, t1) + self.w2 * self.loss2(p12, t2)
+
+
+class QuadLoss:
+    """BABEL's four paths: both outputs of modality 1 by ``loss1`` (times
+    ``loss1_weight``), both of modality 2 by ``loss2`` (counterpart:
+    loss.py:229)."""
+
+    def __init__(self, loss1=None, loss2=None, loss1_weight: float = 1.0):
+        self.loss1 = loss1 or _mean_sq
+        self.loss2 = loss2 or _mean_sq
+        self.loss1_weight = loss1_weight
+
+    def __call__(self, preds, targets):
+        (p11, p21, p12, p22), (t1, t2) = preds, targets
+        return (self.loss1_weight * (self.loss1(p11, t1) + self.loss1(p21, t1))
+                + self.loss2(p12, t2) + self.loss2(p22, t2))
+
+
+def kld_loss(p, q) -> torch.Tensor:
+    """Row-wise KL(p || q), averaged (counterpart: loss.py:250)."""
+    return torch.mean(torch.sum(p * torch.log(p / (q + 1e-6)), dim=1))
+
+
+class BCELoss:
+    """BCE of the first element of a prediction tuple, clipped to [1e-7,
+    1 - 1e-7] (counterpart: loss.py:255)."""
+
+    def __call__(self, x, target):
+        p = torch.clamp(x[0], 1e-7, 1 - 1e-7)
+        return -torch.mean(target * torch.log(p) + (1 - target) * torch.log1p(-p))
+
+
+class MSELoss:
+    """MSE of the first element of a prediction tuple (counterpart: loss.py:264)."""
+
+    def __call__(self, x, target):
+        return torch.mean((x[0] - target) ** 2)
+
+
+class RMSELoss:
+    """RMSE of the first element of a prediction tuple (counterpart: loss.py:271)."""
+
+    def __call__(self, x, target):
+        return torch.sqrt(torch.mean((x[0] - target) ** 2))
+
+
+class DistanceProbLoss:
+    """``weight x`` the ``norm``-distance of ``z`` to ``target_z`` less
+    ``logp``, averaged (counterpart: loss.py:278)."""
+
+    def __init__(self, weight: float = 5.0, norm: int = 1):
+        if weight <= 0:
+            raise ValueError(f"weight must be positive, got {weight}")
+        self.weight = weight
+        self.norm = norm
+
+    def __call__(self, x, target_z):
+        z, logp = x[:2]
+        d = torch.sum(torch.abs(z - target_z) ** self.norm, dim=-1) ** (1.0 / self.norm)
+        if d.dim() == 2:
+            d = torch.mean(d, dim=1)
+        return torch.mean(self.weight * d - logp)
+
+
+def total_variation(x) -> torch.Tensor:
+    """The summed absolute difference of neighbouring features (counterpart:
+    loss.py:294)."""
+    return torch.sum(torch.abs(x[:, :-1] - x[:, 1:]))
+
+
+def negative_binom_loss(scale_factor: float = 1.0, eps: float = 1e-10, mean: bool = True):
+    """DCA's NB loss ``loss(preds, theta, truth)`` (counterpart: loss.py:299)."""
+
+    def loss(preds, theta, truth):
+        y_pred = preds * scale_factor
+        theta = torch.clamp(theta, max=1e6)
+        t1 = torch.lgamma(theta + eps) + torch.lgamma(truth + 1.0) - torch.lgamma(
+            truth + theta + eps)
+        t2 = ((theta + truth) * torch.log1p(y_pred / (theta + eps))
+              + truth * (torch.log(theta + eps) - torch.log(y_pred + eps)))
+        ret = t1 + t2
+        return torch.mean(ret) if mean else ret
+
+    return loss
+
+
+def zero_inflated_negative_binom_loss(ridge_lambda: float = 0.0, tv_lambda: float = 0.0,
+                                      eps: float = 1e-10, scale_factor: float = 1.0):
+    """DCA's ZINB loss ``loss(preds, theta, pi, truth)`` with the ridge and
+    total-variation penalties on the dropout (counterpart: loss.py:316)."""
+    nb_loss_func = negative_binom_loss(mean=False, eps=eps, scale_factor=scale_factor)
+
+    def loss(preds, theta_disp, pi_dropout, truth):
+        nb_case = nb_loss_func(preds, theta_disp, truth) - torch.log(1.0 - pi_dropout + eps)
+        y_pred = preds * scale_factor
+        theta = torch.clamp(theta_disp, max=1e6)
+        zero_nb = torch.pow(theta / (theta + y_pred + eps), theta)
+        zero_case = -torch.log(pi_dropout + (1.0 - pi_dropout) * zero_nb + eps)
+        result = torch.where(truth < 1e-8, zero_case, nb_case)
+        result = result + ridge_lambda * pi_dropout ** 2
+        result = result + tv_lambda * total_variation(pi_dropout)
+        return torch.mean(result)
+
+    return loss
+
+
+def scvi_log_nb_positive(x, mu, theta, eps=1e-8) -> torch.Tensor:
+    """scVI's NB log-likelihood, averaged (counterpart: loss.py:339)."""
+    log_theta_mu_eps = torch.log(theta + mu + eps)
+    res = (theta * (torch.log(theta + eps) - log_theta_mu_eps)
+           + x * (torch.log(mu + eps) - log_theta_mu_eps)
+           + torch.lgamma(x + theta) - torch.lgamma(theta) - torch.lgamma(x + 1))
+    return torch.mean(res)
+
+
+def scvi_log_zinb_positive(x, mu, theta, pi, eps=1e-8) -> torch.Tensor:
+    """scVI's ZINB log-likelihood with dropout logits ``pi``, averaged
+    (counterpart: loss.py:349)."""
+    if theta.dim() == 1:
+        theta = theta[None, :]
+    softplus_pi = F.softplus(-pi)
+    log_theta_eps = torch.log(theta + eps)
+    log_theta_mu_eps = torch.log(theta + mu + eps)
+    pi_theta_log = -pi + theta * (log_theta_eps - log_theta_mu_eps)
+    case_zero = F.softplus(pi_theta_log) - softplus_pi
+    case_non_zero = (-softplus_pi + pi_theta_log + x * (torch.log(mu + eps) - log_theta_mu_eps)
+                     + torch.lgamma(x + theta) - torch.lgamma(theta) - torch.lgamma(x + 1))
+    return torch.mean(torch.where(x < eps, case_zero, case_non_zero))
+
+
+class NegativeBinomialLoss:
+    """:func:`negative_binom_loss` over a ``(mean, dispersion, ...,
+    encoded)`` tuple, plus ``l1_lambda`` times the encoding's L1 norm
+    (counterpart: loss.py:367)."""
+
+    def __init__(self, scale_factor: float = 1.0, eps: float = 1e-10, l1_lambda: float = 0.0,
+                 mean: bool = True):
+        self.loss = negative_binom_loss(scale_factor=scale_factor, eps=eps, mean=mean)
+        self.l1_lambda = l1_lambda
+
+    def __call__(self, preds, target):
+        mean_, theta = preds[:2]
+        out = self.loss(mean_, theta, target)
+        if self.l1_lambda:
+            out = out + self.l1_lambda * torch.abs(preds[-1]).sum()
+        return out
+
+
+class ZeroInflatedNegativeBinomialLoss:
+    """:func:`zero_inflated_negative_binom_loss` over a ``(mean,
+    dispersion, dropout, ..., encoded)`` tuple (counterpart: loss.py:385)."""
+
+    def __init__(self, ridge_lambda: float = 0.0, tv_lambda: float = 0.0,
+                 l1_lambda: float = 0.0, eps: float = 1e-10, scale_factor: float = 1.0):
+        self.loss = zero_inflated_negative_binom_loss(ridge_lambda=ridge_lambda,
+                                                      tv_lambda=tv_lambda, eps=eps,
+                                                      scale_factor=scale_factor)
+        self.l1_lambda = l1_lambda
+
+    def __call__(self, preds, target):
+        mean_, theta, pi = preds[:3]
+        out = self.loss(mean_, theta, pi, target)
+        if self.l1_lambda:
+            out = out + self.l1_lambda * torch.abs(preds[-1]).sum()
+        return out
+
+
+class Warmup:
+    """0, inc, 2 inc, ... capped at ``t_max``, one value a step (counterpart:
+    loss.py:405)."""
+
+    def __init__(self, inc: float = 5e-3, t_max: float = 1.0):
+        self.t, self.t_max, self.inc, self.counter = 0.0, t_max, inc, 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        retval = self.t
+        self.t = min(self.t + self.inc, self.t_max)
+        self.counter += 1
+        return retval
+
+    step = __next__
+
+
+class DelayedLinearWarmup:
+    """:class:`Warmup` that stays at 0 until step ``delay`` (counterpart:
+    loss.py:423)."""
+
+    def __init__(self, delay: int = 2000, inc: float = 5e-3, t_max: float = 1.0):
+        self.t, self.t_max, self.inc = 0.0, t_max, inc
+        self.delay, self.counter = delay, 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        self.counter += 1
+        retval = self.t
+        if self.counter >= self.delay:
+            self.t = min(self.t + self.inc, self.t_max)
+        return retval
+
+    step = __next__
+
+
+def _mean_abs(x, y):
+    return torch.mean(torch.abs(x - y))
+
+
+class PairedLossInvertible:
+    """Both modalities' losses, the link term between their encodings and
+    the invertible bottleneck's alignment under delayed warm-ups
+    (counterpart: loss.py:443)."""
+
+    def __init__(self, loss1=NegativeBinomialLoss, loss2=ZeroInflatedNegativeBinomialLoss,
+                 loss3=DistanceProbLoss, link_func=_mean_abs, link_strength: float = 1e-3,
+                 inv_strength: float = 1.0):
+        self.loss1, self.loss2, self.loss3 = loss1(), loss2(), loss3()
+        self.link = link_strength
+        self.link_f = link_func
+        self.link_warmup = DelayedLinearWarmup(delay=1000, inc=5e-3, t_max=link_strength)
+        self.inv_warmup = DelayedLinearWarmup(delay=2000, inc=5e-3, t_max=inv_strength)
+
+    def __call__(self, preds, target):
+        preds1, preds2, (enc1_pred, enc2_pred) = preds
+        target1, target2 = target
+        retval = self.loss1(preds1, target1) + self.loss2(preds2, target2)
+        if self.link > 0:
+            lw = next(self.link_warmup)
+            if lw > 1e-6:
+                retval = retval + lw * torch.mean(self.link_f(preds1[-1], preds2[-1]))
+        iw = next(self.inv_warmup)
+        return retval + iw * (self.loss3(enc1_pred, enc2_pred[0])
+                              + self.loss3(enc2_pred, enc1_pred[0]))
+
+
+def binary_cross_entropy(recon_x, x) -> torch.Tensor:
+    """Per-sample summed BCE (counterpart: loss.py:602)."""
+    return -torch.sum(x * torch.log(recon_x + 1e-8) + (1 - x) * torch.log(1 - recon_x + 1e-8),
+                      dim=1)
+
+
+def log_nb_positive(x, mu, theta, eps=1e-8) -> torch.Tensor:
+    """Counterpart: loss.py:610 (:func:`scvi_log_nb_positive`)."""
+    return scvi_log_nb_positive(x, mu, theta, eps=eps)
+
+
+def log_zinb_positive(x, mu, theta, pi, eps=1e-8) -> torch.Tensor:
+    """Counterpart: loss.py:616 (:func:`scvi_log_zinb_positive`)."""
+    return scvi_log_zinb_positive(x, mu, theta, pi, eps=eps)
+
+
+def NB_loss(y_true, y_pred, theta, eps=1e-10) -> torch.Tensor:
+    """The per-sample *negated* summed NB NLL, as the reference returns it
+    (counterpart: loss.py:622)."""
+    t1 = torch.lgamma(theta + eps) + torch.lgamma(y_true + 1.0) - torch.lgamma(
+        y_true + theta + eps)
+    t2 = ((theta + y_true) * torch.log1p(y_pred / (theta + eps))
+          + y_true * (torch.log(theta + eps) - torch.log(y_pred + eps)))
+    return -torch.sum(t1 + t2, dim=1)
+
+
+def mse_loss(y_true, y_pred) -> torch.Tensor:
+    """Per-sample squared error on the entries where the truth is nonzero
+    (its sign as the mask) (counterpart: loss.py:636)."""
+    return torch.sum(((y_pred - y_true) * torch.sign(y_true)) ** 2, dim=1)
+
+
+def poisson_loss(y_true, y_pred) -> torch.Tensor:
+    """Per-sample summed Poisson NLL (counterpart: loss.py:644)."""
+    return torch.sum(y_pred - y_true * torch.log(y_pred + 1e-10) + torch.lgamma(y_true + 1.0),
+                     dim=1)
+
+
+def adjust_learning_rate(init_lr, optimizer, iteration, max_lr, adjust_epoch) -> float:
+    """``max(init_lr 0.9^(iteration // adjust_epoch), max_lr)`` (counterpart:
+    loss.py:652), set on ``optimizer``'s groups when it is a torch optimizer."""
+    lr = max(init_lr * (0.9 ** (iteration // adjust_epoch)), max_lr)
+    if isinstance(optimizer, torch.optim.Optimizer):
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+    return lr
+
+
+def get_mean(d, K: int = 100):
+    """A distribution's ``mean``, or the mean of ``K`` samples when it has
+    none (counterpart: loss.py:660)."""
+    mean = getattr(d, "mean", None)
+    if mean is not None:
+        return mean
+    return torch.mean(d.sample((K,)), dim=0)
+
+
+__all__ = ["Attention", "BCELoss", "Correlation", "DelayedLinearWarmup", "DistanceProbLoss",
+           "EPS", "Eucli_dis", "FactorTransfer", "GMM_loss", "KL_diver", "L1_dis",
+           "LinearWarmup", "MSELoss", "NBLoss", "NB_loss", "NSTLoss", "NegativeBinomialLoss",
+           "NullWarmup", "PairedLoss", "PairedLossInvertible", "QuadLoss", "RMSELoss",
+           "SigmoidWarmup", "Similarity", "Warmup", "ZINBLoss",
+           "ZeroInflatedNegativeBinomialLoss", "adjust_learning_rate", "binary_ce_logits",
+           "binary_cross_entropy", "cdisttf", "cluster_kl_loss", "cosine_similarity_loss",
+           "dist_loss", "get_mean", "gmm_nll", "kl_divergence", "kld_loss", "log_nb_positive",
+           "log_zinb_positive", "masked_mse", "masked_rmse", "mse_loss",
+           "negative_binom_loss", "nb_nll", "poisson_loss", "sce_loss", "scvi_log_nb_positive",
+           "scvi_log_zinb_positive", "soft_assign", "target_distribution", "total_variation",
+           "zero_inflated_negative_binom_loss", "zinb_nll"]

@@ -1,8 +1,11 @@
-"""The modality-matching evaluator and the joint-embedding suite's entry
-point (counterparts: ``get_bipartite_matching_adjacency_matrix``, its
-``_mk3`` name, ``batch_separated_bipartite_matching`` and ``_softmax``,
-dance_tpu/utils/metrics.py:115-165; ``integration_openproblems_evaluate``
-metrics.py:183), and the joint-embedding models' shared ``score``.
+"""The modality-matching evaluator, the joint-embedding suite's entry
+point, the adjusted Rand index on the device and the joint-embedding models'
+shared ``score`` (counterparts: ``device_ari``, dance_tpu/utils/metrics.py:59;
+``get_bipartite_matching_adjacency_matrix``, its ``_mk3`` name,
+``batch_separated_bipartite_matching`` and ``_softmax`` metrics.py:115-165;
+``integration_openproblems_evaluate`` metrics.py:183). ``acc``, ``ari``,
+``nmi``, ``mse``, ``rmse`` and ``mape`` are in :mod:`dance_tpu_torch.utils`
+and re-exported here.
 
 The evaluator is host numpy in float64 plus scipy's
 ``linear_sum_assignment``, copied from the JAX package, which it may not
@@ -11,6 +14,34 @@ import. The suite itself is :mod:`dance_tpu_torch.utils.scib_metrics`.
 
 import numpy as np
 import scipy.optimize
+import torch
+import torch.nn.functional as F
+
+from dance_tpu_torch.utils import acc, ari, mape, mse, nmi, rmse  # noqa: F401
+
+
+def device_ari(true, pred, n_true: int, n_pred: int) -> torch.Tensor:
+    """The adjusted Rand index of two integer labelings as a scalar float32
+    tensor where ``pred`` lies (counterpart: metrics.py:59): the contingency
+    table by one product of one-hot matrices, then the pair counts. For
+    per-epoch selection without a copy to the host; the host :func:`ari`
+    counts in exact integers."""
+    pred = torch.as_tensor(pred)
+    true = torch.as_tensor(true, device=pred.device)
+    t = F.one_hot(true.long(), n_true).to(torch.float32)
+    p = F.one_hot(pred.long(), n_pred).to(torch.float32)
+    cont = p.T @ t
+
+    def comb2(x):
+        return x * (x - 1.0) * 0.5
+
+    sum_ij = comb2(cont).sum()
+    a = comb2(cont.sum(1)).sum()
+    b = comb2(cont.sum(0)).sum()
+    total = comb2(torch.tensor(float(t.shape[0]), device=t.device))
+    expected = a * b / total.clamp(min=1.0)
+    denom = 0.5 * (a + b) - expected
+    return torch.where(denom == 0, torch.ones_like(denom), (sum_ij - expected) / denom)
 
 
 def get_bipartite_matching_adjacency_matrix(raw_logits, threshold_quantile: float = 0.995):
@@ -91,6 +122,7 @@ def score_embedding(emb, y, *, metric: str = "clustering", batch=None, device=No
     return (scores, emb) if return_pred else scores["dance_nmi"]
 
 
-__all__ = ["batch_separated_bipartite_matching", "get_bipartite_matching_adjacency_matrix",
+__all__ = ["acc", "ari", "batch_separated_bipartite_matching", "device_ari",
+           "get_bipartite_matching_adjacency_matrix",
            "get_bipartite_matching_adjacency_matrix_mk3", "integration_openproblems_evaluate",
-           "score_embedding"]
+           "mape", "mse", "nmi", "rmse", "score_embedding"]

@@ -1,5 +1,5 @@
 """flax -> torch parameter transfer for the scDeepSort ``GNN``, STAGATE's
-net, ``GATConv``, graph-sc's ``GCNAE``, scTAG's net, scDSC's model, the
+net, ``GATConv``, ``GCNConv``, ``SAGEConv``, graph-sc's ``GCNAE``, scTAG's net, scDSC's model, the
 scMoGNN trunk, matching net and v2 net, DSTG's GCN, stdGCN's network and
 autoencoder, scHeteroNet's network, GraphSCI's network, ACTINN's MLP, the ZINB
 autoencoder of scDeepCluster and scDCC, DeepImpute's stacked ensemble, the
@@ -207,6 +207,27 @@ def _dense(state: dict, prefix: str, sub: Mapping, bias: bool = True):
     state[f"{prefix}.weight"] = _t(np.asarray(sub["kernel"]).T)
     if "bias" in sub:
         state[f"{prefix}.bias"] = _t(sub["bias"])
+
+
+def gcnconv_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``GCNConv`` tree (``Dense_0``) -> ``GCNConv.state_dict()``."""
+    if set(params) != {"Dense_0"}:
+        raise KeyError(f"unexpected GCNConv parameters {sorted(params)}")
+    state = {}
+    _dense(state, "linear", params["Dense_0"])
+    return state
+
+
+def sageconv_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``SAGEConv`` tree -> ``SAGEConv.state_dict()``: ``Dense_0``
+    (on the node itself) -> ``fc_self``, ``Dense_1`` (on the neighbours'
+    mean, no bias) -> ``fc_neigh``."""
+    if set(params) != {"Dense_0", "Dense_1"}:
+        raise KeyError(f"unexpected SAGEConv parameters {sorted(params)}")
+    state = {}
+    _dense(state, "fc_self", params["Dense_0"])
+    _dense(state, "fc_neigh", params["Dense_1"], bias=False)
+    return state
 
 
 def tagconv_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:

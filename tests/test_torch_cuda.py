@@ -1,9 +1,9 @@
 """dance_tpu_torch on the card: the hand-written CUDA kernels against their
 plain PyTorch versions, the scDeepSort, STAGATE, graph-sc, scTAG, scDSC,
 scMoGNN, DSTG and stdGCN fits on the card against the CPU, scHeteroNet's
-hop tilings and HetConv steps, and the dense single-modality models
-(ACTINN, scDeepCluster, scDCC, DeepImpute) and optax's AMSGrad on the card
-against the CPU.
+hop tilings and HetConv steps, the dense single-modality models
+(ACTINN, scDeepCluster, scDCC, DeepImpute) and optax's AMSGrad, the scanpy
+surface, ScTransform and GCNConv on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips where ``torch.cuda.is_available()``
 is False. This file imports no JAX, so it runs on a machine with only
@@ -37,8 +37,8 @@ from dance_tpu_torch.modules.spatial.spatial_domain import Stagate
 from dance_tpu_torch.ops import bsr as tbsr
 from torch_cases import (CASES, NONFINITE_WIDTHS, assert_weights, bipartite_case, cell_knn_bsr,
                          deconvo_case, deconvo_tilings, gat_inputs, gat_nonfinite_case,
-                         heteronet_hops, knn_bsr, max_edge_case, no_pad, signed, skewed_bsr,
-                         spatial_case, typed_counts)
+                         heteronet_hops, knn_bsr, max_edge_case, nb_counts, no_pad, signed,
+                         skewed_bsr, spatial_case, typed_counts)
 
 RTOL, ATOL = 1e-5, 1e-5
 
@@ -1110,3 +1110,61 @@ def test_umap_epochs_and_scrublet_match_cpu(cuda):
     (s_card, _, t_card), (s_ref, _, t_ref) = (tpp.scrublet(counts, device=d)
                                               for d in (cuda, torch.device("cpu")))
     np.testing.assert_allclose(s_card, s_ref, atol=1e-4)
+
+
+def test_sctransform_matches_cpu(cuda):
+    """ScTransform's GLM flavour, card against CPU from the same step-1
+    draw: β rtol 1e-3, θ rtol 1e-2 (float32 GLM and Newton steps), the
+    residuals within 1e-3 absolute; the analytic flavour at float32
+    rounding. No kernel runs."""
+    from dance_tpu_torch.transforms.normalize import ScTransform
+
+    x = nb_counts(400, 150, seed=23)
+    n = tbsr.bsr_spmm.launches
+    card, ref = (ScTransform(n_genes=80, random_state=3, device=d)(x)
+                 for d in (cuda, torch.device("cpu")))
+    assert tbsr.bsr_spmm.launches == n
+    np.testing.assert_allclose(card["X"], ref["X"], atol=1e-3)
+    for key, rtol in (("Intercept_step1_sct", 1e-3), ("log_umi_step1_sct", 1e-3),
+                      ("theta_sct", 1e-2), ("Intercept_sct", 1e-3)):
+        ok = ~np.isnan(ref["var"][key])
+        np.testing.assert_array_equal(np.isnan(card["var"][key]), ~ok, err_msg=key)
+        np.testing.assert_allclose(card["var"][key][ok], ref["var"][key][ok], rtol=rtol,
+                                   atol=1e-6, err_msg=key)
+    card, ref = (ScTransform(flavor="analytic", device=d)(x) for d in (cuda, torch.device("cpu")))
+    np.testing.assert_allclose(card["X"], ref["X"], rtol=1e-5, atol=1e-5)
+
+
+def test_gcnconv_on_bsr_launches_spmm_and_matches_csr(cuda):
+    """GCNConv on a BSR adjacency runs #1 forward and for Aᵀḡ; its output and
+    gradients agree with the same layer on the CSR and dense forms, on the
+    card, at rtol 1e-4."""
+    from dance_tpu_torch.nn.gnn import GCNConv, SAGEConv
+    from dance_tpu_torch.ops.neighbors import knn_graph
+    from dance_tpu_torch.ops.sparse import (csr_from_scipy, dense_adj_from_scipy,
+                                            sym_norm_adjacency)
+
+    pts = np.random.default_rng(24).normal(0, 1, (1000, 20)).astype(np.float32)
+    _, scipy_adj = sym_norm_adjacency(knn_graph(pts, 15, mode="gauss"))
+    scipy_adj = sp.csr_matrix(scipy_adj, dtype=np.float32)
+    adj = tbsr.bsr_from_scipy(scipy_adj)
+    layer = GCNConv(32, 16).to(cuda)
+    n_nodes = scipy_adj.shape[0]  # the tiling pads its rows to whole blocks
+    h = torch.randn((n_nodes, 32), generator=torch.Generator().manual_seed(24)).to(cuda)
+    g = torch.randn((n_nodes, 16), generator=torch.Generator().manual_seed(25)).to(cuda)
+    outs = {}
+    for name, a in (("bsr", adj.to(cuda)), ("csr", csr_from_scipy(scipy_adj).to(cuda)),
+                    ("dense", dense_adj_from_scipy(scipy_adj).to(cuda))):
+        layer.zero_grad()
+        hh = h.clone().requires_grad_(True)
+        n = tbsr.bsr_spmm.launches
+        out = layer(a, hh)
+        (out * g).sum().backward()
+        torch.cuda.synchronize()
+        assert (tbsr.bsr_spmm.launches - n) == (2 if name == "bsr" else 0), name
+        outs[name] = (out.detach().cpu(), hh.grad.cpu(), layer.linear.weight.grad.cpu())
+    for name in ("csr", "dense"):
+        for got, want in zip(outs["bsr"], outs[name]):
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="degrees"):
+        SAGEConv(32, 16).to(cuda)(adj.to(cuda), h)

@@ -334,7 +334,7 @@ def test_save_load_score_and_unsure_predict(tmp_path):
     unsure = m.predict(t, unsure_rate=3.0 * 0.99)
     np.testing.assert_array_equal(unsure == -1, probs.max(1) < 0.99)
     with pytest.raises(NotImplementedError, match="acc"):
-        m.score(t, labels, score_func="mape")  # not ported; nmi is since the scMoGNN slice
+        m.score(t, labels, score_func="unknown_metric")  # every JAX metric name is ported
 
 
 def test_acc_matches_jax():

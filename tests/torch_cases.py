@@ -337,3 +337,11 @@ def spatial_slide(n_rows: int = 12, n_cols: int = 10, g: int = 40, n_domains: in
     image = colours[pix_dom] + texture + rng.normal(0, 8, (h, w, 3))
     return (counts.astype(np.float32), xy, xy_pixel,
             (np.clip(image, 0, 255) / 255).astype(np.float32), dom)
+
+
+def nb_counts(n: int = 300, g: int = 200, seed: int = 0) -> np.ndarray:
+    """Negative-binomial counts (size 5), float32: per gene a gamma base
+    rate, per cell a lognormal depth (ScTransform's tests)."""
+    rng = np.random.default_rng(seed)
+    mean = rng.gamma(0.6, 2.0, g) * np.exp(rng.normal(0, 0.3, n))[:, None]
+    return rng.negative_binomial(5, 5 / (5 + mean)).astype(np.float32)
