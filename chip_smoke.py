@@ -12,7 +12,8 @@ scMVAE, the spatial-domain SpaGCN, stLearn and EfNST with scGNN2's
 imputation, the classical heads: SVM, CellTypist, SingleCellNet, MAGIC,
 SPOTlight, SpatialDecon and CARD, stdGCN with ComBat's integration and its
 marker genes, the scanpy surface (``sc.pp`` and ``sc.tl``), ScTransform,
-GCNConv on #1 and the rest of the transform surface.
+GCNConv on #1, the rest of the transform surface, and the data-parallel
+path (ranks sharing the card).
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -397,6 +398,36 @@ printed only when every phase passed):
    spots (the same edges, weights within 1e-12); ``feature_propagation``
    on that graph (1e-5); ``device_ari`` of a k-means labelling against the
    host ``ari`` (1e-6).
+66. The data-parallel path (``dance_tpu_torch.parallel``; no TPU kernel is on
+   it: every count, set to 0 before each phase in every rank, stays 0).
+   Ranks are spawned from here by ``parallel.mesh.launch`` and share the one
+   card over gloo (NCCL takes one card a rank). ACTINN's ``fit_distributed``
+   at phase 27's size and defaults on one NCCL rank, then on 2 gloo ranks,
+   each for one epoch and then for the default 50: both fits' epoch times,
+   the weight gap of 2 ranks against 1 after one epoch (bound 1e-3 of the
+   largest weight; after 50 epochs of Adam at lr 0.01 the trajectories part
+   and the gap is printed), the 50-epoch test predictions that agree (at
+   least 99 %), and the two ranks' weights equal.
+67. scDeepSort at phase 2's width (12,000 x 2,000, d = 256, 2 layers, 5
+   epochs) on 2 gloo ranks, the adjacency block-row-sharded
+   (``ShardedCSR``), against the single-card CSR fit from the same seed:
+   probabilities within 2e-3 (JAX's bound, test_parallel.py:289), the edges
+   each rank stores, both fits' median epochs.
+68. graph-sc on phase 8's graph (30 epochs, dropout 0.1) the same way:
+   embeddings within 8e-3 (test_parallel.py:320).
+69. ``vmapped_trials``: 8 trials (per-trial rates and an ``l2`` term) of
+   ACTINN's network on its training cells, 120 full-batch steps, on one rank
+   and with the trial axis over 2 ranks, against the sequential loop of
+   ``torch.optim.Adam`` per trial: losses within 1e-3 relative over the
+   first 5 steps and 5e-2 over all 120 (Adam grows float32 gaps on
+   gradients at rounding level), the same for 2 ranks against one, the 2
+   ranks' parameters within 5e-3 of one rank's, the same winner.
+70. ``dryrun_multichip(2)`` over gloo on the card (dp 1 x tp 2), a
+   checkpoint round trip of phase 67's weights (rank 0 writes, every rank
+   and this process read it back equal), and ``utils.profile.trace`` around
+   one scDeepSort epoch (the trace file's size printed).
+   A time from these phases is not a multi-card figure: the ranks share one
+   card and gloo copies every collective through the host.
 
 Each kernel's bound is the larger of its operations over a compute peak and
 the bytes of its inputs and outputs, each counted once, over 3.35 TB/s, for
@@ -1067,7 +1098,7 @@ def scdeepsort_phases(cuda) -> dict:
             raise AssertionError(f"the card disagrees with the CPU on the small graph ({name})")
     spmm["bf16"]["launches"] = launches16["bsr_spmm"]
     return {"bsr_spmm": (spmm, launches["bsr_spmm"]),
-            "bsr_sddmm": (sddmm_entry, sddmm_launches)}
+            "bsr_sddmm": (sddmm_entry, sddmm_launches), "scdeepsort_graph": (graph, labels)}
 
 
 def differentiable_tiles(a, cuda) -> int:
@@ -4930,6 +4961,450 @@ def match_score(model, x1, x2):
                    f"against {1 / len(x1)!r} for chance")
 
 
+# the scale-out phases (66-70): ranks on the one card over gloo; ACTINN at phase 27's
+# size and defaults but SO_ACTINN_EPOCHS epochs (1,150 steps, past StepLR's first decay
+# at step 1,000), scDeepSort at phase 2's width, graph-sc on phase 8's graph at
+# GSC_EPOCHS; vmapped trials on ACTINN's training cells; the ranks' time limits
+SO_RANKS, SO_TRIALS, SO_STEPS, SO_ACTINN_EPOCHS = 2, 8, 120, 25
+SO_TRIAL_LRS = [3e-3, 1e-3, 3e-4, 1e-4, 3e-3, 1e-3, 3e-4, 1e-4]
+SO_TRIAL_L2 = [0.0, 0.0, 0.0, 0.0, 1e-3, 1e-3, 1e-3, 1e-3]
+SO_TIMEOUT, SO_JOIN = 300.0, 900.0
+# bounds: ACTINN's fits on 1 and 2 ranks against the same protocol written out here
+# (each batch's gradient taken whole, or summed from its two halves, as the ranks sum
+# theirs), weights relative to the largest, after all SO_ACTINN_EPOCHS epochs;
+# scDeepSort's probabilities and graph-sc's embeddings against the single-card fit
+# (JAX's own bounds, test_parallel.py:289, :320; scDeepSort's, or twice the single
+# fit's own spread over SO_SDS_RERUNS reruns, whichever is larger: its CSR sums
+# scatter-add in any order on the card); the trials' losses, relative,
+# against a sequential loop of optax's Adam written out and against torch.optim.Adam
+# over the first SO_TRIAL_EARLY_STEPS steps, and over all steps within SO_TRIAL_DRIFT
+# times a control's float32 drift (the loop on its cells permuted: the same sums in
+# another order; the loop against torch.optim.Adam: Adam's constants rounded
+# otherwise) or SO_TRIAL_EARLY, whichever is larger; 2 ranks' against 1 rank's
+SO_ACTINN_W = 1e-5
+SO_SDS_PROB, SO_GSC_Z, SO_SDS_RERUNS = 2e-3, 8e-3, 8
+SO_TRIAL_EARLY_STEPS, SO_TRIAL_EARLY, SO_TRIAL_DRIFT, SO_TRIAL_SPLIT = 5, 1e-3, 10.0, 5e-3
+
+
+def actinn_plain_fit(x, y, epochs: int, parts: int, device):
+    """ACTINN's data-parallel protocol (actinn.py's ``fit_distributed``)
+    written out in one process: the batch order from ``default_rng(0)``, the
+    port's init and loss, Adam on a 0.95 staircase every 1,000 steps; each
+    batch's gradient the sum of ``parts`` shares of its rows (a rank's
+    each). Returns every epoch's weights and the seconds."""
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.modules.single_modality.cell_type_annotation import ACTINN
+    from dance_tpu_torch.modules.single_modality.cell_type_annotation.actinn import \
+        actinn_loss
+
+    model = ACTINN(random_seed=0, device=device)
+    net = model._make_net(x.shape[1], int(y.max()) + 1, 0)
+    opt = torch.optim.Adam(net.parameters(), lr=0.01)
+    sched = torch.optim.lr_scheduler.StepLR(opt, step_size=1000, gamma=0.95)
+    bs, per = 128, 128 // parts
+    nb, rng, ones = len(x) // bs, np.random.default_rng(0), torch.ones(per, device=device)
+    snaps = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        rows = rng.permutation(len(x))[:nb * bs].reshape(nb, bs)
+        xb = [torch.from_numpy(x[rows[:, i * per:(i + 1) * per]]).to(device)
+              for i in range(parts)]
+        yb = [torch.from_numpy(y[rows[:, i * per:(i + 1) * per]].astype(np.int64)).to(device)
+              for i in range(parts)]
+        for b in range(nb):
+            opt.zero_grad(set_to_none=True)
+            for i in range(parts):
+                (actinn_loss(net, xb[i][b], yb[i][b], ones, model.lambd) / parts).backward()
+            opt.step()
+            sched.step()
+        snaps.append({k: v.cpu().numpy().copy() for k, v in net.state_dict().items()})
+    torch.cuda.synchronize()
+    return snaps, time.perf_counter() - t0
+
+
+def weight_gap(a: dict, b: dict) -> float:
+    """The largest entry gap of two state dicts, relative to ``b``'s largest
+    entry."""
+    import numpy as np
+
+    scale = max(float(np.abs(v).max()) for v in b.values())
+    return max(float(np.abs(a[k] - b[k]).max()) for k in b) / scale
+
+
+def trial_problem(x, y, n_out: int, device):
+    """Phase 69's trials: ACTINN's network on its training cells, full batch,
+    cross-entropy plus ``l2`` x every squared parameter; ``init_fn(seed)``
+    draws flax's init from ``seed``."""
+    import torch
+    import torch.nn.functional as F
+
+    from dance_tpu_torch.nn.mlp import VanillaMLP
+
+    model = VanillaMLP(x.shape[1], n_out).to(device)
+    data = (torch.from_numpy(x).to(device), torch.from_numpy(y.astype("int64")).to(device))
+
+    def init_fn(seed):
+        net = VanillaMLP(x.shape[1], n_out)
+        net.reset_parameters(torch.Generator().manual_seed(seed))
+        return {k: v.detach().to(device) for k, v in net.state_dict().items()}
+
+    def loss_fn(params, batch, hyper):
+        bx, by = batch
+        logits = torch.func.functional_call(model, params, (bx,))
+        l2 = sum((p ** 2).sum() for p in params.values())
+        return F.cross_entropy(logits, by) + hyper["l2"] * l2
+
+    return model, init_fn, loss_fn, data
+
+
+def scale_out_rank(rank: int, folder: str, phases):
+    """One rank of phases 66-69 (the ranks share the card over gloo, or one
+    rank runs alone on NCCL): each phase's fit with the launch counts set to
+    0 just before, its results pickled to ``folder/out{rank}.pkl``."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.modules.single_modality.cell_type_annotation import ACTINN, ScDeepSort
+    from dance_tpu_torch.modules.single_modality.clustering import GraphSC
+    from dance_tpu_torch.parallel import mesh as pm
+    from dance_tpu_torch.parallel.trials import vmapped_trials
+    from dance_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(f"{folder}/in.pkl", "rb") as f:
+        inp = pickle.load(f)
+    mesh = pm.get_mesh()
+    dev = mesh.device
+    out = {}
+
+    def timed_fit(fn):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = fn()
+        torch.cuda.synchronize()
+        return model, time.perf_counter() - t0, read_launches()
+
+    if "actinn" in phases:  # 66
+        x, y = inp["actinn"]
+        m, sec, launched = timed_fit(lambda: ACTINN(random_seed=0, device=dev).fit_distributed(
+            x, y, mesh=mesh, batch_size=128, lr=0.01, num_epochs=SO_ACTINN_EPOCHS))
+        out["actinn"] = {"state": {k: v.cpu().numpy() for k, v in m.model.state_dict().items()},
+                         "history": m.history, "seconds": sec, "launches": launched,
+                         "pred": m.predict(inp["actinn_test"])}
+    if "scdeepsort" in phases:  # 67, and phase 70's checkpoint of its weights
+        graph, labels = inp["scdeepsort"]
+        m, sec, launched = timed_fit(lambda: ScDeepSort(
+            dim_in=DIM, dim_hid=DIM, num_layers=2, seed=0, device=dev).fit_distributed(
+            graph, labels, mesh=mesh, epochs=EPOCHS, val_ratio=0.2))
+        adj = m._train_state[0]
+        out["scdeepsort"] = {"proba": m.predict_proba(graph), "history": m.history,
+                             "seconds": sec, "launches": launched, "edges": adj.n_edges,
+                             "e_max": int(adj.data.shape[0]), "rows": adj.rows_per_shard,
+                             "peak": torch.cuda.max_memory_allocated()}
+        state = {k: v.detach() for k, v in m.model.state_dict().items()}
+        path = save_checkpoint(f"{folder}/scdeepsort.pt", {"model": state, "epochs": EPOCHS},
+                               mesh=mesh)
+        back = load_checkpoint(path, map_location=dev)
+        out["checkpoint"] = {"path": path, "equal": all(torch.equal(back["model"][k], v)
+                                                        for k, v in state.items()),
+                             "state": {k: v.cpu().numpy() for k, v in state.items()}}
+    if "graphsc" in phases:  # 68
+        g = inp["graphsc"]
+        m, sec, launched = timed_fit(lambda: GraphSC(n_clusters=GSC_TYPES, seed=0,
+                                                     device=dev).fit_distributed(
+            g, mesh=mesh, epochs=GSC_EPOCHS))
+        out["graphsc"] = {"z": m.get_latent(), "history": m.history, "seconds": sec,
+                          "launches": launched, "edges": m._fit_cache[0].n_edges}
+    if "trials" in phases:  # 69
+        x, y = inp["actinn"]
+        _, init_fn, loss_fn, data = trial_problem(x, y, int(y.max()) + 1, dev)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, losses = vmapped_trials(init_fn, loss_fn, data, seeds=range(SO_TRIALS),
+                                        hyperparams={"l2": SO_TRIAL_L2}, lr=SO_TRIAL_LRS,
+                                        num_steps=SO_STEPS, mesh=mesh)
+        torch.cuda.synchronize()
+        out["trials"] = {"losses": losses, "seconds": time.perf_counter() - t0,
+                         "params": {k: v.cpu().numpy() for k, v in params.items()},
+                         "launches": read_launches()}
+    with open(f"{folder}/out{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def run_scale_out(folder: str, n: int, backend: str, phases) -> list:
+    """Launch ``n`` ranks of :func:`scale_out_rank` on the card; their results."""
+    import pickle
+
+    from dance_tpu_torch.parallel.mesh import launch
+
+    t0 = time.perf_counter()
+    launch(scale_out_rank, n, backend, args=(folder, tuple(phases)), rendezvous_dir=folder,
+           timeout=SO_TIMEOUT, join_timeout=SO_JOIN, num_threads=4)
+    print(f"{n} {backend} rank(s) {list(phases)}: {time.perf_counter() - t0:.3f} s from "
+          f"launch to join", flush=True)
+    res = []
+    for r in range(n):
+        with open(f"{folder}/out{r}.pkl", "rb") as f:
+            res.append(pickle.load(f))
+    for r, out in enumerate(res):
+        for phase, got in out.items():
+            if "launches" in got and any(got["launches"].values()):
+                raise AssertionError(f"rank {r} launched a BSR kernel in {phase}: "
+                                     f"{got['launches']}")
+    return res
+
+
+def epoch_line(history) -> str:
+    sec = [h["seconds"] for h in history]
+    return f"first epoch {sec[0]!r} s, median of the rest {statistics.median(sec[1:])!r} s"
+
+
+def scale_out_phases(cuda, sds, gsc_graph) -> None:
+    """Phases 66-70: the data-parallel path on ranks that share the card
+    over gloo (and ACTINN on one NCCL rank): every count set to 0 before
+    each phase, in every rank, and 0 after (no TPU kernel is on it)."""
+    import gc
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.modules.single_modality.cell_type_annotation import (
+        ScDeepSort, actinn_preprocess)
+    from dance_tpu_torch.modules.single_modality.clustering import GraphSC
+    from dance_tpu_torch.parallel.dryrun import dryrun_multichip
+    from dance_tpu_torch.parallel.trials import select_best_trial, vmapped_trials
+    from dance_tpu_torch.utils.checkpoint import load_checkpoint
+    from dance_tpu_torch.utils.profile import trace
+
+    t_all = time.perf_counter()
+    # the ranks are other processes on this card: hand them the memory this
+    # process's allocator keeps cached from the earlier phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"before the ranks: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved here", flush=True)
+    folder = tempfile.mkdtemp(prefix="chip_smoke_scale_out_")
+    counts, types = annotation_counts(HN_CELLS, HN_GENES, HN_TYPES, HN_RARE, seed=13)
+    x, _ = actinn_preprocess(counts, gene_names(HN_GENES))
+    perm = np.random.default_rng(21).permutation(len(types))
+    train, test = np.sort(perm[:int(0.6 * len(perm))]), np.sort(perm[int(0.8 * len(perm)):])
+    graph, labels = sds
+    with open(f"{folder}/in.pkl", "wb") as f:
+        pickle.dump({"actinn": (x[train], types[train]), "actinn_test": x[test],
+                     "scdeepsort": (graph, labels), "graphsc": gsc_graph}, f)
+
+    # -- 66. ACTINN: one NCCL rank, then two gloo ranks on the card --------
+    one = run_scale_out(folder, 1, "nccl", ["actinn"])[0]
+    # -- 67-69 (and 70's checkpoint): two gloo ranks on the card ------------
+    ranks = run_scale_out(folder, SO_RANKS, "gloo", ["actinn", "scdeepsort", "graphsc",
+                                                     "trials"])
+    steps = len(train) // 128
+    one, two = one["actinn"], ranks[0]["actinn"]
+    # the controls: the protocol written out here, each batch's gradient whole (1
+    # rank's summation order) or summed from its halves (2 ranks')
+    reset_launches()
+    plain = {parts: actinn_plain_fit(x[train], types[train], SO_ACTINN_EPOCHS, parts, cuda)
+             for parts in (1, SO_RANKS)}
+    no_launches("ACTINN's written-out protocol (phase 66)")
+    gap_one = weight_gap(one["state"], plain[1][0][-1])
+    gap_two = weight_gap(two["state"], plain[SO_RANKS][0][-1])
+    drift = [weight_gap(b, a) for a, b in zip(plain[1][0], plain[SO_RANKS][0])]
+    agree = float((two["pred"] == one["pred"]).mean())
+    for name, res in (("1 NCCL rank", one), (f"{SO_RANKS} gloo ranks", two)):
+        print(f"ACTINN fit_distributed on {name}: {len(train)} cells x {x.shape[1]} genes, "
+              f"batch 128 ({steps} steps an epoch), {SO_ACTINN_EPOCHS} epochs: fit "
+              f"{res['seconds']:.3f} s, {epoch_line(res['history'])}; last loss "
+              f"{res['history'][-1]['loss']!r}", flush=True)
+    alike = all(np.array_equal(ranks[1]["actinn"]["state"][k], v)
+                for k, v in two["state"].items())
+    print(f"ACTINN against its protocol written out (whole batches {plain[1][1]:.3f} s, two "
+          f"halves {plain[SO_RANKS][1]:.3f} s), weight gaps relative to the largest after "
+          f"{SO_ACTINN_EPOCHS * steps} steps: 1 NCCL rank {gap_one!r}, {SO_RANKS} gloo ranks "
+          f"{gap_two!r} (bound {SO_ACTINN_W}); the ranks' weights equal: {alike}; "
+          f"{SO_RANKS} ranks against 1 {weight_gap(two['state'], one['state'])!r}, test "
+          f"predictions agree on {agree!r}", flush=True)
+    print(f"ACTINN float32 drift, whole batches against two halves (the same sums in "
+          f"another order), after each epoch: {drift}", flush=True)
+    if not (gap_one <= SO_ACTINN_W and gap_two <= SO_ACTINN_W and alike):
+        raise AssertionError("ACTINN: a fit_distributed run parts from its protocol")
+
+    # -- 67. scDeepSort sharded against the single-card CSR fit ------------
+    reset_launches()
+    ref = ScDeepSort(dim_in=DIM, dim_hid=DIM, num_layers=2, seed=0, device=cuda)
+    t0 = time.perf_counter()
+    ref.fit(graph, labels, epochs=EPOCHS, val_ratio=0.2, use_bsr=False)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    proba = ref.predict_proba(graph)
+    # the control: the single fit again (its CSR sums scatter-add in any order)
+    spread = []
+    for _ in range(SO_SDS_RERUNS):
+        again = ScDeepSort(dim_in=DIM, dim_hid=DIM, num_layers=2, seed=0, device=cuda)
+        again.fit(graph, labels, epochs=EPOCHS, val_ratio=0.2, use_bsr=False)
+        spread.append(float(np.abs(again.predict_proba(graph) - proba).max()))
+    no_launches("scDeepSort's single-card CSR fits (phase 67)")
+    sds0 = ranks[0]["scdeepsort"]
+    gap = max(float(np.abs(r["scdeepsort"]["proba"] - proba).max()) for r in ranks)
+    bound = max(SO_SDS_PROB, 2 * max(spread))
+    print(f"scDeepSort CSR on 1 card: fit {t_ref:.3f} s, {epoch_line(ref.history)}; on "
+          f"{SO_RANKS} gloo ranks: fit {sds0['seconds']:.3f} s, {epoch_line(sds0['history'])}; "
+          f"edges stored per rank {[r['scdeepsort']['edges'] for r in ranks]} of "
+          f"{graph.num_edges} (E_max {sds0['e_max']}, {sds0['rows']} rows a rank); "
+          f"max probability gap {gap!r} (bound {bound!r}: {SO_SDS_PROB}, or twice the single "
+          f"fit's own largest gap over {SO_SDS_RERUNS} reruns {spread})", flush=True)
+    if not gap <= bound:
+        raise AssertionError(f"scDeepSort: sharded probabilities part by {gap}")
+
+    # -- 68. graph-sc sharded against the single-card CSR fit --------------
+    reset_launches()
+    gref = GraphSC(n_clusters=GSC_TYPES, seed=0, device=cuda)
+    t0 = time.perf_counter()
+    gref.fit(gsc_graph, epochs=GSC_EPOCHS, use_bsr=False)
+    torch.cuda.synchronize()
+    t_gref = time.perf_counter() - t0
+    no_launches("graph-sc's single-card CSR fit (phase 68)")
+    gs0 = ranks[0]["graphsc"]
+    zgap = max(float(np.abs(r["graphsc"]["z"] - gref.get_latent()).max()) for r in ranks)
+    print(f"graph-sc CSR on 1 card ({gsc_graph.num_nodes} nodes): fit {t_gref:.3f} s, "
+          f"{epoch_line(gref.history)}; on {SO_RANKS} gloo ranks: fit {gs0['seconds']:.3f} s, "
+          f"{epoch_line(gs0['history'])}; edges stored per rank "
+          f"{[r['graphsc']['edges'] for r in ranks]} of {gsc_graph.num_edges}; max embedding "
+          f"gap {zgap!r} (bound {SO_GSC_Z})", flush=True)
+    if not zgap <= SO_GSC_Z:
+        raise AssertionError(f"graph-sc: sharded embeddings part by {zgap}")
+
+    # -- 69. vmapped trials: one rank, two ranks, the sequential loop ------
+    reset_launches()
+    xt, yt = x[train], types[train]
+    model, init_fn, loss_fn, data = trial_problem(xt, yt, HN_TYPES, cuda)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, losses = vmapped_trials(init_fn, loss_fn, data, seeds=range(SO_TRIALS),
+                                    hyperparams={"l2": SO_TRIAL_L2}, lr=SO_TRIAL_LRS,
+                                    num_steps=SO_STEPS, device=cuda)
+    torch.cuda.synchronize()
+    t_vm = time.perf_counter() - t0
+
+    def torch_adam(batch):
+        # each trial alone under torch.optim.Adam: the losses
+        seq = np.zeros_like(losses)
+        for i in range(SO_TRIALS):
+            p = {k: torch.nn.Parameter(v.clone()) for k, v in init_fn(i).items()}
+            opt = torch.optim.Adam(p.values(), lr=SO_TRIAL_LRS[i])
+            hyper = {"l2": torch.tensor(SO_TRIAL_L2[i], device=cuda)}
+            for s in range(SO_STEPS):
+                opt.zero_grad(set_to_none=True)
+                loss = loss_fn(p, batch, hyper)
+                loss.backward()
+                opt.step()
+                seq[s, i] = float(loss.detach())
+        return seq
+
+    def optax_adam(batch):
+        # each trial alone under optax's adam(1.0) written out (its bias
+        # corrections in float32), the update scaled by the trial's rate
+        seq = np.zeros_like(losses)
+        for i in range(SO_TRIALS):
+            p = dict(init_fn(i))
+            mu = {k: torch.zeros_like(v) for k, v in p.items()}
+            nu = {k: torch.zeros_like(v) for k, v in p.items()}
+            hyper = {"l2": torch.tensor(SO_TRIAL_L2[i], device=cuda)}
+            rate = torch.tensor(SO_TRIAL_LRS[i], dtype=torch.float32, device=cuda)
+            for t in range(1, SO_STEPS + 1):
+                grads, loss = torch.func.grad_and_value(loss_fn)(p, batch, hyper)
+                c1 = (1.0 - torch.tensor(0.9, dtype=torch.float32) ** t).to(cuda)
+                c2 = (1.0 - torch.tensor(0.999, dtype=torch.float32) ** t).to(cuda)
+                for k, g in grads.items():
+                    mu[k] = 0.1 * g + 0.9 * mu[k]
+                    nu[k] = 0.001 * g * g + 0.999 * nu[k]
+                    p[k] = p[k] + -((mu[k] / c1) / (torch.sqrt(nu[k] / c2) + 1e-8)) * rate
+                seq[t - 1, i] = float(loss)
+        return seq
+
+    t0 = time.perf_counter()
+    seq = optax_adam(data)
+    t_seq = time.perf_counter() - t0
+    # the controls: the same loop on the cells in another order (the same
+    # sums in another float32 order), and torch.optim.Adam (Adam's constants
+    # rounded otherwise)
+    shuffled = torch.from_numpy(np.random.default_rng(5).permutation(len(xt))).to(cuda)
+    ctrl = optax_adam(tuple(t[shuffled] for t in data))
+    tseq = torch_adam(data)
+    no_launches("the vmapped trials (phase 69)")
+    best = select_best_trial(params, -losses[-1])[1]
+    tr = ranks[0]["trials"]
+    k = SO_TRIAL_EARLY_STEPS
+
+    def gaps(a, b):
+        return np.max(np.abs(a - b) / np.abs(b), axis=1)  # each step, over the trials
+
+    g = {"vmapped-loop": gaps(losses, seq), "order": gaps(ctrl, seq),
+         "2 ranks-1 rank": gaps(tr["losses"], losses), "vmapped-torch": gaps(losses, tseq),
+         "loop-torch": gaps(seq, tseq)}
+    bound = max(SO_TRIAL_EARLY, SO_TRIAL_DRIFT * float(g["order"].max()))
+    bound_torch = max(SO_TRIAL_EARLY, SO_TRIAL_DRIFT * float(g["loop-torch"].max()))
+    split = max(float(np.max(np.abs(r["trials"]["params"][name] - v.cpu().numpy())))
+                for r in ranks for name, v in params.items())
+    winners = [best, int(np.argmin(seq[-1])), int(np.argmin(tseq[-1])),
+               int(np.argmin(tr["losses"][-1]))]
+    early = max(float(g[n][:k].max()) for n in ("vmapped-loop", "2 ranks-1 rank",
+                                                 "vmapped-torch"))
+    marks = [s for s in (1, 2, 5, 10, 20, 40, 80, 120) if s <= SO_STEPS]
+    print(f"vmapped trials: {SO_TRIALS} trials x {SO_STEPS} full-batch steps on "
+          f"{len(train)} cells: 1 rank {t_vm:.3f} s, {SO_RANKS} gloo ranks {tr['seconds']:.3f} s "
+          f"(trial axis split), the loop of optax's Adam {t_seq:.3f} s; losses' max relative "
+          f"gaps over the first {k} steps {early!r} (bound {SO_TRIAL_EARLY}); over all: "
+          f"against the loop {float(g['vmapped-loop'].max())!r}, {SO_RANKS} ranks' against 1 "
+          f"rank's {float(g['2 ranks-1 rank'].max())!r} (bound {bound!r}: {SO_TRIAL_DRIFT} x "
+          f"the loop's own drift over its cells permuted {float(g['order'].max())!r}, at least "
+          f"{SO_TRIAL_EARLY}), against torch.optim.Adam "
+          f"{float(g['vmapped-torch'].max())!r} (bound {bound_torch!r}: {SO_TRIAL_DRIFT} x "
+          f"the loop's against torch.optim.Adam {float(g['loop-torch'].max())!r}); "
+          f"{SO_RANKS} ranks' parameters max gap {split!r} (bound {SO_TRIAL_SPLIT}); winners "
+          f"(vmapped, loop, torch.optim.Adam, {SO_RANKS} ranks) {winners}; final losses "
+          f"{losses[-1].tolist()}", flush=True)
+    print("vmapped trials, relative loss gaps after steps " + "; ".join(
+        f"{s}: " + ", ".join(f"{n} {float(v[s - 1])!r}" for n, v in g.items())
+        for s in marks), flush=True)
+    if not (early <= SO_TRIAL_EARLY
+            and max(g["vmapped-loop"].max(), g["2 ranks-1 rank"].max()) <= bound
+            and g["vmapped-torch"].max() <= bound_torch and split <= SO_TRIAL_SPLIT
+            and len(set(winners)) == 1):
+        raise AssertionError("vmapped trials disagree with the sequential loop")
+
+    # -- 70. the dry run, a checkpoint of phase 67's weights, a trace ------
+    reset_launches()
+    t0 = time.perf_counter()
+    line = dryrun_multichip(SO_RANKS, "gloo")
+    t_dry = time.perf_counter() - t0
+    ck = ranks[0]["checkpoint"]
+    back = load_checkpoint(ck["path"])
+    ck_equal = all(np.array_equal(back["model"][k].numpy(), v) for k, v in ck["state"].items())
+    with trace(f"{folder}/trace") as log_dir:
+        ref.train_step()
+    size = Path(log_dir, "trace.json").stat().st_size
+    no_launches("the dry run, checkpoint and trace (phase 70)")
+    print(f"phase 70: {line} in {t_dry:.3f} s; checkpoint of phase 67's weights "
+          f"{Path(ck['path']).stat().st_size} bytes, equal on the ranks "
+          f"{[r['checkpoint']['equal'] for r in ranks]} and here {ck_equal}; trace of one "
+          f"scDeepSort CSR epoch {size} bytes", flush=True)
+    if not (ck_equal and all(r["checkpoint"]["equal"] for r in ranks) and size > 0):
+        raise AssertionError("phase 70: checkpoint or trace failed")
+    shutil.rmtree(folder, ignore_errors=True)
+    print(f"phases 66-70: {time.perf_counter() - t_all:.3f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4978,9 +5453,11 @@ def main() -> int:
     print(f"phases 61-62: {time.perf_counter() - t_phases:.3f} s", flush=True)
     t_phases = time.perf_counter()
     sctransform_phase(cuda)
-    gcn = gcnconv_phase(cuda, gsc.pop("graphsc_graph"))
+    gsc_graph = gsc.pop("graphsc_graph")
+    gcn = gcnconv_phase(cuda, gsc_graph)
     surface_phase(cuda)
     print(f"phases 63-65: {time.perf_counter() - t_phases:.3f} s", flush=True)
+    scale_out_phases(cuda, measured.pop("scdeepsort_graph"), gsc_graph)
 
     def entry(name):
         result, launched = measured[name]

@@ -6,7 +6,8 @@ bit-identical; ``dance_tpu.graph`` itself cannot be imported here because it
 pulls in JAX. The bipartite cell-gene graph is homogeneous: gene nodes first
 (0..n_genes-1), then cell nodes. The device forms (``to_device``, ``to_bsr``,
 ``to_dense_adj``, ``to_adaptive_bsr``) go to the CUDA card unless the caller
-names the CPU. Not ported yet: ``from_adjacency`` and the row
+names the CPU; inside a data-parallel fit ``to_device`` gives this rank's
+node rows. Not ported yet: ``from_adjacency`` and the row
 normalization.
 """
 
@@ -19,6 +20,7 @@ import torch
 from dance_tpu_torch.ops.bsr import BSRMatrix, bsr_from_scipy
 from dance_tpu_torch.ops.sparse import (AdaptiveBSR, CSRMatrix, DenseAdj, csr_from_scipy,
                                         dense_adj_from_scipy)
+from dance_tpu_torch.parallel.mesh import to_device as place
 from dance_tpu_torch.utils import resolve_device
 
 
@@ -111,15 +113,21 @@ class Graph:
 
     def to_device(self, device="auto") -> DeviceGraph:
         """CSR adjacency and numeric node data as tensors on ``device``
-        (counterpart: base.py:132; integer labels become int64, torch's index type)."""
+        (counterpart: base.py:132; integer labels become int64, torch's index
+        type). Inside a data-parallel fit
+        (:func:`~dance_tpu_torch.parallel.mesh.dp_context`) the node data
+        take this rank's rows when the node count divides by ``dp`` and are
+        replicated otherwise (``to_device(pad=False)``); the adjacency is
+        replicated. Models that shard the adjacency itself build a
+        :class:`~dance_tpu_torch.parallel.sharded_graph.ShardedCSR`."""
         device = resolve_device(device)
         ndata = {}
         for k, v in self.ndata.items():
             v = np.asarray(v)
             if v.dtype.kind in "iub":
-                ndata[k] = torch.from_numpy(v.astype(np.int64)).to(device)
+                ndata[k] = place(v.astype(np.int64), pad=False, device=device)
             elif v.dtype.kind == "f":
-                ndata[k] = torch.from_numpy(v.astype(np.float32)).to(device)
+                ndata[k] = place(v.astype(np.float32), pad=False, device=device)
         return DeviceGraph(csr_from_scipy(self.adj).to(device), ndata)
 
     def to_bsr(self, block: int = 128, device="auto") -> BSRMatrix:

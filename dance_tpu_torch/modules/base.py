@@ -7,11 +7,13 @@ dance_tpu/modules/base.py:21-232).
 name raises. ``BasePretrain``
 loads a pretrained model from ``pretrain_path`` or pretrains and saves it;
 ``NNPretrain`` freezes named submodules of the model's ``torch.nn.Module``
-and saves its ``state_dict``. Not ported yet: the Data-container
-preprocessing hooks (``preprocess``/``preprocessing_pipeline``) and the
-data-parallel ``fit_distributed``.
+and saves its ``state_dict``. ``fit_distributed`` runs ``fit`` as one rank
+of a data-parallel fit (:mod:`dance_tpu_torch.parallel`). Not ported yet:
+the Data-container preprocessing hooks (``preprocess``/
+``preprocessing_pipeline``).
 """
 
+import inspect
 import os
 from abc import ABC, abstractmethod
 from contextlib import contextmanager
@@ -56,6 +58,27 @@ class BaseMethod(ABC):
     @abstractmethod
     def fit(self, x, y=None, **kwargs):
         ...
+
+    def fit_distributed(self, *args, mesh=None, **kwargs):
+        """This rank's part of a data-parallel fit (counterpart: base.py:46).
+
+        Runs ``fit`` inside :func:`~dance_tpu_torch.parallel.mesh.dp_context`
+        on ``mesh`` (the current mesh when None): every input the model places
+        through :func:`~dance_tpu_torch.parallel.mesh.to_device` takes this
+        rank's rows, each training step computes this rank's share of the
+        loss and sums the gradients over ``dp``, and every rank ends with
+        the same weights: the single fit's math, up to float32 summation
+        order. Call it on every rank of a launched process group
+        (:func:`~dance_tpu_torch.parallel.mesh.launch`, ``torchrun``).
+        A ``use_bsr`` option defaults to False here, as in JAX: the
+        block-sparse kernels are single-device programs; scDeepSort and
+        graph-sc then shard the adjacency itself (``ShardedCSR``). A model
+        whose ``fit`` has no data-parallel path fits whole on every rank."""
+        from dance_tpu_torch.parallel.mesh import current_mesh, dp_context
+        if "use_bsr" in inspect.signature(self.fit).parameters:
+            kwargs.setdefault("use_bsr", False)
+        with dp_context(mesh or current_mesh(getattr(self, "device", None))):
+            return self.fit(*args, **kwargs)
 
     def predict_proba(self, x):
         raise NotImplementedError

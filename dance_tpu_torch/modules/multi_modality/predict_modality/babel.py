@@ -25,6 +25,12 @@ reads the validation RMSE once an epoch (JAX runs them in one
 ``while_loop``); ``history`` records each epoch's loss, validation RMSE and
 seconds. No TPU kernel is on this path: float32 GEMMs and elementwise
 passes.
+
+Under ``fit_distributed`` each rank holds its rows of the train and
+held-out cells; every rank walks the same batches, computes the loss of
+the batch's cells it holds as its share of the batch, and the gradients are
+summed over ``dp``; the held-out squared errors are summed over the ranks,
+so every rank selects the same epoch.
 """
 
 from typing import Dict, List, Optional
@@ -36,6 +42,7 @@ from torch import nn
 from dance_tpu_torch.modules.base import BaseRegressionMethod, resolve_score_func
 from dance_tpu_torch.nn.vae import NBDecoder, reset_linears
 from dance_tpu_torch.nn.zinb_ae import MLPStack
+from dance_tpu_torch.parallel.mesh import RowShard, to_device
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.utils import EpochClock, resolve_device
 from dance_tpu_torch.utils.batch import epoch_batches
@@ -120,33 +127,38 @@ class BabelWrapper(BaseRegressionMethod):
         tr, va = perm[:n - n_val or None], perm[n - n_val:]
         dev = self.device
 
-        def on_device(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        def on_device(a):  # this rank's rows in a data-parallel fit (:201-204)
+            return to_device(np.ascontiguousarray(a), device=dev)
 
         x1, x2 = on_device(x1_all[tr]), on_device(x2_all[tr])
+        shard, vshard = RowShard.of(len(tr)), RowShard.of(n_val)
         lib1 = x1.sum(1, keepdim=True)
         if self.net is None:
             self.net = self._make_net(x1.shape[1], x2.shape[1])
         net = self.net
         opt = torch.optim.Adam(net.parameters(), lr=lr)
         gen = torch.Generator().manual_seed(self.seed)
-        bs = min(batch_size, x1.shape[0])
+        bs = min(batch_size, len(tr))
         xv1, xv2 = (on_device(x1_all[va]), on_device(x2_all[va])) if n_val else (None, None)
         best_val, best_epoch, best = np.inf, 0, best_state(net)
         clock, rows = EpochClock(dev), []
         for epoch in range(epochs):
             clock.tick()
             losses = []
-            for idx in epoch_batches(gen, x1.shape[0], bs).to(dev):
+            for idx in epoch_batches(gen, len(tr), bs).to(dev):
+                pos, loc = shard.split(idx)
                 opt.zero_grad(set_to_none=True)
-                loss = babel_loss(net, x1[idx], x2[idx], lib1[idx])
-                loss.backward()
+                loss = (babel_loss(net, x1[loc], x2[loc], lib1[loc])
+                        if pos is None or len(pos) else None)
+                losses.append(shard.step(loss, net.parameters(), shard.share(pos, len(idx))))
                 opt.step()
-                losses.append(loss.detach())
             val = None
             if n_val:
-                # the held-out RMSE (counterpart: ``_val_rmse``, :117)
-                val = float(torch.sqrt(((self._cross(xv1) - xv2) ** 2).mean()))
+                # the held-out RMSE (counterpart: ``_val_rmse``, :117), its
+                # squared errors summed over the ranks
+                r = vshard.real
+                sq = vshard.sum(((self._cross(xv1[:r]) - xv2[:r]) ** 2).sum())
+                val = float(torch.sqrt(sq / (n_val * xv2.shape[1])))
                 if val < best_val:
                     best_val, best_epoch, best = val, epoch, best_state(net)
             rows.append((epoch, torch.stack(losses).mean(), val))

@@ -23,6 +23,11 @@ and hand JAX's orders over through a patched ``epoch_batches_dropped``);
 port's format; JAX pickles its parameter trees into ``.pt.pkl``);
 ``history`` records each epoch's mean losses and seconds. No TPU kernel is
 on this path.
+
+Under ``fit_distributed`` each rank holds its rows of both modalities;
+every rank walks the same batches, each of the two steps computes the loss
+of the batch's cells the rank holds as its share, and the gradients are
+summed over ``dp``; rank 0 writes the checkpoint.
 """
 
 import math
@@ -37,6 +42,7 @@ from dance_tpu_torch.modules.base import BaseRegressionMethod, resolve_score_fun
 from dance_tpu_torch.nn.gnn import truncated_normal_
 from dance_tpu_torch.nn.vae import reset_linears
 from dance_tpu_torch.nn.zinb_ae import MLPStack
+from dance_tpu_torch.parallel.mesh import RowShard, is_writer, to_device
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.utils import EpochClock, resolve_device
 from dance_tpu_torch.utils.batch import epoch_batches_dropped
@@ -144,38 +150,41 @@ class CMAE(BaseRegressionMethod):
         """Alternating Adam steps, discriminator then generator, on each
         whole batch of every epoch's shuffle (counterpart: :160-201)."""
         dev = self.device
-        x1 = torch.from_numpy(np.asarray(x_train, np.float32)).to(dev)
-        x2 = torch.from_numpy(np.asarray(y_train, np.float32)).to(dev)
+        # this rank's rows in a data-parallel fit (cmae.py:167-168)
+        x1 = to_device(np.asarray(x_train, np.float32), device=dev)
+        x2 = to_device(np.asarray(y_train, np.float32), device=dev)
+        shard = RowShard.of(len(x_train))
         self.net, self.disc = net, disc = self._make_nets(x1.shape[1], x2.shape[1])
         g_opt = torch.optim.Adam(net.parameters(), lr=lr)
         d_opt = torch.optim.Adam(disc.parameters(), lr=lr)
         order_gen = torch.Generator().manual_seed(self.seed)
-        bs = min(batch_size, x1.shape[0])
+        bs = min(batch_size, shard.n)
         clock, rows = EpochClock(dev), []
         for _ in range(epochs):
             clock.tick()
             g_losses, d_losses = [], []
-            for idx in epoch_batches_dropped(order_gen, x1.shape[0], bs).to(dev):
-                bx1, bx2 = x1[idx], x2[idx]
+            for idx in epoch_batches_dropped(order_gen, shard.n, bs).to(dev):
+                pos, loc = shard.split(idx)
+                share = shard.share(pos, len(idx))
+                mine = pos is None or len(pos) > 0
+                bx1, bx2 = x1[loc], x2[loc]
                 d_opt.zero_grad(set_to_none=True)
-                d_loss = cmae_disc_loss(net, disc, bx1, bx2)
-                d_loss.backward()
+                d_loss = cmae_disc_loss(net, disc, bx1, bx2) if mine else None
+                d_losses.append(shard.step(d_loss, disc.parameters(), share))
                 d_opt.step()
                 # the generator's backward also fills the discriminator's
                 # gradients, which its next step sets to None first
                 g_opt.zero_grad(set_to_none=True)
-                g_loss = cmae_gen_loss(net, disc, bx1, bx2, self.loss_weights)
-                g_loss.backward()
+                g_loss = cmae_gen_loss(net, disc, bx1, bx2, self.loss_weights) if mine else None
+                g_losses.append(shard.step(g_loss, net.parameters(), share))
                 g_opt.step()
-                g_losses.append(g_loss.detach())
-                d_losses.append(d_loss.detach())
             rows.append((torch.stack(g_losses).mean(), torch.stack(d_losses).mean()))
         clock.tick()
         self.history = [{"epoch": e, "g_loss": float(g), "d_loss": float(d), "seconds": s}
                         for e, ((g, d), s) in enumerate(zip(rows, clock.seconds()))]
         for h in self.history[::50]:
             logger.info("CMAE epoch %d, G %.5f D %.5f", h["epoch"], h["g_loss"], h["d_loss"])
-        if checkpoint_directory is not None:
+        if checkpoint_directory is not None and is_writer(shard.mesh):
             os.makedirs(checkpoint_directory, exist_ok=True)
             path = os.path.join(checkpoint_directory, f"gen_{epochs:08d}.pt")
             torch.save({"gen": net.state_dict(), "dis": disc.state_dict()}, path)

@@ -27,6 +27,11 @@ in, :func:`dance_tpu_torch.utils.params.mmvae_flax_to_torch`, and hand
 JAX's orders and normals over through a patched ``epoch_batches_dropped``
 and ``_noise``); ``history`` records each epoch's mean loss and seconds. No
 TPU kernel is on this path.
+
+Under ``fit_distributed`` each rank holds its rows of both modalities;
+every rank walks the same batches and draws each batch's normals whole,
+computes the loss of the batch's cells it holds as its share, and the
+gradients are summed over ``dp``.
 """
 
 import math
@@ -39,6 +44,7 @@ from torch import nn
 from dance_tpu_torch.modules.base import BaseRegressionMethod, resolve_score_func
 from dance_tpu_torch.nn.vae import (GaussianDecoder, GaussianEncoder, NBDecoder, gaussian_kl,
                                     reparameterize, reset_linears)
+from dance_tpu_torch.parallel.mesh import RowShard, to_device
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.utils import EpochClock, resolve_device
 from dance_tpu_torch.utils.batch import epoch_batches_dropped
@@ -144,27 +150,30 @@ class MMVAE(BaseRegressionMethod):
         """Adam on :func:`mmvae_loss` over every whole batch of each epoch's
         shuffle (counterpart: :153-168)."""
         dev = self.device
-        x1 = torch.from_numpy(np.asarray(x_train, np.float32)).to(dev)
-        x2 = torch.from_numpy(np.asarray(y_train, np.float32)).to(dev)
+        # this rank's rows in a data-parallel fit (scmm.py:152-153)
+        x1 = to_device(np.asarray(x_train, np.float32), device=dev)
+        x2 = to_device(np.asarray(y_train, np.float32), device=dev)
+        shard = RowShard.of(len(x_train))
         if self.net is None:
             self.net = self._make_net(x1.shape[1], x2.shape[1])
         net = self.net
         opt = torch.optim.Adam(net.parameters(), lr=lr)
         order_gen = torch.Generator().manual_seed(self.seed)
         noise_gen = torch.Generator(device=dev).manual_seed(self.seed)
-        bs = min(batch_size, x1.shape[0])
+        bs = min(batch_size, shard.n)
         shape = (bs, self.z_dim)
         clock, losses = EpochClock(dev), []
         for _ in range(epochs):
             clock.tick()
             step_losses = []
-            for idx in epoch_batches_dropped(order_gen, x1.shape[0], bs).to(dev):
+            for idx in epoch_batches_dropped(order_gen, shard.n, bs).to(dev):
+                pos, loc = shard.split(idx)
                 noise = (self._noise(shape, noise_gen), self._noise(shape, noise_gen))
                 opt.zero_grad(set_to_none=True)
-                loss = mmvae_loss(net, x1[idx], x2[idx], noise)
-                loss.backward()
+                loss = (mmvae_loss(net, x1[loc], x2[loc], tuple(shard.take(e, pos) for e in noise))
+                        if pos is None or len(pos) else None)
+                step_losses.append(shard.step(loss, net.parameters(), shard.share(pos, bs)))
                 opt.step()
-                step_losses.append(loss.detach())
             losses.append(torch.stack(step_losses).mean())
         clock.tick()
         self.history = [{"epoch": e, "loss": float(l), "seconds": s}

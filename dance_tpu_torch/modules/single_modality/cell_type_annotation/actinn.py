@@ -21,10 +21,16 @@ Where this differs from the JAX package:
   patched :meth:`ACTINN._make_net`) and the batches from the JAX run. The
   epochs are a loop; JAX runs them as one compiled scan.
 - ``history`` records each epoch's mean loss and seconds.
-- JAX's ``dtype=bfloat16`` option and the data-parallel ``fit_distributed``
-  are not ported (ROADMAP Queue 1, items 11 and 10); the Data-container
-  ``preprocessing_pipeline`` is not either: :func:`actinn_preprocess` is its
-  array core.
+- JAX's ``dtype=bfloat16`` option is not ported (ROADMAP Queue 1); the
+  Data-container ``preprocessing_pipeline`` is not either:
+  :func:`actinn_preprocess` is its array core.
+
+``fit_distributed`` is JAX's own data-parallel protocol (actinn.py:141-208),
+run as one rank of a launched process group: a global batch of
+``max(batch_size // dp, 1) * dp`` cells, ``max(n // bs, 1)`` batches an
+epoch from ``np.random.default_rng(seed)`` with the tail dropped, this
+rank's ``bs / dp`` consecutive rows of each batch, Adam on the staircase
+decay, the gradients summed over ``dp``.
 """
 
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -36,6 +42,7 @@ import torch.nn.functional as F
 
 from dance_tpu_torch.modules.base import BaseClassificationMethod
 from dance_tpu_torch.nn.mlp import VanillaMLP
+from dance_tpu_torch.parallel.mesh import current_mesh, sync_grads
 from dance_tpu_torch.sc.pp import filter_genes, log1p, normalize_total
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.transforms.filter import FilterGenesPercentile
@@ -114,6 +121,52 @@ class ACTINN(BaseClassificationMethod):
         if print_cost:
             for h in self.history[::10]:
                 logger.info("Epoch: %4d Loss: %6.4f", h["epoch"], h["loss"])
+        return self
+
+    def fit_distributed(self, x_train, y_train, *, mesh=None, batch_size: int = 128,
+                        lr: float = 0.01, num_epochs: int = 50, seed: Optional[int] = None):
+        """Data-parallel fit over the ``dp`` ranks of ``mesh`` (the current
+        mesh when None; counterpart: actinn.py:141). The weights are drawn
+        from ``seed`` on every rank alike; ``history`` records each epoch's
+        mean global loss and seconds."""
+        mesh = mesh or current_mesh(self.device)
+        ndev, i = mesh.size("dp"), mesh.index("dp")
+        x = np.asarray(x_train.toarray() if sp.issparse(x_train) else x_train, np.float32)
+        y = np.asarray(y_train)
+        output_dim = int(y.shape[1]) if y.ndim == 2 else int(y.max()) + 1
+        y = (y.argmax(1) if y.ndim == 2 else y).astype(np.int64)
+        bs = max(batch_size // ndev, 1) * ndev
+        per = bs // ndev
+        n = x.shape[0]
+        nb = max(n // bs, 1)
+        seed = self.random_seed if seed is None else seed
+        seed = 0 if seed is None else seed
+        rng = np.random.default_rng(seed)
+        dev = self.device
+        self.model = net = self._make_net(x.shape[1], output_dim, seed)
+        params = list(net.parameters())
+        opt = torch.optim.Adam(params, lr=lr)
+        sched = torch.optim.lr_scheduler.StepLR(opt, step_size=1000, gamma=0.95)
+        ones = torch.ones(per, device=dev)
+        clock, losses = EpochClock(dev), []
+        for _ in range(num_epochs):
+            clock.tick()
+            rows = rng.permutation(n)[:nb * bs].reshape(nb, bs)[:, i * per:(i + 1) * per]
+            xb = torch.from_numpy(x[rows]).to(dev)
+            yb = torch.from_numpy(y[rows]).to(dev)
+            batch_losses = []
+            for bx, by in zip(xb, yb):
+                opt.zero_grad(set_to_none=True)
+                share = actinn_loss(net, bx, by, ones, self.lambd) / ndev
+                share.backward()
+                batch_losses.append(sync_grads(params, mesh, extra=share.detach())
+                                    if ndev > 1 else share.detach())
+                opt.step()
+                sched.step()
+            losses.append(torch.stack(batch_losses).mean())
+        clock.tick()
+        self.history = [{"epoch": e, "loss": float(l), "seconds": s}
+                        for e, (l, s) in enumerate(zip(losses, clock.seconds()))]
         return self
 
     @torch.no_grad()

@@ -21,6 +21,15 @@ Where this differs from the JAX package:
 - Weights are drawn from a ``torch.Generator`` seeded with ``seed``, not from
   ``jax.random``: the same seed gives other initial weights. Parity tests
   copy the flax weights in (:func:`dance_tpu_torch.utils.params.flax_to_torch`).
+
+Under ``fit_distributed`` with ``dp > 1`` (CSR, as it defaults there) each
+rank keeps its block rows of the adjacency as a
+:class:`~dance_tpu_torch.parallel.sharded_graph.ShardedCSR` with the alpha
+index, and its rows of the node features; the masked loss is this rank's
+train cells over the global train count, the gradients are summed over
+``dp``, and the validation reads the gathered logits, so every rank keeps
+the same best weights and ``predict`` gives the same result on each. A
+dropout above 0 draws each rank's masks from its own default generator.
 """
 
 import time
@@ -35,6 +44,8 @@ from dance_tpu_torch.modules.base import BaseClassificationMethod
 from dance_tpu_torch.nn.gnn import AdaptiveSAGE
 from dance_tpu_torch.ops.bsr import compute_dtype_of, resolve_adj_format
 from dance_tpu_torch.ops.sparse import csr_from_scipy
+from dance_tpu_torch.parallel.mesh import RowShard, active_dp_mesh, sync_grads
+from dance_tpu_torch.parallel.sharded_graph import shard_csr
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.utils import resolve_device
 
@@ -106,6 +117,21 @@ class ScDeepSort(BaseClassificationMethod):
         self._dev_cache_key, self._dev_cache = key, (adj, feats, gene_id, alpha_idx)
         return self._dev_cache
 
+    def _sharded_graph(self, graph: Graph, mesh):
+        """This rank's block rows of the adjacency as a :class:`ShardedCSR`
+        carrying the alpha index, and its rows of the features and gene ids
+        (not cached: a data-parallel fit builds them once)."""
+        n_genes = int(graph.info["num_genes"])
+        gene_id = np.asarray(graph.ndata["cell_id"], np.int64)
+        full = csr_from_scipy(graph.adj)
+        alpha_idx = AdaptiveSAGE.edge_alpha_index(full.row_ids(), full.indices,
+                                                  torch.from_numpy(gene_id), n_genes)
+        adj = shard_csr(graph.adj, mesh, edge_data={"alpha_idx": alpha_idx.numpy()},
+                        device=self.device)
+        shard = RowShard(graph.num_nodes, mesh)
+        feats = shard.rows(np.asarray(graph.ndata["features"], np.float32), device=self.device)
+        return adj, feats, shard.rows(gene_id, device=self.device), shard
+
     def fit(self, graph: Graph, labels, epochs: int = 300, lr: float = 1e-3,
             weight_decay: float = 0, val_ratio: float = 0.2, use_bsr="auto",
             bsr_block: int = 128, bsr_dtype=None):
@@ -124,7 +150,15 @@ class ScDeepSort(BaseClassificationMethod):
         labels = np.asarray(labels)
         if labels.ndim == 2:
             labels = labels.argmax(1)
-        adj, feats, gene_id, alpha_idx = self._device_graph(graph, fmt, bsr_block)
+        mesh = active_dp_mesh()
+        shard = None
+        if fmt == "csr" and mesh is not None and mesh.size("dp") > 1:
+            # a data-parallel fit: this rank's block rows of the adjacency, the
+            # alpha index riding along (scdeepsort.py:159-170)
+            adj, feats, gene_id, shard = self._sharded_graph(graph, mesh)
+            alpha_idx = None
+        else:
+            adj, feats, gene_id, alpha_idx = self._device_graph(graph, fmt, bsr_block)
         num_genes = int(graph.info["num_genes"])
         num_cells = int(graph.info["num_cells"])
         self.num_labels = int(labels.max()) + 1
@@ -145,9 +179,16 @@ class ScDeepSort(BaseClassificationMethod):
         params = self.model.parameters()
         self._opt = (torch.optim.AdamW(params, lr=lr, weight_decay=weight_decay)
                      if weight_decay else torch.optim.Adam(params, lr=lr))
-        self._train_state = (adj, feats, gene_id,
-                             torch.from_numpy(full_labels).to(self.device),
-                             torch.from_numpy(train_mask).to(self.device), alpha_idx)
+        if shard is None:
+            labels_dev = torch.from_numpy(full_labels).to(self.device)
+            mask_dev = torch.from_numpy(train_mask).to(self.device)
+            denom = None
+        else:  # the loss over this rank's rows, divided by the global count
+            labels_dev = shard.rows(full_labels, device=self.device, fill=-1)
+            mask_dev = shard.rows(train_mask, device=self.device, fill=0.0)
+            denom = max(float(train_mask.sum()), 1.0)
+        self._train_state = (adj, feats, gene_id, labels_dev, mask_dev, alpha_idx, denom,
+                             None if shard is None else mesh)
 
         best_val, best_state = -1.0, None
         self.history = []
@@ -155,7 +196,10 @@ class ScDeepSort(BaseClassificationMethod):
             t0 = time.perf_counter()
             record = {"epoch": epoch, "loss": float(self.train_step())}
             if num_val:
-                pred = self._logits(adj, feats, gene_id, alpha_idx).argmax(1).cpu().numpy()
+                logits = self._logits(adj, feats, gene_id, alpha_idx)
+                if shard is not None:
+                    logits = shard.gather(logits)
+                pred = logits.argmax(1).cpu().numpy()
                 val_acc = float((pred[val_idx] == full_labels[val_idx]).mean())
                 record["val_acc"] = val_acc
                 if val_acc >= best_val:
@@ -175,13 +219,18 @@ class ScDeepSort(BaseClassificationMethod):
         """One full-graph forward/backward and optimizer step on the state
         ``fit`` set up (counterpart: ``_train_step``, scdeepsort.py:79-92);
         returns the masked cross-entropy before the step."""
-        adj, feats, gene_id, labels, mask, alpha_idx = self._train_state
+        adj, feats, gene_id, labels, mask, alpha_idx, denom, mesh = self._train_state
         self.model.train()
         self._opt.zero_grad(set_to_none=True)
         logits = self.model(adj, feats, gene_id, alpha_idx)
         losses = nn.functional.cross_entropy(logits, labels.clamp(min=0), reduction="none")
-        loss = (losses * mask).sum() / mask.sum().clamp(min=1.0)
-        loss.backward()
+        if denom is None:
+            loss = (losses * mask).sum() / mask.sum().clamp(min=1.0)
+            loss.backward()
+        else:  # this rank's share; the global loss comes back with the gradients
+            loss = (losses * mask).sum() / denom
+            loss.backward()
+            loss = sync_grads(list(self.model.parameters()), mesh, extra=loss.detach())
         self._opt.step()
         return loss.detach()
 

@@ -24,9 +24,17 @@ Where this differs from the JAX package:
   ``dropout=0``.
 - ``fit`` records each epoch's loss and seconds (and ARI with
   ``eval_epoch``) in ``history``, and defines ``z`` after ``epochs=0`` too.
-- The multi-chip ``ShardedCSR`` adjacency and the Data-container
-  ``preprocessing_pipeline`` are not ported yet (ROADMAP Queue 1);
-  :func:`graphsc_preprocess` is the pipeline's array core.
+- The Data-container ``preprocessing_pipeline`` is not ported yet (ROADMAP
+  Queue 1); :func:`graphsc_preprocess` is the pipeline's array core.
+
+Under ``fit_distributed`` with ``dp > 1`` (CSR, as it defaults there) each
+rank keeps its block rows of the adjacency as a
+:class:`~dance_tpu_torch.parallel.sharded_graph.ShardedCSR` (sum and mean
+aggregation, graphsc.py:188-196), its rows of the features and of the
+dense reconstruction target; the dropout mask is drawn for all nodes and
+cut to the rank's rows; the loss is this rank's rows of the Gram matrix
+against the gathered embeddings, over the global element count, with the
+global BCE weights, and the gradients are summed over ``dp``.
 
 ``cluster_method="leiden"`` clusters the cell embeddings by
 :func:`~dance_tpu_torch.ops.cluster.leiden` on their 15-NN connectivity
@@ -51,6 +59,8 @@ from dance_tpu_torch.ops.cluster import kmeans, leiden
 from dance_tpu_torch.ops.neighbors import knn_graph
 from dance_tpu_torch.ops.segment import AGGREGATIONS
 from dance_tpu_torch.ops.sparse import csr_from_scipy
+from dance_tpu_torch.parallel.mesh import RowShard, active_dp_mesh, sync_grads
+from dance_tpu_torch.parallel.sharded_graph import shard_csr
 from dance_tpu_torch.sc.pp import (filter_cells, filter_genes, highly_variable_genes, log1p,
                                    normalize_total)
 from dance_tpu_torch.settings import logger
@@ -98,9 +108,14 @@ class GCNAE(nn.Module):
             flax_dense_init_(dense, generator)
 
     def encode(self, adj, feats: torch.Tensor, degrees: Optional[torch.Tensor] = None,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """The node embeddings; dropout only in training mode."""
-        h = flax_dropout(feats, self.dropout, generator) if self.training else feats
+               generator: Optional[torch.Generator] = None,
+               shard: Optional[RowShard] = None) -> torch.Tensor:
+        """The node embeddings; dropout only in training mode. With a
+        :class:`~dance_tpu_torch.parallel.sharded_graph.ShardedCSR`,
+        ``feats`` and the result are the rank's rows (``shard``), whose
+        dropout uniforms are drawn for all nodes and cut to them."""
+        rows = shard.stored(feats.device) if shard is not None else None
+        h = flax_dropout(feats, self.dropout, generator, rows) if self.training else feats
         for conv in self.convs:
             h = torch.relu(conv(adj, h, agg=self.agg, degrees=degrees))
         if self.hidden_1:
@@ -202,7 +217,12 @@ class GraphSC(BaseClusteringMethod):
         if fmt == "bsr" and self.agg not in ("sum", "mean"):
             raise ValueError("use_bsr supports agg='sum' or 'mean'")
         n_genes = int(g.info["num_genes"])
-        adj, feats, target, pos_weight, norm, degrees = self._fit_inputs(g, fmt, bsr_block)
+        mesh = active_dp_mesh()
+        shard = None
+        if fmt == "csr" and mesh is not None and mesh.size("dp") > 1:
+            adj, feats, target, pos_weight, norm, degrees, shard = self._sharded_inputs(g, mesh)
+        else:
+            adj, feats, target, pos_weight, norm, degrees = self._fit_inputs(g, fmt, bsr_block)
         if self.model is None:
             self.model = GCNAE(feats.shape[1], agg=self.agg, hidden_dim=self.hidden_dim,
                                hidden_1=self.hidden_1, hidden_2=self.hidden_2,
@@ -218,15 +238,20 @@ class GraphSC(BaseClusteringMethod):
             t0 = time.perf_counter()
             self.model.train()
             opt.zero_grad(set_to_none=True)
-            emb = self.model.encode(adj, feats, degrees, generator=gen)
-            # the whole graph's Gram matrix: every node is a "cell" of the
-            # reconstruction (graphsc.py:120-128, 208)
-            loss = norm * binary_ce_logits(emb @ emb.T, target, pos_weight=pos_weight)
-            loss.backward()
+            emb = self.model.encode(adj, feats, degrees, generator=gen, shard=shard)
+            if shard is None:
+                # the whole graph's Gram matrix: every node is a "cell" of the
+                # reconstruction (graphsc.py:120-128, 208)
+                loss = norm * binary_ce_logits(emb @ emb.T, target, pos_weight=pos_weight)
+                loss.backward()
+            else:
+                loss = self._sharded_loss(emb, shard, target, pos_weight, norm)
+                loss.backward()
+                loss = sync_grads(list(self.model.parameters()), mesh, extra=loss.detach())
             opt.step()
             record = {"epoch": epoch, "loss": float(loss.detach())}
             if eval_epoch and y_true is not None:
-                z_dev = self._embed(adj, feats, degrees)[n_genes:]
+                z_dev = self._embed(adj, feats, degrees, shard)[n_genes:]
                 if self.cluster_method == "kmeans":
                     labels = kmeans(z_dev, self.n_clusters, n_init=10, seed=5).labels
                     record["ari"] = ari(y_true, labels.cpu().numpy())
@@ -239,14 +264,56 @@ class GraphSC(BaseClusteringMethod):
                     logger.info("epoch %4d, ARI %.4f", epoch, record["ari"])
             record["seconds"] = time.perf_counter() - t0
             self.history.append(record)
-        z = zs[int(np.argmax(aris))] if aris else self._embed(adj, feats, degrees)[n_genes:]
+        z = (zs[int(np.argmax(aris))] if aris
+             else self._embed(adj, feats, degrees, shard)[n_genes:])
         self.z = z.cpu().numpy()
         return self
 
     @torch.no_grad()
-    def _embed(self, adj, feats, degrees=None) -> torch.Tensor:
+    def _embed(self, adj, feats, degrees=None, shard: Optional[RowShard] = None) -> torch.Tensor:
+        """All nodes' embeddings (gathered from the ranks with ``shard``)."""
         self.model.eval()
-        return self.model.encode(adj, feats, degrees)
+        emb = self.model.encode(adj, feats, degrees)
+        return emb if shard is None else shard.gather(emb)
+
+    def _sharded_inputs(self, g: Graph, mesh):
+        """A data-parallel fit's inputs: this rank's block rows of the
+        adjacency, features and reconstruction target, the BCE weights from
+        the global counts, and the rows (counterpart: graphsc.py:188-196)."""
+        key = (id(g), g.adj.shape, g.adj.nnz, "sharded", mesh.size("dp"), mesh.index("dp"))
+        if getattr(self, "_fit_cache_key", None) == key:
+            return self._fit_cache
+        dev, n = self.device, g.num_nodes
+        adj = shard_csr(g.adj, mesh, device=dev)
+        shard = RowShard(n, mesh)
+        feats = g.ndata.get("features")
+        if feats is None:
+            feats = g.adj[:, :g.info["num_genes"]].toarray()
+        feats = shard.rows(np.asarray(feats, np.float32), device=dev)
+        mine = g.adj[shard.lo:shard.lo + shard.real].tocoo()
+        pos = mine.data > 0
+        target = torch.zeros((shard.real, n), dtype=torch.float32, device=dev)
+        rows, cols = (torch.from_numpy(a[pos]).to(dev) for a in (mine.row, mine.col))
+        target[rows, cols] = 1.0
+        # the single fit's float32 arithmetic on the global positive count
+        n_pos = torch.tensor(float((g.adj.data > 0).sum()), dtype=torch.float32, device=dev)
+        total = float(n * n)
+        pos_weight = (total - n_pos) / n_pos.clamp(min=1.0)
+        norm = total / ((total - n_pos) * 2).clamp(min=1.0)
+        self._fit_cache_key = key
+        self._fit_cache = (adj, feats, target, pos_weight, norm, None, shard)
+        return self._fit_cache
+
+    @staticmethod
+    def _sharded_loss(emb: torch.Tensor, shard: RowShard, target, pos_weight, norm):
+        """This rank's share of the BCE: its rows of ``emb @ embᵀ`` against all
+        nodes' (gathered, gradients summed back), over the global n²."""
+        emb_all = shard.gather_grad(emb)
+        if shard.real == 0:
+            return emb_all.sum() * 0.0  # no rows here; the backward still joins the gathers
+        logits = emb[:shard.real] @ emb_all.T
+        return norm * binary_ce_logits(logits, target, pos_weight=pos_weight) \
+            * (shard.real / shard.n)
 
     def predict(self, x=None) -> np.ndarray:
         """k-means of the cell embeddings, best of 10 restarts, or Leiden

@@ -82,6 +82,13 @@ class ScDCC(ScDeepCluster):
         return self
 
 
+    def fit_distributed(self, *args, mesh=None, **kwargs):
+        """The whole :meth:`fit` on every rank: the constraint step reads the
+        pairs' cells wherever they are stored, so scDCC has no sharded path
+        and every rank ends with the single fit's weights."""
+        return self.fit(*args, **kwargs)
+
+
 def scdcc_preprocess(counts, gene_names: Sequence, labels=None, *,
                      n_top_genes: int = 2000) -> ClusteringInputs:
     """The array form of ``ScDCC.preprocessing_pipeline`` (scdcc.py:41-54):

@@ -33,6 +33,15 @@ Where this differs from the JAX package:
   mean loss and seconds, ``dec_out`` the DEC loop's last state.
 - The Data-container ``preprocessing_pipeline`` is not ported:
   :func:`scdeepcluster_preprocess` is its array core.
+
+Under ``fit_distributed`` (scdeepcluster.py:179-181, :204-206) each rank
+holds its rows of the features, counts and size factors
+(:func:`~dance_tpu_torch.parallel.mesh.to_device`); every rank draws the
+batch orders and the noise of whole batches, computes the loss of the
+batch's cells it holds, and the gradients are summed over ``dp``
+(:class:`~dance_tpu_torch.parallel.mesh.RowShard`); the latent for the
+k-means centres and for each target refresh is gathered whole. scDCC fits
+whole on every rank.
 """
 
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -45,6 +54,7 @@ from torch import nn
 from dance_tpu_torch.modules.base import BaseClusteringMethod, NNPretrain
 from dance_tpu_torch.nn.dec_loop import run_dec_loop
 from dance_tpu_torch.nn.zinb_ae import ZINBAutoencoder
+from dance_tpu_torch.parallel.mesh import RowShard, to_device
 from dance_tpu_torch.ops.cluster import kmeans
 from dance_tpu_torch.sc.pp import filter_cells, filter_genes, log1p, normalize_total, scale
 from dance_tpu_torch.settings import logger
@@ -89,24 +99,25 @@ class ScDeepCluster(NNPretrain, BaseClusteringMethod):
         """The denoising noise of one batch: standard normals on the device."""
         return torch.randn(shape, generator=generator, device=self.device)
 
-    def _noisy(self, bx: torch.Tensor, generator: torch.Generator) -> Optional[torch.Tensor]:
-        return self._noise(bx.shape, generator) if self.sigma > 0 else None
+    def _noisy(self, shape, generator: torch.Generator) -> Optional[torch.Tensor]:
+        """The noise of a whole batch of ``shape``, or None at ``sigma`` 0."""
+        return self._noise(shape, generator) if self.sigma > 0 else None
 
     def _tensors(self, x, x_raw, n_counts):
         """Features, counts and size factors (totals over their median) on the
-        device, float32."""
+        device, float32 (this rank's rows in a data-parallel fit)."""
         x, x_raw = (np.asarray(a.toarray() if sp.issparse(a) else a, np.float32)
                     for a in (x, x_raw))
         n_counts = np.asarray(n_counts, np.float64)
         sf = (n_counts / np.median(n_counts)).astype(np.float32)
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                     for a in (x, x_raw, sf))
+        return tuple(to_device(a, device=self.device) for a in (x, x_raw, sf))
 
     def pretrain(self, x, x_raw, n_counts, batch_size: int = 256, lr: float = 0.001,
                  epochs: int = 400):
         """The denoising ZINB pretrain with AMSGrad (counterpart:
         scdeepcluster.py:177): per epoch the shuffled cells in wrap-padded
         batches, one step on each batch's ZINB NLL at its size factors."""
+        shard = RowShard.of(x.shape[0])
         x, xr, sf = self._tensors(x, x_raw, n_counts)
         model, dev = self.model, self.device
         opt = amsgrad(model.parameters(), lr=lr)
@@ -116,14 +127,17 @@ class ScDeepCluster(NNPretrain, BaseClusteringMethod):
         for _ in range(epochs):
             clock.tick()
             batch_losses = []
-            for rows in epoch_batches(order_gen, x.shape[0], batch_size).to(dev):
-                bx = x[rows]
-                mean, disp, pi = model.noisy_heads(bx, self._noisy(bx, noise_gen))
-                loss = zinb_nll(xr[rows], mean, disp, pi, scale_factor=sf[rows][:, None])
+            for rows in epoch_batches(order_gen, shard.n, batch_size).to(dev):
+                pos, loc = shard.split(rows)
+                noise = self._noisy((len(rows), x.shape[1]), noise_gen)
                 opt.zero_grad(set_to_none=True)
-                loss.backward()
+                loss = None
+                if pos is None or len(pos):
+                    mean, disp, pi = model.noisy_heads(x[loc], shard.take(noise, pos))
+                    loss = zinb_nll(xr[loc], mean, disp, pi, scale_factor=sf[loc][:, None])
+                batch_losses.append(shard.step(loss, model.parameters(),
+                                               shard.share(pos, len(rows))))
                 opt.step()
-                batch_losses.append(loss.detach())
             losses.append(torch.stack(batch_losses).mean())
         clock.tick()
         self.pretrain_history = [{"epoch": e, "loss": float(l), "seconds": s}
@@ -132,12 +146,14 @@ class ScDeepCluster(NNPretrain, BaseClusteringMethod):
             logger.info("Pretrain epoch %3d, ZINB loss: %.6f", h["epoch"] + 1, h["loss"])
 
     def _init_centres(self, x: torch.Tensor, n_clusters: int, init_centroid=None,
-                      y_pred_init=None):
+                      y_pred_init=None, shard: Optional[RowShard] = None):
         """``mu`` from k-means of the latent (20 restarts), or as given;
         returns the initial labels."""
         if init_centroid is None:
             with torch.no_grad():
                 latent = self.model.encode(x)
+            if shard is not None:
+                latent = shard.gather(latent)
             res = kmeans(latent, n_clusters, n_init=20, seed=self.seed)
             centres, labels = res.centers, res.labels.cpu().numpy()
         else:
@@ -147,20 +163,22 @@ class ScDeepCluster(NNPretrain, BaseClusteringMethod):
         return self.y_pred
 
     def _dec_stage(self, x, xr, sf, y, *, lr: float, batch_size: int, epochs: int,
-                   update_interval: int, tol: float, after_epoch: Optional[Callable] = None):
+                   update_interval: int, tol: float, after_epoch: Optional[Callable] = None,
+                   shard: Optional[RowShard] = None):
         """The DEC epochs (counterpart: scdeepcluster.py:224-252): Adadelta on
         the autoencoder and ``mu``, every epoch one pass over the fixed batch
         order, then ``after_epoch()`` when given (scDCC's constraint step)."""
         model, dev, mu = self.model, self.device, self.mu
-        opt = torch.optim.Adadelta([*model.parameters(), mu], lr=lr, rho=0.95, eps=1e-6)
-        order = epoch_batches(torch.Generator().manual_seed(0), x.shape[0],
-                              batch_size).to(dev)
+        shard = shard if shard is not None else RowShard(x.shape[0])
+        params = [*model.parameters(), mu]
+        opt = torch.optim.Adadelta(params, lr=lr, rho=0.95, eps=1e-6)
+        order = epoch_batches(torch.Generator().manual_seed(0), shard.n, batch_size).to(dev)
         noise_gen = torch.Generator(device=dev).manual_seed(self.seed + 13)
         clock, losses = EpochClock(dev), []
 
         def refresh(_):
             with torch.no_grad():
-                z = model.encode(x)
+                z = shard.gather(model.encode(x))
                 q = soft_assign(z, mu, self.alpha)
             return q, z, target_distribution(q)
 
@@ -168,15 +186,17 @@ class ScDeepCluster(NNPretrain, BaseClusteringMethod):
             clock.tick()
             batch_losses = []
             for rows in order:
-                bx = x[rows]
-                z, mean, disp, pi = model(bx, noise=self._noisy(bx, noise_gen))
-                q = soft_assign(z, mu, self.alpha)
-                loss = (self.gamma * cluster_kl_loss(p[rows], q)
-                        + zinb_nll(xr[rows], mean, disp, pi, scale_factor=sf[rows][:, None]))
+                pos, loc = shard.split(rows)
+                noise = self._noisy((len(rows), x.shape[1]), noise_gen)
                 opt.zero_grad(set_to_none=True)
-                loss.backward()
+                loss = None
+                if pos is None or len(pos):
+                    z, mean, disp, pi = model(x[loc], noise=shard.take(noise, pos))
+                    q = soft_assign(z, mu, self.alpha)
+                    loss = (self.gamma * cluster_kl_loss(p[shard.take(rows, pos)], q)
+                            + zinb_nll(xr[loc], mean, disp, pi, scale_factor=sf[loc][:, None]))
+                batch_losses.append(shard.step(loss, params, shard.share(pos, len(rows))))
                 opt.step()
-                batch_losses.append(loss.detach())
             if after_epoch is not None:
                 after_epoch()
             loss = torch.stack(batch_losses).mean()
@@ -208,10 +228,11 @@ class ScDeepCluster(NNPretrain, BaseClusteringMethod):
         x, x_raw, n_counts = inputs
         self._pretrain(x, x_raw, n_counts, batch_size=pt_batch_size, lr=pt_lr,
                        epochs=pt_epochs, force_pretrain=True)
+        shard = RowShard.of(x.shape[0])
         x, xr, sf = self._tensors(x, x_raw, n_counts)
-        self._init_centres(x, n_clusters, init_centroid, y_pred_init)
-        self._dec_stage(x, xr, sf, y, lr=lr, batch_size=min(batch_size, x.shape[0]),
-                        epochs=epochs, update_interval=update_interval, tol=tol)
+        self._init_centres(x, n_clusters, init_centroid, y_pred_init, shard)
+        self._dec_stage(x, xr, sf, y, lr=lr, batch_size=min(batch_size, shard.n),
+                        epochs=epochs, update_interval=update_interval, tol=tol, shard=shard)
         return self
 
     def predict_proba(self, x=None) -> np.ndarray:

@@ -41,10 +41,18 @@ patched :meth:`DeepImpute._make_net`) and JAX's batch orders. ``history``
 records each epoch's mean training loss, validation loss and seconds. The
 Data-container ``preprocessing_pipeline`` is not ported:
 :func:`deepimpute_preprocess` is its array core.
+
+Under ``fit_distributed`` (deepimpute.py:237-242) each rank holds its rows
+of the train and validation cells; every rank walks the same batches and
+draws each batch's dropout uniforms whole, computes the wMSE numerators of
+the batch's cells it holds over the whole batch's mask counts, and the
+gradients are summed over ``dp``; the validation losses sum numerators and
+counts over the ranks, so every rank takes the same early-stopping
+decisions.
 """
 
 import math
-from typing import Dict, List, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -53,6 +61,7 @@ from torch import nn
 
 from dance_tpu_torch.modules.base import BaseRegressionMethod
 from dance_tpu_torch.nn.gnn import flax_dropout, truncated_normal_
+from dance_tpu_torch.parallel.mesh import RowShard, to_device
 from dance_tpu_torch.sc.pp import filter_cells, log1p
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.transforms.filter import get_count
@@ -93,11 +102,14 @@ class _SubNet(nn.Module):
                     truncated_normal_(w[i], bound, generator)
                     b[i].zero_()
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                batch: Optional[Tuple[Optional[torch.Tensor], int]] = None):
         """``x`` (n_ens, n, in) -> (n_ens, n, out); dropout only with a
-        ``generator`` (training)."""
+        ``generator`` (training). With ``batch = (pos, size)`` the rows of
+        ``x`` are the positions ``pos`` of a batch of ``size`` rows, and the
+        dropout uniforms are drawn for the whole batch and cut to them."""
         h = torch.relu(torch.baddbmm(self.b1[:, None], x, self.w1))
-        h = flax_dropout(h, self.dropout, generator)
+        h = flax_dropout(h, self.dropout, generator, batch, dim=1)
         out = torch.baddbmm(self.b2[:, None], h, self.w2)
         # jax.nn.softplus is logaddexp(x, 0)
         return torch.logaddexp(out, torch.zeros((), dtype=out.dtype, device=out.device))
@@ -107,14 +119,22 @@ class _SubNet(nn.Module):
 NeuralNetworkModel = _SubNet
 
 
+def _wmse_terms(pred, y, m):
+    """Per subnet: the squared errors weighted by ``y``, summed, and the
+    mask's count (the wMSE is their ratio, the count at least 1)."""
+    return (y * m * (y - pred) ** 2).sum((1, 2)), m.sum((1, 2))
+
+
 def _wmse(pred, y, m) -> torch.Tensor:
-    """Per subnet: the squared errors weighted by ``y``, over the mask's count."""
-    return (y * m * (y - pred) ** 2).sum((1, 2)) / torch.clamp(m.sum((1, 2)), min=1.0)
+    """Per subnet: the wMSE of one batch, as a single fit takes it."""
+    num, count = _wmse_terms(pred, y, m)
+    return num / torch.clamp(count, min=1.0)
 
 
-def _mse(pred, y, m) -> torch.Tensor:
-    """Per subnet: the plain masked MSE (the reference's validation loss)."""
-    return (m * (pred - y) ** 2).sum((1, 2)) / torch.clamp(m.sum((1, 2)), min=1.0)
+def _mse_terms(pred, y, m):
+    """Per subnet: the masked squared errors, summed, and the mask's count
+    (the reference's validation loss is their ratio)."""
+    return (m * (pred - y) ** 2).sum((1, 2)), m.sum((1, 2))
 
 
 class DeepImpute(BaseRegressionMethod):
@@ -202,10 +222,12 @@ class DeepImpute(BaseRegressionMethod):
             val_sel, tr_sel = perm[:n_val], perm[n_val:]
 
         def views(sel):
-            return self._pregather(*(torch.from_numpy(np.ascontiguousarray(a[sel])).to(dev)
+            return self._pregather(*(to_device(np.ascontiguousarray(a[sel]), device=dev)
                                      for a in (X, Y, mask)))
 
         train, val = views(tr_sel), (views(val_sel) if n_val else None)
+        # this rank's rows in a data-parallel fit (deepimpute.py:237-242)
+        self._shards = (RowShard.of(len(tr_sel)), RowShard.of(n_val))
         bs = min(batch_size, len(tr_sel))
         order_gen = torch.Generator().manual_seed(self.seed)
         drop_gen = torch.Generator(device=dev).manual_seed(self.seed)
@@ -227,29 +249,42 @@ class DeepImpute(BaseRegressionMethod):
         (counterpart: deepimpute.py:144); with ``accumulate`` (the reference
         protocol) the last batch is short, masked, and the gradients are
         never zeroed, so each step applies the sum of every gradient so far
-        (deepimpute.py:358)."""
+        (deepimpute.py:358). In a data-parallel fit each rank computes the
+        wMSE numerators of the batch's cells it holds, with their dropout
+        uniforms cut from the whole batch's, over the whole batch's mask
+        counts, and the gradients are summed over ``dp``."""
         xp, yt, mt = train
-        n = xp.shape[1]
+        shard, params = self._shards[0], list(self.net.parameters())
         if accumulate:
-            idx, rows_mask = epoch_batches_masked(order_gen, n, bs)
-            rows_mask = rows_mask.to(xp.device)[:, None, :, None]
+            idx, rows_mask = epoch_batches_masked(order_gen, shard.n, bs)
         else:
-            idx = epoch_batches(order_gen, n, bs)
+            idx = epoch_batches(order_gen, shard.n, bs)
+            rows_mask = torch.ones(idx.shape)
         losses = []
-        for i, rows in enumerate(idx.to(xp.device)):
-            bm = mt[:, rows] * rows_mask[i] if accumulate else mt[:, rows]
-            loss = _wmse(self.net(xp[:, rows], drop_gen), yt[:, rows], bm).mean()
-            if not accumulate:
-                opt.zero_grad(set_to_none=True)
-            loss.backward()
+        for rows, rm in zip(idx.to(xp.device), rows_mask.to(xp.device)):
+            pos, loc = shard.split(rows)
+            bm = mt[:, loc] * RowShard.take(rm, pos)[None, :, None]
+            pred = self.net(xp[:, loc], drop_gen, (pos, len(rows)))
+            num, count = _wmse_terms(pred, yt[:, loc], bm)
+            loss = (num / torch.clamp(shard.sum(count), min=1.0)).mean()
+            acc = [p.grad for p in params] if accumulate else [None] * len(params)
+            opt.zero_grad(set_to_none=True)
+            losses.append(shard.step(loss, params))
+            for p, a in zip(params, acc):
+                if a is not None:
+                    p.grad = p.grad + a
             opt.step()
-            losses.append(loss.detach())
         return torch.stack(losses).mean()
 
     @torch.no_grad()
-    def _val(self, val, loss_fn) -> torch.Tensor:
+    def _val(self, val, terms) -> torch.Tensor:
+        """Per subnet, the ratio of ``terms`` over the validation cells (of
+        every rank: numerators and mask counts summed over ``dp``)."""
         xp, yt, mt = val
-        return loss_fn(self.net(xp), yt, mt)
+        shard = self._shards[1]
+        r = shard.real
+        num, count = terms(self.net(xp)[:, :r], yt[:, :r], mt[:, :r])
+        return shard.sum(num) / torch.clamp(shard.sum(count), min=1.0)
 
     def _fit_default(self, epoch_fn, val, n_epochs: int, patience: int):
         """The default protocol (counterpart: deepimpute.py:276): the best
@@ -263,7 +298,7 @@ class DeepImpute(BaseRegressionMethod):
             clock.tick()
             loss, v = epoch_fn(), None
             if val is not None:
-                v = float(self._val(val, _wmse).mean())
+                v = float(self._val(val, _wmse_terms).mean())
                 if v < best_val:
                     best_val, counter = v, 0
                     best = {k: p.detach().clone() for k, p in net.state_dict().items()}
@@ -298,7 +333,7 @@ class DeepImpute(BaseRegressionMethod):
             with torch.no_grad():
                 for p, old in zip(params, before):
                     p.copy_(torch.where(_per_subnet(stopped, p), old, p))
-            v = self._val(val, _mse)
+            v = self._val(val, _mse_terms)
             active = ~stopped
             improved = (v <= best_val) & active
             with torch.no_grad():

@@ -19,7 +19,11 @@ AdaptiveSAGE has two branches, as in the JAX package:
 
 ``bsr_dtype=torch.bfloat16`` streams the BSR branch's SpMM in bf16 with
 float32 sums (gnn.py:90, :125-130); the dense and CSR branches ignore it, as
-JAX's do. The sharded-CSR branch (gnn.py:134-140) waits for a later slice.
+JAX's do. A :class:`~dance_tpu_torch.parallel.sharded_graph.ShardedCSR`
+(a data-parallel fit's block rows, gnn.py:134-140) runs one
+:func:`~dance_tpu_torch.parallel.sharded_graph.sharded_spmm` mean with the
+alpha index riding the edge chunks as ``edge_scale``; ``h`` is then this
+rank's rows.
 flax's ``LayerNorm`` eps is 1e-6, and torch's default 1e-5 is overridden.
 
 GATConv, too: a :class:`~dance_tpu_torch.ops.bsr.BSRMatrix` runs each head as
@@ -28,7 +32,7 @@ one fused GAT (:func:`bsr_gat_ad`, the CUDA kernels on the card), a
 """
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -37,6 +41,7 @@ from dance_tpu_torch.ops.bsr import BSRMatrix, bsr_gat_ad, bsr_spmm_ad
 from dance_tpu_torch.ops.segment import (aggregate, edge_softmax, gather_src, in_degrees,
                                          out_degrees, spmm)
 from dance_tpu_torch.ops.sparse import AdaptiveBSR, CSRMatrix, DenseAdj
+from dance_tpu_torch.parallel.sharded_graph import ShardedCSR, sharded_spmm
 
 GRAPH_CONV_NORMS = ("none", "both", "right")
 # the standard deviation of a unit normal cut at ±2 (flax's truncated normal
@@ -52,17 +57,28 @@ def truncated_normal_(weight: torch.Tensor, std: float,
     return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
-def flax_dropout(x: torch.Tensor, rate: float,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
+def flax_dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+                 rows: Optional[Tuple[Optional[torch.Tensor], int]] = None,
+                 dim: int = 0) -> torch.Tensor:
     """flax ``Dropout``: keep with probability ``1 - rate`` and scale by its
     inverse; the uniforms come from ``generator`` on ``x``'s device. Without a
-    generator (evaluation) or at rate 0, ``x`` itself; at rate 1, zeros."""
+    generator (evaluation) or at rate 0, ``x`` itself; at rate 1, zeros.
+    With ``rows = (pos, size)``, ``x`` holds the entries ``pos`` along
+    ``dim`` of a batch of ``size`` (a data-parallel rank's rows): the
+    uniforms are drawn for the whole batch, as the single fit draws them,
+    and cut to ``pos`` (all of them when ``pos`` is None)."""
     if generator is None or rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), 0.0)
+    if rows is None or rows[0] is None:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        pos, size = rows
+        shape = x.shape[:dim] + (size,) + x.shape[dim + 1:]
+        u = torch.rand(shape, generator=generator, device=x.device)
+        u = u.index_select(dim, pos.to(x.device))
+    return torch.where(u < 1.0 - rate, x / (1.0 - rate), 0.0)
 
 
 def flax_dense_init_(linear: nn.Linear, generator: Optional[torch.Generator] = None):
@@ -222,8 +238,12 @@ class AdaptiveSAGE(nn.Module):
             msgs = gather_src(adj, h) * alpha.index_select(0, alpha_idx)[:, None] \
                 * adj.data[:, None]
             z = aggregate(adj, msgs, op="mean")
+        elif isinstance(adj, ShardedCSR):
+            z = sharded_spmm(adj, h, weighted=True, op="mean",
+                             edge_scale=alpha.index_select(0, adj.edge_data["alpha_idx"]))
         else:
-            raise TypeError(f"AdaptiveSAGE takes an AdaptiveBSR or a CSRMatrix, got {type(adj)}")
+            raise TypeError(f"AdaptiveSAGE takes an AdaptiveBSR, a CSRMatrix or a ShardedCSR, "
+                            f"got {type(adj)}")
         z = torch.relu(self.linear(self.dropout(z)))
         return z if self.norm is None else self.norm(z)
 

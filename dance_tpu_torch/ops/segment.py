@@ -8,7 +8,9 @@ an empty segment gives ``-inf`` as in JAX. A BSR adjacency runs the sums
 through the differentiable SpMM (:func:`~dance_tpu_torch.ops.bsr.bsr_spmm_ad`)
 and max aggregation through the forward-only
 :func:`~dance_tpu_torch.ops.bsr.bsr_spmm_max`, each a CUDA kernel on the
-card. The block-row-sharded adjacency (``ShardedCSR``) is not ported yet.
+card. A block-row-sharded adjacency (:class:`~dance_tpu_torch.parallel.
+sharded_graph.ShardedCSR`) goes to :func:`~dance_tpu_torch.parallel.
+sharded_graph.sharded_spmm` (sum or mean over this rank's rows).
 """
 
 from typing import Optional
@@ -18,6 +20,7 @@ import torch.nn.functional as F
 
 from dance_tpu_torch.ops.bsr import BSRMatrix, bsr_spmm_ad, bsr_spmm_max
 from dance_tpu_torch.ops.sparse import CSRMatrix, DenseAdj
+from dance_tpu_torch.parallel.sharded_graph import ShardedCSR, sharded_spmm
 
 AGGREGATIONS = ("sum", "mean", "max")
 
@@ -58,7 +61,12 @@ def spmm(adj, h: torch.Tensor, *, weighted: bool = True, op: str = "sum",
       unweighted max (forward only; rows without an edge give ``-inf``). For
       a rectangular BSR adjacency pass ``n_out``, the true number of output
       rows; it defaults to ``h.shape[0]``.
+    - :class:`ShardedCSR`: this rank's rows of the sum or mean
+      (:func:`sharded_spmm`; ``degrees``, when given, are the true in-degrees
+      of all rows).
     """
+    if isinstance(adj, ShardedCSR):
+        return sharded_spmm(adj, h, weighted=weighted, op=op, degrees=degrees)
     if isinstance(adj, DenseAdj):
         if op not in ("sum", "mean"):
             raise ValueError("DenseAdj supports sum/mean aggregation; use the CSR adjacency "
@@ -86,8 +94,8 @@ def spmm(adj, h: torch.Tensor, *, weighted: bool = True, op: str = "sum",
             out = out / degrees[:n].clamp(min=1.0)[:, None]
         return out
     if not isinstance(adj, CSRMatrix):
-        raise NotImplementedError(f"spmm over {type(adj).__name__} is not ported yet: the "
-                                  f"block-row-sharded ShardedCSR is ROADMAP Queue 1, slice 6")
+        raise TypeError(f"spmm takes a CSRMatrix, DenseAdj, BSRMatrix or ShardedCSR, got "
+                        f"{type(adj).__name__}")
     msgs = gather_src(adj, h)
     if weighted:
         msgs = msgs * adj.data[:, None]

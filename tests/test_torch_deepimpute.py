@@ -194,7 +194,7 @@ def test_one_step_with_jax_dropout_masks_matches_jax(monkeypatch):
                              rngs={"dropout": sub_rngs[i]}, capture_intermediates=True)
         masks.append(np.asarray(st["intermediates"]["Dropout_0"]["__call__"][0]) != 0)
     keep = torch.from_numpy(np.stack(masks))
-    monkeypatch.setattr(tdi, "flax_dropout", lambda h, rate, gen: torch.where(
+    monkeypatch.setattr(tdi, "flax_dropout", lambda h, rate, gen, rows=None, dim=0: torch.where(
         keep, h / (1 - rate), 0.0) if gen is not None else h)
 
     tm = _torch_model(inp, init, monkeypatch, dropout=0.2)

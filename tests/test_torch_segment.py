@@ -129,7 +129,7 @@ def test_spmm_bsr_value_errors_match_jax(kwargs, match):
 
 
 def test_spmm_rejects_other_adjacency_types():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="ShardedCSR"):
         tseg.spmm(object(), torch.zeros((3, 2)))
 
 
