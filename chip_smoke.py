@@ -12,8 +12,10 @@ scMVAE, the spatial-domain SpaGCN, stLearn and EfNST with scGNN2's
 imputation, the classical heads: SVM, CellTypist, SingleCellNet, MAGIC,
 SPOTlight, SpatialDecon and CARD, stdGCN with ComBat's integration and its
 marker genes, the scanpy surface (``sc.pp`` and ``sc.tl``), ScTransform,
-GCNConv on #1, the rest of the transform surface, and the data-parallel
-path (ranks sharing the card).
+GCNConv on #1, the rest of the transform surface, the data-parallel
+path (ranks sharing the card), and the Data-container path (``Data``,
+``Compose`` and the models' ``preprocessing_pipeline``) of scDeepSort,
+graph-sc, STAGATE and ACTINN.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -428,6 +430,36 @@ printed only when every phase passed):
    one scDeepSort epoch (the trace file's size printed).
    A time from these phases is not a multi-card figure: the ranks share one
    card and gloo copies every collective through the host.
+71. The Data-container path (``dance_tpu_torch.data``, the registry,
+   ``Compose``, ``AnnDataTransform``'s adaptors, ``PCACellFeatureGraph``),
+   each phase against the model's array front on the same counts, counts
+   set to 0 before each fit; each prints its seconds by stage (pipeline,
+   graph, fit). scDeepSort's example flow (``ScDeepSort.preprocess``, the
+   train and test subgraphs, ``fit`` 5 epochs on BSR, ``predict``) on phase
+   2's matrix and labels wrapped in ``Data`` (70 % train), run as array
+   front, Data, Data, array front: the container's graph held against the
+   front's (structure exactly, values bit for bit or within 1e-5), its test
+   probabilities within 2e-3 (or twice the front's own rerun gap) and its
+   losses within 1e-3 of the front's, and the preprocess-to-trained seconds
+   of both; then ``annotation_data(12000, 2000, 8)`` through the same flow
+   at 100 epochs (the example's default), its PCA features against
+   ``weighted_feature_pca``'s (1e-5) and the argmax's test accuracy above
+   the majority share. #1's launches are ``launches_by_path["scdeepsort_data"]``.
+72. graph-sc on phase 8's counts: ``GraphSC.preprocess`` ->
+   ``get_train_data`` -> the graph held against phase 8's
+   ``graphsc_preprocess`` graph (as in 71), the labels against the kept
+   cells' -> ``fit`` 30 epochs on BSR -> ``predict``, ARI;
+   ``launches_by_path["graphsc_data"]``.
+73. STAGATE at phase 5's size: ``Stagate.preprocess`` (the counts, ``obs``
+   labels, ``obsm["spatial_pixel"]``) -> ``get_train_data`` (the graph
+   read back dense, as JAX gives it) bit-equal to ``stagate_preprocess``'s
+   -> ``fit`` 50 epochs on BSR -> ``predict``; its #3-#5 launches add to
+   their entries (``launches_by_path``: ``stagate``, ``stagate_data``).
+74. ACTINN at phase 27's size and split: ``ACTINN.preprocessing_pipeline``
+   built and run twice (its ``Compose.hexdigest`` the same four times), the
+   features and kept genes bit-equal to ``actinn_preprocess``'s, ``fit`` at
+   the defaults on ``get_train_data``, test accuracy above the majority
+   share; no kernel launches.
 
 Each kernel's bound is the larger of its operations over a compute peak and
 the bytes of its inputs and outputs, each counted once, over 3.35 TB/s, for
@@ -463,8 +495,10 @@ pattern for the SDDMM); the port never calls them. The SpMM's entry carries
 the other paths' tilings beside scDeepSort's (``graphsc``, ``sctag``,
 ``scdsc``, ``scmogcn``, ``dstg``, ``stdgcn``, ``stdgcn_combat``,
 ``scheteronet``, ``gcnconv``), its bf16
-instantiation (``bf16``, with its own launches) and its launches by path;
-the SDDMM's carries ``f32`` and ``bf16`` results, its launches those of
+instantiation (``bf16``, with its own launches) and its launches by path
+(the container flows' as ``scdeepsort_data`` and ``graphsc_data``); the
+GAT entries carry theirs by path (``stagate``, ``stagate_data``); the
+SDDMM's carries ``f32`` and ``bf16`` results, its launches those of
 phase 3b.
 
 PyTorch's TF32 is off for every phase (the plain versions and cuBLAS run
@@ -585,6 +619,9 @@ SVM_DIM, SVM_RFF_CAP, SCN_TREES, SCN_RAND, SD_ITERS = 400, 5000, 100, 100, 500
 # the scanpy surface (phases 61-62): HVGs kept of phase 52's 2,000 genes, and the small
 # card-against-CPU size
 SC_HVG, SC_SMALL = 1000, 300
+# phase 71: epochs of scDeepSort's example flow on annotation_data (the example's
+# --n_epochs default; lr 1e-3 moves the weights slowly)
+SDS_DATA_EPOCHS = 100
 # phases 63-65: ScTransform's size, GCNConv's width, the LSI peak matrix, SC3's cells
 SCT_CELLS, SCT_GENES, SCT_STEP1 = 10000, 3000, 2000
 GCN_DIM = 256
@@ -5405,6 +5442,331 @@ def scale_out_phases(cuda, sds, gsc_graph) -> None:
     print(f"phases 66-70: {time.perf_counter() - t_all:.3f} s", flush=True)
 
 
+def graph_same(name: str, a, b) -> None:
+    """Hold a host graph against another built by the same functions: the
+    info, node labels and adjacency pattern exactly, the edge weights and
+    node features bit for bit or, where the card's PCA rounds otherwise
+    between two runs, within 1e-5 of the largest value (printed which)."""
+    import numpy as np
+
+    shape = (a.info == b.info and a.adj.dtype == b.adj.dtype
+             and np.array_equal(a.adj.indptr, b.adj.indptr)
+             and np.array_equal(a.adj.indices, b.adj.indices)
+             and a.ndata.keys() == b.ndata.keys()
+             and all(np.array_equal(a.ndata[k], b.ndata[k]) for k in a.ndata if k != "features"))
+    if not shape:
+        raise AssertionError(f"{name}: the container's graph has another structure than the "
+                             f"array front's")
+    gaps = {k: float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-30)) if x.size else 0.0
+            for k, x, y in (("weights", a.adj.data, b.adj.data),
+                            ("features", a.ndata["features"], b.ndata["features"]))}
+    exact = not any(gaps.values())
+    print(f"{name}: container graph against the array front's ({a.num_nodes} nodes, "
+          f"{a.num_edges} edges): structure equal, values bit-equal {exact}, relative gaps "
+          f"{gaps} (bound 1e-5)", flush=True)
+    if not max(gaps.values()) <= 1e-5:
+        raise AssertionError(f"{name}: the container's graph values differ from the front's")
+
+
+def scdeepsort_data_flow(name: str, data, cuda, front: bool = False,
+                         epochs: int = EPOCHS) -> dict:
+    """scDeepSort's example flow (examples/single_modality/cell_type_annotation/
+    scdeepsort.py:17-31) at bench width on the card: ``preprocess`` (the gene
+    PCA of the training cells, the cell-gene graph), the train and test
+    subgraphs, ``epochs`` epochs on BSR, the test predictions. With ``front`` the
+    same steps through the array front (``weighted_feature_pca`` on the
+    training rows, ``Graph.from_cell_feature_matrix``) on the same data.
+    Returns the seconds by stage, the graph, the fit's losses, the test
+    probabilities, the accuracy of their argmax and the example's (which
+    counts an unsure cell, ``predict``'s -1, as wrong), and the launches."""
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.graph import Graph
+    from dance_tpu_torch.modules.single_modality.cell_type_annotation import ScDeepSort
+    from dance_tpu_torch.transforms import weighted_feature_pca
+
+    model = ScDeepSort(dim_in=DIM, dim_hid=DIM, num_layers=2, seed=0, device=cuda)
+    t0 = time.perf_counter()
+    if front:
+        data.set_config(label_channel="cell_type")
+        x = data.data.X
+        cell_feat, gene_feat = weighted_feature_pca(x[data.train_idx], x, DIM, device=cuda)
+        graph = Graph.from_cell_feature_matrix(x, cell_feat, gene_feat)
+    else:
+        model.preprocess(data, n_components=DIM, log_level="WARNING")
+        graph = data.data.uns["PCACellFeatureGraph"]
+    t_pipe = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_genes = graph.info["num_genes"]
+    parts = []
+    for split in (data.train_idx, data.test_idx):
+        g = graph.subgraph(np.concatenate([np.arange(n_genes), n_genes + np.asarray(split)]))
+        g.info = {"num_genes": n_genes, "num_cells": len(split)}
+        parts.append(g)
+    g_train, g_test = parts
+    y_train, y_test = data.get_y("train").argmax(1), data.get_y("test").argmax(1)
+    t_graph = time.perf_counter() - t0
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(g_train, y_train, epochs=epochs, val_ratio=0.2, use_bsr=True)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    probs = model.predict_proba(g_test)
+    pred = model.predict(g_test)
+    t_pred = time.perf_counter() - t0
+    launches = read_launches()
+    losses = [h["loss"] for h in model.history]
+    acc = float((probs.argmax(1) == y_test).mean())
+    example_acc = float((pred == y_test).mean())
+    majority = float(np.bincount(y_test).max() / len(y_test))
+    total = t_pipe + t_graph + t_fit
+    print(f"{name}{' (array front)' if front else ''}: {data.shape[0]} cells x {data.shape[1]} "
+          f"genes, {len(data.train_idx)} train / {len(data.test_idx)} test; seconds by stage: "
+          f"pipeline {t_pipe:.3f}, graph {t_graph:.3f} (train {g_train.num_edges} / test "
+          f"{g_test.num_edges} edges), fit {t_fit:.3f} ({epoch_line(model.history)}), predict "
+          f"{t_pred:.3f}; preprocess to trained {total:.3f} s; losses "
+          f"{losses[::max(1, epochs // 10)]}; test accuracy {acc!r} (the example's, unsure "
+          f"cells wrong, {example_acc!r}) against the majority share {majority!r}; launches "
+          f"{launches}",
+          flush=True)
+    if len(losses) != epochs or not np.isfinite(losses).all():
+        raise AssertionError(f"{name}: non-finite or missing losses: {losses}")
+    if probs.shape != (len(y_test), N_LABELS) or not np.isfinite(probs).all():
+        raise AssertionError(f"{name}: test probabilities {probs.shape} or non-finite")
+    if launches["bsr_spmm"] < 4 * epochs:
+        raise AssertionError(f"{name}: bsr_spmm launched {launches['bsr_spmm']} times, fewer "
+                             f"than 4 x {epochs} epochs")
+    return {"seconds": {"pipeline": t_pipe, "graph": t_graph, "fit": t_fit, "total": total},
+            "graph": graph, "losses": np.array(losses), "probs": probs, "acc": acc,
+            "majority": majority, "launches": launches["bsr_spmm"]}
+
+
+def container_phases(cuda, gsc_graph) -> dict:
+    """Phases 71-74: the Data-container path (``dance_tpu_torch.data``, the
+    registry, ``Compose``, ``AnnDataTransform``'s adaptors, the cell-gene
+    graph transforms and the models' ``preprocessing_pipeline``) of
+    scDeepSort, graph-sc, STAGATE and ACTINN, each against its array front
+    on the same counts. graph-sc's, STAGATE's and ACTINN's fronts run the
+    model's own pipeline on the matrix wrapped in a ``Data``, so for them
+    the comparison holds the model's ``preprocess`` against the front's
+    wrapping (kept cells by name, dense features, the CSR graph); the
+    pipelines' steps are held against JAX's in the CPU tests. Returns the
+    #1 launches of the scDeepSort and graph-sc flows and the GAT kernels'
+    launches of STAGATE's fit."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from dance_tpu_torch.data import AnnData, Data, Frame
+    from dance_tpu_torch.datasets import annotation_data, cell_label_to_df
+    from dance_tpu_torch.modules.single_modality.cell_type_annotation import (
+        ACTINN, actinn_preprocess)
+    from dance_tpu_torch.modules.single_modality.clustering import GraphSC
+    from dance_tpu_torch.modules.spatial.spatial_domain import Stagate, stagate_preprocess
+    from dance_tpu_torch.transforms import weighted_feature_pca
+    from dance_tpu_torch.utils import ari
+
+    t_all = time.perf_counter()
+    out = {}
+    # -- 71. scDeepSort's example flow on phase 2's matrix, then on annotation_data
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+    expr = sp.random(N_CELLS, N_GENES, density=DENSITY, random_state=0, dtype=np.float32,
+                     format="csr")
+    labels = rng.integers(0, N_LABELS, N_CELLS)
+    types = [f"type{i}" for i in range(N_LABELS)]
+
+    def phase2_data():
+        adata = AnnData(expr.copy(), obs={"cell_type": np.array(types)[labels]})
+        adata.obsm["cell_type"] = cell_label_to_df(adata.obs["cell_type"], types,
+                                                   index=adata.obs_names)
+        return Data(adata, train_size=int(N_CELLS * 0.7), val_size=0, test_size=-1)
+
+    # the array front, the container, the container, the array front: the
+    # same work, so the container's host overhead shows in the difference
+    runs = [scdeepsort_data_flow(f"phase 71 run {i}", phase2_data(), cuda, front=front)
+            for i, front in enumerate((True, False, False, True))]
+    graph_same("phase 71", runs[1]["graph"], runs[0]["graph"])
+    graph_same("phase 71 (second container run)", runs[2]["graph"], runs[0]["graph"])
+    gaps = {"front_rerun": float(np.abs(runs[3]["probs"] - runs[0]["probs"]).max()),
+            "container_rerun": float(np.abs(runs[2]["probs"] - runs[1]["probs"]).max()),
+            "container_vs_front": float(np.abs(runs[1]["probs"] - runs[0]["probs"]).max())}
+    loss_gap = float(np.abs(runs[1]["losses"] / runs[0]["losses"] - 1).max())
+    stages = {k: [r["seconds"][k] for r in runs] for k in ("pipeline", "graph", "fit", "total")}
+    front_s = (stages["total"][0] + stages["total"][3]) / 2
+    data_s = (stages["total"][1] + stages["total"][2]) / 2
+    bound = max(2e-3, 2 * gaps["front_rerun"])
+    print(f"phase 71, scDeepSort through Data against the array front (runs front, Data, Data, "
+          f"front): seconds by stage {stages}; preprocess to trained {data_s!r} s through Data "
+          f"against {front_s!r} s ({data_s / front_s!r}x); probability gaps {gaps} (bound "
+          f"{bound!r}: 2e-3 or twice the front's rerun gap); first-to-last loss gap container "
+          f"vs front {loss_gap!r} (bound 1e-3)", flush=True)
+    if not (gaps["container_vs_front"] <= bound and loss_gap <= 1e-3):
+        raise AssertionError("phase 71: the container's fit disagrees with the array front's")
+    out["scdeepsort_data_launches"] = sum(r["launches"] for r in runs[1:3])
+    t0 = time.perf_counter()
+    ann = annotation_data(N_CELLS, N_GENES, N_LABELS, seed=0)
+    t_make = time.perf_counter() - t0
+    res = scdeepsort_data_flow("phase 71 annotation_data", ann, cuda, epochs=SDS_DATA_EPOCHS)
+    x = ann.data.X
+    cell_feat, gene_feat = weighted_feature_pca(x[ann.train_idx], x, DIM, device=cuda)
+    gap = max(float(np.abs(f - getattr(ann.data, ch)["WeightedFeaturePCA"]).max()
+                    / np.abs(f).max()) for f, ch in ((cell_feat, "obsm"), (gene_feat, "varm")))
+    same = gap <= 1e-5
+    print(f"phase 71 annotation_data: made in {t_make:.3f} s ({float((x > 0).mean())!r} nonzero); "
+          f"features against weighted_feature_pca's: relative gap {gap!r} (bit-equal "
+          f"{gap == 0.0}; bound 1e-5)", flush=True)
+    if not (same and res["acc"] > res["majority"]):
+        raise AssertionError(f"phase 71 annotation_data: features differ ({same}) or accuracy "
+                             f"{res['acc']} not above {res['majority']}")
+    out["scdeepsort_data_launches"] += res["launches"]
+    del runs, res, ann
+    print(f"phase 71: {time.perf_counter() - t_phase:.3f} s", flush=True)
+
+    # -- 72. graph-sc on phase 8's counts through Data ---------------------
+    t_phase = time.perf_counter()
+    counts, gtypes = clustered_counts(GSC_CELLS, GSC_GENES, GSC_TYPES, seed=0)
+    adata = AnnData(counts)
+    adata.obsm["Group"] = gtypes
+    data = Data(adata, train_size="all")
+    model = GraphSC(n_clusters=GSC_TYPES, device=cuda, seed=0)
+    t0 = time.perf_counter()
+    model.preprocess(data, n_top_genes=GSC_HVG, log_level="WARNING")
+    t_pipe = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g, y = data.get_train_data()
+    t_graph = time.perf_counter() - t0
+    graph_same("phase 72", g, gsc_graph)
+    cells = np.array([int(n) for n in data.data.obs_names])
+    if not np.array_equal(y, gtypes[cells]):
+        raise AssertionError("phase 72: the labels did not follow the kept cells")
+    reset_launches()
+    t0 = time.perf_counter()
+    model.fit(g, y, epochs=GSC_EPOCHS, use_bsr=True)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    pred = model.predict()
+    launches = read_launches()
+    losses = [h["loss"] for h in model.history]
+    print(f"phase 72, graph-sc through Data: {len(cells)} of {GSC_CELLS} cells, "
+          f"{data.shape[1]} genes kept; seconds by stage: pipeline {t_pipe:.3f}, graph "
+          f"{t_graph:.3f}, fit {t_fit:.3f} ({GSC_EPOCHS} epochs); ARI {ari(y, pred)!r}; last "
+          f"loss {losses[-1]!r}; launches {launches}", flush=True)
+    if not (np.isfinite(losses).all() and launches["bsr_spmm"] >= 2 * GSC_EPOCHS
+            and model.z.shape[0] == len(cells)):
+        raise AssertionError(f"phase 72: losses, embedding or launches {launches}")
+    out["graphsc_data_launches"] = launches["bsr_spmm"]
+    del model, data, adata, g
+    print(f"phase 72: {time.perf_counter() - t_phase:.3f} s", flush=True)
+
+    # -- 73. STAGATE at phase 5's size through Data ------------------------
+    t_phase = time.perf_counter()
+    counts, xy, dom = spatial_counts(N_SPOTS, N_RAW_GENES, N_DOMAINS, seed=0)
+    adata = AnnData(counts, obs={"label": dom})
+    adata.obsm["spatial_pixel"] = xy
+    data = Data(adata, train_size="all")
+    model = Stagate(hidden_dims=STAGATE_DIMS, device=cuda, seed=0)
+    t0 = time.perf_counter()
+    model.preprocess(data, n_top_genes=N_HVG, model_name="knn", n_neighbors=N_NEIGHBORS,
+                     log_level="WARNING")
+    t_pipe = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (x, adj), y = data.get_train_data()
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fx, fadj = stagate_preprocess(counts, xy, n_top_genes=N_HVG, model_name="knn",
+                                  n_neighbors=N_NEIGHBORS)
+    t_front = time.perf_counter() - t0
+    same = (np.array_equal(x, fx) and (sp.csr_matrix(adj) != fadj).nnz == 0
+            and adj.dtype == fadj.dtype and np.array_equal(y, dom))
+    print(f"phase 73: the container's features and graph bit-equal to stagate_preprocess's "
+          f"{same} (array front {t_front:.3f} s)", flush=True)
+    if not same:
+        raise AssertionError("phase 73: the container's STAGATE inputs differ from the front's")
+    reset_launches()
+    t0 = time.perf_counter()
+    model.fit((x, adj), epochs=STAGATE_EPOCHS, use_bsr=True, n_clusters=N_DOMAINS)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    pred = model.predict()
+    launches = read_launches()
+    losses = [h["loss"] for h in model.history]
+    print(f"phase 73, STAGATE through Data: {x.shape} features, {fadj.nnz} edges (the graph "
+          f"read back dense, {adj.nbytes / 2**20:.1f} MiB, as JAX's get_train_data gives it); "
+          f"seconds by stage: pipeline {t_pipe:.3f}, graph {t_graph:.3f} (get_train_data), "
+          f"fit {t_fit:.3f} ({STAGATE_EPOCHS} epochs); ARI {ari(dom, pred)!r}; losses first "
+          f"{losses[0]!r} last {losses[-1]!r}; launches {launches}", flush=True)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+            and launches["bsr_gat_stats"] >= 2 * STAGATE_EPOCHS
+            and launches["bsr_gat_grads"] >= 2 * STAGATE_EPOCHS and launches["bsr_gat"] >= 2):
+        raise AssertionError(f"phase 73: losses or GAT launches {launches}")
+    out["stagate_data_launches"] = launches
+    del model, data, adata, x, adj
+    print(f"phase 73: {time.perf_counter() - t_phase:.3f} s", flush=True)
+
+    # -- 74. ACTINN at phase 27's size through Data ------------------------
+    t_phase = time.perf_counter()
+    counts, atypes = annotation_counts(HN_CELLS, HN_GENES, HN_TYPES, HN_RARE, seed=13)
+    names = gene_names(HN_GENES)
+    perm = np.random.default_rng(21).permutation(len(atypes))
+    a, b = int(0.6 * len(perm)), int(0.8 * len(perm))
+    splits = {"train": np.sort(perm[:a]), "val": np.sort(perm[a:b]), "test": np.sort(perm[b:])}
+    digests = []
+
+    def actinn_data():
+        adata = AnnData(counts.copy(), var=Frame(index=names))
+        codes = [f"t{i}" for i in range(HN_TYPES)]
+        adata.obsm["cell_type"] = cell_label_to_df(np.array(codes)[atypes], codes,
+                                                   index=adata.obs_names)
+        data = Data(adata)
+        for split, idx in splits.items():
+            data.set_split_idx(split, idx)
+        return data
+
+    for _ in range(2):  # the digest of a pipeline built and run twice
+        pipe = ACTINN.preprocessing_pipeline(log_level="WARNING", device=cuda)
+        before = pipe.hexdigest()
+        data = actinn_data()
+        t0 = time.perf_counter()
+        pipe(data)
+        t_pipe = time.perf_counter() - t0
+        digests += [before, pipe.hexdigest()]
+    t0 = time.perf_counter()
+    fx, kept = actinn_preprocess(counts, names)
+    t_front = time.perf_counter() - t0
+    (x_train, y_train), (x_test, y_test) = data.get_train_data(), data.get_test_data()
+    same = (np.array_equal(data.get_x(), fx) and np.array_equal(data.data.var_names, kept)
+            and np.array_equal(x_train, fx[splits["train"]]))
+    print(f"phase 74: Compose.hexdigest of two builds and runs {digests}; the container's "
+          f"features and genes bit-equal to actinn_preprocess's {same}; per-transform seconds "
+          f"{pipe.timings}", flush=True)
+    if len(set(digests)) != 1 or not same:
+        raise AssertionError("phase 74: the digest moved or the features differ from the front")
+    model = ACTINN(random_seed=0, device=cuda)
+    reset_launches()
+    t0 = time.perf_counter()
+    model.fit(x_train, y_train, batch_size=128, lr=0.01, num_epochs=50)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    pred = model.predict(x_test)
+    acc = float((pred == y_test.argmax(1)).mean())
+    majority = float(np.bincount(y_test.argmax(1)).max() / len(y_test))
+    launches = read_launches()
+    print(f"phase 74, ACTINN through Data: {x_train.shape[1]} genes kept, train / test "
+          f"{len(x_train)} / {len(x_test)}; seconds by stage: pipeline {t_pipe:.3f} (array front "
+          f"{t_front:.3f}), graph 0 (none), fit {t_fit:.3f} (50 epochs); test accuracy {acc!r} "
+          f"against the majority share {majority!r}; launches {launches}", flush=True)
+    if not (acc > majority and np.isfinite([h["loss"] for h in model.history]).all()
+            and not any(launches.values())):
+        raise AssertionError(f"phase 74: accuracy {acc}, losses or launches {launches}")
+    print(f"phase 74: {time.perf_counter() - t_phase:.3f} s", flush=True)
+    print(f"phases 71-74: {time.perf_counter() - t_all:.3f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5458,6 +5820,13 @@ def main() -> int:
     surface_phase(cuda)
     print(f"phases 63-65: {time.perf_counter() - t_phases:.3f} s", flush=True)
     scale_out_phases(cuda, measured.pop("scdeepsort_graph"), gsc_graph)
+    data_path = container_phases(cuda, gsc_graph)
+    # STAGATE's container fit runs the GAT kernels too (phase 73)
+    for name, n in data_path["stagate_data_launches"].items():
+        if name in ("bsr_gat", "bsr_gat_stats", "bsr_gat_grads"):
+            result, launched = measured[name]
+            result["launches_by_path"] = {"stagate": launched, "stagate_data": n}
+            measured[name] = (result, launched + n)
 
     def entry(name):
         result, launched = measured[name]
@@ -5484,7 +5853,9 @@ def main() -> int:
                                 "dstg": dc["dstg_launches"], "stdgcn": dc["stdgcn_launches"],
                                 "stdgcn_combat": dc["stdgcn_combat_launches"],
                                 "scheteronet": hn["scheteronet_launches"],
-                                "gcnconv": gcn["gcnconv_launches"]}
+                                "gcnconv": gcn["gcnconv_launches"],
+                                "scdeepsort_data": data_path["scdeepsort_data_launches"],
+                                "graphsc_data": data_path["graphsc_data_launches"]}
     spmm["launches"] = sum(spmm["launches_by_path"].values())
     spmm["graphsc"] = gsc["graphsc_spmm"]
     spmm["sctag"] = {f"d{d}": res for d, res in clu["sctag"].items()}

@@ -7,8 +7,7 @@ pulls in JAX. The bipartite cell-gene graph is homogeneous: gene nodes first
 (0..n_genes-1), then cell nodes. The device forms (``to_device``, ``to_bsr``,
 ``to_dense_adj``, ``to_adaptive_bsr``) go to the CUDA card unless the caller
 names the CPU; inside a data-parallel fit ``to_device`` gives this rank's
-node rows. Not ported yet: ``from_adjacency`` and the row
-normalization.
+node rows.
 """
 
 from typing import Dict, NamedTuple, Optional
@@ -73,6 +72,15 @@ class Graph:
                                          np.asarray(cell_feature, np.float32)])
         return g
 
+    @classmethod
+    def from_adjacency(cls, adj, features: Optional[np.ndarray] = None, **info) -> "Graph":
+        """A graph of adjacency ``adj`` with float32 node ``features``
+        (counterpart: base.py:80)."""
+        g = cls(adj, info=info)
+        if features is not None:
+            g.ndata["features"] = np.asarray(features, np.float32)
+        return g
+
     def add_self_loop(self, weight: float = 1.0) -> "Graph":
         """Counterpart: base.py:88."""
         n = self.adj.shape[0]
@@ -95,6 +103,13 @@ class Graph:
         deg = np.asarray(self.adj.sum(axis=1)).ravel()
         dinv = 1.0 / np.sqrt(np.maximum(deg, 1e-12))
         self.adj = (sp.diags(dinv) @ self.adj @ sp.diags(dinv)).tocsr()
+        return self
+
+    def normalize_edges_row(self) -> "Graph":
+        """Row-stochastic ``D^-1 A``, degrees floored at 1e-12 (counterpart:
+        base.py:110)."""
+        deg = np.asarray(self.adj.sum(axis=1)).ravel()
+        self.adj = (sp.diags(1.0 / np.maximum(deg, 1e-12)) @ self.adj).tocsr()
         return self
 
     @property

@@ -8,13 +8,15 @@ name raises. ``BasePretrain``
 loads a pretrained model from ``pretrain_path`` or pretrains and saves it;
 ``NNPretrain`` freezes named submodules of the model's ``torch.nn.Module``
 and saves its ``state_dict``. ``fit_distributed`` runs ``fit`` as one rank
-of a data-parallel fit (:mod:`dance_tpu_torch.parallel`). Not ported yet:
-the Data-container preprocessing hooks (``preprocess``/
-``preprocessing_pipeline``).
+of a data-parallel fit (:mod:`dance_tpu_torch.parallel`). ``preprocess``
+runs the model's ``preprocessing_pipeline`` on a port ``Data`` (base.py:34);
+a model whose pipeline is not ported yet raises there, naming its array
+front (JAX's ``preprocessing_pipeline`` is abstract).
 """
 
 import inspect
 import os
+import sys
 from abc import ABC, abstractmethod
 from contextlib import contextmanager
 from time import time
@@ -54,6 +56,28 @@ class BaseMethod(ABC):
     def __repr__(self) -> str:
         attrs = ", ".join(f"{i}={getattr(self, i)!r}" for i in self._DISPLAY_ATTRS)
         return f"{self.name}({attrs})"
+
+    def preprocess(self, data, /, **kwargs):
+        """Run ``preprocessing_pipeline(**kwargs)`` on ``data`` in place
+        (counterpart: base.py:34). A pipeline that takes ``device`` gets the
+        model's unless the caller names one."""
+        if "device" in inspect.signature(self.preprocessing_pipeline).parameters \
+                and hasattr(self, "device"):
+            kwargs.setdefault("device", self.device)
+        self.preprocessing_pipeline(**kwargs)(data)
+
+    @classmethod
+    def preprocessing_pipeline(cls, device="auto", **kwargs):
+        """The ``Compose`` of transforms that prepares a ``Data`` for this
+        model (counterpart: base.py:37, abstract there). Models whose
+        pipeline is not ported yet raise ``NotImplementedError`` naming
+        their array front."""
+        module = sys.modules[cls.__module__]
+        fronts = sorted(name for name, f in vars(module).items() if name.endswith("_preprocess")
+                        and getattr(f, "__module__", None) == cls.__module__)
+        raise NotImplementedError(
+            f"{cls.__name__}.preprocessing_pipeline (the Data-container pipeline) is not ported "
+            f"yet; its array front: {', '.join(fronts) or 'none'} in {cls.__module__}")
 
     @abstractmethod
     def fit(self, x, y=None, **kwargs):

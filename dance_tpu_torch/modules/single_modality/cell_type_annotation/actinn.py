@@ -21,9 +21,10 @@ Where this differs from the JAX package:
   patched :meth:`ACTINN._make_net`) and the batches from the JAX run. The
   epochs are a loop; JAX runs them as one compiled scan.
 - ``history`` records each epoch's mean loss and seconds.
-- JAX's ``dtype=bfloat16`` option is not ported (ROADMAP Queue 1); the
-  Data-container ``preprocessing_pipeline`` is not either:
-  :func:`actinn_preprocess` is its array core.
+- JAX's ``dtype=bfloat16`` option is not ported (ROADMAP Queue 1).
+  :func:`actinn_preprocess` is the array front of
+  ``preprocessing_pipeline``: it runs the pipeline on a matrix and gene
+  names wrapped in a ``Data``.
 
 ``fit_distributed`` is JAX's own data-parallel protocol (actinn.py:141-208),
 run as one rank of a launched process group: a global batch of
@@ -40,12 +41,14 @@ import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 
+from dance_tpu_torch.data import AnnData, Data, Frame
 from dance_tpu_torch.modules.base import BaseClassificationMethod
 from dance_tpu_torch.nn.mlp import VanillaMLP
 from dance_tpu_torch.parallel.mesh import current_mesh, sync_grads
-from dance_tpu_torch.sc.pp import filter_genes, log1p, normalize_total
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.transforms.filter import FilterGenesPercentile
+from dance_tpu_torch.transforms.interface import AnnDataTransform
+from dance_tpu_torch.transforms.misc import Compose, SetConfig
 from dance_tpu_torch.utils import EpochClock, resolve_device
 from dance_tpu_torch.utils.batch import epoch_batches_masked
 
@@ -75,6 +78,28 @@ class ACTINN(BaseClassificationMethod):
         self.random_seed = random_seed
         self.model: Optional[VanillaMLP] = None
         self.history: List[Dict[str, float]] = []  # per epoch: epoch, loss, seconds
+
+    @staticmethod
+    def preprocessing_pipeline(normalize: bool = True, filter_genes: bool = True,
+                               log_level: str = "INFO", device="auto") -> Compose:
+        """ACTINN's preprocessing of a ``Data`` (:func:`actinn_preprocess`
+        runs it on a matrix): ``normalize_total(1e4)`` and ``log1p(base=2)``,
+        the genes expressed in a cell, then between the 1st and 99th
+        percentile of their sums and of their coefficients of variation;
+        labels from ``obsm["cell_type"]`` (counterpart: actinn.py:56). Every
+        step is host work; ``device`` is only checked (the card unless the
+        CPU is named), as for every entry point."""
+        resolve_device(device)
+        transforms = []
+        if normalize:
+            transforms.append(AnnDataTransform("sc.pp.normalize_total", target_sum=1e4))
+            transforms.append(AnnDataTransform("sc.pp.log1p", base=2))
+        if filter_genes:
+            transforms.append(AnnDataTransform("sc.pp.filter_genes", min_cells=1))
+            transforms.append(FilterGenesPercentile(min_val=1, max_val=99, mode="sum"))
+            transforms.append(FilterGenesPercentile(min_val=1, max_val=99, mode="cv"))
+        transforms.append(SetConfig({"label_channel": "cell_type"}))
+        return Compose(*transforms, log_level=log_level)
 
     def _make_net(self, input_dim: int, output_dim: int, seed: int) -> VanillaMLP:
         """A new network with flax's init drawn from ``seed``, on the device."""
@@ -182,27 +207,24 @@ class ACTINN(BaseClassificationMethod):
 
 
 def actinn_preprocess(counts, gene_names: Sequence) -> Tuple[np.ndarray, np.ndarray]:
-    """The array form of ``ACTINN.preprocessing_pipeline`` (actinn.py:56-68)
-    on raw ``counts`` (cells x genes, numpy or scipy) named ``gene_names``:
-    ``normalize_total(target_sum=1e4)``, ``log1p(base=2)``, the genes
-    expressed in at least one cell, then the genes between the 1st and 99th
-    percentile of their sums, then of their coefficients of variation.
-    Returns the dense float32 features and the kept gene names, in
-    sorted-name order as the JAX filters leave them."""
+    """:meth:`ACTINN.preprocessing_pipeline` on raw ``counts`` (cells x
+    genes, numpy or scipy, taken as float32) named ``gene_names``, wrapped in
+    a ``Data``, for a caller that holds a matrix: ``normalize_total(1e4)``,
+    ``log1p(base=2)``, the genes expressed in at least one cell, then the
+    genes between the 1st and 99th percentile of their sums, then of their
+    coefficients of variation. Every step is host numpy, so the pipeline is
+    built for the CPU. Returns the dense float32 features and the kept gene
+    names, in sorted-name order as the JAX filters leave them."""
     x = sp.csr_matrix(counts, dtype=np.float32) if sp.issparse(counts) \
         else np.asarray(counts, np.float32)
     names = np.asarray(gene_names)
     if names.shape != (x.shape[1],):
         raise ValueError(f"{names.size} gene names for {x.shape[1]} genes")
-    x = log1p(normalize_total(x, target_sum=1e4), base=2)
-    keep, _ = filter_genes(x, min_cells=1)
-    keep = np.nonzero(keep)[0]
-    x = x[:, keep]
-    x = np.asarray(x.toarray() if sp.issparse(x) else x, np.float32)
-    names = names[keep]
-    for mode in ("sum", "cv"):
-        x, names = FilterGenesPercentile(1, 99, mode=mode)(x, names)
-    return x, names
+    data = Data(AnnData(x, var=Frame(index=names)))
+    ACTINN.preprocessing_pipeline(log_level="WARNING", device="cpu")(data)
+    x = data.data.X
+    return (np.asarray(x.toarray() if sp.issparse(x) else x, np.float32),
+            np.asarray(data.data.var_names))
 
 
 __all__ = ["ACTINN", "actinn_loss", "actinn_preprocess"]

@@ -16,8 +16,7 @@ Where this differs from the JAX package:
 - With ``val_ratio=0`` the JAX ``fit`` returns the untrained initial weights
   (``best_params`` is only replaced under ``if num_val:``, scdeepsort.py:178-195).
   Here ``fit`` keeps the last weights when there is no validation split.
-- ``fit_with_sampling``/``predict_sampled`` and the
-  Data-container ``preprocessing_pipeline`` are not ported yet (ROADMAP).
+- ``fit_with_sampling``/``predict_sampled`` are not ported yet (ROADMAP).
 - Weights are drawn from a ``torch.Generator`` seeded with ``seed``, not from
   ``jax.random``: the same seed gives other initial weights. Parity tests
   copy the flax weights in (:func:`dance_tpu_torch.utils.params.flax_to_torch`).
@@ -47,6 +46,8 @@ from dance_tpu_torch.ops.sparse import csr_from_scipy
 from dance_tpu_torch.parallel.mesh import RowShard, active_dp_mesh, sync_grads
 from dance_tpu_torch.parallel.sharded_graph import shard_csr
 from dance_tpu_torch.settings import logger
+from dance_tpu_torch.transforms.graph.cell_feature_graph import PCACellFeatureGraph
+from dance_tpu_torch.transforms.misc import Compose, SetConfig
 from dance_tpu_torch.utils import resolve_device
 
 
@@ -97,6 +98,20 @@ class ScDeepSort(BaseClassificationMethod):
         self.device = resolve_device(device)
         self.model: Optional[GNN] = None
         self.history: List[Dict[str, float]] = []  # per epoch: loss, val_acc, seconds
+
+    @staticmethod
+    def preprocessing_pipeline(n_components: int = 400, log_level: str = "INFO",
+                               device="auto") -> Compose:
+        """The gene PCA of the training cells and the weighted cell-gene
+        graph into ``uns["PCACellFeatureGraph"]``, labels from
+        ``obsm["cell_type"]`` (counterpart: scdeepsort.py:72). The PCA runs
+        on ``device``: the card unless the CPU is named."""
+        return Compose(
+            PCACellFeatureGraph(n_components=n_components, split_name="train",
+                                device=resolve_device(device)),
+            SetConfig({"label_channel": "cell_type"}),
+            log_level=log_level,
+        )
 
     def _device_graph(self, graph: Graph, fmt: str, bsr_block: int):
         """Adjacency (``fmt``: ``"bsr"``, ``"dense"`` or ``"csr"``), features,

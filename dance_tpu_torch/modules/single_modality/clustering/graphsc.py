@@ -24,8 +24,9 @@ Where this differs from the JAX package:
   ``dropout=0``.
 - ``fit`` records each epoch's loss and seconds (and ARI with
   ``eval_epoch``) in ``history``, and defines ``z`` after ``epochs=0`` too.
-- The Data-container ``preprocessing_pipeline`` is not ported yet (ROADMAP
-  Queue 1); :func:`graphsc_preprocess` is the pipeline's array core.
+- :func:`graphsc_preprocess` is the array front of
+  ``preprocessing_pipeline``: it runs the pipeline on a matrix wrapped in a
+  ``Data``.
 
 Under ``fit_distributed`` with ``dp > 1`` (CSR, as it defaults there) each
 rank keeps its block rows of the adjacency as a
@@ -51,6 +52,7 @@ import scipy.sparse as sp
 import torch
 from torch import nn
 
+from dance_tpu_torch.data import AnnData, Data
 from dance_tpu_torch.graph import Graph
 from dance_tpu_torch.modules.base import BaseClusteringMethod
 from dance_tpu_torch.nn.gnn import WeightedGraphConv, flax_dense_init_, flax_dropout
@@ -61,10 +63,10 @@ from dance_tpu_torch.ops.segment import AGGREGATIONS
 from dance_tpu_torch.ops.sparse import csr_from_scipy
 from dance_tpu_torch.parallel.mesh import RowShard, active_dp_mesh, sync_grads
 from dance_tpu_torch.parallel.sharded_graph import shard_csr
-from dance_tpu_torch.sc.pp import (filter_cells, filter_genes, highly_variable_genes, log1p,
-                                   normalize_total)
 from dance_tpu_torch.settings import logger
-from dance_tpu_torch.transforms.cell_feature import weighted_feature_pca
+from dance_tpu_torch.transforms.graph.cell_feature_graph import PCACellFeatureGraph
+from dance_tpu_torch.transforms.interface import AnnDataTransform
+from dance_tpu_torch.transforms.misc import Compose, SetConfig
 from dance_tpu_torch.utils import ari, resolve_device
 from dance_tpu_torch.utils.loss import binary_ce_logits
 
@@ -157,6 +159,41 @@ class GraphSC(BaseClusteringMethod):
         self.model: Optional[GCNAE] = None
         self.z: Optional[np.ndarray] = None
         self.history: List[Dict[str, float]] = []  # per epoch: epoch, loss, seconds (ari)
+
+    @staticmethod
+    def preprocessing_pipeline(n_top_genes: int = 3000, normalize_weights: str = "log_per_cell",
+                               n_components: int = 50, normalize_edges: bool = False,
+                               log_level: str = "INFO", device="auto") -> Compose:
+        """graph-sc's preprocessing of a ``Data`` (:func:`graphsc_preprocess`
+        runs it on a matrix): the filters, normalisation and cell_ranger
+        HVGs, the standardized gene PCA (on ``device``: the card unless the
+        CPU is named) and the cell-gene graph into ``uns["CellFeatureGraph"]``,
+        labels from ``obsm["Group"]`` (counterpart: graphsc.py:80-108)."""
+        device = resolve_device(device)
+        transforms = [
+            AnnDataTransform("sc.pp.filter_genes", min_counts=3),
+            AnnDataTransform("sc.pp.filter_cells", min_counts=1),
+            AnnDataTransform("sc.pp.normalize_total"),
+            AnnDataTransform("sc.pp.log1p"),
+            AnnDataTransform("sc.pp.highly_variable_genes", min_mean=0.0125, max_mean=4,
+                             flavor="cell_ranger", min_disp=0.5,
+                             n_top_genes=n_top_genes, subset=True),
+        ]
+        if normalize_weights == "log_per_cell":
+            transforms.extend([AnnDataTransform("sc.pp.log1p"),
+                               AnnDataTransform("sc.pp.normalize_total", target_sum=1)])
+        elif normalize_weights == "per_cell":
+            transforms.append(AnnDataTransform("sc.pp.normalize_total", target_sum=1))
+        elif normalize_weights != "none":
+            raise ValueError(f"Unknown normalization option {normalize_weights!r}")
+        transforms.extend([
+            PCACellFeatureGraph(n_components=n_components, normalize_edges=normalize_edges,
+                                feat_norm_mode="standardize", out="CellFeatureGraph",
+                                device=device),
+            SetConfig({"feature_channel": "CellFeatureGraph",
+                       "feature_channel_type": "uns", "label_channel": "Group"}),
+        ])
+        return Compose(*transforms, log_level=log_level)
 
     def _fit_inputs(self, g: Graph, fmt: str, bsr_block: int):
         """Adjacency, features, dense reconstruction target, its BCE weights
@@ -341,37 +378,24 @@ def run_leiden(embeddings, n_neighbors: int = 15, resolution: float = 1.0,
 def graphsc_preprocess(counts, *, n_top_genes: int = 3000,
                        normalize_weights: str = "log_per_cell", n_components: int = 50,
                        normalize_edges: bool = False, device="auto"):
-    """Array counterpart of ``GraphSC.preprocessing_pipeline`` (graphsc.py:79-108)
-    on raw ``counts`` (cells x genes, numpy or scipy): genes with fewer than 3
-    counts and cells without counts are dropped; ``normalize_total`` and
-    ``log1p``; the ``n_top_genes`` cell_ranger HVGs kept; then ``log1p`` and
+    """:meth:`GraphSC.preprocessing_pipeline` on raw ``counts`` (cells x
+    genes, numpy or scipy, taken as float32) wrapped in a ``Data``, for a
+    caller that holds a matrix: genes with fewer than 3 counts and cells
+    without counts are dropped; ``normalize_total`` and ``log1p``; the
+    ``n_top_genes`` cell_ranger HVGs kept; then ``log1p`` and
     ``normalize_total(target_sum=1)`` (``"log_per_cell"``; ``"per_cell"``
     only the latter; ``"none"`` neither); gene PCA of the standardized
     matrix and expression-weighted cell features (on ``device``); the
     cell-gene graph of the result. Returns ``(graph, cells)``, ``cells`` the
-    indices of the kept cells, so that labels can follow them."""
-    if normalize_weights not in ("log_per_cell", "per_cell", "none"):
-        raise ValueError(f"Unknown normalization option {normalize_weights!r}")
-    device = resolve_device(device)
+    indices of the kept cells (read from their names), so that labels can
+    follow them."""
     x = sp.csr_matrix(counts, dtype=np.float32) if sp.issparse(counts) \
         else np.asarray(counts, np.float32)
-    genes, _ = filter_genes(x, min_counts=3)
-    x = x[:, np.nonzero(genes)[0]]
-    cells, _ = filter_cells(x, min_counts=1)
-    x = x[np.nonzero(cells)[0]]
-    x = log1p(normalize_total(x))
-    hv = highly_variable_genes(x, flavor="cell_ranger", n_top_genes=n_top_genes,
-                               min_mean=0.0125, max_mean=4, min_disp=0.5)["highly_variable"]
-    x = x[:, np.nonzero(hv)[0]]
-    if normalize_weights == "log_per_cell":
-        x = log1p(x)
-    if normalize_weights != "none":
-        x = normalize_total(x, target_sum=1)
-    cell_feat, gene_feat = weighted_feature_pca(x, x, n_components,
-                                                feat_norm_mode="standardize", device=device)
-    graph = Graph.from_cell_feature_matrix(x, cell_feat, gene_feat,
-                                           normalize_edges=normalize_edges)
-    return graph, np.nonzero(cells)[0]
+    data = Data(AnnData(x))
+    GraphSC.preprocessing_pipeline(n_top_genes=n_top_genes, normalize_weights=normalize_weights,
+                                   n_components=n_components, normalize_edges=normalize_edges,
+                                   log_level="WARNING", device=device)(data)
+    return data.data.uns["CellFeatureGraph"], np.asarray(data.data.obs_names).astype(np.int64)
 
 
 __all__ = ["GCNAE", "GraphSC", "InnerProductDecoder", "graphsc_preprocess", "run_leiden"]

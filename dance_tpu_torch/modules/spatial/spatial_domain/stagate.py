@@ -25,8 +25,9 @@ Where this differs from the JAX package:
 - Weights are drawn from a ``torch.Generator`` seeded with ``seed``, not from
   ``jax.random``; parity tests copy the flax weights in
   (:func:`dance_tpu_torch.utils.params.stagate_flax_to_torch`).
-- The Data-container ``preprocessing_pipeline`` is not ported (ROADMAP
-  Queue 1 item 11); :func:`stagate_preprocess` is its array counterpart.
+- :func:`stagate_preprocess` is the array front of
+  ``preprocessing_pipeline``: it runs the pipeline on a matrix and
+  coordinates wrapped in a ``Data``.
 
 ``Stagate`` takes ``pretrain_path`` and the ``BasePretrain`` mixin, as the
 JAX class does (stagate.py:90-99); as there, ``fit`` does not pretrain.
@@ -40,15 +41,17 @@ import scipy.sparse as sp
 import torch
 from torch import nn
 
+from dance_tpu_torch.data import AnnData, Data
 from dance_tpu_torch.modules.base import BaseClusteringMethod, BasePretrain
 from dance_tpu_torch.ops.bsr import (BSRMatrix, bsr_from_scipy, bsr_gat_ad, rcm_reorder,
                                      resolve_use_bsr, unpermute)
 from dance_tpu_torch.ops.cluster import kmeans
 from dance_tpu_torch.ops.segment import aggregate, edge_softmax, gather_src
 from dance_tpu_torch.ops.sparse import csr_from_scipy
-from dance_tpu_torch.sc.pp import highly_variable_genes, log1p, normalize_total
 from dance_tpu_torch.settings import logger
-from dance_tpu_torch.transforms.graph import stagate_graph
+from dance_tpu_torch.transforms.graph import StagateGraph
+from dance_tpu_torch.transforms.interface import AnnDataTransform
+from dance_tpu_torch.transforms.misc import Compose, SetConfig
 from dance_tpu_torch.utils import resolve_device
 from dance_tpu_torch.utils.optim import clip_by_global_norm_
 
@@ -127,6 +130,30 @@ class Stagate(BasePretrain, BaseClusteringMethod):
         self.net.to(self.device)
         self.history: List[Dict[str, float]] = []  # per epoch: epoch, loss, seconds
 
+    @staticmethod
+    def preprocessing_pipeline(n_top_genes: int = 3000, model_name: str = "radius",
+                               radius: float = 150, n_neighbors: int = 5, log_level: str = "INFO",
+                               device="auto") -> Compose:
+        """STAGATE's preprocessing of a ``Data`` (:func:`stagate_preprocess`
+        runs it on arrays): seurat_v3 HVGs of the raw counts,
+        ``normalize_total(1e4)``, ``log1p``, the spatial graph of
+        ``obsm["spatial_pixel"]`` into ``obsp["StagateGraph"]``; features
+        ``[X, obsp["StagateGraph"]]``, labels ``obs["label"]`` (counterpart:
+        stagate.py:105). Every step is host work; ``device`` is only checked
+        (the card unless the CPU is named), as for every entry point."""
+        resolve_device(device)
+        return Compose(
+            AnnDataTransform("sc.pp.highly_variable_genes", flavor="seurat_v3",
+                             n_top_genes=n_top_genes, subset=True),
+            AnnDataTransform("sc.pp.normalize_total", target_sum=1e4),
+            AnnDataTransform("sc.pp.log1p"),
+            StagateGraph(model_name, radius=radius, n_neighbors=n_neighbors),
+            SetConfig({"feature_channel": [None, "StagateGraph"],
+                       "feature_channel_type": ["X", "obsp"],
+                       "label_channel": "label", "label_channel_type": "obs"}),
+            log_level=log_level,
+        )
+
     def fit(self, inputs, y=None, *, epochs: int = 500, lr: float = 1e-3,
             gradient_clipping: float = 5.0, weight_decay: float = 1e-4, n_clusters: int = 7,
             use_bsr="auto", bsr_block: int = 128):
@@ -180,16 +207,22 @@ class Stagate(BasePretrain, BaseClusteringMethod):
 
 def stagate_preprocess(counts, xy, *, n_top_genes: int = 3000, model_name: str = "radius",
                        radius: float = 150, n_neighbors: int = 5):
-    """Array counterpart of ``Stagate.preprocessing_pipeline`` (stagate.py:104):
-    seurat_v3 HVGs of the raw ``counts`` (spots x genes) kept, then
+    """:meth:`Stagate.preprocessing_pipeline` on raw ``counts`` (spots x
+    genes) and their coordinates ``xy`` wrapped in a ``Data``, for a caller
+    that holds arrays: seurat_v3 HVGs of the counts kept, then
     ``normalize_total(1e4)`` and ``log1p``, and the spatial graph of ``xy``.
-    Returns ``(x, adj)``: dense float32 features and a scipy CSR graph, the
-    input of :meth:`Stagate.fit`."""
-    hv = highly_variable_genes(counts, flavor="seurat_v3", n_top_genes=n_top_genes)
-    x = counts[:, np.nonzero(hv["highly_variable"])[0]]
-    x = log1p(normalize_total(x, target_sum=1e4))
+    Every step is host numpy, so the pipeline is built for the CPU. Returns
+    ``(x, adj)``: dense float32 features and the scipy CSR graph, the input
+    of :meth:`Stagate.fit`."""
+    adata = AnnData(counts)
+    adata.obsm["spatial_pixel"] = np.asarray(xy)
+    data = Data(adata)
+    Stagate.preprocessing_pipeline(n_top_genes=n_top_genes, model_name=model_name,
+                                   radius=radius, n_neighbors=n_neighbors, log_level="WARNING",
+                                   device="cpu")(data)
+    x = data.data.X
     x = np.asarray(x.toarray() if sp.issparse(x) else x, np.float32)
-    return x, stagate_graph(xy, model_name, radius=radius, n_neighbors=n_neighbors)
+    return x, data.data.obsp["StagateGraph"]
 
 
 __all__ = ["Stagate", "StagateNet", "stagate_preprocess"]

@@ -83,10 +83,11 @@ def filter_genes(x, *, min_counts: Optional[int] = None, min_cells: Optional[int
     return metric <= max_cells, metric
 
 
-def normalize_total(x, *, target_sum: Optional[float] = None,
-                    exclude_highly_expressed: bool = False, max_fraction: float = 0.05):
-    """Scale each cell to ``target_sum`` counts (the median of the cell totals
-    when None); float32, sparse stays sparse (counterpart: pp.py:118)."""
+def size_factors(x, *, target_sum: Optional[float] = None,
+                 exclude_highly_expressed: bool = False,
+                 max_fraction: float = 0.05) -> Tuple[np.ndarray, float]:
+    """:func:`normalize_total`'s cell totals and the total it scales them to:
+    ``(counts, tsum)``; ``counts / tsum`` is JAX's ``obs[key_added]``."""
     counts = _row_sums(x)
     if exclude_highly_expressed:
         # genes taking > max_fraction of any cell's counts are left out of the
@@ -100,7 +101,16 @@ def normalize_total(x, *, target_sum: Optional[float] = None,
             hi = (frac > max_fraction).any(axis=0)
             counts = _row_sums(x[:, ~hi])
         logger.info("normalize_total excluded %d highly-expressed genes", int(hi.sum()))
-    tsum = np.median(counts[counts > 0]) if target_sum is None else target_sum
+    return counts, (np.median(counts[counts > 0]) if target_sum is None else target_sum)
+
+
+def normalize_total(x, *, target_sum: Optional[float] = None,
+                    exclude_highly_expressed: bool = False, max_fraction: float = 0.05):
+    """Scale each cell to ``target_sum`` counts (the median of the cell totals
+    when None); float32, sparse stays sparse (counterpart: pp.py:118)."""
+    counts, tsum = size_factors(x, target_sum=target_sum,
+                                exclude_highly_expressed=exclude_highly_expressed,
+                                max_fraction=max_fraction)
     scale = np.divide(tsum, counts, out=np.ones_like(counts, dtype=np.float64),
                       where=counts > 0)
     if sp.issparse(x):
@@ -653,4 +663,4 @@ def subsample(x, *, fraction: Optional[float] = None, n_obs: Optional[int] = Non
 __all__ = ["calculate_qc_metrics", "combat", "filter_cells", "filter_genes",
            "highly_variable_genes", "log1p", "neighbors", "normalize_per_cell", "normalize_total",
            "normalized_counts", "pca", "regress_out", "scale", "scrublet", "scrublet_pairs",
-           "subsample"]
+           "size_factors", "subsample"]

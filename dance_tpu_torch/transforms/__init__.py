@@ -1,5 +1,8 @@
-"""Preprocessing on arrays (counterpart: dance_tpu/transforms/__init__.py)."""
+"""Preprocessing on arrays, and the container transforms (``BaseTransform``,
+``Compose``, ``SetConfig``, ``AnnDataTransform``, ...) that the model
+pipelines run (counterpart: dance_tpu/transforms/__init__.py)."""
 
+from dance_tpu_torch.transforms.base import AnnDataAdaptor, BaseTransform
 from dance_tpu_torch.transforms.cell_feature import (BatchFeature, CellPCA, CellSparsePCA, CellSVD,
                                                      FeatureCellPlaceHolder, GaussRandProjFeature,
                                                      WeightedFeaturePCA, WeightedFeatureSVD,
@@ -19,10 +22,15 @@ from dance_tpu_torch.transforms.filter import (FilterCellsCommonMod, FilterCells
                                                HighlyVariableGenesRawCount, ScrubletTransform,
                                                get_count)
 from dance_tpu_torch.transforms.gene_holdout import GeneHoldout
-from dance_tpu_torch.transforms.graph import (RESEPTGraph, dstg_link_graph, feature_feature_graph,
+from dance_tpu_torch.transforms.graph import (CellFeatureBipartiteGraph, CellFeatureGraph,
+                                              PCACellFeatureGraph, RESEPTGraph, StagateGraph,
+                                              dstg_link_graph, feature_feature_graph,
                                               heteronet_graph, neighbor_graph, sme_graph,
                                               spagcn_graph, spagcn_graph_2d, stagate_graph)
+from dance_tpu_torch.transforms.interface import AnnDataTransform
 from dance_tpu_torch.transforms.mask import CellwiseMaskData, MaskData
+from dance_tpu_torch.transforms.misc import (AlignMod, Compose, RemoveSplit, SaveRaw, SetConfig,
+                                             UpdateRaw)
 from dance_tpu_torch.transforms.normalize import (ColumnSumNormalize, Log1P, NormalizePlaceHolder,
                                                   NormalizeTotal, NormalizeTotalLog1P,
                                                   ScTransform, ScTransformR, UpdateSizeFactors,
@@ -38,7 +46,10 @@ from dance_tpu_torch.transforms.scn_feature import SCNFeature
 from dance_tpu_torch.transforms.spatial_feature import morphology_feature_cnn, sme_feature
 from dance_tpu_torch.transforms.stats import GeneStats
 
-__all__ = ["BatchFeature", "CellGiottoTopicProfile", "CellPCA", "CellSVD", "CellSparsePCA",
+__all__ = ["AlignMod", "AnnDataAdaptor", "AnnDataTransform", "BaseTransform", "BatchFeature",
+           "CellFeatureBipartiteGraph", "CellFeatureGraph", "CellGiottoTopicProfile", "CellPCA",
+           "CellSVD", "CellSparsePCA", "Compose", "PCACellFeatureGraph", "RemoveSplit", "SaveRaw",
+           "SetConfig", "StagateGraph", "UpdateRaw",
            "CellTopicProfile", "CellTypeNums", "CellwiseMaskData", "ColumnSumNormalize",
            "FeatureCellPlaceHolder", "FilterCellTransform", "FilterCellsCommonMod",
            "FilterCellsPlaceHolder", "FilterCellsScanpy", "FilterCellsScanpyOrder",

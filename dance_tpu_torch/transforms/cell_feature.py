@@ -7,15 +7,16 @@ dance_tpu/transforms/cell_feature.py, ``WeightedFeaturePCA`` :28-67,
 ``CellSVD`` :193-221, ``FeatureCellPlaceHolder`` :224, ``BatchFeature``
 :241-278, ``GaussRandProjFeature`` :281-301).
 
-The JAX transforms read and write a ``Data`` container and register
-themselves in ``dance_tpu.registry``. The port works on arrays and registers
-nothing, so its names cannot collide with the JAX registry in a process
-that imports both packages: each class's ``__call__`` takes the cells x
-features matrix (and the batch labels where JAX reads ``obs["batch"]``) and
-returns what JAX writes to ``obsm``/``varm``. With ``save_info`` the
-components JAX writes to ``uns`` are kept in the instance's ``info``. The
-matrix work runs on ``device`` (the CUDA card unless the CPU is named); the
-batch statistics (percentiles) are host numpy, as in JAX.
+The JAX transforms read and write a ``Data`` container. Here each class's
+``__call__`` takes the cells x features matrix (and the batch labels where
+JAX reads ``obs["batch"]``) and returns what JAX writes to ``obsm``/``varm``;
+with ``save_info`` the components JAX writes to ``uns`` are kept in the
+instance's ``info``. :class:`WeightedFeaturePCA`, which the container
+pipelines run, also takes a port ``Data`` and then acts on it as JAX's does
+(``split_name``, ``obsm``/``varm[out]``, ``uns`` under ``save_info``, a
+modality by ``mod``); it is registered under JAX's key in the port's own
+registry. The matrix work runs on ``device`` (the CUDA card unless the CPU
+is named); the batch statistics (percentiles) are host numpy, as in JAX.
 
 Where this differs from the JAX package: the randomized SVD (above 1,024 on
 both sides) and the Gaussian projection draw from torch generators, not
@@ -29,8 +30,11 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from dance_tpu_torch.data.base import BaseData
 from dance_tpu_torch.ops.linalg import gram_schmidt_gauss_proj, pca, randomized_svd, svd_embedding
+from dance_tpu_torch.registry import register_preprocessor
 from dance_tpu_torch.settings import logger
+from dance_tpu_torch.transforms.base import BaseTransform
 from dance_tpu_torch.utils import resolve_device
 from dance_tpu_torch.utils.matrix import normalize
 
@@ -87,30 +91,46 @@ def _evr_components(feat: torch.Tensor, target_ratio: float) -> int:
     return int((evr < target_ratio).sum()) + 1
 
 
-class WeightedFeaturePCA:
+@register_preprocessor("feature", "cell")
+class WeightedFeaturePCA(BaseTransform):
     """:func:`weighted_feature_pca` as JAX's transform (counterpart:
-    cell_feature.py:28): ``__call__(x_split, x_all=None)`` returns
-    ``(cell_feat, gene_feat)``, ``x_all`` defaulting to ``x_split``. With
-    ``save_info``, ``info`` holds the gene PCA's components, mean and
-    explained variance."""
+    cell_feature.py:28). On arrays, ``__call__(x_split, x_all=None)``
+    returns ``(cell_feat, gene_feat)``, ``x_all`` defaulting to ``x_split``;
+    with ``save_info``, ``info`` holds the gene PCA's components, mean and
+    explained variance. On a ``Data``, the PCA is of ``get_x(split_name)``
+    and the cells are ``get_x()``; the features go to ``obsm[out]`` and
+    ``varm[out]``, and with ``save_info`` the components to ``uns``."""
 
-    def __init__(self, n_components: Union[float, int] = 400,
+    _DISPLAY_ATTRS = ("n_components", "split_name", "feat_norm_mode", "feat_norm_axis")
+
+    def __init__(self, n_components: Union[float, int] = 400, split_name: Optional[str] = None,
                  feat_norm_mode: Optional[str] = None, feat_norm_axis: int = 0,
-                 save_info: bool = False, device="auto"):
+                 save_info: bool = False, device="auto", **kwargs):
+        super().__init__(**kwargs)
         self.n_components = n_components
+        self.split_name = split_name
         self.feat_norm_mode = feat_norm_mode
         self.feat_norm_axis = feat_norm_axis
         self.save_info = save_info
         self.device = device
         self.info: Dict[str, np.ndarray] = {}
 
-    def __call__(self, x_split, x_all=None) -> Tuple[np.ndarray, np.ndarray]:
+    def __call__(self, x_split, x_all=None):
+        if isinstance(x_split, BaseData):
+            data = x_split
+            cell_feat, gene_feat = self._features(data.get_x(self.split_name), data.get_x())
+            data.data.obsm[self.out] = cell_feat
+            data.data.varm[self.out] = gene_feat
+            data.data.uns.update(self.info)
+            return data
+        return self._features(x_split, x_split if x_all is None else x_all)
+
+    def _features(self, x_split, x_all) -> Tuple[np.ndarray, np.ndarray]:
         device = resolve_device(self.device)
         feat = _dense(x_split, device)
         if self.feat_norm_mode is not None:
             feat = normalize(feat, mode=self.feat_norm_mode, axis=self.feat_norm_axis)
         res = pca(feat.T, _resolve_k(self.n_components, feat.shape))
-        x_all = x_split if x_all is None else x_all
         cell_feat = normalize(_dense(x_all, device), mode="normalize", axis=1) @ res.embedding
         if self.save_info:
             self.info = {"pca_components": res.components.cpu().numpy(),

@@ -19,7 +19,9 @@ JAX reads them) and returns the masks or indices of what is kept and the
 columns JAX writes. The summary filters return the kept genes in
 **sorted-name order**, as the JAX transform does: it subsets its container
 by ``sorted(selected names)`` (filter.py:291-297), so "g10" comes before
-"g2". They take the gene names beside the matrix for that reason.
+"g2". They take the gene names beside the matrix for that reason. Handed
+a port ``Data`` instead, they act on it as JAX's do, and they are
+registered under JAX's keys in the port's own registry.
 
 A gene is a marker of a type when its log fold change against the mean of
 the other types' profiles passes ``threshold``; the filter keeps the genes
@@ -39,7 +41,10 @@ import scipy.sparse as sp
 import torch
 from scipy.stats import median_abs_deviation, rankdata
 
+from dance_tpu_torch.data.base import BaseData
+from dance_tpu_torch.registry import register_preprocessor
 from dance_tpu_torch.settings import logger
+from dance_tpu_torch.transforms.base import BaseTransform
 from dance_tpu_torch.utils import resolve_device
 
 
@@ -294,18 +299,28 @@ class FilterGenesCommon:
 GENE_SUMMARY_MODES = ("sum", "var", "cv", "rv")
 
 
-class FilterGenes:
+class FilterGenes(BaseTransform):
     """A gene filter on a per-gene summary statistic of a cells x genes
     matrix (counterpart: filter.py:241). ``mode`` is ``"sum"``, ``"var"``
     (the biased ``E[x²] - E[x]²``), ``"cv"`` (``sqrt(max(var, 0)) / mean``)
     or ``"rv"`` (``var / mean``), non-finite ratios read as 0, in the
     matrix's dtype as numpy computes them. ``__call__(x, gene_names)``
-    returns the kept columns and names in sorted-name order."""
+    returns the kept columns and names in sorted-name order. ``__call__``
+    on a port ``Data`` is JAX's with its default channel: the summary of
+    ``X``, ``var["n_counts"]``/``var["n_cells"]`` with
+    ``add_n_counts``/``add_n_cells``, ``uns["gene_summary"]``, then the
+    container cut to the kept genes in sorted-name order. JAX's ``layers``
+    channel, ``whitelist_indicators``, ``inplace=False`` and ``mod`` have
+    no port: no ported pipeline sets them."""
 
-    def __init__(self, *, mode: str = "sum"):
+    def __init__(self, *, mode: str = "sum", add_n_counts: bool = True,
+                 add_n_cells: bool = True, **kwargs):
+        super().__init__(**kwargs)
         if mode not in GENE_SUMMARY_MODES:
             raise ValueError(f"Unknown summarization mode {mode!r}")
         self.mode = mode
+        self.add_n_counts = add_n_counts
+        self.add_n_cells = add_n_cells
 
     def _get_preserve_mask(self, gene_summary: np.ndarray) -> np.ndarray:
         raise NotImplementedError
@@ -334,19 +349,38 @@ class FilterGenes:
         logger.info("%d genes removed", names.size - kept.size)
         return kept[sorted(range(kept.size), key=lambda i: names[kept[i]])]
 
-    def __call__(self, x, gene_names: Sequence) -> Tuple[np.ndarray, np.ndarray]:
+    def __call__(self, x, gene_names: Sequence = None):
+        if isinstance(x, BaseData):
+            return self._filter_data(x)
         idx = self.select(x, gene_names)
         return np.asarray(x)[:, idx], np.asarray(gene_names)[idx]
 
+    def _filter_data(self, data):
+        """Counterpart: filter.py:279-303."""
+        x = data.get_feature(return_type="numpy", channel_type="X")
+        if self.add_n_counts:
+            data.data.var["n_counts"] = np.asarray(x.sum(0)).ravel()
+        if self.add_n_cells:
+            data.data.var["n_cells"] = np.asarray((x > 0).sum(0)).ravel()
+        gene_summary = self.summarize(x)
+        mask = self._get_preserve_mask(gene_summary)
+        selected = np.asarray(sorted(set(np.asarray(data.data.var_names)[mask])), dtype=object)
+        data.data.uns["gene_summary"] = gene_summary
+        self.logger.info("%d genes removed", data.shape[1] - len(selected))
+        data.data._inplace_subset_var(selected)
+        return data
 
+
+@register_preprocessor("filter", "gene")
 class FilterGenesPercentile(FilterGenes):
     """Keep the genes whose summary lies between its ``min_val`` and
     ``max_val`` percentiles, both bounds included (counterpart:
     filter.py:306)."""
 
-    def __init__(self, min_val: Optional[float] = 1, max_val: Optional[float] = 99, *,
-                 mode: str = "sum"):
-        super().__init__(mode=mode)
+    _DISPLAY_ATTRS = ("min_val", "max_val", "mode")
+
+    def __init__(self, min_val: Optional[float] = 1, max_val: Optional[float] = 99, **kwargs):
+        super().__init__(**kwargs)
         self.min_val = min_val
         self.max_val = max_val
 
@@ -356,13 +390,19 @@ class FilterGenesPercentile(FilterGenes):
         return (gene_summary >= lo) & (gene_summary <= hi)
 
 
+@register_preprocessor("filter", "gene")
 class FilterGenesTopK(FilterGenes):
     """Keep the ``num_genes`` genes of the largest summary (``top``) or the
     smallest (counterpart: filter.py:327). Ties are broken as numpy's default
-    ``argsort`` breaks them, which is the JAX transform's call."""
+    ``argsort`` breaks them, which is the JAX transform's call. On a
+    ``Data`` it writes no ``var`` counts unless asked, as in JAX."""
 
-    def __init__(self, num_genes: int = 1000, top: bool = True, *, mode: str = "cv"):
-        super().__init__(mode=mode)
+    _DISPLAY_ATTRS = ("num_genes", "top", "mode")
+
+    def __init__(self, num_genes: int = 1000, top: bool = True, *, mode: str = "cv",
+                 add_n_counts: bool = False, add_n_cells: bool = False, **kwargs):
+        super().__init__(mode=mode, add_n_counts=add_n_counts, add_n_cells=add_n_cells,
+                         **kwargs)
         self.num_genes = num_genes
         self.top = top
 

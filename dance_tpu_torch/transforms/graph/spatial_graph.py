@@ -3,8 +3,10 @@
 dance_tpu/transforms/graph/spatial_graph.py:13-148).
 
 The JAX transforms read coordinates, images and features from a ``Data``
-container and write the graph into ``obsp``; the port takes the arrays and
-returns the graph, and registers nothing (see transforms/cell_feature.py).
+container and write the graph into ``obsp``; the port's functions take the
+arrays and return the graph. :class:`StagateGraph`, which STAGATE's
+container pipeline runs, is also JAX's transform on a port ``Data``,
+registered under JAX's key in the port's own registry.
 The dense matrices are returned as numpy; the distances are
 :func:`~dance_tpu_torch.utils.matrix.pairwise_distance`'s, computed on
 ``device`` (the card unless the caller names the CPU).
@@ -14,6 +16,8 @@ import numpy as np
 import scipy.sparse as sp
 
 from dance_tpu_torch.ops.neighbors import knn_graph, radius_graph
+from dance_tpu_torch.registry import register_preprocessor
+from dance_tpu_torch.transforms.base import BaseTransform
 from dance_tpu_torch.utils import resolve_device
 from dance_tpu_torch.utils.matrix import pairwise_distance
 
@@ -31,6 +35,33 @@ def stagate_graph(xy, model_name: str = "radius", *, radius: float = 1,
         return sp.csr_matrix(radius_graph(xy, radius))
     return sp.csr_matrix(knn_graph(xy, n_neighbors, mode="connectivity", include_self=True,
                                    symmetrize=False))
+
+
+@register_preprocessor("graph", "spatial")
+class StagateGraph(BaseTransform):
+    """:func:`stagate_graph` of the coordinates in ``channel`` (of
+    ``channel_type``) into ``obsp[out]`` as scipy CSR (counterpart:
+    ``StagateGraph``, spatial_graph.py:120)."""
+
+    _DISPLAY_ATTRS = ("model_name", "radius", "n_neighbors")
+
+    def __init__(self, model_name: str = "radius", *, radius: float = 1, n_neighbors: int = 5,
+                 channel: str = "spatial_pixel", channel_type: str = "obsm", **kwargs):
+        super().__init__(**kwargs)
+        if not isinstance(model_name, str) or model_name.lower() not in _MODELS:
+            raise ValueError(f"Unknown model {model_name!r}, options: {_MODELS}")
+        self.model_name = model_name.lower()
+        self.radius = radius
+        self.n_neighbors = n_neighbors
+        self.channel = channel
+        self.channel_type = channel_type
+
+    def __call__(self, data):
+        xy = data.get_feature(return_type="numpy", channel=self.channel,
+                              channel_type=self.channel_type)
+        data.data.obsp[self.out] = stagate_graph(xy, self.model_name, radius=self.radius,
+                                                 n_neighbors=self.n_neighbors)
+        return data
 
 
 def spagcn_graph(xy, xy_pixel, image, alpha: float, beta: int, *, device="auto") -> np.ndarray:
@@ -89,4 +120,4 @@ def sme_graph(xy, xy_pixel, morph, gene, radius: float = 3, *, device="auto") ->
     return adj
 
 
-__all__ = ["sme_graph", "spagcn_graph", "spagcn_graph_2d", "stagate_graph"]
+__all__ = ["StagateGraph", "sme_graph", "spagcn_graph", "spagcn_graph_2d", "stagate_graph"]

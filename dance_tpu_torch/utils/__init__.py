@@ -13,8 +13,10 @@ scikit-learn for these; the port computes the same formulas in numpy.
 ``nmi`` takes sklearn's ``average_method``. The matching evaluator and the
 scIB suite are in :mod:`.metrics` and :mod:`.scib_metrics`.
 :class:`EpochClock` has no counterpart: the JAX package times whole scans.
+``hexdigest``, ``default`` and ``is_numeric`` are JAX's (utils/__init__.py:40-55).
 """
 
+import hashlib
 import random
 import time
 from typing import List, Union
@@ -31,6 +33,23 @@ def set_seed(seed: int):
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
+
+
+def hexdigest(x: str, /) -> str:
+    """The md5 hex digest of ``x`` (the key of a transform's cached output)."""
+    return hashlib.md5(x.encode()).hexdigest()
+
+
+def default(value, default_value):
+    return default_value if value is None else value
+
+
+def is_numeric(s) -> bool:
+    try:
+        float(s)
+        return True
+    except (TypeError, ValueError):
+        return False
 
 
 def as_numpy(x) -> np.ndarray:
@@ -260,6 +279,6 @@ class EpochClock:
         return [a.elapsed_time(b) / 1e3 for a, b in zip(self.marks[:-1], self.marks[1:])]
 
 
-__all__ = ["EpochClock", "acc", "ari", "as_numpy", "average_precision",
-           "labeled_clustering_evaluate", "mape", "mse", "nmi", "ood_measures", "resolve_device",
-           "rmse", "roc_auc", "set_seed"]
+__all__ = ["EpochClock", "acc", "ari", "as_numpy", "average_precision", "default", "hexdigest",
+           "is_numeric", "labeled_clustering_evaluate", "mape", "mse", "nmi", "ood_measures",
+           "resolve_device", "rmse", "roc_auc", "set_seed"]

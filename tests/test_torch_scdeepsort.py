@@ -410,7 +410,16 @@ def test_port_imports_no_jax():
         "        'dance_tpu_torch.modules.spatial.cell_type_deconvo.spotlight',\n"
         "        'dance_tpu_torch.modules.spatial.cell_type_deconvo.spatialdecon',\n"
         "        'dance_tpu_torch.modules.spatial.cell_type_deconvo.card',\n"
-        "        'dance_tpu_torch.sc.pp', 'dance_tpu_torch.sc.tl'} <= set(names)\n"
+        "        'dance_tpu_torch.sc.pp', 'dance_tpu_torch.sc.tl',\n"
+        "        'dance_tpu_torch.data', 'dance_tpu_torch.data.container',\n"
+        "        'dance_tpu_torch.data.base', 'dance_tpu_torch.data.io',\n"
+        "        'dance_tpu_torch.registry', 'dance_tpu_torch.config',\n"
+        "        'dance_tpu_torch.transforms.base', 'dance_tpu_torch.transforms.misc',\n"
+        "        'dance_tpu_torch.transforms.interface',\n"
+        "        'dance_tpu_torch.transforms.graph.cell_feature_graph',\n"
+        "        'dance_tpu_torch.datasets', 'dance_tpu_torch.datasets.synthetic',\n"
+        "        'dance_tpu_torch.datasets.singlemodality',\n"
+        "        'dance_tpu_torch.utils.wrappers', 'dance_tpu_torch.utils.status'} <= set(names)\n"
         "from dance_tpu_torch.modules.multi_modality.predict_modality import (\n"
         "    BabelWrapper, CMAE, MMVAE, ScMoGCNWrapper)\n"
         "from dance_tpu_torch.modules.multi_modality.match_modality import CMAE, MMVAE\n"
