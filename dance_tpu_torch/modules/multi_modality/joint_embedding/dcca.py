@@ -39,6 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from dance_tpu_torch.modules.multi_modality.configs import joint_embedding_config
 from dance_tpu_torch.modules.base import BaseRegressionMethod
 from dance_tpu_torch.nn.mlp import DropoutMLP, inverted_dropout
 from dance_tpu_torch.nn.vae import reset_linears
@@ -163,6 +164,13 @@ class DCCA(BaseRegressionMethod):
     the card."""
 
     _DISPLAY_ATTRS = ("z_dim", "cycle", "type_1", "type_2")
+
+    @staticmethod
+    def preprocessing_pipeline(log_level: str = "INFO"):
+        """The ``SetConfig`` of a ``MuData`` of ``mod1`` and ``mod2``: both
+        modalities' ``X`` the features, mod1's ``obs["cell_type"]`` the labels
+        (counterpart: dcca.py:165)."""
+        return joint_embedding_config(log_level)
 
     def __init__(self, layer_e_1=(128,), hidden1_1: int = 128, Zdim_1: int = 16,
                  layer_d_1=(128,), hidden2_1: int = 128, layer_e_2=(128,),

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dance_tpu_torch.modules.multi_modality.configs import joint_embedding_config
 from dance_tpu_torch.modules.base import BaseRegressionMethod
 from dance_tpu_torch.nn.gnn import flax_dense_init_
 from dance_tpu_torch.nn.mlp import FullBatchNorm, inverted_dropout
@@ -106,6 +107,13 @@ class JAEWrapper(BaseRegressionMethod):
     as in JAX. ``device="auto"`` is the card."""
 
     _DISPLAY_ATTRS = ("z_dim",)
+
+    @staticmethod
+    def preprocessing_pipeline(log_level: str = "INFO"):
+        """The ``SetConfig`` of a ``MuData`` of ``mod1`` and ``mod2``: both
+        modalities' ``X`` the features, mod1's ``obs["cell_type"]`` the labels
+        (counterpart: jae.py:85)."""
+        return joint_embedding_config(log_level)
 
     def __init__(self, args=None, z_dim: int = 61, seed: int = 0, device="auto"):
         self.z_dim, self.seed = z_dim, seed

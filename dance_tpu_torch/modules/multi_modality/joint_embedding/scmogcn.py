@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dance_tpu_torch.modules.multi_modality.configs import joint_embedding_config
 from dance_tpu_torch.modules.base import BaseRegressionMethod
 from dance_tpu_torch.modules.multi_modality.match_modality.scmogcn import _std, _std_guarded
 from dance_tpu_torch.modules.multi_modality.predict_modality.scmogcn import (
@@ -72,6 +73,13 @@ class ScMoGCNWrapper(BaseRegressionMethod):
     ``predict`` returns the cells' embedding. ``device="auto"`` is the card."""
 
     _DISPLAY_ATTRS = ("hidden", "n_layers")
+
+    @staticmethod
+    def preprocessing_pipeline(log_level: str = "INFO"):
+        """The ``SetConfig`` of a ``MuData`` of ``mod1`` and ``mod2``: both
+        modalities' ``X`` the features, mod1's ``obs["cell_type"]`` the labels
+        (counterpart: scmogcn.py:60)."""
+        return joint_embedding_config(log_level)
 
     def __init__(self, args=None, hidden: int = 64, n_layers: int = 2, z_dim: int = 32,
                  seed: int = 0, device="auto"):

@@ -55,6 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dance_tpu_torch.modules.multi_modality.configs import joint_embedding_config
 from dance_tpu_torch.modules.multi_modality.joint_embedding.scmogcn import (
     propagation_layer_combination)
 from dance_tpu_torch.modules.multi_modality.predict_modality.scmogcn import (
@@ -153,6 +154,13 @@ class ScMoGCNWrapperV2:
     ``early_stopping`` and ``seed``. ``device="auto"`` is the card."""
 
     _DISPLAY_ATTRS = ("hidden_size", "conv_layers")
+
+    @staticmethod
+    def preprocessing_pipeline(log_level: str = "INFO"):
+        """The ``SetConfig`` of a ``MuData`` of ``mod1`` and ``mod2``: both
+        modalities' ``X`` the features, mod1's ``obs["cell_type"]`` the labels
+        (counterpart: scmogcnv2.py:264)."""
+        return joint_embedding_config(log_level)
 
     def __init__(self, args=None, hidden_size: int = 14, conv_layers: int = 4, ct_dim: int = 20,
                  shared_start: int = 45, learning_rate: float = 1e-2,

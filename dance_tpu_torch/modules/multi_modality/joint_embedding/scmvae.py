@@ -47,6 +47,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from dance_tpu_torch.modules.multi_modality.configs import joint_embedding_config
 from dance_tpu_torch.modules.base import BaseRegressionMethod
 from dance_tpu_torch.nn.mlp import DropoutMLP, inverted_dropout
 from dance_tpu_torch.nn.mlp import buildNetwork as build_multi_layers  # noqa: F401
@@ -320,6 +321,13 @@ class scMVAE(BaseRegressionMethod):
     keywords ``z_dim``/``seed``; ``device="auto"`` is the card."""
 
     _DISPLAY_ATTRS = ("z_dim", "Type", "penality", "n_centroids")
+
+    @staticmethod
+    def preprocessing_pipeline(log_level: str = "INFO"):
+        """The ``SetConfig`` of a ``MuData`` of ``mod1`` and ``mod2``: both
+        modalities' ``X`` the features, mod1's ``obs["cell_type"]`` the labels
+        (counterpart: scmvae.py:322)."""
+        return joint_embedding_config(log_level)
 
     def __init__(self, encoder_1=None, hidden_1=None, Z_DIMS: int = 16, decoder_share=None,
                  share_hidden: int = 128, decoder_1=None, hidden_2=None, encoder_l=None,

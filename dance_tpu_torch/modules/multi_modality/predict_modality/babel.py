@@ -39,6 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from dance_tpu_torch.modules.multi_modality.configs import predict_modality_config
 from dance_tpu_torch.modules.base import BaseRegressionMethod, resolve_score_func
 from dance_tpu_torch.nn.vae import NBDecoder, reset_linears
 from dance_tpu_torch.nn.zinb_ae import MLPStack
@@ -93,6 +94,12 @@ class BabelWrapper(BaseRegressionMethod):
     the card."""
 
     _DISPLAY_ATTRS = ("hidden",)
+
+    @staticmethod
+    def preprocessing_pipeline(log_level: str = "INFO"):
+        """The ``SetConfig`` of a ``MuData`` of ``mod1`` and ``mod2``: mod1's
+        ``X`` the features, mod2's ``X`` the labels (counterpart: babel.py:78)."""
+        return predict_modality_config(log_level)
 
     def __init__(self, args=None, dim_in: int = 0, dim_out: int = 0, hidden: int = 64,
                  device="auto", seed: int = 0):

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from dance_tpu_torch.modules.multi_modality.configs import predict_modality_config
 from dance_tpu_torch.modules.base import BaseRegressionMethod, resolve_score_func
 from dance_tpu_torch.nn.gnn import truncated_normal_
 from dance_tpu_torch.nn.vae import reset_linears
@@ -121,6 +122,12 @@ class CMAE(BaseRegressionMethod):
     the card."""
 
     _DISPLAY_ATTRS = ("z_dim", "hidden")
+
+    @staticmethod
+    def preprocessing_pipeline(log_level: str = "INFO"):
+        """The ``SetConfig`` of a ``MuData`` of ``mod1`` and ``mod2``: mod1's
+        ``X`` the features, mod2's ``X`` the labels (counterpart: cmae.py:92)."""
+        return predict_modality_config(log_level)
 
     def __init__(self, hyperparameters=None, dim1: int = 0, dim2: int = 0, z_dim: int = 32,
                  hidden: int = 128, seed: int = 0, device="auto"):

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from dance_tpu_torch.modules.multi_modality.configs import predict_modality_config
 from dance_tpu_torch.modules.base import BaseRegressionMethod, resolve_score_func
 from dance_tpu_torch.nn.vae import (GaussianDecoder, GaussianEncoder, NBDecoder, gaussian_kl,
                                     reparameterize, reset_linears)
@@ -127,6 +128,12 @@ class MMVAE(BaseRegressionMethod):
     the card."""
 
     _DISPLAY_ATTRS = ("z_dim",)
+
+    @staticmethod
+    def preprocessing_pipeline(log_level: str = "INFO"):
+        """The ``SetConfig`` of a ``MuData`` of ``mod1`` and ``mod2``: mod1's
+        ``X`` the features, mod2's ``X`` the labels (counterpart: scmm.py:101)."""
+        return predict_modality_config(log_level)
 
     def __init__(self, subtask: str = "", params=None, z_dim: int = 16, seed: int = 0,
                  reference_protocol: bool = False, device="auto"):

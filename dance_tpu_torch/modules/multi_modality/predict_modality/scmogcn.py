@@ -13,7 +13,7 @@ feature -> cell messages), ``c2f`` (its transpose) and an optional pathway
 relation between features. Edge weights are the raw expression values. Each
 layer runs a SAGE convolution per relation, one weighted sum of messages
 through :func:`~dance_tpu_torch.ops.segment.spmm`: on the card a dense
-adjacency is one cuBLAS product, a CSR one a gather and ``index_add_``, a BSR
+adjacency is one cuBLAS product, a CSR one a gather and a fixed-order sum, a BSR
 one the block-sparse SpMM kernel (#1, ``csrc/bsr_spmm.cu``) forward and
 ``Aᵀḡ`` backward, on the rectangular ``f2c``/``c2f`` tilings. Edge dropout
 acts on the adjacency's weights at every step (a zero slot stays zero, and
@@ -43,7 +43,6 @@ Where this differs from the JAX package:
 
 import hashlib
 import math
-from dataclasses import replace
 from types import SimpleNamespace
 from typing import Any, Dict, List, NamedTuple, Optional
 
@@ -53,6 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dance_tpu_torch.modules.multi_modality.configs import predict_modality_config
 from dance_tpu_torch.modules.base import BaseRegressionMethod, resolve_score_func
 from dance_tpu_torch.nn.gnn import flax_dense_init_, flax_dropout
 from dance_tpu_torch.ops.bsr import BSRMatrix, bipartite_bsr, bsr_like, resolve_adj_format
@@ -244,7 +244,7 @@ def _drop_adj(adj, drop):
     if isinstance(adj, BSRMatrix):
         return bsr_like(adj, drop(adj.tiles))
     if isinstance(adj, CSRMatrix):
-        return replace(adj, data=drop(adj.data))
+        return adj.with_data(drop(adj.data))
     raise TypeError(f"no edge dropout for {type(adj).__name__}")
 
 
@@ -480,6 +480,12 @@ class ScMoGCNWrapper(BaseRegressionMethod):
     and ``conv_layers``). ``device="auto"`` is the card."""
 
     _DISPLAY_ATTRS = ("hidden_size", "conv_layers")
+
+    @staticmethod
+    def preprocessing_pipeline(log_level: str = "INFO"):
+        """The ``SetConfig`` of a ``MuData`` of ``mod1`` and ``mod2``: mod1's
+        ``X`` the features, mod2's ``X`` the labels (counterpart: scmogcn.py:478)."""
+        return predict_modality_config(log_level)
 
     def __init__(self, args=None, hidden: Optional[int] = None,
                  n_layers: Optional[int] = None, seed: int = 0, device="auto", **overrides):

@@ -37,11 +37,11 @@ Where this differs from the JAX package:
   so a ``"auto"`` fit after a ``True`` fit reused hops built without it).
 - ``history`` records each epoch's loss and seconds; ``fmts`` the two hops'
   formats and ``build_seconds`` the graph build's steps.
-- The Data-container ``preprocessing_pipeline`` is not ported:
-  :func:`scheteronet_preprocess` is its array core and :func:`set_split`
-  the array form of ``set_split``. ``get_genename`` and
-  ``print_statistics`` take the columns and labels they read from an
-  AnnData in JAX.
+- :func:`scheteronet_preprocess` is the array front of
+  ``preprocessing_pipeline`` (it runs the pipeline on a matrix wrapped in a
+  ``Data``) and :func:`set_split` the array form of ``set_split``.
+  ``get_genename`` and ``print_statistics`` take the columns and labels
+  they read from an AnnData in JAX.
 """
 
 import hashlib
@@ -55,6 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dance_tpu_torch.data import AnnData, Data, Frame
 from dance_tpu_torch.graph import Graph
 from dance_tpu_torch.modules.base import BaseClassificationMethod
 from dance_tpu_torch.nn.gnn import flax_dense_init_, flax_dropout
@@ -65,10 +66,13 @@ from dance_tpu_torch.ops.bsr import (bsr_from_scipy, choose_adj_format, rcm_reor
                                      resolve_use_bsr, unpermute)
 from dance_tpu_torch.ops.segment import spmm
 from dance_tpu_torch.ops.sparse import csr_from_scipy, dense_adj_from_scipy
-from dance_tpu_torch.sc.pp import (filter_cells, filter_genes, highly_variable_genes, log1p,
-                                   normalize_total)
 from dance_tpu_torch.settings import logger
-from dance_tpu_torch.transforms.graph.heteronet_graph import heteronet_graph
+from dance_tpu_torch.transforms.filter import (FilterCellsScanpy, FilterCellsType,
+                                               HighlyVariableGenesLogarithmizedByTopGenes)
+from dance_tpu_torch.transforms.graph.heteronet_graph import HeteronetGraph
+from dance_tpu_torch.transforms.interface import AnnDataTransform
+from dance_tpu_torch.transforms.misc import Compose, SaveRaw, SetConfig
+from dance_tpu_torch.transforms.normalize import Log1P, NormalizeTotal, UpdateSizeFactors
 from dance_tpu_torch.utils import EpochClock, ood_measures, resolve_device
 from dance_tpu_torch.utils.loss import zinb_nll
 
@@ -228,6 +232,32 @@ class scHeteroNet(BaseClassificationMethod):
         self.device = resolve_device(device)
         self.net: Optional[_HeteroNet] = None
         self.history: List[Dict[str, float]] = []  # per epoch: epoch, loss, seconds
+
+    @staticmethod
+    def preprocessing_pipeline(log_level: str = "INFO", n_top_genes: int = 4000) -> Compose:
+        """scHeteroNet's preprocessing of a ``Data`` whose ``obsm["cell_type"]``
+        is the cells' one-hot ``Frame`` (:func:`scheteronet_preprocess` runs
+        it on a matrix): the cells of types with at most 10 cells dropped,
+        genes under 3 counts and cells without counts dropped, the
+        ``n_top_genes`` cell_ranger HVGs of the counts kept (JAX's 4,000),
+        ``SaveRaw``, ``normalize_total`` (genes above 5 % of a cell left out
+        of the totals), the size factors into ``obs``, ``log1p`` and the
+        5-NN graph into ``uns["HeteronetGraph"]`` (counterpart:
+        scheteronet.py:170-184). Everything runs on the host."""
+        return Compose(
+            FilterCellsType(),
+            AnnDataTransform("sc.pp.filter_genes", min_counts=3),
+            FilterCellsScanpy(min_counts=1),
+            HighlyVariableGenesLogarithmizedByTopGenes(n_top_genes=n_top_genes,
+                                                       flavor="cell_ranger"),
+            SaveRaw(),
+            NormalizeTotal(),
+            UpdateSizeFactors(),
+            Log1P(),
+            HeteronetGraph(),
+            SetConfig({"label_channel": "cell_type"}),
+            log_level=log_level,
+        )
 
     def _make_net(self, in_dim: int, n_classes: int, n_genes: int) -> _HeteroNet:
         """A new network with flax's init drawn from ``seed``, on the device."""
@@ -430,49 +460,37 @@ class HeteroNetInputs(NamedTuple):
 
 
 def scheteronet_preprocess(counts, labels, *, n_top_genes: int = 4000) -> HeteroNetInputs:
-    """The array form of ``scHeteroNet.preprocessing_pipeline``
-    (scheteronet.py:170-184) on raw ``counts`` (cells x genes, numpy or
-    scipy) and per-cell ``labels``:
-
-    - ``FilterCellsType``: drop the cells of types with at most 10 cells
-      (filter.py:720);
-    - ``filter_genes(min_counts=3)``, then ``filter_cells(min_counts=1)``;
-    - the ``n_top_genes`` cell_ranger HVGs of the counts, kept; with more
-      than the genes left, every gene whose normalised dispersion ranks at
-      or above the last finite one (all genes when every dispersion is
-      finite), as JAX's ``min(n_top_genes, finite) - 1`` cut gives;
-    - ``SaveRaw`` (the counts of the kept genes), ``normalize_total``
-      (median target, genes above 5 % of a cell left out of the totals);
-    - ``UpdateSizeFactors``: each cell's normalised total over their median;
-    - ``log1p``, then the 5-NN graph (:func:`heteronet_graph`).
-
-    The arithmetic and the matrix type (sparse stays sparse until the
-    features are densified for the graph) are JAX's, so the results agree
-    bit for bit. The label codes index ``np.unique(labels)``, the columns
-    of JAX's one-hot ``cell_type``, removed types included."""
+    """:meth:`scHeteroNet.preprocessing_pipeline` on raw ``counts`` (cells x
+    genes, numpy or scipy, taken as float32) and per-cell ``labels``
+    wrapped in a ``Data`` (the labels one-hot in ``obsm["cell_type"]``, a
+    column per type of ``np.unique(labels)``), for a caller that holds a
+    matrix. With more HVGs asked for than genes left, JAX's cut keeps every
+    gene whose normalised dispersion ranks at or above the last finite one.
+    The label codes index ``np.unique(labels)``, removed types included."""
     x = sp.csr_matrix(counts, dtype=np.float32) if sp.issparse(counts) \
         else np.asarray(counts, np.float32)
     cell_types, codes = np.unique(np.asarray(labels), return_inverse=True)
-    sizes = np.bincount(codes, minlength=len(cell_types))
-    cells = np.nonzero(sizes[codes] > 10)[0]
-    logger.info("Found %d cell types below threshold", int((sizes <= 10).sum()))
-    x = x[cells]
-    keep, _ = filter_genes(x, min_counts=3)
-    genes = np.nonzero(keep)[0]
-    x = x[:, genes]
-    keep, _ = filter_cells(x, min_counts=1)
-    cells, x = cells[keep], x[np.nonzero(keep)[0]]
-    hv = highly_variable_genes(x, flavor="cell_ranger", n_top_genes=n_top_genes)
-    genes = genes[hv["highly_variable"]]
-    x = x[:, np.nonzero(hv["highly_variable"])[0]]
-    x_raw = np.asarray(x.toarray() if sp.issparse(x) else x, np.float32)
-    x = normalize_total(x, exclude_highly_expressed=True, max_fraction=0.05)
-    n_counts = np.asarray(x.sum(axis=1)).ravel()
-    size_factors = n_counts / np.median(n_counts)
-    x = log1p(x)
-    g = heteronet_graph(x)
-    return HeteroNetInputs(g, g.ndata["feat"], x_raw, size_factors, codes[cells], cell_types,
-                           cells, genes)
+    adata = AnnData(x)
+    adata.obsm["cell_type"] = Frame(np.eye(len(cell_types), dtype=np.float32)[codes],
+                                    index=adata.obs_names, columns=list(cell_types))
+    data = Data(adata)
+    scHeteroNet.preprocessing_pipeline(log_level="WARNING", n_top_genes=n_top_genes)(data)
+    return heteronet_inputs(data, cell_types)
+
+
+def heteronet_inputs(data, cell_types) -> HeteroNetInputs:
+    """What :func:`scheteronet_preprocess` returns, of a ``Data`` the pipeline
+    ran on whose cells and genes are named by their rows and columns in the
+    input."""
+    adata = data.data
+    g = adata.uns["HeteronetGraph"]
+    raw = adata.raw.X
+    return HeteroNetInputs(g, g.ndata["feat"],
+                           np.asarray(raw.toarray() if sp.issparse(raw) else raw, np.float32),
+                           np.asarray(adata.obs["size_factors"]),
+                           adata.obsm["cell_type"].to_numpy().argmax(1), cell_types,
+                           np.asarray(adata.obs_names).astype(np.int64),
+                           np.asarray(adata.var_names).astype(np.int64))
 
 
 def get_genename(var_names, gene_id=None, symbol=None):
@@ -614,5 +632,6 @@ class NCDataset:
 
 __all__ = ["HeteroNet", "HeteroNetInputs", "HetConv", "MLP", "NCDataset", "ZINBDecoder",
            "build_hop_adjacencies", "contrastive_loss", "eval_acc", "fpr_and_fdr_at_recall",
-           "get_genename", "get_measures", "print_statistics", "scHeteroNet",
-           "scheteronet_preprocess", "set_graph_split", "set_split", "stable_cumsum"]
+           "get_genename", "get_measures", "heteronet_inputs", "print_statistics",
+           "scHeteroNet", "scheteronet_preprocess", "set_graph_split", "set_split",
+           "stable_cumsum"]

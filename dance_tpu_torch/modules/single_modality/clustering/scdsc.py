@@ -31,8 +31,8 @@ Where this differs from the JAX package:
   fit's adjacency.
 - ``history`` and ``pretrain_history`` record each epoch's loss and seconds
   (:class:`~dance_tpu_torch.utils.EpochClock`).
-- The Data-container ``preprocessing_pipeline`` is not ported;
-  :func:`scdsc_preprocess` is its array core.
+- :func:`scdsc_preprocess` is the array front of ``preprocessing_pipeline``:
+  it runs the pipeline on a matrix wrapped in a ``Data``.
 """
 
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -50,9 +50,11 @@ from dance_tpu_torch.ops.bsr import bsr_with_rcm, resolve_use_bsr, unpermute
 from dance_tpu_torch.ops.cluster import kmeans
 from dance_tpu_torch.ops.segment import spmm
 from dance_tpu_torch.ops.sparse import csr_from_scipy, sym_norm_adjacency
-from dance_tpu_torch.sc.pp import normalized_counts
+from dance_tpu_torch.modules.single_modality.clustering.sctag import (ZINB_CONFIG, count_steps,
+                                                                     wrap_counts, zinb_inputs)
 from dance_tpu_torch.settings import logger
-from dance_tpu_torch.transforms.graph import neighbor_graph
+from dance_tpu_torch.transforms.graph import NeighborGraph
+from dance_tpu_torch.transforms.misc import Compose, SetConfig
 from dance_tpu_torch.utils import EpochClock, resolve_device
 from dance_tpu_torch.utils.batch import epoch_batches
 from dance_tpu_torch.utils.loss import soft_assign, target_distribution, zinb_nll
@@ -216,6 +218,23 @@ class ScDSC(NNPretrain, BaseClusteringMethod):
         for h in self.pretrain_history[::100]:
             logger.info("AE pretrain epoch %d, MSE %.6f", h["epoch"], h["loss"])
 
+    @staticmethod
+    def preprocessing_pipeline(n_top_genes: int = 2000, n_neighbors: int = 50,
+                               log_level: str = "INFO") -> Compose:
+        """scDSC's preprocessing of a ``Data`` (:func:`scdsc_preprocess` runs it
+        on a matrix): :func:`~dance_tpu_torch.modules.single_modality.
+        clustering.sctag.count_steps` and the ``n_neighbors``-NN graph of the
+        scaled features themselves (``NeighborGraph(channel=None)``, on the
+        host) into ``obsp["NeighborGraph"]``; ``get_train_data`` gives
+        :meth:`fit`'s inputs and the labels in ``obsm["Group"]`` (counterpart:
+        scdsc.py:129-150). Nothing here runs on the card."""
+        return Compose(
+            *count_steps(n_top_genes),
+            NeighborGraph(n_neighbors=n_neighbors, channel=None),
+            SetConfig(ZINB_CONFIG),
+            log_level=log_level,
+        )
+
     def fit(self, inputs: Tuple, y=None, lr: float = 1e-3, epochs: int = 300, bcl: float = 0.1,
             cl: float = 0.01, rl: float = 1.0, zl: float = 0.1, pt_epochs: int = 200,
             pt_batch_size: int = 256, pt_lr: float = 1e-3, use_bsr="auto",
@@ -290,17 +309,16 @@ class ScDSC(NNPretrain, BaseClusteringMethod):
 
 
 def scdsc_preprocess(counts, *, n_top_genes: int = 2000, n_neighbors: int = 50, device="auto"):
-    """Array counterpart of ``ScDSC.preprocessing_pipeline`` (scdsc.py:137-159)
-    on raw ``counts`` (cells x genes, numpy or scipy):
-    :func:`~dance_tpu_torch.sc.pp.normalized_counts`
-    and the ``n_neighbors``-NN gauss graph of the scaled features themselves
-    (the JAX pipeline's ``NeighborGraph(channel=None)``, on the CPU). Returns
-    ``((adj, x, x_raw, n_counts), cells)``: the input of :meth:`ScDSC.fit` and
-    the indices of the kept cells. ``device`` is checked, as for every entry
+    """:meth:`ScDSC.preprocessing_pipeline` on raw ``counts`` (cells x genes,
+    numpy or scipy, taken as float32) wrapped in a ``Data``. Returns ``((adj,
+    x, x_raw, n_counts), cells)``: the input of :meth:`ScDSC.fit` and the
+    indices of the kept cells. ``device`` is checked, as for every entry
     point, though nothing here runs on it."""
     resolve_device(device)
-    x, x_raw, n_counts, cells = normalized_counts(counts, n_top_genes)
-    return (neighbor_graph(x, n_neighbors), x, x_raw, n_counts), cells
+    data = wrap_counts(counts)
+    ScDSC.preprocessing_pipeline(n_top_genes=n_top_genes, n_neighbors=n_neighbors,
+                                 log_level="WARNING")(data)
+    return zinb_inputs(data), np.asarray(data.data.obs_names).astype(np.int64)
 
 
 __all__ = ["ScDSC", "ScDSCModel", "dec_loss", "scdsc_preprocess"]

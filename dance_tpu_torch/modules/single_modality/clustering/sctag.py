@@ -34,8 +34,8 @@ Where this differs from the JAX package:
   centres from the JAX run.
 - ``history`` and ``pretrain_history`` record each epoch's loss and seconds
   (:class:`~dance_tpu_torch.utils.EpochClock`, read once after each stage).
-- The Data-container ``preprocessing_pipeline`` is not ported;
-  :func:`sctag_preprocess` is its array core.
+- :func:`sctag_preprocess` is the array front of ``preprocessing_pipeline``:
+  it runs the pipeline on a matrix wrapped in a ``Data``.
 """
 
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -45,16 +45,18 @@ import scipy.sparse as sp
 import torch
 from torch import nn
 
+from dance_tpu_torch.data import AnnData, Data
 from dance_tpu_torch.modules.base import BaseClusteringMethod, NNPretrain
 from dance_tpu_torch.nn.gnn import TAGConv, flax_dense_init_
 from dance_tpu_torch.nn.zinb_ae import disp_act, mean_act
 from dance_tpu_torch.ops.bsr import bsr_from_scipy, rcm_reorder, resolve_use_bsr, unpermute
 from dance_tpu_torch.ops.cluster import kmeans
 from dance_tpu_torch.ops.sparse import csr_from_scipy, sym_norm_adjacency
-from dance_tpu_torch.sc.pp import normalized_counts
 from dance_tpu_torch.settings import logger
-from dance_tpu_torch.transforms.cell_feature import cell_pca
-from dance_tpu_torch.transforms.graph import neighbor_graph
+from dance_tpu_torch.transforms.cell_feature import CellPCA
+from dance_tpu_torch.transforms.graph import NeighborGraph
+from dance_tpu_torch.transforms.interface import AnnDataTransform
+from dance_tpu_torch.transforms.misc import Compose, SaveRaw, SetConfig
 from dance_tpu_torch.utils import EpochClock, ari, resolve_device
 from dance_tpu_torch.utils.loss import (binary_ce_logits, cluster_kl_loss, dist_loss,
                                         soft_assign, target_distribution, zinb_nll)
@@ -214,6 +216,25 @@ class ScTAG(NNPretrain, BaseClusteringMethod):
         for h in self.pretrain_history[::max(info_step * 10, 1)]:
             logger.info("Pretrain epoch %d, loss %.6f", h["epoch"], h["loss"])
 
+    @staticmethod
+    def preprocessing_pipeline(n_top_genes: int = 3000, n_components: int = 50,
+                               n_neighbors: int = 15, log_level: str = "INFO",
+                               device="auto") -> Compose:
+        """scTAG's preprocessing of a ``Data`` (:func:`sctag_preprocess` runs it
+        on a matrix): :func:`count_steps`, the ``n_components``-d cell PCA of
+        the scaled matrix (on ``device``: the card unless the CPU is named)
+        and the ``n_neighbors``-NN graph of it into ``obsp["NeighborGraph"]``;
+        ``get_train_data`` gives :meth:`fit`'s inputs and the labels in
+        ``obsm["Group"]`` (counterpart: sctag.py:89-112)."""
+        device = resolve_device(device)
+        return Compose(
+            *count_steps(n_top_genes),
+            CellPCA(n_components=n_components, device=device),
+            NeighborGraph(n_neighbors=n_neighbors, n_pcs=n_components),
+            SetConfig(ZINB_CONFIG),
+            log_level=log_level,
+        )
+
     def fit(self, inputs: Tuple, y=None, *, epochs: int = 300, pretrain_epochs: int = 200,
             lr: float = 5e-4, w_a: float = 0.3, w_x: float = 1.0, w_c: float = 1.5,
             w_d: float = 0.0, info_step: int = 1, max_dist: float = 20.0,
@@ -270,20 +291,67 @@ class ScTAG(NNPretrain, BaseClusteringMethod):
         return np.asarray(self.q).argmax(1)
 
 
+# the channels of scTAG's and scDSC's fit inputs, and their labels
+ZINB_CONFIG = {"feature_channel": ["NeighborGraph", None, None, "n_counts"],
+               "feature_channel_type": ["obsp", "X", "raw_X", "obs"], "label_channel": "Group"}
+
+
+def count_steps(n_top_genes: int) -> list:
+    """The count processing scTAG's and scDSC's pipelines share
+    (sctag.py:93-105, scdsc.py:131-143): genes under 3 counts and cells
+    without counts dropped, ``normalize_per_cell``, ``log1p``, the
+    ``n_top_genes`` cell_ranger HVGs kept, genes and cells without counts
+    dropped; that matrix is the ZINB target (``SaveRaw``), and the features
+    are it after ``normalize_total``, ``log1p`` and ``scale``."""
+    return [AnnDataTransform("sc.pp.filter_genes", min_counts=3),
+            AnnDataTransform("sc.pp.filter_cells", min_counts=1),
+            AnnDataTransform("sc.pp.normalize_per_cell"),
+            AnnDataTransform("sc.pp.log1p"),
+            AnnDataTransform("sc.pp.highly_variable_genes", min_mean=0.0125, max_mean=4,
+                             flavor="cell_ranger", min_disp=0.5, n_top_genes=n_top_genes,
+                             subset=True),
+            AnnDataTransform("sc.pp.filter_genes", min_counts=1),
+            AnnDataTransform("sc.pp.filter_cells", min_counts=1),
+            SaveRaw(),
+            AnnDataTransform("sc.pp.normalize_total"),
+            AnnDataTransform("sc.pp.log1p"),
+            AnnDataTransform("sc.pp.scale")]
+
+
+def zinb_inputs(data) -> tuple:
+    """``(adj, x, x_raw, n_counts)`` of a ``Data`` that scTAG's or scDSC's
+    pipeline ran on: the graph as stored (CSR; ``get_train_data`` reads an
+    ``obsp`` graph back dense, as JAX's does), the dense float32 features
+    and ZINB target, and the cells' totals as the last ``filter_cells``
+    wrote them."""
+    adata = data.data
+    raw = adata.raw.X
+    x_raw = np.asarray(raw.toarray() if sp.issparse(raw) else raw, np.float32)
+    return (adata.obsp["NeighborGraph"], np.asarray(adata.X), x_raw,
+            np.asarray(adata.obs["n_counts"]))
+
+
+def wrap_counts(counts) -> Data:
+    """Raw ``counts`` (cells x genes, numpy or scipy) as float32 in a ``Data``
+    whose cells are named by their row."""
+    x = sp.csr_matrix(counts, dtype=np.float32) if sp.issparse(counts) \
+        else np.asarray(counts, np.float32)
+    return Data(AnnData(x))
+
+
 def sctag_preprocess(counts, *, n_top_genes: int = 3000, n_components: int = 50,
                      n_neighbors: int = 15, device="auto"):
-    """Array counterpart of ``ScTAG.preprocessing_pipeline`` (sctag.py:89-112)
-    on raw ``counts`` (cells x genes, numpy or scipy):
-    :func:`~dance_tpu_torch.sc.pp.normalized_counts`,
-    the ``n_components``-d cell PCA of the scaled matrix (on ``device``) and
-    the ``n_neighbors``-NN gauss graph of it. Returns ``((adj, x, x_raw,
-    n_counts), cells)``: the input of :meth:`ScTAG.fit` and the indices of the
+    """:meth:`ScTAG.preprocessing_pipeline` on raw ``counts`` (cells x genes,
+    numpy or scipy, taken as float32) wrapped in a ``Data``, for a caller
+    that holds a matrix. Returns ``((adj, x, x_raw, n_counts), cells)``: the
+    input of :meth:`ScTAG.fit` (:func:`zinb_inputs`) and the indices of the
     kept cells, so that labels can follow them."""
-    device = resolve_device(device)
-    x, x_raw, n_counts, cells = normalized_counts(counts, n_top_genes)
-    rep = cell_pca(x, n_components, device=device)
-    adj = neighbor_graph(rep, n_neighbors, n_pcs=n_components)
-    return (adj, x, x_raw, n_counts), cells
+    data = wrap_counts(counts)
+    ScTAG.preprocessing_pipeline(n_top_genes=n_top_genes, n_components=n_components,
+                                 n_neighbors=n_neighbors, log_level="WARNING",
+                                 device=device)(data)
+    return zinb_inputs(data), np.asarray(data.data.obs_names).astype(np.int64)
 
 
-__all__ = ["ScTAG", "sctag_preprocess"]
+__all__ = ["ScTAG", "ZINB_CONFIG", "count_steps", "sctag_preprocess", "wrap_counts",
+           "zinb_inputs"]

@@ -18,7 +18,9 @@ Where this differs from the JAX package:
   along the cells (``torch.quantile`` refuses inputs above 2**24 values).
 - :func:`impute_fast` runs its matrix power on ``device``; the functional
   API's ``compute_markov`` stays host scipy on the port's ``knn``.
-- :func:`magic_preprocess` is the array form of ``preprocessing_pipeline``.
+- :func:`magic_preprocess` is the array form of ``preprocessing_pipeline``;
+  the Data-container pipeline is not ported yet, and
+  ``MAGIC.preprocessing_pipeline`` raises, naming this front.
 """
 
 from typing import NamedTuple, Optional
@@ -200,8 +202,6 @@ class MAGIC(BaseRegressionMethod):
         self.epsilon = epsilon
         self.rescale = rescale
         self.device = resolve_device(device)
-
-    preprocessing_pipeline = staticmethod(magic_preprocess)
 
     @torch.no_grad()
     def _impute(self, x: torch.Tensor) -> torch.Tensor:

@@ -24,17 +24,18 @@ Where this differs from the JAX package:
   patching :meth:`DSTG._make_net`.
 - ``history`` records each epoch's loss and seconds (read back once, after
   the last epoch; the loss is logged every 100 epochs, as in JAX).
-- :func:`dstg_preprocess` is the array form of ``preprocessing_pipeline``,
-  with repairs. The JAX pipeline does not run on a reference + spots
-  container: it takes the cell-type profile of the pseudo split, whose cells
-  carry no type, and writes the pseudo + real graph into a container that
-  still holds the reference cells; its ``Data.append`` also drops the
-  pseudo-spots' portions. The port takes the profile of the reference
-  cells, leaves them out of the PCA and the graph, and returns the
-  portions.
+- ``preprocessing_pipeline`` is JAX's step list with one difference, and
+  :func:`dstg_preprocess` is its array front. JAX's pipeline does not run on
+  a container of reference cells and spots: it takes the cell-type profile
+  of the pseudo split, whose spots carry no type, finds no marker gene and
+  fails at the PCA. The port's takes the profile of the reference cells
+  (``CellTopicProfile.split_name`` is ``"ref"``) and then drops them
+  (``RemoveSplit("ref")``), so that the PCA and the graph see the pseudo and
+  real spots only. Its ``PseudoMixture`` also keeps the pseudo-spots'
+  portions, which JAX's ``Data.append`` drops, and ``DSTGraph`` writes the
+  graph in the container's cell order.
 """
 
-import time
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -42,15 +43,17 @@ import scipy.sparse as sp
 import torch
 from torch import nn
 
+from dance_tpu_torch.data import AnnData, Data, Frame
 from dance_tpu_torch.modules.base import BaseRegressionMethod
 from dance_tpu_torch.nn.gnn import flax_dense_init_, flax_dropout
 from dance_tpu_torch.ops.bsr import bsr_with_rcm, resolve_use_bsr, unpermute
 from dance_tpu_torch.ops.segment import spmm
 from dance_tpu_torch.ops.sparse import csr_from_scipy
 from dance_tpu_torch.settings import logger
-from dance_tpu_torch.transforms.cell_feature import cell_pca
+from dance_tpu_torch.transforms.cell_feature import CellPCA
 from dance_tpu_torch.transforms.filter import FilterGenesMarker
-from dance_tpu_torch.transforms.graph.dstg_graph import dstg_link_graph
+from dance_tpu_torch.transforms.graph.dstg_graph import DSTGraph
+from dance_tpu_torch.transforms.misc import Compose, RemoveSplit, SetConfig
 from dance_tpu_torch.transforms.pseudobulk import CellTopicProfile, PseudoMixture
 from dance_tpu_torch.utils import EpochClock, resolve_device
 
@@ -102,6 +105,35 @@ class DSTG(BaseRegressionMethod):
         net = _GCN(in_dim, self.nhid, out_dim, dropout=self.dropout)
         net.reset_parameters(torch.Generator().manual_seed(self.seed))
         return net.to(self.device)
+
+    @staticmethod
+    def preprocessing_pipeline(n_pseudo: int = 500, k_filter: int = 200, num_cc: int = 30,
+                               log_level: str = "INFO", random_state: int = 0,
+                               device="auto") -> Compose:
+        """DSTG's preprocessing of a container of labelled reference cells
+        (split ``"ref"``, types in ``obs["cellType"]``) and spots (split
+        ``"test"``; :func:`deconvo_container`): ``n_pseudo`` pseudo-spots
+        (split ``"pseudo"``, their portions in ``obsm["cell_type_portion"]``),
+        the median profile of each type over the reference cells, its marker
+        genes (log-FC 1.25), the reference cells dropped, then the
+        ``min(num_cc, 50)``-d PCA of the spots and their link graph into
+        ``obsp["DSTGraph"]`` (counterpart: dstg.py:58-72; JAX's ``n_top_genes``
+        is unused there and has no port). The one difference from JAX's step list: the
+        profile is of the reference cells, which are then dropped (see the
+        module's notes). The PCA, the CCA and the kNN run on ``device``."""
+        device = resolve_device(device)
+        return Compose(
+            PseudoMixture(n_pseudo=n_pseudo, random_state=random_state),
+            CellTopicProfile(ct_select="auto"),
+            FilterGenesMarker(threshold=1.25),
+            RemoveSplit(split_name="ref"),
+            CellPCA(n_components=min(num_cc, 50), device=device),
+            DSTGraph(k_filter=k_filter, num_cc=num_cc, device=device),
+            SetConfig({"feature_channel": ["CellPCA", "DSTGraph"],
+                       "feature_channel_type": ["obsm", "obsp"],
+                       "label_channel": "cell_type_portion"}),
+            log_level=log_level,
+        )
 
     def fit(self, inputs, y, lr: float = 0.005, max_epochs: int = 300,
             weight_decay: float = 0.0, train_mask=None, use_bsr="auto", bsr_block: int = 128):
@@ -204,36 +236,65 @@ class DSTGInputs(NamedTuple):
     seconds: Dict[str, float]
 
 
+def deconvo_container(x_ref, ref_labels, x_spots, coords=None) -> Data:
+    """A container of reference cells and spots, as the deconvolution
+    pipelines take it: the cells of ``x_ref`` (cells x genes, genes named
+    ``g0``, ``g1``, ...) as split ``"ref"`` with their types in
+    ``obs["cellType"]``, then the spots of ``x_spots`` as split ``"test"``,
+    both as float32; with ``coords``, the spots' coordinates in
+    ``obsm["spatial"]`` (zeros for the reference cells)."""
+    def dense(x):
+        return np.asarray(x.toarray() if sp.issparse(x) else x, np.float32)
+
+    genes = Frame(index=[f"g{i}" for i in range(x_ref.shape[1])])
+    ref = AnnData(dense(x_ref), obs=Frame({"cellType": np.asarray(ref_labels).astype(str)},
+                                          index=[f"c{i}" for i in range(x_ref.shape[0])]),
+                  var=genes)
+    data = Data(ref, full_split_name="ref")
+    spots = AnnData(dense(x_spots), obs=Frame(index=[f"s{i}" for i in range(x_spots.shape[0])]),
+                    var=genes.copy())
+    data.append(Data(spots), mode="new_split", new_split_name="test", join="outer")
+    if coords is not None:
+        data.data.obsm["spatial"] = np.concatenate([np.zeros((x_ref.shape[0], 2), np.float32),
+                                                    np.asarray(coords, np.float32)])
+    return data
+
+
+def spot_order(data) -> np.ndarray:
+    """The container rows of the pseudo-spots, then of the real spots: the
+    order the deconvolution models take."""
+    return np.concatenate([data.get_split_idx("pseudo", error_on_miss=True),
+                           data.get_split_idx("test", error_on_miss=True)])
+
+
 def dstg_preprocess(x_ref, ref_labels, x_spots, *, n_pseudo: int = 500, k_filter: int = 200,
                     num_cc: int = 30, random_state: int = 0, device="auto") -> DSTGInputs:
-    """The array form of ``DSTG.preprocessing_pipeline`` (dstg.py:58-72):
-    ``n_pseudo`` pseudo-spots mixed from the reference cells (``x_ref``,
-    cells x genes, labelled ``ref_labels``; ``PseudoMixture``), the median
-    profile of each type over the reference cells (``CellTopicProfile``),
-    its marker genes (``FilterGenesMarker``, log-FC 1.25), then on those
-    genes of the pseudo and real spots (``x_spots``) the ``min(num_cc,
-    50)``-d PCA (``CellPCA``) and the link graph (``DSTGraph``). The PCA, the
-    CCA and the kNN run on ``device``."""
-    device = resolve_device(device)
-    seconds, t0 = {}, time.perf_counter()
-    mix_x, portions, cell_types = PseudoMixture(n_pseudo=n_pseudo,
-                                                random_state=random_state)(x_ref, ref_labels)
-    seconds["mix"], t0 = time.perf_counter() - t0, time.perf_counter()
-    profile, cell_types = CellTopicProfile(method="median")(x_ref, ref_labels)
-    genes = FilterGenesMarker(threshold=1.25)(profile, cell_types)
-    x_spots = np.asarray(x_spots.toarray() if sp.issparse(x_spots) else x_spots)
-    spots = np.concatenate([mix_x, x_spots.astype(np.float32)])[:, genes]
+    """:meth:`DSTG.preprocessing_pipeline` on the reference cells ``x_ref``
+    (cells x genes, labelled ``ref_labels``) and the spots ``x_spots``
+    wrapped in a :func:`deconvo_container`, for a caller that holds
+    matrices: ``n_pseudo`` pseudo-spots mixed from the reference cells, the
+    marker genes of the reference cells' median profiles, then on those
+    genes of the pseudo and real spots the ``min(num_cc, 50)``-d PCA and the
+    link graph. The PCA, the CCA and the kNN run on ``device``. Returns the
+    container's inputs in :func:`spot_order`."""
+    data = deconvo_container(x_ref, ref_labels, x_spots)
+    genes = np.asarray(data.data.var_names)
+    pipe = DSTG.preprocessing_pipeline(n_pseudo=n_pseudo, k_filter=k_filter, num_cc=num_cc,
+                                       log_level="WARNING", random_state=random_state,
+                                       device=device)
+    pipe(data)
+    t = pipe.timings
+    seconds = {"mix": t["PseudoMixture"],
+               "markers": t["CellTopicProfile"] + t["FilterGenesMarker"] + t["RemoveSplit"],
+               "pca": t["CellPCA"], "graph": t["DSTGraph"]}
     logger.info("DSTG preprocessing: %d pseudo + %d real spots, %d marker genes of %d",
-                n_pseudo, x_spots.shape[0], int(genes.sum()), genes.size)
-    seconds["markers"], t0 = time.perf_counter() - t0, time.perf_counter()
-    x = cell_pca(spots, min(num_cc, 50), device=device)
-    seconds["pca"], t0 = time.perf_counter() - t0, time.perf_counter()
-    adj = dstg_link_graph(spots[:n_pseudo], spots[n_pseudo:], k_filter=k_filter,
-                          num_cc=num_cc, device=device)
-    seconds["graph"] = time.perf_counter() - t0
-    y = np.concatenate([portions, np.zeros((x_spots.shape[0], len(cell_types)))])
-    return DSTGInputs(x, adj, y.astype(np.float32), cell_types, genes, seconds)
+                n_pseudo, x_spots.shape[0], data.shape[1], genes.size)
+    order = spot_order(data)
+    (x, adj), y = data.get_x(return_type="default"), data.get_y(return_type="default")
+    return DSTGInputs(np.asarray(x)[order], sp.csr_matrix(adj)[order][:, order],
+                      y.to_numpy()[order].astype(np.float32), list(y.columns),
+                      np.isin(genes, data.data.var_names), seconds)
 
 
-__all__ = ["DSTG", "DSTGInputs", "dstg_preprocess", "masked_softmax_cross_entropy",
-           "split_mask_for_validation"]
+__all__ = ["DSTG", "DSTGInputs", "deconvo_container", "dstg_preprocess",
+           "masked_softmax_cross_entropy", "split_mask_for_validation", "spot_order"]

@@ -45,6 +45,14 @@ Where this differs from the JAX package:
 - ``history`` records each epoch's loss, validation loss and seconds,
   ``stopped_epoch`` the epoch early stopping ended on, ``fmt`` the
   adjacency format and ``graph_seconds`` the graph build's wall time.
+- ``preprocessing_pipeline`` is JAX's step list with one difference, and
+  :func:`stdgcn_preprocess` is its array front. On a container of
+  reference cells and spots JAX's takes the cell-type profile of the pseudo
+  split, whose spots carry no type (every NaN label a type of its own), and
+  keeps no gene. The port's takes the profile of the reference cells
+  (``CellTopicProfile.split_name`` is ``"ref"``), as DSTG's does; its
+  ``PseudoMixture`` keeps the portions and the spots' coordinates, which
+  JAX's ``Data.append`` drops.
 """
 
 import time
@@ -56,6 +64,7 @@ import torch
 from torch import nn
 
 from dance_tpu_torch.modules.base import BaseRegressionMethod
+from dance_tpu_torch.modules.spatial.cell_type_deconvo.dstg import deconvo_container, spot_order
 from dance_tpu_torch.nn.gnn import flax_dense_init_, flax_dropout
 # stdgcn.py:216's block, shared with scHeteroNet and GraphSCI
 from dance_tpu_torch.nn.mlp import FullBatchNorm as _FullBatchNorm
@@ -68,6 +77,9 @@ from dance_tpu_torch.ops.sparse import csr_from_scipy, dense_adj_from_scipy
 from dance_tpu_torch.sc.pp import combat
 from dance_tpu_torch.sc.tl import rank_genes_groups
 from dance_tpu_torch.settings import logger
+from dance_tpu_torch.transforms.filter import FilterGenesMarker
+from dance_tpu_torch.transforms.misc import Compose, SetConfig
+from dance_tpu_torch.transforms.pseudobulk import CellTopicProfile, PseudoMixture
 from dance_tpu_torch.utils import EpochClock, resolve_device
 from dance_tpu_torch.utils.optim import best_state, clip_by_global_norm_
 
@@ -345,6 +357,27 @@ class StdGCN(BaseRegressionMethod):
         self.stopped_epoch: Optional[int] = None
 
     @staticmethod
+    def preprocessing_pipeline(n_pseudo: int = 500, log_level: str = "INFO") -> Compose:
+        """stdGCN's preprocessing of a container of labelled reference cells
+        and spots (:func:`~dance_tpu_torch.modules.spatial.cell_type_deconvo.
+        dstg.deconvo_container`, the spots' coordinates in
+        ``obsm["spatial"]``): ``n_pseudo`` pseudo-spots (split ``"pseudo"``),
+        the median profile of each type over the reference cells and its
+        marker genes (log-FC 1.25); the features are ``X`` and the
+        coordinates, the labels the portions (counterpart: stdgcn.py:280-292;
+        the one difference, the reference cells' profile, is in the module's
+        notes). Nothing here runs on the card."""
+        return Compose(
+            PseudoMixture(n_pseudo=n_pseudo),
+            CellTopicProfile(ct_select="auto"),
+            FilterGenesMarker(threshold=1.25),
+            SetConfig({"feature_channel": [None, "spatial"],
+                       "feature_channel_type": ["X", "obsm"],
+                       "label_channel": "cell_type_portion"}),
+            log_level=log_level,
+        )
+
+    @staticmethod
     def _kl(logp: torch.Tensor, target: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
         """torch ``KLDivLoss(reduction="mean")`` over the rows in ``m``: the
         mean over their elements of ``target (log target - logp)``
@@ -609,7 +642,30 @@ class stdGCNMarkGenes:
         return stdgcn_marker_genes(x, cell_types, gene_names, **self.kwargs)
 
 
+def stdgcn_preprocess(x_ref, ref_labels, x_spots, coords, *, n_pseudo: int = 500):
+    """:meth:`StdGCN.preprocessing_pipeline` on the reference cells ``x_ref``
+    (cells x genes, labelled ``ref_labels``), the spots ``x_spots`` and
+    their ``coords`` wrapped in a container, for a caller that holds
+    matrices. Returns :meth:`StdGCN.fit`'s ``((x, coords), y)`` in spot
+    order [pseudo; real]: the marker genes' counts (float32), every spot's
+    coordinates (zeros for the pseudo-spots) and the pseudo-spots' portions
+    over zeros for the real spots."""
+    data = deconvo_container(x_ref, ref_labels, x_spots, coords)
+    StdGCN.preprocessing_pipeline(n_pseudo=n_pseudo, log_level="WARNING")(data)
+    return stdgcn_inputs(data)
+
+
+def stdgcn_inputs(data):
+    """``((x, coords), y)`` of a container that stdGCN's pipeline ran on, in
+    spot order [pseudo; real]."""
+    order = spot_order(data)
+    (x, coords), y = data.get_data(return_type="numpy")
+    return ((np.asarray(x, np.float32)[order], np.asarray(coords, np.float32)[order]),
+            np.asarray(y, np.float32)[order])
+
+
 __all__ = ["A_intra_transfer", "StdGCN", "adj_normalize", "auto_train", "autoencoder",
            "build_stdgcn_adjacencies", "conGCN", "data_integration", "find_mutual_nn",
            "full_block", "get_idx", "inter_adj", "intra_dist_adj", "intra_exp_adj",
-           "stdGCNMarkGenes", "stdGCNWrapper", "stdgcn_marker_genes"]
+           "stdGCNMarkGenes", "stdGCNWrapper", "stdgcn_inputs", "stdgcn_marker_genes",
+           "stdgcn_preprocess"]

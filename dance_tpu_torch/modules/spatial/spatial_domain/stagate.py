@@ -46,7 +46,7 @@ from dance_tpu_torch.modules.base import BaseClusteringMethod, BasePretrain
 from dance_tpu_torch.ops.bsr import (BSRMatrix, bsr_from_scipy, bsr_gat_ad, rcm_reorder,
                                      resolve_use_bsr, unpermute)
 from dance_tpu_torch.ops.cluster import kmeans
-from dance_tpu_torch.ops.segment import aggregate, edge_softmax, gather_src
+from dance_tpu_torch.ops.segment import aggregate, edge_softmax, gather_dst, gather_src
 from dance_tpu_torch.ops.sparse import csr_from_scipy
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.transforms.graph import StagateGraph
@@ -61,7 +61,7 @@ def _edge_attention(adj, feat, attn_src, attn_dst) -> torch.Tensor:
     (counterpart: stagate.py:28)."""
     el = (feat * attn_src).sum(-1)
     er = (feat * attn_dst).sum(-1)
-    logits = torch.sigmoid(el.index_select(0, adj.indices) + er.index_select(0, adj.row_ids()))
+    logits = torch.sigmoid(gather_src(adj, el) + gather_dst(adj, er))
     return edge_softmax(adj, logits)
 
 

@@ -15,7 +15,9 @@ AdaptiveSAGE has two branches, as in the JAX package:
   kernel on the card), or one dense product when its off-diagonal is a
   :class:`~dance_tpu_torch.ops.sparse.DenseAdj`, plus per-node terms;
 - a :class:`~dance_tpu_torch.ops.sparse.CSRMatrix` gathers per-edge messages
-  and mean-aggregates them with ``index_add_``.
+  and mean-aggregates them by the fixed-order segment sum
+  (:func:`~dance_tpu_torch.ops.segment.aggregate`); the alpha gather's
+  gradient is summed in a fixed order too (:func:`_alpha_gather`).
 
 ``bsr_dtype=torch.bfloat16`` streams the BSR branch's SpMM in bf16 with
 float32 sums (gnn.py:90, :125-130); the dense and CSR branches ignore it, as
@@ -38,9 +40,9 @@ import torch
 from torch import nn
 
 from dance_tpu_torch.ops.bsr import BSRMatrix, bsr_gat_ad, bsr_spmm_ad
-from dance_tpu_torch.ops.segment import (aggregate, edge_softmax, gather_src, in_degrees,
-                                         out_degrees, spmm)
-from dance_tpu_torch.ops.sparse import AdaptiveBSR, CSRMatrix, DenseAdj
+from dance_tpu_torch.ops.segment import (aggregate, edge_softmax, gather, gather_dst,
+                                         gather_src, in_degrees, out_degrees, spmm)
+from dance_tpu_torch.ops.sparse import AdaptiveBSR, CSRMatrix, DenseAdj, index_order, kept
 from dance_tpu_torch.parallel.sharded_graph import ShardedCSR, sharded_spmm
 
 GRAPH_CONV_NORMS = ("none", "both", "right")
@@ -235,17 +237,25 @@ class AdaptiveSAGE(nn.Module):
         elif isinstance(adj, CSRMatrix):
             if alpha_idx is None:
                 alpha_idx = self.edge_alpha_index(adj.row_ids(), adj.indices, gene_id, n_genes)
-            msgs = gather_src(adj, h) * alpha.index_select(0, alpha_idx)[:, None] \
+            msgs = gather_src(adj, h) * _alpha_gather(adj, alpha, alpha_idx)[:, None] \
                 * adj.data[:, None]
             z = aggregate(adj, msgs, op="mean")
         elif isinstance(adj, ShardedCSR):
             z = sharded_spmm(adj, h, weighted=True, op="mean",
-                             edge_scale=alpha.index_select(0, adj.edge_data["alpha_idx"]))
+                             edge_scale=_alpha_gather(adj, alpha, adj.edge_data["alpha_idx"]))
         else:
             raise TypeError(f"AdaptiveSAGE takes an AdaptiveBSR, a CSRMatrix or a ShardedCSR, "
                             f"got {type(adj)}")
         z = torch.relu(self.linear(self.dropout(z)))
         return z if self.norm is None else self.norm(z)
+
+
+def _alpha_gather(adj, alpha: torch.Tensor, alpha_idx: torch.Tensor) -> torch.Tensor:
+    """``alpha[alpha_idx]``, its gradient summed over each alpha's edges in a
+    fixed order; the sort of the index is kept on ``adj``."""
+    order = kept(adj, "alpha_order", (alpha_idx,),
+                 lambda: index_order(alpha_idx, alpha.shape[0]))
+    return gather(alpha, alpha_idx, order)
 
 
 class GATConv(nn.Module):
@@ -290,11 +300,10 @@ class GATConv(nn.Module):
             return out.reshape(-1, H * D) if self.concat else out.mean(1)
         if not isinstance(adj, CSRMatrix):
             raise TypeError(f"GATConv takes a BSRMatrix or a CSRMatrix, got {type(adj)}")
-        rows = adj.row_ids()
-        logits = nn.functional.leaky_relu(el.index_select(0, adj.indices)
-                                          + er.index_select(0, rows), self.negative_slope)
+        logits = nn.functional.leaky_relu(gather_src(adj, el) + gather_dst(adj, er),
+                                          self.negative_slope)
         att = edge_softmax(adj, logits)  # (nnz, H)
-        msgs = feat.index_select(0, adj.indices) * att[:, :, None]
+        msgs = gather_src(adj, feat) * att[:, :, None]
         out = aggregate(adj, msgs.reshape(-1, H * D), op="sum").reshape(-1, H, D)
         out = out.reshape(-1, H * D) if self.concat else out.mean(1)
         return (out, att) if return_attention else out

@@ -423,7 +423,9 @@ def bsr_compute_tiles(bsr: BSRMatrix, compute_dtype: torch.dtype) -> torch.Tenso
 # forward + backward in each format. #1 streams every slot of its stored
 # tiles at about 0.7-0.8 of the time cuBLAS takes per slot of the dense
 # matrix, so dense wins once the tiles cover ~80 % of the matrix; it streams
-# a slot at about 1/250 of what the CSR gather and index_add_ take per edge.
+# a slot at about 1/250 of what the CSR gather and sum took per edge (measured
+# when that sum was an index_add_; the fixed-order sum is re-timed in chip_smoke's
+# phase 75).
 # The density test is the occupancy test for a tiling packed without waste.
 DENSE_THRESHOLD = 0.8    # edges / (n m) at and above which the dense product wins
 DENSE_OCCUPANCY = 0.8    # stored tiles' slots / (n m) at and above which it wins too
@@ -458,7 +460,7 @@ def choose_adj_format(adj: sp.spmatrix, block: int = BLOCK, *, device,
       BSR tiles would cover ≥ ``dense_occupancy`` of the n m slots
       (``tile_expansion · density``) and the dense matrix fits;
     - else ``"bsr"`` (#1) when :func:`tile_expansion` ≤ ``max_expansion``,
-      and ``"csr"`` (gather and ``index_add_``) above it.
+      and ``"csr"`` (gather and fixed-order sum) above it.
 
     On a CPU ``device`` the answer is ``"csr"``, as JAX's is off the TPU: the
     plain BSR version there is the kernel's slow oracle. The defaults are the

@@ -2,8 +2,19 @@
 adjacencies, and the segment ops under it (counterpart:
 dance_tpu/ops/segment.py:14-114).
 
-Rows are destinations. ``jax.ops.segment_sum`` becomes ``index_add_`` and
-``segment_max`` ``scatter_reduce(amax)`` on a ``-inf``-filled output, so that
+Rows are destinations. ``jax.ops.segment_sum`` becomes a sum in a fixed
+order over destination-sorted edges (:func:`segment_sum_csr`: a CSR's
+edges are sorted by row, so its segments are ``indptr``'s), which gives
+the same bits on every run, as JAX's does; ``index_add_`` would add with
+atomics in any order on the card. The gathers' backward passes are such
+sums too: over ``indptr`` for a gather by destination (:func:`gather_dst`),
+over ``Aᵀ``'s order (:meth:`~dance_tpu_torch.ops.sparse.CSRMatrix.col_order`,
+built once per matrix) for a gather by source (:func:`gather_src`), and
+over a kept sort of any other index (:func:`gather`). ``spmm`` on a CSR is
+one autograd function (:func:`csr_spmm`): the fixed-order sum of
+``w_e · h[src_e]``, ``dh`` the same sum on ``Aᵀ``, ``dw_e = ⟨ḡ[dst_e],
+h[src_e]⟩``. ``segment_max`` is ``scatter_reduce(amax)`` on a
+``-inf``-filled output (a maximum does not depend on the order), so that
 an empty segment gives ``-inf`` as in JAX. A BSR adjacency runs the sums
 through the differentiable SpMM (:func:`~dance_tpu_torch.ops.bsr.bsr_spmm_ad`)
 and max aggregation through the forward-only
@@ -13,7 +24,7 @@ sharded_graph.ShardedCSR`) goes to :func:`~dance_tpu_torch.parallel.
 sharded_graph.sharded_spmm` (sum or mean over this rank's rows).
 """
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,28 +36,108 @@ from dance_tpu_torch.parallel.sharded_graph import ShardedCSR, sharded_spmm
 AGGREGATIONS = ("sum", "mean", "max")
 
 
+def segment_sum_csr(values: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """Sums of the consecutive runs ``values[offsets[i]:offsets[i + 1]]``
+    along the first axis (an empty run gives 0), in an order fixed by the
+    offsets alone, so the same bits on every run: on the card, 2-D values
+    are added in their stored order and 1-D values by a segmented tree
+    reduction whose shape depends only on the run's length; differentiable,
+    its backward a gather."""
+    return torch.segment_reduce(values, "sum", offsets=offsets, axis=0, unsafe=True)
+
+
+class _Gather(torch.autograd.Function):
+    """``x[index]`` whose backward sums the gradient in a fixed order: the
+    entries ``perm`` (all of them when None) grouped by ``offsets``."""
+
+    @staticmethod
+    def forward(ctx, x, index, perm, offsets):
+        ctx.save_for_backward(perm, offsets)
+        ctx.n = x.shape[0]
+        return x.index_select(0, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        perm, offsets = ctx.saved_tensors
+        dx = segment_sum_csr(g if perm is None else g.index_select(0, perm), offsets)
+        return _pad_rows(dx, ctx.n), None, None, None
+
+
+def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    return x if x.shape[0] == n else torch.cat([x, x.new_zeros((n - x.shape[0],) + x.shape[1:])])
+
+
+def gather(x: torch.Tensor, index: torch.Tensor,
+           order: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """``x[index]`` whose gradient is summed in a fixed order; ``order`` is
+    :func:`~dance_tpu_torch.ops.sparse.index_order` of ``index``."""
+    return _Gather.apply(x, index, *order)
+
+
 def gather_src(adj: CSRMatrix, h: torch.Tensor) -> torch.Tensor:
-    """Per-edge source features ``h[src]`` (counterpart: segment.py:14)."""
-    return h.index_select(0, adj.indices)
+    """Per-edge source features ``h[src]`` (counterpart: segment.py:14); the
+    gradient summed over each source's edges in ``Aᵀ``'s order."""
+    return _Gather.apply(h, adj.indices, *adj.col_order())
+
+
+def gather_dst(adj: CSRMatrix, h: torch.Tensor) -> torch.Tensor:
+    """Per-edge destination features ``h[dst]``; the gradient summed over
+    each row's edges in CSR order."""
+    return _Gather.apply(h, adj.row_ids(), None, adj.indptr)
 
 
 def aggregate(adj: CSRMatrix, messages: torch.Tensor, op: str = "sum") -> torch.Tensor:
     """Aggregate per-edge messages to destination nodes (counterpart:
     segment.py:19). ``op`` is ``"sum"``, ``"mean"`` or ``"max"``; a node
     without incoming edges gets 0, 0 and ``-inf``."""
-    rows = adj.row_ids()
-    n = adj.shape[0]
     if op == "max":
+        rows = adj.row_ids()
         index = rows.view(-1, *([1] * (messages.dim() - 1))).expand_as(messages)
-        out = messages.new_full((n,) + messages.shape[1:], -torch.inf)
+        out = messages.new_full((adj.shape[0],) + messages.shape[1:], -torch.inf)
         return out.scatter_reduce(0, index, messages, "amax", include_self=False)
     if op not in ("sum", "mean"):
         raise ValueError(f"Unknown aggregation {op!r}")
-    out = messages.new_zeros((n,) + messages.shape[1:]).index_add_(0, rows, messages)
-    if op == "sum":
-        return out
-    deg = (adj.indptr[1:] - adj.indptr[:-1]).to(messages.dtype)
-    return out / deg.clamp(min=1.0)[:, None]
+    out = segment_sum_csr(messages, adj.indptr)
+    return out if op == "sum" else _mean(adj, out)
+
+
+def _mean(adj: CSRMatrix, out: torch.Tensor) -> torch.Tensor:
+    deg = (adj.indptr[1:] - adj.indptr[:-1]).to(out.dtype)
+    return out / deg.clamp(min=1.0).view(-1, *([1] * (out.dim() - 1)))
+
+
+class _CSRSpmm(torch.autograd.Function):
+    """``out[r] = Σ_e w_e h[src_e]`` over row ``r``'s edges in CSR order;
+    ``dh`` the same sum on ``Aᵀ``, ``dw_e = ⟨ḡ[dst_e], h[src_e]⟩``."""
+
+    @staticmethod
+    def forward(ctx, h, w, adj):
+        ctx.save_for_backward(h, w)
+        ctx.adj = adj
+        msgs = h.index_select(0, adj.indices)
+        if w is not None:
+            msgs = msgs * w.view(-1, *([1] * (h.dim() - 1)))
+        return segment_sum_csr(msgs, adj.indptr)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        adj = ctx.adj
+        g_dst = g.index_select(0, adj.row_ids())
+        dh = dw = None
+        if ctx.needs_input_grad[0]:
+            perm, col_ptr = adj.col_order()
+            msgs = g_dst if w is None else g_dst * w.view(-1, *([1] * (h.dim() - 1)))
+            dh = _pad_rows(segment_sum_csr(msgs.index_select(0, perm), col_ptr), h.shape[0])
+        if w is not None and ctx.needs_input_grad[1]:
+            dw = (g_dst * h.index_select(0, adj.indices)).reshape(g_dst.shape[0], -1).sum(1)
+        return dh, dw, None
+
+
+def csr_spmm(adj: CSRMatrix, h: torch.Tensor, w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``A @ h`` with per-edge weights ``w`` (or 1 where None) summed in
+    CSR order, differentiable in ``h`` and ``w`` by fixed-order sums."""
+    return _CSRSpmm.apply(h, w, adj)
 
 
 def spmm(adj, h: torch.Tensor, *, weighted: bool = True, op: str = "sum",
@@ -96,10 +187,15 @@ def spmm(adj, h: torch.Tensor, *, weighted: bool = True, op: str = "sum",
     if not isinstance(adj, CSRMatrix):
         raise TypeError(f"spmm takes a CSRMatrix, DenseAdj, BSRMatrix or ShardedCSR, got "
                         f"{type(adj).__name__}")
-    msgs = gather_src(adj, h)
-    if weighted:
-        msgs = msgs * adj.data[:, None]
-    return aggregate(adj, msgs, op=op)
+    if op == "max":
+        msgs = gather_src(adj, h)
+        if weighted:
+            msgs = msgs * adj.data[:, None]
+        return aggregate(adj, msgs, op="max")
+    if op not in ("sum", "mean"):
+        raise ValueError(f"Unknown aggregation {op!r}")
+    out = csr_spmm(adj, h, adj.data if weighted else None)
+    return out if op == "sum" else _mean(adj, out)
 
 
 def edge_softmax(adj: CSRMatrix, logits: torch.Tensor) -> torch.Tensor:
@@ -107,20 +203,21 @@ def edge_softmax(adj: CSRMatrix, logits: torch.Tensor) -> torch.Tensor:
     destination's incoming edges (counterpart: segment.py:88).
 
     The per-row max is taken out of the graph: the softmax does not depend on
-    it, so its gradient is zero in exact arithmetic."""
+    it, so its gradient is zero in exact arithmetic. The denominators are
+    fixed-order sums."""
     rows = adj.row_ids()
     index = rows.view(-1, *([1] * (logits.dim() - 1))).expand_as(logits)
     maxes = logits.new_full((adj.shape[0],) + logits.shape[1:], -torch.inf)
     maxes = maxes.scatter_reduce(0, index, logits.detach(), "amax")
     maxes = torch.where(torch.isfinite(maxes), maxes, 0.0)
     exp = torch.exp(logits - maxes.index_select(0, rows))
-    denom = torch.zeros_like(maxes).index_add_(0, rows, exp)
-    return exp / denom.index_select(0, rows).clamp(min=1e-12)
+    denom = segment_sum_csr(exp, adj.indptr)
+    return exp / gather_dst(adj, denom).clamp(min=1e-12)
 
 
 def sddmm_dot(adj: CSRMatrix, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Per-edge dot products ``a[dst]·b[src]`` (counterpart: segment.py:101)."""
-    return (a.index_select(0, adj.row_ids()) * b.index_select(0, adj.indices)).sum(-1)
+    return (gather_dst(adj, a) * gather_src(adj, b)).sum(-1)
 
 
 def in_degrees(adj: CSRMatrix) -> torch.Tensor:
@@ -129,10 +226,11 @@ def in_degrees(adj: CSRMatrix) -> torch.Tensor:
 
 
 def out_degrees(adj: CSRMatrix) -> torch.Tensor:
-    """Stored entries per column, float32 (counterpart: segment.py:111)."""
-    return torch.zeros(adj.shape[1], dtype=torch.float32, device=adj.indices.device) \
-        .index_add_(0, adj.indices, torch.ones(adj.indices.shape[0], device=adj.indices.device))
+    """Stored entries per column, float32 (counterpart: segment.py:111):
+    the row lengths of ``Aᵀ``."""
+    col_ptr = adj.col_order()[1]
+    return (col_ptr[1:] - col_ptr[:-1]).to(torch.float32)
 
 
-__all__ = ["AGGREGATIONS", "aggregate", "edge_softmax", "gather_src", "in_degrees",
-           "out_degrees", "sddmm_dot", "spmm"]
+__all__ = ["AGGREGATIONS", "aggregate", "csr_spmm", "edge_softmax", "gather", "gather_dst",
+           "gather_src", "in_degrees", "out_degrees", "sddmm_dot", "segment_sum_csr", "spmm"]

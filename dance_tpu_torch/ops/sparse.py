@@ -5,16 +5,48 @@
 
 The JAX package registers these as pytrees so that ``jit`` sees static
 shapes; here they are plain dataclasses of tensors with a ``.to(device)``.
+
+Every sum over a CSR's entries runs in a fixed order, so that two runs on
+the card give the same bits (``jax.ops.segment_sum`` does on the TPU): the
+row sums over ``indptr``'s segments (:func:`~dance_tpu_torch.ops.segment.
+segment_sum_csr`), the column sums over the same segments of ``Aᵀ``, whose
+entry order (:meth:`CSRMatrix.col_order`) is built once per matrix and
+kept on it until ``indices`` is replaced or edited in place, as the
+transposed tiling is kept on a ``BSRMatrix``. ``index_add_`` adds with
+atomics in any order on the card, and the port uses it on no CSR.
 """
 
-from dataclasses import dataclass, replace
-from typing import Tuple
+from dataclasses import dataclass, field, replace
+from typing import Callable, Tuple
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
 from dance_tpu_torch.ops.bsr import BSRMatrix
+
+
+def kept(owner, key: str, tensors, build: Callable):
+    """``build()``, kept on ``owner`` under ``key`` until one of ``tensors``
+    is replaced or edited in place (its version counter moves)."""
+    cache = owner.__dict__.setdefault("_kept", {})
+    hit = cache.get(key)
+    if hit is not None and len(hit[0]) == len(tensors) and all(
+            t0 is t and v == t._version for (t0, v), t in zip(hit[0], tensors)):
+        return hit[1]
+    value = build()
+    cache[key] = (tuple((t, t._version) for t in tensors), value)
+    return value
+
+
+def index_order(index: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(perm, offsets)``: the stable permutation that sorts ``index`` (values
+    in ``[0, n)``) and the start of each value's run in that order, so that
+    ``offsets[i]:offsets[i + 1]`` of ``index[perm]`` are the entries equal
+    to ``i``, in their first order."""
+    perm = torch.sort(index, stable=True).indices
+    bounds = torch.arange(n + 1, device=index.device, dtype=index.dtype)
+    return perm, torch.searchsorted(index.index_select(0, perm), bounds)
 
 
 @dataclass
@@ -25,12 +57,30 @@ class CSRMatrix:
     indices: torch.Tensor  # (nnz,) int64 column index per entry
     indptr: torch.Tensor   # (n_rows + 1,) int64
     shape: Tuple[int, int]
+    # the row ids and Aᵀ's entry order, stamped with what they were built from
+    _kept: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     def row_ids(self) -> torch.Tensor:
-        """Per-entry row id (counterpart: ``CSRMatrix.row_ids``, sparse.py:49)."""
-        counts = self.indptr[1:] - self.indptr[:-1]
-        return torch.repeat_interleave(
-            torch.arange(self.shape[0], device=self.indptr.device), counts)
+        """Per-entry row id (counterpart: ``CSRMatrix.row_ids``, sparse.py:49),
+        kept until ``indptr`` changes."""
+        def build():
+            counts = self.indptr[1:] - self.indptr[:-1]
+            return torch.repeat_interleave(torch.arange(self.shape[0], device=self.indptr.device),
+                                           counts, output_size=self.indices.shape[0])
+        return kept(self, "rows", (self.indptr,), build)
+
+    def col_order(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(perm, col_ptr)``: the entries of ``Aᵀ`` in CSR order (by column,
+        then by row) and its row pointer (:func:`index_order` of
+        ``indices``), kept until ``indices`` changes."""
+        return kept(self, "cols", (self.indices,),
+                    lambda: index_order(self.indices, self.shape[1]))
+
+    def with_data(self, data: torch.Tensor) -> "CSRMatrix":
+        """The same pattern with other values, sharing the kept orders."""
+        out = replace(self, data=data)
+        out._kept = self._kept
+        return out
 
     def to(self, device) -> "CSRMatrix":
         return replace(self, data=self.data.to(device), indices=self.indices.to(device),
@@ -60,37 +110,50 @@ def csr_to_scipy(mat: CSRMatrix) -> sp.csr_matrix:
 
 
 def csr_to_dense(mat: CSRMatrix) -> torch.Tensor:
-    """The dense matrix where ``mat`` lies, duplicate entries summed
-    (counterpart: sparse.py:77)."""
-    out = mat.data.new_zeros(mat.shape)
-    return out.index_put_((mat.row_ids(), mat.indices), mat.data, accumulate=True)
+    """The dense matrix where ``mat`` lies, duplicate entries summed in their
+    stored order (counterpart: sparse.py:77); ``perm`` and ``keys`` are
+    distinct, so no entry is written twice."""
+    from dance_tpu_torch.ops.segment import segment_sum_csr
+    flat = mat.row_ids() * mat.shape[1] + mat.indices
+    perm = torch.sort(flat, stable=True).indices
+    keys, counts = torch.unique_consecutive(flat.index_select(0, perm), return_counts=True)
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    sums = segment_sum_csr(mat.data.index_select(0, perm), offsets)
+    out = mat.data.new_zeros(mat.shape[0] * mat.shape[1])
+    return out.index_put((keys,), sums).reshape(mat.shape)
 
 
 def csr_matvec(mat: CSRMatrix, v: torch.Tensor) -> torch.Tensor:
     """``A @ v`` by a gather and a segment sum (counterpart: sparse.py:83)."""
-    prod = mat.data * v.index_select(0, mat.indices)
-    return prod.new_zeros(mat.shape[0]).index_add_(0, mat.row_ids(), prod)
+    from dance_tpu_torch.ops.segment import csr_spmm
+    return csr_spmm(mat, v[:, None], mat.data)[:, 0]
 
 
 def csr_row_sums(mat: CSRMatrix) -> torch.Tensor:
     """Counterpart: sparse.py:108."""
-    return mat.data.new_zeros(mat.shape[0]).index_add_(0, mat.row_ids(), mat.data)
+    from dance_tpu_torch.ops.segment import segment_sum_csr
+    return segment_sum_csr(mat.data, mat.indptr)
 
 
 def csr_col_sums(mat: CSRMatrix) -> torch.Tensor:
-    """Counterpart: sparse.py:112."""
-    return mat.data.new_zeros(mat.shape[1]).index_add_(0, mat.indices, mat.data)
+    """Counterpart: sparse.py:112; each column summed in row order (``perm``
+    is a permutation: the gather's backward writes each entry once)."""
+    from dance_tpu_torch.ops.segment import segment_sum_csr
+    perm, col_ptr = mat.col_order()
+    return segment_sum_csr(mat.data.index_select(0, perm), col_ptr)
 
 
 def csr_scale_rows(mat: CSRMatrix, scale: torch.Tensor) -> CSRMatrix:
     """Row ``i`` times ``scale[i]``, without densifying (counterpart:
     sparse.py:116)."""
-    return replace(mat, data=mat.data * scale.index_select(0, mat.row_ids()))
+    from dance_tpu_torch.ops.segment import gather_dst
+    return mat.with_data(mat.data * gather_dst(mat, scale))
 
 
 def csr_scale_cols(mat: CSRMatrix, scale: torch.Tensor) -> CSRMatrix:
     """Column ``j`` times ``scale[j]`` (counterpart: sparse.py:121)."""
-    return replace(mat, data=mat.data * scale.index_select(0, mat.indices))
+    from dance_tpu_torch.ops.segment import gather_src
+    return mat.with_data(mat.data * gather_src(mat, scale))
 
 
 def csr_matmat(mat: CSRMatrix, b: torch.Tensor) -> torch.Tensor:
@@ -176,4 +239,4 @@ class AdaptiveBSR:
 __all__ = ["AdaptiveBSR", "CSRMatrix", "DenseAdj", "csr_col_sums", "csr_from_dense",
            "csr_from_scipy", "csr_matmat", "csr_matvec", "csr_rmatmat", "csr_row_sums",
            "csr_scale_cols", "csr_scale_rows", "csr_to_dense", "csr_to_scipy",
-           "dense_adj_from_scipy", "sym_norm_adjacency"]
+           "dense_adj_from_scipy", "index_order", "kept", "sym_norm_adjacency"]

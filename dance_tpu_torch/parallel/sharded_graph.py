@@ -7,10 +7,12 @@ rank keeps only its chunk's edges, padded to the largest chunk's edge count
 ``E_max`` with weight 0, so per-rank edge storage is about 1/D of the graph.
 :func:`sharded_spmm` all-gathers the (much smaller) node features and
 segment-sums this rank's edges into its rows, as JAX's ``shard_map`` body
-does; its backward sums the feature gradients over the ranks and hands each
-its rows. A model run this way holds its node features as each rank's
-``rows_per`` rows (:func:`~dance_tpu_torch.parallel.mesh.to_device`'s
-layout).
+does, in a fixed order (the chunk as a CSR of its rows:
+:func:`~dance_tpu_torch.ops.segment.segment_sum_csr`, the gather's
+backward over its transposed order); its backward sums the feature
+gradients over the ranks and hands each its rows. A model run this way
+holds its node features as each rank's ``rows_per`` rows
+(:func:`~dance_tpu_torch.parallel.mesh.to_device`'s layout).
 
 Where this differs from the JAX package: a rank holds its chunk only (JAX's
 arrays carry every chunk on a leading device axis; :func:`csr_chunks` builds
@@ -26,6 +28,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from dance_tpu_torch.ops.sparse import CSRMatrix, kept
 from dance_tpu_torch.parallel.mesh import Mesh, current_mesh, gather_rows, mesh_device
 
 
@@ -59,6 +62,17 @@ class ShardedCSR:
         """The true in-degrees of this rank's ``rows_per_shard`` rows (0 on
         the padding rows)."""
         return _local_block(self.degrees, self.row_offset, self.rows_per_shard)
+
+    def local_csr(self) -> CSRMatrix:
+        """This rank's real edges as a CSR of its ``rows_per_shard`` rows over
+        all ``n`` sources (the chunk is row-sorted), kept on the shard."""
+        def build():
+            k = self.n_edges
+            rows = self.local_rows[:k]
+            bounds = torch.arange(self.rows_per_shard + 1, device=rows.device, dtype=rows.dtype)
+            return CSRMatrix(self.data[:k], self.indices[:k], torch.searchsorted(rows, bounds),
+                             (self.rows_per_shard, self.shape[0]))
+        return kept(self, "local_csr", (self.data, self.indices, self.local_rows), build)
 
     def __repr__(self):
         return (f"ShardedCSR(shape={self.shape}, shards={self.n_shards}, "
@@ -150,13 +164,14 @@ def sharded_spmm(s: ShardedCSR, h: torch.Tensor, *, weighted: bool = True, op: s
     else:
         raise ValueError(f"sharded_spmm takes this rank's {rps} rows or all {n}, got "
                          f"{h.shape[0]}")
-    k = s.n_edges
-    msgs = h_all.index_select(0, s.indices[:k])
+    from dance_tpu_torch.ops.segment import gather_src, segment_sum_csr
+    local = s.local_csr()
+    msgs = gather_src(local, h_all)
     if weighted:
-        msgs = msgs * s.data[:k, None]
+        msgs = msgs * local.data[:, None]
     if edge_scale is not None:
-        msgs = msgs * edge_scale[:k, None]
-    out = msgs.new_zeros((rps, h.shape[1])).index_add_(0, s.local_rows[:k], msgs)
+        msgs = msgs * edge_scale[:s.n_edges, None]
+    out = segment_sum_csr(msgs, local.indptr)
     if op == "mean":
         deg = (_local_block(degrees, s.row_offset, rps) if degrees is not None
                else s.local_degrees())

@@ -2,8 +2,7 @@
 the filters, ``normalize_total``, ``normalize_per_cell``, ``log1p``,
 ``scale``, ``highly_variable_genes`` with its three flavours and batches,
 ``calculate_qc_metrics``, ``neighbors``, ``pca``, ``regress_out``,
-``combat``, ``scrublet`` and ``subsample``, and ``normalized_counts``, the
-chain that scTAG's and scDSC's pipelines share.
+``combat``, ``scrublet`` and ``subsample``.
 
 The JAX package's versions read and write an ``AnnData`` (pandas frames);
 the card has no pandas, so these take a cells x genes numpy or scipy matrix
@@ -427,37 +426,6 @@ def highly_variable_genes(x, *, flavor: str = "seurat", n_top_genes: Optional[in
     raise ValueError(f"Unknown flavor {flavor!r}")
 
 
-def normalized_counts(counts, n_top_genes: int):
-    """The count processing that scTAG's and scDSC's pipelines share
-    (sctag.py:93-105, scdsc.py:120-131): genes under 3 counts and cells
-    without counts dropped, ``normalize_per_cell``, ``log1p``, the
-    ``n_top_genes`` cell_ranger HVGs kept, genes and cells without counts
-    dropped; that matrix is the ZINB target (``SaveRaw``), and the features are
-    it after ``normalize_total``, ``log1p`` and ``scale``. Returns ``(x, x_raw,
-    n_counts, cells)``: dense float32 features and target, the cells' totals
-    as the last ``filter_cells`` writes them (``obs["n_counts"]``), and the
-    indices of the kept cells."""
-    x = sp.csr_matrix(counts, dtype=np.float32) if sp.issparse(counts) \
-        else np.asarray(counts, np.float32)
-    genes, _ = filter_genes(x, min_counts=3)
-    x = x[:, np.nonzero(genes)[0]]
-    kept, _ = filter_cells(x, min_counts=1)
-    cells = np.nonzero(kept)[0]
-    x, kept, _ = normalize_per_cell(x[cells])
-    cells = cells[kept]
-    x = log1p(x)
-    hv = highly_variable_genes(x, flavor="cell_ranger", n_top_genes=n_top_genes,
-                               min_mean=0.0125, max_mean=4, min_disp=0.5)["highly_variable"]
-    x = x[:, np.nonzero(hv)[0]]
-    genes, _ = filter_genes(x, min_counts=1)
-    x = x[:, np.nonzero(genes)[0]]
-    kept, n_counts = filter_cells(x, min_counts=1)
-    x, cells, n_counts = x[np.nonzero(kept)[0]], cells[kept], n_counts[kept]
-    x_raw = np.asarray(x.toarray() if sp.issparse(x) else x, np.float32)
-    x, _, _ = scale(log1p(normalize_total(x)))
-    return x, x_raw, n_counts, cells
-
-
 # --------------------------------------------------------------------------
 # QC, graphs, batch correction, doublets, subsampling (counterpart:
 # pp.py:397-555)
@@ -662,5 +630,5 @@ def subsample(x, *, fraction: Optional[float] = None, n_obs: Optional[int] = Non
 
 __all__ = ["calculate_qc_metrics", "combat", "filter_cells", "filter_genes",
            "highly_variable_genes", "log1p", "neighbors", "normalize_per_cell", "normalize_total",
-           "normalized_counts", "pca", "regress_out", "scale", "scrublet", "scrublet_pairs",
+           "pca", "regress_out", "scale", "scrublet", "scrublet_pairs",
            "size_factors", "subsample"]

@@ -23,6 +23,7 @@ from dance_tpu_torch.transforms.filter import (FilterCellsCommonMod, FilterCells
                                                get_count)
 from dance_tpu_torch.transforms.gene_holdout import GeneHoldout
 from dance_tpu_torch.transforms.graph import (CellFeatureBipartiteGraph, CellFeatureGraph,
+                                              DSTGraph, HeteronetGraph, NeighborGraph,
                                               PCACellFeatureGraph, RESEPTGraph, StagateGraph,
                                               dstg_link_graph, feature_feature_graph,
                                               heteronet_graph, neighbor_graph, sme_graph,
@@ -48,7 +49,8 @@ from dance_tpu_torch.transforms.stats import GeneStats
 
 __all__ = ["AlignMod", "AnnDataAdaptor", "AnnDataTransform", "BaseTransform", "BatchFeature",
            "CellFeatureBipartiteGraph", "CellFeatureGraph", "CellGiottoTopicProfile", "CellPCA",
-           "CellSVD", "CellSparsePCA", "Compose", "PCACellFeatureGraph", "RemoveSplit", "SaveRaw",
+           "CellSVD", "CellSparsePCA", "Compose", "DSTGraph", "HeteronetGraph", "NeighborGraph",
+           "PCACellFeatureGraph", "RemoveSplit", "SaveRaw",
            "SetConfig", "StagateGraph", "UpdateRaw",
            "CellTopicProfile", "CellTypeNums", "CellwiseMaskData", "ColumnSumNormalize",
            "FeatureCellPlaceHolder", "FilterCellTransform", "FilterCellsCommonMod",

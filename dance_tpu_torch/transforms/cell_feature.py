@@ -173,18 +173,36 @@ class WeightedFeatureSVD:
         return cell_feat.cpu().numpy(), gene_feat.cpu().numpy()
 
 
-class CellPCA:
+@register_preprocessor("feature", "cell")
+class CellPCA(BaseTransform):
     """:func:`cell_pca` as JAX's transform (counterpart:
-    cell_feature.py:117); with ``save_info``, ``info`` holds the PCA's
-    components, mean and explained variance."""
+    cell_feature.py:117). On an array, ``__call__(x)`` returns the
+    embedding; on a port ``Data``, the PCA is of its ``X`` and goes to
+    ``obsm[out]``. With ``save_info``, ``info`` (and on a
+    ``Data`` its ``uns``) holds the PCA's components, mean and explained
+    variance."""
 
-    def __init__(self, n_components: int = 400, *, save_info: bool = False, device="auto"):
+    _DISPLAY_ATTRS = ("n_components",)
+
+    def __init__(self, n_components: int = 400, *, save_info: bool = False, device="auto",
+                 **kwargs):
+        super().__init__(**kwargs)
         self.n_components = n_components
         self.save_info = save_info
         self.device = device
         self.info: Dict[str, np.ndarray] = {}
 
-    def __call__(self, x) -> np.ndarray:
+    def __call__(self, x):
+        if isinstance(x, BaseData):
+            data = x
+            feat = np.asarray(data.get_feature(return_type="numpy", channel_type="X"),
+                              dtype=np.float32)
+            data.data.obsm[self.out] = self._embed(feat)
+            data.data.uns.update(self.info)
+            return data
+        return self._embed(x)
+
+    def _embed(self, x) -> np.ndarray:
         feat = _dense(x, resolve_device(self.device))
         res = pca(feat, _resolve_k(self.n_components, feat.shape))
         if self.save_info:

@@ -41,10 +41,12 @@ import scipy.sparse as sp
 import torch
 from scipy.stats import median_abs_deviation, rankdata
 
+from dance_tpu_torch.data import Frame
 from dance_tpu_torch.data.base import BaseData
 from dance_tpu_torch.registry import register_preprocessor
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.transforms.base import BaseTransform
+from dance_tpu_torch.transforms.interface import AnnDataTransform
 from dance_tpu_torch.utils import resolve_device
 
 
@@ -56,19 +58,24 @@ def get_count(value, basis: int):
     return value
 
 
-class FilterScanpy:
+class FilterScanpy(BaseTransform):
     """One count or nonzero-number threshold pass over cells or genes
     (counterpart: filter.py:33). A float threshold in (0, 1) is a ratio: of
     the totals' percentile for ``*_counts``, of the other axis's length for
     ``*_genes_or_cells``. ``__call__(x)`` returns ``(keep, n_counts,
     n_nonzero)``: the mask and each cell's or gene's total and nonzero
     count, the columns JAX writes under ``key_n_counts`` and
-    ``key_n_genes_or_cells``."""
+    ``key_n_genes_or_cells``. ``__call__(data)`` filters a port ``Data``'s
+    ``X`` in place, as JAX's does with its default channel (its other
+    channels, splits, key columns and ``inplace=False`` have no port: no
+    ported pipeline sets them)."""
 
     _FILTER_TARGET: Optional[str] = None
+    _DISPLAY_ATTRS = ("min_counts", "min_genes_or_cells", "max_counts", "max_genes_or_cells")
 
     def __init__(self, min_counts=None, min_genes_or_cells=None, max_counts=None,
-                 max_genes_or_cells=None):
+                 max_genes_or_cells=None, **kwargs):
+        super().__init__(**kwargs)
         self.min_counts = min_counts
         self.min_genes_or_cells = min_genes_or_cells
         self.max_counts = max_counts
@@ -92,7 +99,9 @@ class FilterScanpy:
                 get_count(self.min_genes_or_cells, basis),
                 get_count(self.max_genes_or_cells, basis))
 
-    def __call__(self, x) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    def __call__(self, x):
+        if isinstance(x, BaseData):
+            return self._filter_data(x)
         n_counts, n_nonzero, min_c, max_c, min_o, max_o = self._thresholds(x)
         keep = np.ones(len(n_counts), dtype=bool)
         if min_c is not None:
@@ -104,28 +113,43 @@ class FilterScanpy:
         if max_o is not None:
             keep &= n_nonzero <= max_o
         if not keep.all():
-            logger.info("Removing %d %s", int((~keep).sum()), self._FILTER_TARGET)
+            self.logger.info("Removing %d %s", int((~keep).sum()), self._FILTER_TARGET)
         return keep, n_counts, n_nonzero
 
+    def _filter_data(self, data):
+        """Counterpart: filter.py:81-118."""
+        keep, _, _ = self(data.get_feature(return_type="numpy", channel_type="X"))
+        if keep.all():
+            return data
+        if self._FILTER_TARGET == "genes":
+            data.data._inplace_subset_var(keep)
+        else:
+            data.filter_by_mask(keep)
+        return data
 
+
+@register_preprocessor("filter", "cell")
 class FilterCellsScanpy(FilterScanpy):
     """:class:`FilterScanpy` over cells (counterpart: filter.py:120)."""
 
     _FILTER_TARGET = "cells"
 
-    def __init__(self, min_counts=None, min_genes=None, max_counts=None, max_genes=None):
+    def __init__(self, min_counts=None, min_genes=None, max_counts=None, max_genes=None,
+                 **kwargs):
         super().__init__(min_counts=min_counts, min_genes_or_cells=min_genes,
-                         max_counts=max_counts, max_genes_or_cells=max_genes)
+                         max_counts=max_counts, max_genes_or_cells=max_genes, **kwargs)
 
 
+@register_preprocessor("filter", "gene")
 class FilterGenesScanpy(FilterScanpy):
     """:class:`FilterScanpy` over genes (counterpart: filter.py:139)."""
 
     _FILTER_TARGET = "genes"
 
-    def __init__(self, min_counts=None, min_cells=None, max_counts=None, max_cells=None):
+    def __init__(self, min_counts=None, min_cells=None, max_counts=None, max_cells=None,
+                 **kwargs):
         super().__init__(min_counts=min_counts, min_genes_or_cells=min_cells,
-                         max_counts=max_counts, max_genes_or_cells=max_cells)
+                         max_counts=max_counts, max_genes_or_cells=max_cells, **kwargs)
 
 
 def _in_order(filters, x, axis: int):
@@ -196,18 +220,28 @@ class FilterCellsCommonMod:
         return out
 
 
-class FilterGenesMarker:
+@register_preprocessor("filter", "gene")
+class FilterGenesMarker(BaseTransform):
     """Marker genes of a (genes x types) profile (counterpart: filter.py:358).
-    ``__call__(ct_profile)`` returns the boolean mask of the genes kept."""
+    ``__call__(ct_profile)`` returns the boolean mask of the genes kept.
+    ``__call__(data)`` reads the profile ``Frame`` in
+    ``varm["CellTopicProfile"]``, writes the (genes x types) indicator to
+    ``varm[out]`` and keeps the marker genes in gene order, as JAX's does
+    with its defaults (the port keeps ``ct_profile_channel`` and ``subset``
+    as class constants, printed in the digest: no pipeline sets another)."""
 
-    def __init__(self, *, threshold: float = 1.25, eps: float = 1e-6):
+    _DISPLAY_ATTRS = ("ct_profile_channel", "subset", "threshold", "eps")
+    ct_profile_channel, subset = "CellTopicProfile", True
+
+    def __init__(self, *, threshold: float = 1.25, eps: float = 1e-6, **kwargs):
+        super().__init__(**kwargs)
         self.threshold = threshold
         self.eps = eps
 
     @staticmethod
     def get_marker_genes(ct_profile: np.ndarray, cell_types: Sequence[str],
                          genes: Optional[Sequence[str]] = None, *, threshold: float = 1.25,
-                         eps: float = 1e-6) -> Tuple[List, np.ndarray]:
+                         eps: float = 1e-6, logger=logger) -> Tuple[List, np.ndarray]:
         """``(markers, ind)``: the names (or, without ``genes``, the indices)
         of the genes that mark any type, in gene order, and the (genes x
         types) boolean indicator (counterpart: filter.py:377)."""
@@ -225,12 +259,25 @@ class FilterGenesMarker:
         markers = [genes[k] for k in keep] if genes is not None else keep.tolist()
         return markers, ind
 
-    def __call__(self, ct_profile: np.ndarray, cell_types: Optional[Sequence[str]] = None
-                 ) -> np.ndarray:
+    def __call__(self, ct_profile, cell_types: Optional[Sequence[str]] = None):
+        if isinstance(ct_profile, BaseData):
+            return self._filter_data(ct_profile)
         cell_types = cell_types if cell_types is not None else range(ct_profile.shape[1])
         _, ind = self.get_marker_genes(ct_profile, list(cell_types), threshold=self.threshold,
                                        eps=self.eps)
         return ind.any(1)
+
+    def _filter_data(self, data):
+        """Counterpart: filter.py:399-410."""
+        profile = data.get_feature(channel=self.ct_profile_channel, channel_type="varm",
+                                   return_type="default")
+        genes = list(profile.index)
+        markers, ind = self.get_marker_genes(profile.to_numpy(), profile.columns, genes,
+                                             threshold=self.threshold, eps=self.eps,
+                                             logger=self.logger)
+        data.data.varm[self.out] = Frame(ind, index=profile.index, columns=profile.columns)
+        data.data._inplace_subset_var(np.asarray(markers))
+        return data
 
 
 class FilterGenesMatch:
@@ -585,17 +632,25 @@ class HighlyVariableGenesRawCount:
                                         span=self.span)
 
 
-class HighlyVariableGenesLogarithmizedByTopGenes:
+@register_preprocessor("filter", "gene")
+class HighlyVariableGenesLogarithmizedByTopGenes(AnnDataTransform):
     """seurat or cell_ranger HVGs of log data by the top ``n_top_genes``
-    (counterpart: filter.py:636)."""
+    (counterpart: filter.py:636). On an array, ``__call__(x)`` returns
+    :func:`~dance_tpu_torch.sc.pp.highly_variable_genes`' dict; on a port
+    ``Data`` it is JAX's ``AnnDataTransform`` of ``sc.pp.highly_variable_genes``
+    (the ``var`` columns, then the genes kept with ``subset``)."""
 
     def __init__(self, n_top_genes: Optional[int] = 1000, n_bins: int = 20,
-                 flavor: str = "seurat"):
+                 flavor: str = "seurat", **kwargs):
+        super().__init__("sc.pp.highly_variable_genes", n_top_genes=n_top_genes, n_bins=n_bins,
+                         flavor=flavor, subset=True, inplace=True, **kwargs)
         self.n_top_genes = n_top_genes
         self.n_bins = n_bins
         self.flavor = flavor
 
-    def __call__(self, x) -> Dict[str, np.ndarray]:
+    def __call__(self, x):
+        if isinstance(x, BaseData):
+            return super().__call__(x)
         from dance_tpu_torch.sc import pp
 
         return pp.highly_variable_genes(x, flavor=self.flavor, n_top_genes=self.n_top_genes,
@@ -643,19 +698,30 @@ class FilterCellsPlaceHolder:
         return np.asarray(x.sum(1)).ravel(), np.asarray((x > 0).sum(1)).ravel()
 
 
-class FilterCellsType:
+@register_preprocessor("filter", "cell")
+class FilterCellsType(BaseTransform):
     """The cells of the types with more than ``cell_type_threshold`` cells
     (counterpart: filter.py:718): ``__call__(onehot)`` takes the (cells,
-    types) one-hot matrix JAX reads from ``obsm["cell_type"]`` and returns
-    the keep mask."""
+    types) one-hot matrix and returns the keep mask; ``__call__(data)``
+    reads it from ``obsm["cell_type"]``, a ``Frame`` as JAX's is a
+    DataFrame, and keeps those cells."""
 
-    def __init__(self, cell_type_threshold: int = 10):
+    _DISPLAY_ATTRS = ("cell_type_threshold",)
+
+    def __init__(self, cell_type_threshold: int = 10, **kwargs):
+        super().__init__(**kwargs)
         self.cell_type_threshold = cell_type_threshold
 
-    def __call__(self, onehot) -> np.ndarray:
+    def __call__(self, onehot):
+        if isinstance(onehot, BaseData):
+            data = onehot
+            frame = data.data.obsm["cell_type"]
+            if not isinstance(frame, Frame):
+                raise TypeError(f"obsm['cell_type'] must be a Frame, got {type(frame)}")
+            return data.filter_by_mask(self(frame.to_numpy()))
         onehot = np.asarray(onehot)
         remove = onehot.sum(0) <= self.cell_type_threshold
-        logger.info("Found %d cell types below threshold", int(remove.sum()))
+        self.logger.info("Found %d cell types below threshold", int(remove.sum()))
         return ~(onehot[:, remove].sum(1) > 0)
 
 

@@ -12,7 +12,9 @@ Where this differs from the JAX package:
 
 - :func:`dstg_link_graph` is the array form of the ``DSTGraph`` transform: it
   takes the two spot sets and returns the graph, ordered [reference;
-  inferred], where the transform writes it into ``obsp``.
+  inferred]. :class:`DSTGraph` writes it into ``obsp`` in the container's
+  cell order (JAX writes the [reference; inferred] graph as it is, whatever
+  the container holds); a cell of neither split has no edge.
 - The randomized SVD and the kNN are the port's (``ops.linalg``,
   ``ops.neighbors``): an SVD above 1,024 on its short side draws another
   test matrix than JAX's, and a kNN tie at the k-th place may fall the other
@@ -36,6 +38,8 @@ import torch
 
 from dance_tpu_torch.ops.linalg import randomized_svd
 from dance_tpu_torch.ops.neighbors import _knn_block
+from dance_tpu_torch.registry import register_preprocessor
+from dance_tpu_torch.transforms.base import BaseTransform
 from dance_tpu_torch.transforms.preprocess import ccaEmbed, l2norm, selectTopGenes
 from dance_tpu_torch.utils import resolve_device
 
@@ -101,6 +105,40 @@ def dstg_link_graph(x_ref, x_inf, k_filter: int = 200, num_cc: int = 30, *,
     float64 as the transform reads them."""
     return compute_dstg_adj(np.asarray(x_ref, np.float64), np.asarray(x_inf, np.float64),
                             k_filter=k_filter, num_cc=num_cc, device=device)
+
+
+@register_preprocessor("graph", "reference")
+class DSTGraph(BaseTransform):
+    """:func:`dstg_link_graph` of the cells of split ``"pseudo"`` and of
+    split ``"test"`` (their ``X``) into ``obsp[out]``, over every cell of
+    the container in its order (counterpart: dstg_graph.py:80). The splits
+    are class constants, printed in the digest as JAX prints the ones its
+    DSTG pipeline gives. The CCA and the kNN run on ``device`` (the card
+    unless the CPU is named)."""
+
+    _DISPLAY_ATTRS = ("k_filter", "num_cc", "ref_split", "inf_split")
+    ref_split, inf_split = "pseudo", "test"
+
+    def __init__(self, k_filter: int = 200, num_cc: int = 30, *, device="auto", **kwargs):
+        super().__init__(**kwargs)
+        self.k_filter = k_filter
+        self.num_cc = num_cc
+        self.device = device
+
+    def __call__(self, data):
+        splits = (self.ref_split, self.inf_split)
+        x_ref, x_inf = (data.get_feature(return_type="numpy", split_name=split, channel_type="X")
+                        for split in splits)
+        adj = dstg_link_graph(x_ref, x_inf, k_filter=self.k_filter, num_cc=self.num_cc,
+                              device=self.device)
+        order = np.concatenate([data.get_split_idx(s, error_on_miss=True) for s in splits])
+        n = data.shape[0]
+        if len(order) != n or (order != np.arange(n)).any():
+            place = sp.csr_matrix((np.ones(len(order), np.float32),
+                                   (order, np.arange(len(order)))), shape=(n, len(order)))
+            adj = (place @ adj @ place.T).tocsr()
+        data.data.obsp[self.out] = adj
+        return data
 
 
 # --------------------------------------------------------------------------
@@ -198,5 +236,5 @@ def preprocess_adj(adj) -> sp.coo_matrix:
     return d_inv_sqrt.dot(adj).dot(d_inv_sqrt).tocoo()
 
 
-__all__ = ["cca_embed", "compute_dstg_adj", "construct_link_graph", "dstg_link_graph",
-           "filter_edge", "knn", "mnn", "preprocess_adj", "query_knn"]
+__all__ = ["DSTGraph", "cca_embed", "compute_dstg_adj", "construct_link_graph",
+           "dstg_link_graph", "filter_edge", "knn", "mnn", "preprocess_adj", "query_knn"]

@@ -1,9 +1,8 @@
-"""scHeteroNet's cell kNN graph on arrays (counterpart:
-dance_tpu/transforms/graph/heteronet_graph.py:14-44, ``HeteronetGraph``).
-
-The JAX transform reads the feature channel of a ``Data`` container and
-writes the graph into ``uns``; the port takes the features and returns the
-:class:`~dance_tpu_torch.graph.Graph`.
+"""scHeteroNet's cell kNN graph (counterpart:
+dance_tpu/transforms/graph/heteronet_graph.py:14-44): :func:`heteronet_graph`
+takes the features and returns the :class:`~dance_tpu_torch.graph.Graph`;
+:class:`HeteronetGraph`, JAX's transform, writes it into a port ``Data``'s
+``uns`` and is registered under JAX's key.
 """
 
 import numpy as np
@@ -11,6 +10,8 @@ import scipy.sparse as sp
 
 from dance_tpu_torch.graph import Graph
 from dance_tpu_torch.ops.neighbors import knn_graph
+from dance_tpu_torch.registry import register_preprocessor
+from dance_tpu_torch.transforms.base import BaseTransform
 
 
 def heteronet_graph(feat, knn_num: int = 5, distance_metrics: str = "l2") -> Graph:
@@ -29,4 +30,24 @@ def heteronet_graph(feat, knn_num: int = 5, distance_metrics: str = "l2") -> Gra
     return g
 
 
-__all__ = ["heteronet_graph"]
+@register_preprocessor("graph", "cell")
+class HeteronetGraph(BaseTransform):
+    """:func:`heteronet_graph` of a ``Data``'s ``X`` into ``uns[out]``
+    (counterpart: heteronet_graph.py:13). JAX's ``random_state`` and
+    ``ignore_first``, which it ignores, and its channel options, which no
+    pipeline sets, are not taken."""
+
+    _DISPLAY_ATTRS = ("knn_num", "distance_metrics")
+
+    def __init__(self, knn_num: int = 5, distance_metrics: str = "l2", **kwargs):
+        super().__init__(**kwargs)
+        self.knn_num = knn_num
+        self.distance_metrics = distance_metrics
+
+    def __call__(self, data):
+        feat = data.get_feature(return_type="numpy", channel_type="X")
+        data.data.uns[self.out] = heteronet_graph(feat, self.knn_num, self.distance_metrics)
+        return data
+
+
+__all__ = ["HeteronetGraph", "heteronet_graph"]

@@ -101,9 +101,14 @@ def highly_variable_genes(adata, *, flavor: str = "seurat", n_top_genes: Optiona
                           min_mean: float = 0.0125, max_mean: float = 3.0,
                           min_disp: float = 0.5, max_disp: float = np.inf, n_bins: int = 20,
                           span: float = 0.3, subset: bool = False,
-                          batch_key: Optional[str] = None, check_values: bool = True):
+                          batch_key: Optional[str] = None, check_values: bool = True,
+                          inplace: bool = True):
     """Counterpart: pp.py:252; every result as a ``var`` column, then the
-    genes kept with ``subset``. ``batch_key`` names an ``obs`` column."""
+    genes kept with ``subset``. ``batch_key`` names an ``obs`` column. JAX's
+    ``inplace=False`` (the results returned, the AnnData untouched) has no
+    port: no ported pipeline sets it."""
+    if not inplace:
+        raise ValueError("highly_variable_genes: the container adaptor works in place only")
     res = pp.highly_variable_genes(
         adata.X, flavor=flavor, n_top_genes=n_top_genes, min_mean=min_mean, max_mean=max_mean,
         min_disp=min_disp, max_disp=max_disp, n_bins=n_bins, span=span,

@@ -11,7 +11,10 @@ scanpy fronts (counterparts: dance_tpu/transforms/normalize.py,
 The JAX transforms read and write a ``Data`` container. Here each takes the
 cells x genes matrix and returns what JAX writes: :class:`ScTransform`
 returns a dict with the residual matrix under ``"X"`` and dicts of the
-``var`` and ``obs`` columns under their JAX names.
+``var`` and ``obs`` columns under their JAX names. :class:`Log1P`,
+:class:`NormalizeTotal` and :class:`UpdateSizeFactors`, which the container
+pipelines run, also take a port ``Data`` and then act on it as JAX's do;
+they are registered under JAX's keys in the port's own registry.
 
 ScTransform's ``"glm"`` flavour in stages, each on ``device`` (the CUDA card
 unless the CPU is named):
@@ -37,7 +40,7 @@ Where this differs from the JAX package:
 - ``ScTransformR`` drives R through rpy2, which the card's machine lacks: it
   raises ``NotImplementedError``.
 - ``NormalizeTotal``'s ``key_added`` is not taken: the port returns the
-  matrix only. ScTransform's ``n_cells``, ``bin_size`` and ``processes_num``,
+  matrix, or normalises a ``Data`` in place. ScTransform's ``n_cells``, ``bin_size`` and ``processes_num``,
   which JAX stores and never reads, are not taken.
 """
 
@@ -48,7 +51,11 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from dance_tpu_torch.data.base import BaseData
+from dance_tpu_torch.registry import register_preprocessor
 from dance_tpu_torch.sc import pp
+from dance_tpu_torch.transforms.base import BaseTransform
+from dance_tpu_torch.transforms.interface import AnnDataTransform
 from dance_tpu_torch.utils import resolve_device
 from dance_tpu_torch.utils.matrix import normalize as matrix_normalize
 
@@ -423,26 +430,41 @@ class ScTransformR:
                                   "depend on; use ScTransform")
 
 
-class Log1P:
-    """``log(1 + x)`` (counterpart: normalize.py:462, ``sc.pp.log1p``)."""
+@register_preprocessor("normalize")
+class Log1P(AnnDataTransform):
+    """``log(1 + x)`` (counterpart: normalize.py:462, ``sc.pp.log1p``): of an
+    array, returned; of a port ``Data``, in place, as JAX's
+    ``AnnDataTransform``."""
 
-    def __init__(self, base: Optional[float] = None):
+    def __init__(self, base: Optional[float] = None, **kwargs):
+        super().__init__("sc.pp.log1p", base=base, **kwargs)
         self.base = base
 
     def __call__(self, x):
+        if isinstance(x, BaseData):
+            return super().__call__(x)
         return pp.log1p(x, base=self.base)
 
 
-class NormalizeTotal:
+@register_preprocessor("normalize")
+class NormalizeTotal(AnnDataTransform):
     """Each cell scaled to ``target_sum`` counts; ``max_fraction < 1``
     leaves the genes above that share of a cell out of the size factors
-    (counterpart: normalize.py:471, ``sc.pp.normalize_total``)."""
+    (counterpart: normalize.py:471, ``sc.pp.normalize_total``): of an
+    array, returned; of a port ``Data``, in place, as JAX's
+    ``AnnDataTransform``."""
 
-    def __init__(self, target_sum: Optional[float] = None, max_fraction: float = 0.05):
+    def __init__(self, target_sum: Optional[float] = None, max_fraction: float = 0.05,
+                 **kwargs):
+        super().__init__("sc.pp.normalize_total", target_sum=target_sum,
+                         exclude_highly_expressed=max_fraction < 1.0,
+                         max_fraction=max_fraction, **kwargs)
         self.target_sum = target_sum
         self.max_fraction = max_fraction
 
     def __call__(self, x):
+        if isinstance(x, BaseData):
+            return super().__call__(x)
         return pp.normalize_total(x, target_sum=self.target_sum,
                                   exclude_highly_expressed=self.max_fraction < 1.0,
                                   max_fraction=self.max_fraction)
@@ -455,12 +477,17 @@ class NormalizePlaceHolder:
         return x
 
 
-class UpdateSizeFactors:
+@register_preprocessor("normalize")
+class UpdateSizeFactors(BaseTransform):
     """``(n_counts, size_factors)``: each cell's total and that over the
-    median total (counterpart: normalize.py:498, which writes both to
-    ``obs``)."""
+    median total (counterpart: normalize.py:498); on a port ``Data``, both
+    written to ``obs`` as JAX's."""
 
     def __call__(self, x):
+        if isinstance(x, BaseData):
+            obs = x.data.obs
+            obs["n_counts"], obs["size_factors"] = self(x.data.X)
+            return x
         counts = np.asarray(x.sum(axis=1)).ravel()
         return counts, counts / np.median(counts)
 

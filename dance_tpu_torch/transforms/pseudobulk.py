@@ -3,12 +3,12 @@ deconvolution methods (counterpart: dance_tpu/transforms/pseudobulk.py:15-164).
 
 ``get_cell_types``, ``get_agg_func`` and ``get_ct_profile`` are the JAX
 functions in numpy. :class:`PseudoMixture` and :class:`CellTopicProfile`
-keep the JAX names but take arrays and return arrays: the mixtures and their
-cell-type portions, and the (genes x types) profile. The JAX transforms read
-and write a ``Data`` container (``obsm``, ``varm``, a new split); the port
-registers nothing (see transforms/cell_feature.py). The mixtures are drawn
-from ``np.random.default_rng(random_state)`` in the JAX order, so they are
-the JAX package's bit for bit. Giotto's detection profile
+keep the JAX names and take arrays and return arrays: the mixtures and their
+cell-type portions, and the (genes x types) profile. Handed a port ``Data``
+instead, they act on it as JAX's do (a new split of mixtures, the profile
+into ``varm``), and they are registered under JAX's keys in the port's own
+registry. The mixtures are drawn from ``np.random.default_rng(random_state)``
+in the JAX order, so they are the JAX package's bit for bit. Giotto's detection profile
 (``get_giotto_dt``, :167), :class:`CellGiottoTopicProfile` (:180) and
 :class:`CellTypeNums` (:216) return arrays where the JAX transforms write
 ``varm`` and ``uns``.
@@ -18,6 +18,11 @@ from functools import partial
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+
+from dance_tpu_torch.data import AnnData, Data, Frame
+from dance_tpu_torch.data.base import BaseData
+from dance_tpu_torch.registry import register_preprocessor
+from dance_tpu_torch.transforms.base import BaseTransform
 
 
 def get_cell_types(ct_select: Union[str, Sequence[str]], annot) -> List[str]:
@@ -72,7 +77,8 @@ def get_ct_profile(x, annot, *, batch_index=None, ct_select="auto",
     return profile
 
 
-class PseudoMixture:
+@register_preprocessor("pseudobulk")
+class PseudoMixture(BaseTransform):
     """Pseudo-spots for deconvolution (counterpart: pseudobulk.py:62-128):
     ``n_pseudo`` sums of ``nc_min`` .. ``nc_max`` reference cells drawn
     without replacement, with each mixture's cell-type portions.
@@ -81,10 +87,25 @@ class PseudoMixture:
     their labels and returns ``(mix_x, portions, cell_types)``: float32
     (n_pseudo x genes) counts, float64 (n_pseudo x types) portions in the
     order of ``cell_types``. ``info`` keeps each mixture's cell count and
-    total count (the JAX split's ``obs``)."""
+    total count (the JAX split's ``obs``).
+
+    ``__call__(data)`` mixes the cells of split ``"ref"`` (their ``X``,
+    labels in ``obs["cellType"]``) and appends the mixtures, named
+    ``ps_mix_<i>``, as split ``"pseudo"``, as JAX's does with the arguments
+    every pipeline gives it (the port keeps them as class constants: no
+    pipeline sets another). Where it differs: JAX's ``Data.append`` drops every
+    ``obsm`` entry, the portions of the mixtures among them; the port keeps
+    the container's ``obsm`` arrays (zeros on the mixtures' rows) and writes
+    ``obsm["cell_type_portion"]``, the mixtures' portions over zeros for
+    every other cell, which the deconvolution models train on."""
+
+    _DISPLAY_ATTRS = ("n_pseudo", "nc_min", "nc_max", "ct_select")
+    ct_key, prefix, in_split_name, out_split_name = "cellType", "ps_mix_", "ref", "pseudo"
 
     def __init__(self, *, n_pseudo: int = 1000, nc_min: int = 2, nc_max: int = 10,
-                 ct_select: Union[str, List[str]] = "auto", random_state: Optional[int] = 0):
+                 ct_select: Union[str, List[str]] = "auto", random_state: Optional[int] = 0,
+                 **kwargs):
+        super().__init__(**kwargs)
         self.n_pseudo = n_pseudo
         self.nc_min = nc_min
         self.nc_max = nc_max
@@ -106,7 +127,34 @@ class PseudoMixture:
         info = {"cell_count": n_mix, "total_umi_count": float(mix_counts.sum())}
         return mix_counts, ct_counts, info
 
-    def __call__(self, x, annot) -> Tuple[np.ndarray, np.ndarray, List[str]]:
+    def __call__(self, x, annot=None):
+        if isinstance(x, BaseData):
+            return self._append_mixtures(x)
+        return self._mix(x, annot)
+
+    def _append_mixtures(self, data):
+        """Counterpart: pseudobulk.py:103-128."""
+        x = data.get_feature(split_name=self.in_split_name, channel_type="X",
+                             return_type="numpy")
+        annot = data.get_feature(split_name=self.in_split_name, channel=self.ct_key,
+                                 channel_type="obs", return_type="numpy")
+        mix_x, portions, ct_select = self._mix(x, annot)
+        index = [f"{self.prefix}{i}" for i in range(self.n_pseudo)]
+        obs = Frame({"cell_count": self.info["cell_count"],
+                     "total_umi_count": self.info["total_umi_count"]}, index=index)
+        kept = {k: v for k, v in data.data.obsm.items() if isinstance(v, np.ndarray)}
+        data.append(Data(AnnData(mix_x, obs=obs, var=data.data.var.copy())), join="outer",
+                    mode="new_split", new_split_name=self.out_split_name)
+        obsm = data.data.obsm
+        for key, val in kept.items():
+            obsm[key] = np.concatenate([val, np.zeros((self.n_pseudo,) + val.shape[1:],
+                                                      val.dtype)])
+        full = np.zeros((data.shape[0], len(ct_select)))
+        full[data.get_split_idx(self.out_split_name)] = portions
+        obsm["cell_type_portion"] = Frame(full, index=data.data.obs_names, columns=ct_select)
+        return data
+
+    def _mix(self, x, annot) -> Tuple[np.ndarray, np.ndarray, List[str]]:
         x = np.asarray(x)
         annot = np.asarray(annot).astype(str)
         rng = np.random.default_rng(self.random_state)
@@ -129,17 +177,41 @@ class PseudoMixture:
         return mix_x, portions, ct_select
 
 
-class CellTopicProfile:
+@register_preprocessor("pseudobulk")
+class CellTopicProfile(BaseTransform):
     """Per-cell-type profile of labelled cells (counterpart: pseudobulk.py:131):
     ``__call__(x, annot, batch=None)`` returns ``(profile, cell_types)``, the
     (genes x types) float32 :func:`get_ct_profile` and its column names (the
-    JAX transform's ``varm`` DataFrame)."""
+    JAX transform's ``varm`` DataFrame). ``__call__(data)`` profiles the
+    cells of split ``"ref"`` (their ``X``, labels in ``obs["cellType"]``,
+    one batch) into ``varm[out]``, a ``Frame`` over the genes with a column
+    per type. The key and the split are class constants, printed in the
+    digest as JAX prints the arguments its pipelines give (the port's
+    pipelines profile the reference split: see the deconvolution models'
+    notes)."""
 
-    def __init__(self, *, ct_select: Union[str, List[str]] = "auto", method: str = "median"):
+    _DISPLAY_ATTRS = ("ct_select", "ct_key", "split_name", "method")
+    ct_key, split_name = "cellType", "ref"
+
+    def __init__(self, *, ct_select: Union[str, List[str]] = "auto", method: str = "median",
+                 **kwargs):
+        super().__init__(**kwargs)
         self.ct_select = ct_select
         self.method = method
 
-    def __call__(self, x, annot, batch=None) -> Tuple[np.ndarray, List[str]]:
+    def __call__(self, x, annot=None, batch=None):
+        if isinstance(x, BaseData):
+            data = x
+            x, annot = (data.get_feature(split_name=self.split_name, channel=channel,
+                                         channel_type=channel_type, return_type="numpy")
+                        for channel, channel_type in ((None, "X"), (self.ct_key, "obs")))
+            profile, ct_select = self._profile(x, annot, None)
+            data.data.varm[self.out] = Frame(profile, index=data.data.var_names,
+                                             columns=ct_select)
+            return data
+        return self._profile(x, annot, batch)
+
+    def _profile(self, x, annot, batch) -> Tuple[np.ndarray, List[str]]:
         ct_select = get_cell_types(self.ct_select, annot)
         return get_ct_profile(np.asarray(x), annot, batch_index=batch, ct_select=ct_select,
                               method=self.method), ct_select

@@ -1168,3 +1168,42 @@ def test_gcnconv_on_bsr_launches_spmm_and_matches_csr(cuda):
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError, match="degrees"):
         SAGEConv(32, 16).to(cuda)(adj.to(cuda), h)
+
+
+def test_csr_spmm_reruns_bit_equal(cuda):
+    """Eight runs of the fixed-order CSR ``spmm`` (forward, ``dh`` and ``dw``),
+    of the mean with trained per-edge scales and of the 1-D sums (row and
+    column sums, a single-head ``edge_softmax`` and its gradient) give equal
+    bits on the card, on a kNN graph with hub columns (many edges into one
+    source)."""
+    from dance_tpu_torch.ops import segment as tseg
+    from dance_tpu_torch.ops.sparse import csr_col_sums, csr_from_scipy, csr_row_sums
+
+    rng = np.random.default_rng(31)
+    n = 4000
+    cols = np.where(rng.random((n, 24)) < 0.2, rng.integers(0, 8, (n, 24)),
+                    rng.integers(0, n, (n, 24)))
+    adj = sp.csr_matrix((rng.standard_normal(n * 24).astype(np.float32),
+                         (np.repeat(np.arange(n), 24), cols.ravel())), shape=(n, n))
+    a = csr_from_scipy(adj).to(cuda)
+    h0 = torch.randn((n, 256), generator=torch.Generator().manual_seed(31)).to(cuda)
+    g = torch.randn((n, 256), generator=torch.Generator().manual_seed(32)).to(cuda)
+    logits0, ge = (torch.randn(a.indices.shape[0], generator=torch.Generator().manual_seed(s))
+                   .to(cuda) for s in (33, 34))
+    runs = []
+    for _ in range(8):
+        h = h0.clone().requires_grad_(True)
+        w = a.data.clone().requires_grad_(True)
+        out = tseg.csr_spmm(a, h, w)
+        mean = tseg.aggregate(a, tseg.gather_src(a, h) * w[:, None], op="mean")
+        ((out + mean) * g).sum().backward()
+        logits = logits0.clone().requires_grad_(True)
+        alpha = tseg.edge_softmax(a, logits)
+        (alpha * ge).sum().backward()
+        runs.append([out.detach(), mean.detach(), h.grad, w.grad, csr_row_sums(a),
+                     csr_col_sums(a), alpha.detach(), logits.grad])
+    for run in runs[1:]:
+        for x, y in zip(run, runs[0]):
+            assert torch.equal(_bits(x), _bits(y))
+    dense = torch.from_numpy(adj.toarray()).to(cuda)
+    torch.testing.assert_close(runs[0][0], dense @ h0, rtol=1e-4, atol=1e-4)

@@ -36,10 +36,9 @@ from dance_tpu_torch.datasets import synthetic as tsyn
 from dance_tpu_torch.graph import Graph
 from dance_tpu_torch.modules.single_modality.cell_type_annotation import (ACTINN, ScDeepSort,
                                                                          actinn_preprocess)
-from dance_tpu_torch.modules.single_modality.clustering import (GraphSC, ScDSC, ScTAG,
-                                                                graphsc_preprocess)
-from dance_tpu_torch.modules.spatial.cell_type_deconvo import DSTG
-from dance_tpu_torch.modules.spatial.spatial_domain import Stagate, stagate_preprocess
+from dance_tpu_torch.modules.single_modality.clustering import GraphSC, graphsc_preprocess
+from dance_tpu_torch.modules.single_modality.imputation import MAGIC, GraphSCI
+from dance_tpu_torch.modules.spatial.spatial_domain import SpaGCN, Stagate, stagate_preprocess
 from dance_tpu_torch.transforms import weighted_feature_pca
 from dance_tpu_torch.utils.params import flax_to_torch
 from torch_cases import typed_counts
@@ -287,9 +286,9 @@ def test_pipelines_resolve_their_device(model):
             model.preprocessing_pipeline()
 
 
-@pytest.mark.parametrize("model,front", [(ScTAG, "sctag_preprocess"),
-                                         (ScDSC, "scdsc_preprocess"),
-                                         (DSTG, "dstg_preprocess")])
+@pytest.mark.parametrize("model,front", [(GraphSCI, "graphsci_preprocess"),
+                                         (MAGIC, "magic_preprocess"),
+                                         (SpaGCN, "spagcn_preprocess")])
 def test_unported_pipelines_raise_naming_the_array_front(model, front):
     with pytest.raises(NotImplementedError, match=front):
         model.preprocessing_pipeline()
