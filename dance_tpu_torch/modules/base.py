@@ -10,8 +10,10 @@ loads a pretrained model from ``pretrain_path`` or pretrains and saves it;
 and saves its ``state_dict``. ``fit_distributed`` runs ``fit`` as one rank
 of a data-parallel fit (:mod:`dance_tpu_torch.parallel`). ``preprocess``
 runs the model's ``preprocessing_pipeline`` on a port ``Data`` (base.py:34);
-a model whose pipeline is not ported yet raises there, naming its array
-front (JAX's ``preprocessing_pipeline`` is abstract).
+a method class without one raises there, naming its module's array front
+(JAX's ``preprocessing_pipeline`` is abstract). A model's array front wraps
+its matrix with :func:`wrap_matrix`, runs the model's pipeline on it and
+reads the arrays back (:func:`dense32`, :func:`row_positions`).
 """
 
 import inspect
@@ -23,6 +25,7 @@ from time import time
 from typing import Any, Callable, Optional, Tuple, Union
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from dance_tpu_torch.settings import logger
@@ -59,12 +62,15 @@ class BaseMethod(ABC):
 
     def preprocess(self, data, /, **kwargs):
         """Run ``preprocessing_pipeline(**kwargs)`` on ``data`` in place
-        (counterpart: base.py:34). A pipeline that takes ``device`` gets the
-        model's unless the caller names one."""
+        (counterpart: base.py:34) and return the pipeline that ran (a
+        ``Compose`` keeps its steps' seconds in ``timings``). A pipeline that
+        takes ``device`` gets the model's unless the caller names one."""
         if "device" in inspect.signature(self.preprocessing_pipeline).parameters \
                 and hasattr(self, "device"):
             kwargs.setdefault("device", self.device)
-        self.preprocessing_pipeline(**kwargs)(data)
+        pipeline = self.preprocessing_pipeline(**kwargs)
+        pipeline(data)
+        return pipeline
 
     @classmethod
     def preprocessing_pipeline(cls, device="auto", **kwargs):
@@ -269,5 +275,36 @@ class NNPretrain(BasePretrain, ABC):
 TorchNNPretrain = NNPretrain
 
 
+def wrap_matrix(x, gene_names=None, *, uns: Optional[dict] = None, **obsm):
+    """``x`` (cells x genes, numpy or scipy) as float32 in a ``Data``, its
+    cells named by their row, its genes by ``gene_names`` (by their column
+    when None), the arrays ``obsm`` in its ``obsm`` and ``uns`` in its
+    ``uns``: the container an array front hands its model's pipeline."""
+    from dance_tpu_torch.data import AnnData, Data, Frame
+
+    x = sp.csr_matrix(x, dtype=np.float32) if sp.issparse(x) else np.asarray(x, np.float32)
+    var = None if gene_names is None else Frame(index=[str(g) for g in gene_names])
+    adata = AnnData(x, var=var, uns=uns)
+    for key, val in obsm.items():
+        adata.obsm[key] = val
+    return Data(adata)
+
+
+def dense32(x) -> np.ndarray:
+    """A numpy or scipy matrix as a dense float32 array."""
+    return np.asarray(x.toarray() if sp.issparse(x) else x, np.float32)
+
+
+def row_positions(names, all_names=None) -> np.ndarray:
+    """The rows (or columns) of the input that a container's ``names`` still
+    hold: names made by :func:`wrap_matrix` from positions, or, with
+    ``all_names``, the positions of ``names`` among them."""
+    if all_names is None:
+        return np.asarray(names).astype(np.int64)
+    pos = {str(g): i for i, g in enumerate(all_names)}
+    return np.asarray([pos[str(g)] for g in names], dtype=np.int64)
+
+
 __all__ = ["BaseClassificationMethod", "BaseClusteringMethod", "BaseMethod", "BasePretrain",
-           "BaseRegressionMethod", "NNPretrain", "TorchNNPretrain", "resolve_score_func"]
+           "BaseRegressionMethod", "NNPretrain", "TorchNNPretrain", "dense32",
+           "resolve_score_func", "row_positions", "wrap_matrix"]

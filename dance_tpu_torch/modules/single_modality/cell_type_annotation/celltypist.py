@@ -36,6 +36,7 @@ from dance_tpu_torch.ops.linalg import pca
 from dance_tpu_torch.ops.linear_model import DeviceLogisticRegression, DeviceSGDLogistic
 from dance_tpu_torch.ops.neighbors import knn_graph
 from dance_tpu_torch.settings import logger
+from dance_tpu_torch.transforms.misc import SetConfig
 from dance_tpu_torch.utils import as_numpy, resolve_device
 
 _NO_SKLEARN = ("is not ported: the card's machine has no scikit-learn; use "
@@ -175,6 +176,12 @@ class Celltypist(BaseClassificationMethod):
         self.scaler = scaler
         self.description = description
         self.device = resolve_device(device)
+
+    @staticmethod
+    def preprocessing_pipeline(log_level: str = "INFO") -> SetConfig:
+        """The labels in ``obsm["cell_type"]``; the features are ``X`` as it
+        stands (counterpart: celltypist.py:133-134)."""
+        return SetConfig({"label_channel": "cell_type"}, log_level=log_level)
 
     def fit(self, indata, labels=None, C: float = 1.0, solver: Optional[str] = None,
             max_iter: int = 1000, n_jobs: Optional[int] = None, use_SGD: bool = False,

@@ -4,9 +4,10 @@ shuffled pseudo-cells.
 
 Counterpart: dance_tpu/modules/single_modality/cell_type_annotation/
 singlecellnet.py. The forest is :class:`~dance_tpu_torch.ops.forest.
-RandomForest`; :func:`singlecellnet_preprocess` is the array form of
+RandomForest`; :func:`singlecellnet_preprocess` is the array front of
 ``preprocessing_pipeline`` (``normalize_total(1e4)``, ``log1p``,
-:class:`~dance_tpu_torch.transforms.scn_feature.SCNFeature`).
+:class:`~dance_tpu_torch.transforms.scn_feature.SCNFeature`): it runs the
+pipeline on a matrix wrapped in a ``Data``.
 
 Where this differs from the JAX package:
 
@@ -22,11 +23,12 @@ Where this differs from the JAX package:
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
-import scipy.sparse as sp
 
-from dance_tpu_torch.modules.base import BaseClassificationMethod
+from dance_tpu_torch.data import Frame
+from dance_tpu_torch.modules.base import BaseClassificationMethod, wrap_matrix
 from dance_tpu_torch.ops.forest import ForestDraws, RandomForest
-from dance_tpu_torch.sc.pp import log1p, normalize_total
+from dance_tpu_torch.transforms.interface import AnnDataTransform
+from dance_tpu_torch.transforms.misc import Compose, SetConfig
 from dance_tpu_torch.transforms.scn_feature import SCNFeature
 from dance_tpu_torch.utils import as_numpy
 
@@ -35,16 +37,22 @@ def singlecellnet_preprocess(x, gene_names: Sequence, cell_types,
                              split_idx: Optional[Sequence[int]] = None, *,
                              normalize: bool = True, num_top_genes: int = 10,
                              num_top_gene_pairs: int = 25) -> Tuple[np.ndarray, List[str]]:
-    """``SingleCellNet.preprocessing_pipeline`` on arrays (singlecellnet.py:
-    27-39): with ``normalize``, ``normalize_total(target_sum=1e4)`` and
-    ``log1p`` of the raw (cells x genes) counts; then the gene pairs chosen
-    on the cells ``split_idx`` (the training split). Returns the (cells,
-    pairs) float64 features and their ``"g1&g2"`` names."""
-    if normalize:
-        x = log1p(normalize_total(x, target_sum=1e4))
-    x = x.toarray() if sp.issparse(x) else np.asarray(x)
-    return SCNFeature(num_top_genes=num_top_genes,
-                      num_top_gene_pairs=num_top_gene_pairs)(x, gene_names, cell_types, split_idx)
+    """:meth:`SingleCellNet.preprocessing_pipeline` on the raw (cells x genes)
+    counts ``x`` named ``gene_names``, wrapped in a ``Data`` with
+    ``cell_types`` one-hot in ``obsm["cell_type"]`` and ``split_idx`` (every
+    cell when None) as its split ``"train"``, on which the gene pairs are
+    chosen. Returns the (cells, pairs) float64 features and their
+    ``"g1&g2"`` names."""
+    types, codes = np.unique(np.asarray(cell_types), return_inverse=True)
+    data = wrap_matrix(x, gene_names)
+    data.data.obsm["cell_type"] = Frame(np.eye(len(types), dtype=np.float32)[codes],
+                                        index=data.data.obs_names, columns=list(types))
+    data.set_split_idx("train", np.arange(x.shape[0]) if split_idx is None else split_idx)
+    SingleCellNet.preprocessing_pipeline(normalize=normalize, num_top_genes=num_top_genes,
+                                         num_top_gene_pairs=num_top_gene_pairs,
+                                         log_level="WARNING")(data)
+    feat = data.data.obsm["SCNFeature"]
+    return feat.to_numpy(), list(feat.columns)
 
 
 class SingleCellNet(BaseClassificationMethod):
@@ -57,7 +65,22 @@ class SingleCellNet(BaseClassificationMethod):
         self.max_depth = max_depth
         self.model: Optional[RandomForest] = None
 
-    preprocessing_pipeline = staticmethod(singlecellnet_preprocess)
+    @staticmethod
+    def preprocessing_pipeline(normalize: bool = True, num_top_genes: int = 10,
+                               num_top_gene_pairs: int = 25, log_level: str = "INFO") -> Compose:
+        """With ``normalize``, ``normalize_total`` to 1e4 and ``log1p``; then
+        the gene-pair features chosen on split ``"train"`` (``SCNFeature``),
+        the labels in ``obsm["cell_type"]`` (counterpart:
+        singlecellnet.py:28-39)."""
+        transforms = []
+        if normalize:
+            transforms.append(AnnDataTransform("sc.pp.normalize_total", target_sum=1e4))
+            transforms.append(AnnDataTransform("sc.pp.log1p"))
+        transforms.append(SCNFeature(num_top_genes=num_top_genes,
+                                     num_top_gene_pairs=num_top_gene_pairs))
+        transforms.append(SetConfig({"feature_channel": "SCNFeature",
+                                     "label_channel": "cell_type"}))
+        return Compose(*transforms, log_level=log_level)
 
     @staticmethod
     def randomize(exp, num: int = 50, rng=None) -> np.ndarray:

@@ -10,8 +10,9 @@ autoencoder and ``mu``) lowers ``ml_weight`` x the mean of ``-log Σ_k q_ik
 q_jk`` over the must-link pairs plus ``cl_weight`` x the mean of ``-log(1 -
 Σ_k q_ik q_jk)`` over the cannot-link pairs, ``q`` the clean latent's
 assignments; it is skipped when no pair is given. The differences from the
-JAX package are scDeepCluster's; :func:`scdcc_preprocess` is the array core
-of the Data-container pipeline, which is not ported.
+JAX package are scDeepCluster's; :func:`scdcc_preprocess` is the array front
+of ``preprocessing_pipeline``: it runs the pipeline on a matrix wrapped in a
+``Data``.
 """
 
 from typing import Optional, Sequence, Tuple
@@ -20,7 +21,8 @@ import numpy as np
 import torch
 
 from dance_tpu_torch.modules.single_modality.clustering.scdeepcluster import (
-    ClusteringInputs, ScDeepCluster, zinb_counts_front)
+    ClusteringInputs, ScDeepCluster, zinb_counts_front, zinb_pipeline)
+from dance_tpu_torch.transforms.misc import Compose
 from dance_tpu_torch.utils.loss import soft_assign
 
 
@@ -39,6 +41,13 @@ class ScDCC(ScDeepCluster):
         self.ml_weight = ml_weight
         self.cl_weight = cl_weight
         self.constraint_step = None  # the last fit's constraint step, when it had pairs
+
+    @staticmethod
+    def preprocessing_pipeline(n_top_genes: int = 2000, log_level: str = "INFO") -> Compose:
+        """:func:`~dance_tpu_torch.modules.single_modality.clustering.scdeepcluster.zinb_pipeline`
+        with the ``n_top_genes`` genes of largest variance, cut after the
+        cells' totals are taken (counterpart: scdcc.py:41-54)."""
+        return zinb_pipeline(n_top_genes, log_level=log_level)
 
     def constraint_loss(self, x: torch.Tensor, ml1, ml2, cl1, cl2) -> torch.Tensor:
         """The pairwise loss on the clean assignments of every cell
@@ -91,11 +100,11 @@ class ScDCC(ScDeepCluster):
 
 def scdcc_preprocess(counts, gene_names: Sequence, labels=None, *,
                      n_top_genes: int = 2000) -> ClusteringInputs:
-    """The array form of ``ScDCC.preprocessing_pipeline`` (scdcc.py:41-54):
-    :func:`~dance_tpu_torch.modules.single_modality.clustering.scdeepcluster.zinb_counts_front`
-    with the ``n_top_genes`` genes of largest variance, cut after the cells'
-    totals are taken."""
-    return zinb_counts_front(counts, gene_names, labels, n_top_genes)
+    """:meth:`ScDCC.preprocessing_pipeline` on raw ``counts`` (cells x genes)
+    named ``gene_names``, wrapped in a ``Data``, for a caller that holds a
+    matrix."""
+    return zinb_counts_front(counts, gene_names, labels,
+                             ScDCC.preprocessing_pipeline(n_top_genes, log_level="WARNING"))
 
 
 __all__ = ["ScDCC", "scdcc_preprocess"]

@@ -31,8 +31,9 @@ Where this differs from the JAX package:
 - The epochs are loops; JAX runs them as compiled scans and one
   ``while_loop``. ``history`` and ``pretrain_history`` record each epoch's
   mean loss and seconds, ``dec_out`` the DEC loop's last state.
-- The Data-container ``preprocessing_pipeline`` is not ported:
-  :func:`scdeepcluster_preprocess` is its array core.
+- :func:`scdeepcluster_preprocess` is the array front of
+  ``preprocessing_pipeline``: it runs the pipeline on a matrix wrapped in a
+  ``Data``.
 
 Under ``fit_distributed`` (scdeepcluster.py:179-181, :204-206) each rank
 holds its rows of the features, counts and size factors
@@ -51,14 +52,16 @@ import scipy.sparse as sp
 import torch
 from torch import nn
 
-from dance_tpu_torch.modules.base import BaseClusteringMethod, NNPretrain
+from dance_tpu_torch.modules.base import (BaseClusteringMethod, NNPretrain, dense32,
+                                          row_positions, wrap_matrix)
 from dance_tpu_torch.nn.dec_loop import run_dec_loop
 from dance_tpu_torch.nn.zinb_ae import ZINBAutoencoder
 from dance_tpu_torch.parallel.mesh import RowShard, to_device
 from dance_tpu_torch.ops.cluster import kmeans
-from dance_tpu_torch.sc.pp import filter_cells, filter_genes, log1p, normalize_total, scale
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.transforms.filter import FilterGenesTopK
+from dance_tpu_torch.transforms.interface import AnnDataTransform
+from dance_tpu_torch.transforms.misc import Compose, SaveRaw, SetConfig
 from dance_tpu_torch.utils import EpochClock, resolve_device
 from dance_tpu_torch.utils.batch import epoch_batches
 from dance_tpu_torch.utils.loss import cluster_kl_loss, soft_assign, target_distribution, zinb_nll
@@ -218,6 +221,12 @@ class ScDeepCluster(NNPretrain, BaseClusteringMethod):
         self.z = out[f"{src}z"].cpu().numpy()
         self.y_pred = out[f"{src}labels"].cpu().numpy()
 
+    @staticmethod
+    def preprocessing_pipeline(log_level: str = "INFO") -> Compose:
+        """:func:`zinb_pipeline` without a top-k cut (counterpart:
+        scdeepcluster.py:52-64)."""
+        return zinb_pipeline(log_level=log_level)
+
     def fit(self, inputs: Tuple, y=None, n_clusters: int = 10, init_centroid=None,
             y_pred_init=None, lr: float = 1.0, batch_size: int = 256, epochs: int = 10,
             update_interval: int = 1, tol: float = 1e-3, pt_batch_size: int = 256,
@@ -269,40 +278,55 @@ class ClusteringInputs(NamedTuple):
         return self.x, self.x_raw, self.n_counts
 
 
-def zinb_counts_front(counts, gene_names: Sequence, labels=None,
-                      n_top_genes: Optional[int] = None) -> ClusteringInputs:
+def zinb_pipeline(n_top_genes: Optional[int] = None, log_level: str = "INFO") -> Compose:
     """The count processing of scDeepCluster's and scDCC's pipelines
-    (scdeepcluster.py:52-64, scdcc.py:41-54) on raw ``counts`` (cells x
-    genes, numpy or scipy): genes without counts and cells without counts
-    dropped, the cells' totals taken there (``obs["n_counts"]``, before any
-    top-k cut); with ``n_top_genes`` the genes of largest variance
-    (``FilterGenesTopK(mode="var")``, sorted-name order); the counts kept
-    (``SaveRaw``); then ``normalize_total``, ``log1p`` and ``scale``."""
-    x = sp.csr_matrix(counts, dtype=np.float32) if sp.issparse(counts) \
-        else np.asarray(counts, np.float32)
-    names = np.asarray(gene_names)
-    if names.shape != (x.shape[1],):
-        raise ValueError(f"{names.size} gene names for {x.shape[1]} genes")
-    genes, _ = filter_genes(x, min_counts=1)
-    genes = np.nonzero(genes)[0]
-    x, names = x[:, genes], names[genes]
-    kept, n_counts = filter_cells(x, min_counts=1)
-    cells = np.nonzero(kept)[0]
-    x, n_counts = x[cells], n_counts[kept]
-    x = np.asarray(x.toarray() if sp.issparse(x) else x, np.float32)
+    (scdeepcluster.py:52-64, scdcc.py:41-54): genes without counts and cells
+    without counts dropped, the cells' totals written there
+    (``obs["n_counts"]``, before any top-k cut); with ``n_top_genes`` the
+    genes of largest variance (``FilterGenesTopK(mode="var")``, sorted-name
+    order); the counts kept (``SaveRaw``); then ``normalize_total``,
+    ``log1p`` and ``scale``."""
+    transforms = [AnnDataTransform("sc.pp.filter_genes", min_counts=1),
+                  AnnDataTransform("sc.pp.filter_cells", min_counts=1)]
     if n_top_genes is not None:
-        x, names = FilterGenesTopK(n_top_genes, mode="var")(x, names)
-    x_raw = x.copy()
-    x, _, _ = scale(log1p(normalize_total(x)))
-    labels = None if labels is None else np.asarray(labels)[cells]
-    return ClusteringInputs(x, x_raw, n_counts, labels, names, cells)
+        transforms.append(FilterGenesTopK(num_genes=n_top_genes, mode="var"))
+    transforms.extend([
+        SaveRaw(),
+        AnnDataTransform("sc.pp.normalize_total"),
+        AnnDataTransform("sc.pp.log1p"),
+        AnnDataTransform("sc.pp.scale"),
+        SetConfig({"feature_channel": [None, None, "n_counts"],
+                   "feature_channel_type": ["X", "raw_X", "obs"],
+                   "label_channel": "Group"}),
+    ])
+    return Compose(*transforms, log_level=log_level)
+
+
+def zinb_counts_front(counts, gene_names: Sequence, labels, pipeline: Compose) -> ClusteringInputs:
+    """``pipeline`` (:func:`zinb_pipeline`) on raw ``counts`` (cells x genes,
+    numpy or scipy, taken as float32) named ``gene_names``, wrapped in a
+    ``Data``; the kept cells' ``labels`` follow them."""
+    names = np.asarray(gene_names)
+    if names.shape != (counts.shape[1],):
+        raise ValueError(f"{names.size} gene names for {counts.shape[1]} genes")
+    data = wrap_matrix(counts, names)
+    pipeline(data)
+    adata = data.data
+    cells = row_positions(adata.obs_names)
+    return ClusteringInputs(np.asarray(adata.X), dense32(adata.raw.X),
+                            np.asarray(adata.obs["n_counts"]),
+                            None if labels is None else np.asarray(labels)[cells],
+                            np.asarray(adata.var_names), cells)
 
 
 def scdeepcluster_preprocess(counts, gene_names: Sequence, labels=None) -> ClusteringInputs:
-    """The array form of ``ScDeepCluster.preprocessing_pipeline``
-    (scdeepcluster.py:52-64): :func:`zinb_counts_front` without a top-k cut."""
-    return zinb_counts_front(counts, gene_names, labels)
+    """:meth:`ScDeepCluster.preprocessing_pipeline` on raw ``counts`` (cells x
+    genes) named ``gene_names``, wrapped in a ``Data``, for a caller that
+    holds a matrix."""
+    return zinb_counts_front(counts, gene_names, labels,
+                             ScDeepCluster.preprocessing_pipeline(log_level="WARNING"))
 
 
 __all__ = ["ClusteringInputs", "ScDeepCluster", "euclidean_dist", "scdeepcluster_preprocess",
+           "zinb_pipeline",
            "zinb_counts_front"]

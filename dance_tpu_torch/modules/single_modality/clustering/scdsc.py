@@ -42,7 +42,7 @@ import scipy.sparse as sp
 import torch
 from torch import nn
 
-from dance_tpu_torch.modules.base import BaseClusteringMethod, NNPretrain
+from dance_tpu_torch.modules.base import BaseClusteringMethod, NNPretrain, wrap_matrix
 from dance_tpu_torch.nn.dec_loop import run_dec_loop
 from dance_tpu_torch.nn.gnn import flax_dense_init_, truncated_normal_
 from dance_tpu_torch.nn.zinb_ae import disp_act, mean_act
@@ -51,7 +51,7 @@ from dance_tpu_torch.ops.cluster import kmeans
 from dance_tpu_torch.ops.segment import spmm
 from dance_tpu_torch.ops.sparse import csr_from_scipy, sym_norm_adjacency
 from dance_tpu_torch.modules.single_modality.clustering.sctag import (ZINB_CONFIG, count_steps,
-                                                                     wrap_counts, zinb_inputs)
+                                                                     zinb_inputs)
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.transforms.graph import NeighborGraph
 from dance_tpu_torch.transforms.misc import Compose, SetConfig
@@ -315,7 +315,7 @@ def scdsc_preprocess(counts, *, n_top_genes: int = 2000, n_neighbors: int = 50, 
     indices of the kept cells. ``device`` is checked, as for every entry
     point, though nothing here runs on it."""
     resolve_device(device)
-    data = wrap_counts(counts)
+    data = wrap_matrix(counts)
     ScDSC.preprocessing_pipeline(n_top_genes=n_top_genes, n_neighbors=n_neighbors,
                                  log_level="WARNING")(data)
     return zinb_inputs(data), np.asarray(data.data.obs_names).astype(np.int64)

@@ -45,8 +45,7 @@ import scipy.sparse as sp
 import torch
 from torch import nn
 
-from dance_tpu_torch.data import AnnData, Data
-from dance_tpu_torch.modules.base import BaseClusteringMethod, NNPretrain
+from dance_tpu_torch.modules.base import BaseClusteringMethod, NNPretrain, wrap_matrix
 from dance_tpu_torch.nn.gnn import TAGConv, flax_dense_init_
 from dance_tpu_torch.nn.zinb_ae import disp_act, mean_act
 from dance_tpu_torch.ops.bsr import bsr_from_scipy, rcm_reorder, resolve_use_bsr, unpermute
@@ -331,14 +330,6 @@ def zinb_inputs(data) -> tuple:
             np.asarray(adata.obs["n_counts"]))
 
 
-def wrap_counts(counts) -> Data:
-    """Raw ``counts`` (cells x genes, numpy or scipy) as float32 in a ``Data``
-    whose cells are named by their row."""
-    x = sp.csr_matrix(counts, dtype=np.float32) if sp.issparse(counts) \
-        else np.asarray(counts, np.float32)
-    return Data(AnnData(x))
-
-
 def sctag_preprocess(counts, *, n_top_genes: int = 3000, n_components: int = 50,
                      n_neighbors: int = 15, device="auto"):
     """:meth:`ScTAG.preprocessing_pipeline` on raw ``counts`` (cells x genes,
@@ -346,12 +337,12 @@ def sctag_preprocess(counts, *, n_top_genes: int = 3000, n_components: int = 50,
     that holds a matrix. Returns ``((adj, x, x_raw, n_counts), cells)``: the
     input of :meth:`ScTAG.fit` (:func:`zinb_inputs`) and the indices of the
     kept cells, so that labels can follow them."""
-    data = wrap_counts(counts)
+    data = wrap_matrix(counts)
     ScTAG.preprocessing_pipeline(n_top_genes=n_top_genes, n_components=n_components,
                                  n_neighbors=n_neighbors, log_level="WARNING",
                                  device=device)(data)
     return zinb_inputs(data), np.asarray(data.data.obs_names).astype(np.int64)
 
 
-__all__ = ["ScTAG", "ZINB_CONFIG", "count_steps", "sctag_preprocess", "wrap_counts",
+__all__ = ["ScTAG", "ZINB_CONFIG", "count_steps", "sctag_preprocess",
            "zinb_inputs"]

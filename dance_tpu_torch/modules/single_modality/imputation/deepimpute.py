@@ -38,9 +38,10 @@ are drawn at each ``fit`` from a CPU ``torch.Generator`` seeded with
 generator on the device. Parity tests copy the flax weights in
 (:func:`dance_tpu_torch.utils.params.deepimpute_flax_to_torch`, through a
 patched :meth:`DeepImpute._make_net`) and JAX's batch orders. ``history``
-records each epoch's mean training loss, validation loss and seconds. The
-Data-container ``preprocessing_pipeline`` is not ported:
-:func:`deepimpute_preprocess` is its array core.
+records each epoch's mean training loss, validation loss and seconds.
+:func:`deepimpute_preprocess` is the array front of ``preprocessing_pipeline``:
+it runs the pipeline on a matrix wrapped in a ``Data``. The pipeline draws
+``GeneHoldout``'s blocks from ``seed`` too, where JAX's leaves them unseeded.
 
 Under ``fit_distributed`` (deepimpute.py:237-242) each rank holds its rows
 of the train and validation cells; every rank walks the same batches and
@@ -59,14 +60,16 @@ import scipy.sparse as sp
 import torch
 from torch import nn
 
-from dance_tpu_torch.modules.base import BaseRegressionMethod
+from dance_tpu_torch.modules.base import (BaseRegressionMethod, dense32, row_positions,
+                                          wrap_matrix)
 from dance_tpu_torch.nn.gnn import flax_dropout, truncated_normal_
 from dance_tpu_torch.parallel.mesh import RowShard, to_device
-from dance_tpu_torch.sc.pp import filter_cells, log1p
 from dance_tpu_torch.settings import logger
-from dance_tpu_torch.transforms.filter import get_count
+from dance_tpu_torch.transforms.filter import FilterCellsScanpy, FilterGenesScanpy
 from dance_tpu_torch.transforms.gene_holdout import GeneHoldout
-from dance_tpu_torch.transforms.mask import CellwiseMaskData
+from dance_tpu_torch.transforms.interface import AnnDataTransform
+from dance_tpu_torch.transforms.mask import CellwiseMaskData, entry_masks
+from dance_tpu_torch.transforms.misc import Compose, SaveRaw, SetConfig
 from dance_tpu_torch.utils import EpochClock, resolve_device
 from dance_tpu_torch.utils.batch import epoch_batches, epoch_batches_masked
 
@@ -192,6 +195,43 @@ class DeepImpute(BaseRegressionMethod):
         yt = Y[:, targ_idx].permute(1, 0, 2).contiguous()
         mt = M[:, targ_idx].permute(1, 0, 2) * targ_mask[:, None, :]
         return xp, yt, mt
+
+    @staticmethod
+    def preprocessing_pipeline(min_cells: float = 0.1, n_top: int = 5, sub_outputdim: int = 512,
+                               mask: bool = True, distr: str = "exp", mask_rate: float = 0.1,
+                               seed: Optional[int] = 1, log_level: str = "INFO") -> Compose:
+        """Genes expressed in at least ``min_cells`` cells (a float in (0, 1)
+        a ratio of the gene count, as JAX resolves it), cells with a count,
+        the counts kept (``SaveRaw``), ``log1p``, the target blocks of
+        ``sub_outputdim`` genes and their ``n_top`` predictors
+        (``GeneHoldout``, drawn from ``seed``), and the entry masks with a
+        test mask (``CellwiseMaskData``, unless ``mask`` is off)
+        (counterpart: deepimpute.py:81-109)."""
+        transforms = [
+            FilterGenesScanpy(min_cells=min_cells),
+            FilterCellsScanpy(min_counts=1),
+            SaveRaw(),
+            AnnDataTransform("sc.pp.log1p"),
+            GeneHoldout(n_top=n_top, batch_size=sub_outputdim, random_state=seed),
+        ]
+        if mask:
+            transforms.extend([
+                CellwiseMaskData(distr=distr, mask_rate=mask_rate, seed=seed,
+                                 add_test_mask=True),
+                SetConfig({"feature_channel": [None, None, "targets", "predictors",
+                                               "train_mask", "valid_mask", "test_mask"],
+                           "feature_channel_type": ["X", "raw_X", "uns", "uns",
+                                                    "layers", "layers", "layers"],
+                           "label_channel": [None, None],
+                           "label_channel_type": ["X", "raw_X"]}),
+            ])
+        else:
+            transforms.append(SetConfig({
+                "feature_channel": [None, None, "targets", "predictors"],
+                "feature_channel_type": ["X", "raw_X", "uns", "uns"],
+                "label_channel": [None, None],
+                "label_channel_type": ["X", "raw_X"]}))
+        return Compose(*transforms, log_level=log_level)
 
     def fit(self, X, Y, mask=None, batch_size: int = 64, lr: float = 1e-3, n_epochs: int = 100,
             patience: int = 5, train_idx=None):
@@ -407,40 +447,22 @@ def deepimpute_preprocess(counts, gene_names: Sequence, seed: Optional[int] = 1,
                           min_cells: float = 0.1, sub_outputdim: int = 512, n_top: int = 5,
                           mask: bool = True, distr: str = "exp",
                           mask_rate: float = 0.1) -> DeepImputeInputs:
-    """The array form of ``DeepImpute.preprocessing_pipeline``
-    (deepimpute.py:81-111) on raw ``counts`` (cells x genes, numpy or scipy):
-
-    - ``FilterGenesScanpy(min_cells)``: a float in (0, 1) is a ratio of the
-      matrix's gene count, as GraphSCI's filter resolves it (filter.py:65-77);
-    - ``FilterCellsScanpy(min_counts=1)``, ``SaveRaw`` (the counts), ``log1p``;
-    - :class:`~dance_tpu_torch.transforms.gene_holdout.GeneHoldout` with
-      ``n_top`` and blocks of ``sub_outputdim``, drawn from ``seed`` (the JAX
-      pipeline leaves its draw unseeded);
-    - :class:`~dance_tpu_torch.transforms.mask.CellwiseMaskData` with a test
-      mask, from ``seed``, unless ``mask`` is off, when the train mask is all
-      ones and the others empty."""
-    x = sp.csr_matrix(counts, dtype=np.float32) if sp.issparse(counts) \
-        else np.asarray(counts, np.float32)
+    """:meth:`DeepImpute.preprocessing_pipeline` on raw ``counts`` (cells x
+    genes, numpy or scipy, taken as float32) named ``gene_names``, wrapped in
+    a ``Data``, for a caller that holds a matrix. Without ``mask`` the train
+    mask is all ones and the others empty."""
     names = np.asarray(gene_names)
-    if names.shape != (x.shape[1],):
-        raise ValueError(f"{names.size} gene names for {x.shape[1]} genes")
-    expressed = np.asarray((x > 0).sum(axis=0)).ravel()
-    genes = np.nonzero(expressed >= get_count(min_cells, x.shape[1]))[0]
-    x = x[:, genes]
-    keep, _ = filter_cells(x, min_counts=1)
-    cells = np.nonzero(keep)[0]
-    x = x[cells]
-    x_raw = np.asarray(x.toarray() if sp.issparse(x) else x, np.float32)
-    x = log1p(x)
-    targets, predictors = GeneHoldout(n_top, sub_outputdim, random_state=seed)(
-        x.toarray() if sp.issparse(x) else x)
-    if mask:
-        masks = CellwiseMaskData(distr=distr, mask_rate=mask_rate, seed=seed,
-                                 add_test_mask=True)(x)
-    else:
-        masks = (np.ones(x.shape, bool), np.zeros(x.shape, bool), np.zeros(x.shape, bool))
-    x = np.asarray(x.toarray() if sp.issparse(x) else x, np.float32)
-    return DeepImputeInputs(x, x_raw, targets, predictors, *masks, cells, genes, names[genes])
+    if names.shape != (counts.shape[1],):
+        raise ValueError(f"{names.size} gene names for {counts.shape[1]} genes")
+    data = wrap_matrix(counts)
+    DeepImpute.preprocessing_pipeline(min_cells=min_cells, n_top=n_top,
+                                      sub_outputdim=sub_outputdim, mask=mask, distr=distr,
+                                      mask_rate=mask_rate, seed=seed, log_level="WARNING")(data)
+    adata = data.data
+    genes = row_positions(adata.var_names)
+    return DeepImputeInputs(dense32(adata.X), dense32(adata.raw.X), adata.uns["targets"],
+                            adata.uns["predictors"], *entry_masks(data),
+                            row_positions(adata.obs_names), genes, names[genes])
 
 
 __all__ = ["DeepImpute", "DeepImputeInputs", "NeuralNetworkModel", "deepimpute_preprocess"]

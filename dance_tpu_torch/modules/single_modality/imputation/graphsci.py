@@ -33,8 +33,9 @@ Where this differs from the JAX package:
   drawn anew.
 - The epochs are a loop; JAX runs them as one compiled scan. ``history``
   records each epoch's loss and seconds, ``fmt`` the graph's format.
-- The Data-container ``preprocessing_pipeline`` is not ported:
-  :func:`graphsci_preprocess` is its array core.
+- :func:`graphsci_preprocess` is the array front of
+  ``preprocessing_pipeline``: it runs the pipeline on a matrix wrapped in a
+  ``Data``.
 """
 
 import hashlib
@@ -46,17 +47,19 @@ import torch
 from torch import nn
 
 from dance_tpu_torch.graph import Graph
-from dance_tpu_torch.modules.base import BaseRegressionMethod
+from dance_tpu_torch.modules.base import BaseRegressionMethod, wrap_matrix
+from dance_tpu_torch.modules.single_modality.imputation.magic import imputation_arrays
 from dance_tpu_torch.nn.gnn import flax_dense_init_, flax_dropout
 from dance_tpu_torch.nn.mlp import FullBatchNorm as _BatchNorm
 from dance_tpu_torch.ops.bsr import choose_adj_format
 from dance_tpu_torch.ops.segment import spmm
 from dance_tpu_torch.ops.sparse import csr_from_scipy, dense_adj_from_scipy
-from dance_tpu_torch.sc.pp import filter_cells, log1p
 from dance_tpu_torch.settings import logger
-from dance_tpu_torch.transforms.filter import get_count
-from dance_tpu_torch.transforms.graph.feature_feature_graph import feature_feature_graph
+from dance_tpu_torch.transforms.filter import FilterCellsScanpy, FilterGenesScanpy
+from dance_tpu_torch.transforms.graph.feature_feature_graph import FeatureFeatureGraph
+from dance_tpu_torch.transforms.interface import AnnDataTransform
 from dance_tpu_torch.transforms.mask import CellwiseMaskData
+from dance_tpu_torch.transforms.misc import Compose, SaveRaw, SetConfig
 from dance_tpu_torch.utils import EpochClock, resolve_device
 
 
@@ -235,6 +238,35 @@ class GraphSCI(BaseRegressionMethod):
         return torch.randn((self.num_genes, self.num_genes), generator=generator,
                            device=self.device)
 
+    @staticmethod
+    def preprocessing_pipeline(min_cells: float = 0.1, threshold: float = 0.3, mask: bool = True,
+                               distr: str = "exp", mask_rate: float = 0.1,
+                               seed: Optional[int] = None, log_level: str = "INFO") -> Compose:
+        """Genes expressed in at least ``min_cells`` cells (a float in (0, 1)
+        a ratio of the gene count, as JAX resolves it), cells with a count,
+        the counts kept (``SaveRaw``), ``log1p``, the entry masks
+        (``CellwiseMaskData``, unless ``mask`` is off) and the gene graph of
+        the log features at ``threshold``, negative correlations kept, into
+        ``uns["FeatureFeatureGraph"]`` (counterpart: graphsci.py:207-229)."""
+        transforms = [
+            FilterGenesScanpy(min_cells=min_cells),
+            FilterCellsScanpy(min_counts=1),
+            SaveRaw(),
+            AnnDataTransform("sc.pp.log1p"),
+        ]
+        if mask:
+            transforms.append(CellwiseMaskData(distr=distr, mask_rate=mask_rate, seed=seed))
+        transforms.extend([
+            FeatureFeatureGraph(threshold=threshold, positive_only=False),
+            SetConfig({"feature_channel": ["FeatureFeatureGraph", None, "train_mask"]
+                       if mask else ["FeatureFeatureGraph", None],
+                       "feature_channel_type": ["uns", "X", "layers"] if mask
+                       else ["uns", "X"],
+                       "label_channel": [None, None],
+                       "label_channel_type": ["X", "raw_X"]}),
+        ])
+        return Compose(*transforms, log_level=log_level)
+
     def fit(self, g: Graph, x, x_raw, mask=None, le=1.0, la=1.0, ke=1.0, ka=1.0):
         """Train ``n_epochs`` full-batch AdamW steps (counterpart:
         graphsci.py:262). The device inputs are cached on the graph's
@@ -347,40 +379,15 @@ class GraphSCIInputs(NamedTuple):
 def graphsci_preprocess(counts, seed: Optional[int] = None, *, min_cells: float = 0.1,
                         threshold: float = 0.3, mask: bool = True, distr: str = "exp",
                         mask_rate: float = 0.1) -> GraphSCIInputs:
-    """The array form of ``GraphSCI.preprocessing_pipeline``
-    (graphsci.py:207-229) on raw ``counts`` (cells x genes, numpy or scipy):
-
-    - ``FilterGenesScanpy(min_cells)``: genes expressed in at least
-      ``get_count(min_cells, n_genes)`` cells. A float in (0, 1) is a ratio
-      of the matrix's gene count there (filter.py:65-77 resolves it against
-      ``x.shape[1 - axis]``, the genes for a gene filter), not of its cells;
-    - ``FilterCellsScanpy(min_counts=1)``, ``SaveRaw`` (the counts), ``log1p``;
-    - :class:`~dance_tpu_torch.transforms.mask.CellwiseMaskData` on the log
-      features (``distr``, ``mask_rate``, ``seed``), unless ``mask`` is off,
-      when the train mask is all ones and the others empty;
-    - :func:`~dance_tpu_torch.transforms.graph.feature_feature_graph.feature_feature_graph`
-      of the log features at ``threshold``, negative correlations kept.
-
-    The arithmetic is JAX's, so the features, masks and graph agree bit for
-    bit."""
-    x = sp.csr_matrix(counts, dtype=np.float32) if sp.issparse(counts) \
-        else np.asarray(counts, np.float32)
-    n_cells, n_genes = x.shape
-    expressed = np.asarray((x > 0).sum(axis=0)).ravel()
-    genes = np.nonzero(expressed >= get_count(min_cells, n_genes))[0]
-    x = x[:, genes]
-    keep, _ = filter_cells(x, min_counts=1)
-    cells = np.nonzero(keep)[0]
-    x = x[cells]
-    x_raw = np.asarray(x.toarray() if sp.issparse(x) else x, np.float32)
-    x = log1p(x)
-    if mask:
-        masks = CellwiseMaskData(distr=distr, mask_rate=mask_rate, seed=seed)(x)
-    else:
-        masks = (np.ones(x.shape, bool), np.zeros(x.shape, bool), np.zeros(x.shape, bool))
-    x = np.asarray(x.toarray() if sp.issparse(x) else x, np.float32)
-    g = feature_feature_graph(x, threshold, positive_only=False)
-    return GraphSCIInputs(g, x, x_raw, *masks, cells, genes)
+    """:meth:`GraphSCI.preprocessing_pipeline` on raw ``counts`` (cells x
+    genes, numpy or scipy, taken as float32) wrapped in a ``Data``, for a
+    caller that holds a matrix. Without ``mask`` the train mask is all ones
+    and the others empty."""
+    data = wrap_matrix(counts)
+    GraphSCI.preprocessing_pipeline(min_cells=min_cells, threshold=threshold, mask=mask,
+                                    distr=distr, mask_rate=mask_rate, seed=seed,
+                                    log_level="WARNING")(data)
+    return GraphSCIInputs(data.data.uns["FeatureFeatureGraph"], *imputation_arrays(data))
 
 
 __all__ = ["GraphSCI", "GraphSCIInputs", "graphsci_loss", "graphsci_preprocess"]

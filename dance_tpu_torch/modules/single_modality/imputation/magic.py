@@ -18,9 +18,8 @@ Where this differs from the JAX package:
   along the cells (``torch.quantile`` refuses inputs above 2**24 values).
 - :func:`impute_fast` runs its matrix power on ``device``; the functional
   API's ``compute_markov`` stays host scipy on the port's ``knn``.
-- :func:`magic_preprocess` is the array form of ``preprocessing_pipeline``;
-  the Data-container pipeline is not ported yet, and
-  ``MAGIC.preprocessing_pipeline`` raises, naming this front.
+- :func:`magic_preprocess` is the array front of ``preprocessing_pipeline``:
+  it runs the pipeline on a matrix wrapped in a ``Data``.
 """
 
 from typing import NamedTuple, Optional
@@ -29,12 +28,14 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from dance_tpu_torch.modules.base import BaseRegressionMethod
+from dance_tpu_torch.modules.base import (BaseRegressionMethod, dense32, row_positions,
+                                          wrap_matrix)
 from dance_tpu_torch.ops.neighbors import knn
-from dance_tpu_torch.sc.pp import filter_cells, log1p, normalize_total
 from dance_tpu_torch.settings import logger
-from dance_tpu_torch.transforms.filter import get_count
-from dance_tpu_torch.transforms.mask import CellwiseMaskData
+from dance_tpu_torch.transforms.filter import FilterCellsScanpy, FilterGenesScanpy
+from dance_tpu_torch.transforms.interface import AnnDataTransform
+from dance_tpu_torch.transforms.mask import CellwiseMaskData, entry_masks
+from dance_tpu_torch.transforms.misc import Compose, SaveRaw, SetConfig
 from dance_tpu_torch.utils import as_numpy, resolve_device
 
 
@@ -162,27 +163,23 @@ class MagicInputs(NamedTuple):
 
 def magic_preprocess(counts, *, min_cells: float = 0.1, mask: bool = True, distr: str = "exp",
                      mask_rate: float = 0.1, seed: Optional[int] = None) -> MagicInputs:
-    """The array form of ``MAGIC.preprocessing_pipeline`` (magic.py:152-176):
-    genes expressed in at least ``get_count(min_cells, n_genes)`` cells (a
-    float ratio is of the gene count, as JAX resolves it), cells with at
-    least one count, the raw counts kept, ``normalize_total(1e4)``,
-    ``log1p``, and the :class:`CellwiseMaskData` masks (an all-ones train
-    mask without ``mask``)."""
-    x = sp.csr_matrix(counts, dtype=np.float32) if sp.issparse(counts) \
-        else np.asarray(counts, np.float32)
-    expressed = np.asarray((x > 0).sum(axis=0)).ravel()
-    genes = np.nonzero(expressed >= get_count(min_cells, x.shape[1]))[0]
-    x = x[:, genes]
-    cells = np.nonzero(filter_cells(x, min_counts=1)[0])[0]
-    x = x[cells]
-    x_raw = np.asarray(x.toarray() if sp.issparse(x) else x, np.float32)
-    x = log1p(normalize_total(x, target_sum=1e4))
-    if mask:
-        masks = CellwiseMaskData(distr=distr, mask_rate=mask_rate, seed=seed)(x)
-    else:
-        masks = (np.ones(x.shape, bool), np.zeros(x.shape, bool), np.zeros(x.shape, bool))
-    x = np.asarray(x.toarray() if sp.issparse(x) else x, np.float32)
-    return MagicInputs(x, x_raw, *masks, cells, genes)
+    """:meth:`MAGIC.preprocessing_pipeline` on raw ``counts`` (cells x genes,
+    numpy or scipy, taken as float32) wrapped in a ``Data``, for a caller
+    that holds a matrix. Without ``mask`` the train mask is all ones and the
+    others empty."""
+    data = wrap_matrix(counts)
+    MAGIC.preprocessing_pipeline(min_cells=min_cells, mask=mask, distr=distr,
+                                 mask_rate=mask_rate, seed=seed, log_level="WARNING")(data)
+    return MagicInputs(*imputation_arrays(data))
+
+
+def imputation_arrays(data) -> tuple:
+    """``(x, x_raw, train_mask, valid_mask, test_mask, cells, genes)`` of a
+    ``Data`` an imputation pipeline ran on, its cells and genes named by
+    their rows and columns in the input (:func:`wrap_matrix`)."""
+    adata = data.data
+    return (dense32(adata.X), dense32(adata.raw.X), *entry_masks(data),
+            row_positions(adata.obs_names), row_positions(adata.var_names))
 
 
 class MAGIC(BaseRegressionMethod):
@@ -233,6 +230,31 @@ class MAGIC(BaseRegressionMethod):
             out = out * torch.where(x.amax(0) > 0, scale, 1.0)[None, :]
         return out
 
+    @staticmethod
+    def preprocessing_pipeline(min_cells: float = 0.1, mask: bool = True, distr: str = "exp",
+                               mask_rate: float = 0.1, seed: Optional[int] = None,
+                               log_level: str = "INFO") -> Compose:
+        """Genes expressed in at least ``min_cells`` cells (a float in (0, 1)
+        a ratio of the gene count, as JAX resolves it), cells with a count,
+        the counts kept (``SaveRaw``), ``normalize_total`` to 1e4, ``log1p``
+        and the entry masks (``CellwiseMaskData``, unless ``mask`` is off)
+        (counterpart: magic.py:157-176)."""
+        transforms = [
+            FilterGenesScanpy(min_cells=min_cells),
+            FilterCellsScanpy(min_counts=1),
+            SaveRaw(),
+            AnnDataTransform("sc.pp.normalize_total", target_sum=1e4),
+            AnnDataTransform("sc.pp.log1p"),
+        ]
+        if mask:
+            transforms.append(CellwiseMaskData(distr=distr, mask_rate=mask_rate, seed=seed))
+        transforms.append(SetConfig({
+            "feature_channel": [None, "train_mask"] if mask else [None],
+            "feature_channel_type": ["X", "layers"] if mask else ["X"],
+            "label_channel": [None, None],
+            "label_channel_type": ["X", "raw_X"]}))
+        return Compose(*transforms, log_level=log_level)
+
     def fit(self, x, y=None, mask=None):
         x = as_numpy(x).astype(np.float32)
         if mask is not None:
@@ -246,5 +268,5 @@ class MAGIC(BaseRegressionMethod):
         return self.imputed
 
 
-__all__ = ["MAGIC", "MagicInputs", "compute_markov", "impute_fast", "magic", "magic_preprocess",
-           "optimal_t"]
+__all__ = ["MAGIC", "MagicInputs", "compute_markov", "imputation_arrays", "impute_fast", "magic",
+           "magic_preprocess", "optimal_t"]

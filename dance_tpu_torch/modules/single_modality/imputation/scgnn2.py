@@ -29,7 +29,8 @@ Where this differs from the JAX package:
   restarts from torch generators.
 - The stages are Python loops; JAX runs each as one compiled scan.
   ``history`` records each stage's round, loss, epochs and seconds.
-- :func:`scgnn2_preprocess` is the array form of ``preprocessing_pipeline``.
+- :func:`scgnn2_preprocess` is the array front of ``preprocessing_pipeline``:
+  it runs the pipeline on a matrix wrapped in a ``Data``.
 """
 
 import time
@@ -40,17 +41,19 @@ import scipy.sparse as sp
 import torch
 from torch import nn
 
-from dance_tpu_torch.modules.base import BaseRegressionMethod
+from dance_tpu_torch.modules.base import BaseRegressionMethod, wrap_matrix
+from dance_tpu_torch.modules.single_modality.imputation.magic import imputation_arrays
 from dance_tpu_torch.nn.gnn import flax_dense_init_
 from dance_tpu_torch.nn.zinb_ae import TorchDense
 from dance_tpu_torch.ops.cluster import kmeans, louvain
 from dance_tpu_torch.ops.neighbors import knn_graph
 from dance_tpu_torch.ops.segment import spmm
 from dance_tpu_torch.ops.sparse import csr_from_scipy
-from dance_tpu_torch.sc.pp import filter_cells, log1p
 from dance_tpu_torch.settings import logger
-from dance_tpu_torch.transforms.filter import get_count
+from dance_tpu_torch.transforms.filter import FilterCellsScanpy, FilterGenesScanpy
+from dance_tpu_torch.transforms.interface import AnnDataTransform
 from dance_tpu_torch.transforms.mask import CellwiseMaskData
+from dance_tpu_torch.transforms.misc import Compose, SaveRaw, SetConfig
 from dance_tpu_torch.utils import resolve_device
 
 
@@ -169,26 +172,14 @@ class ScGNN2Inputs(NamedTuple):
 def scgnn2_preprocess(counts, *, min_cells: float = 0.1, mask: bool = True,
                       distr: str = "exp", mask_rate: float = 0.1,
                       seed: Optional[int] = None) -> ScGNN2Inputs:
-    """The array form of ``ScGNN2.preprocessing_pipeline`` (scgnn2.py:248):
-    genes expressed in at least ``get_count(min_cells, n_genes)`` cells (a
-    float ratio is of the gene count, as JAX resolves it), cells with at
-    least one count, the raw counts kept, ``log1p``, and the
-    :class:`CellwiseMaskData` masks (all-ones train mask without ``mask``)."""
-    x = sp.csr_matrix(counts, dtype=np.float32) if sp.issparse(counts) \
-        else np.asarray(counts, np.float32)
-    expressed = np.asarray((x > 0).sum(axis=0)).ravel()
-    genes = np.nonzero(expressed >= get_count(min_cells, x.shape[1]))[0]
-    x = x[:, genes]
-    cells = np.nonzero(filter_cells(x, min_counts=1)[0])[0]
-    x = x[cells]
-    x_raw = np.asarray(x.toarray() if sp.issparse(x) else x, np.float32)
-    x = log1p(x)
-    if mask:
-        masks = CellwiseMaskData(distr=distr, mask_rate=mask_rate, seed=seed)(x)
-    else:
-        masks = (np.ones(x.shape, bool), np.zeros(x.shape, bool), np.zeros(x.shape, bool))
-    x = np.asarray(x.toarray() if sp.issparse(x) else x, np.float32)
-    return ScGNN2Inputs(x, x_raw, *masks, cells, genes)
+    """:meth:`ScGNN2.preprocessing_pipeline` on raw ``counts`` (cells x
+    genes, numpy or scipy, taken as float32) wrapped in a ``Data``, for a
+    caller that holds a matrix. Without ``mask`` the train mask is all ones
+    and the others empty."""
+    data = wrap_matrix(counts)
+    ScGNN2.preprocessing_pipeline(min_cells=min_cells, mask=mask, distr=distr,
+                                  mask_rate=mask_rate, seed=seed, log_level="WARNING")(data)
+    return ScGNN2Inputs(*imputation_arrays(data))
 
 
 class ScGNN2(BaseRegressionMethod):
@@ -222,7 +213,29 @@ class ScGNN2(BaseRegressionMethod):
         self.seed = seed
         self.device = resolve_device(device)
 
-    preprocessing_pipeline = staticmethod(scgnn2_preprocess)
+    @staticmethod
+    def preprocessing_pipeline(min_cells: float = 0.1, mask: bool = True, distr: str = "exp",
+                               mask_rate: float = 0.1, seed: Optional[int] = None,
+                               log_level: str = "INFO") -> Compose:
+        """Genes expressed in at least ``min_cells`` cells (a float in (0, 1)
+        a ratio of the gene count, as JAX resolves it), cells with a count,
+        the counts kept (``SaveRaw``), ``log1p`` and the entry masks
+        (``CellwiseMaskData``, unless ``mask`` is off) (counterpart:
+        scgnn2.py:248-266)."""
+        transforms = [
+            FilterGenesScanpy(min_cells=min_cells),
+            FilterCellsScanpy(min_counts=1),
+            SaveRaw(),
+            AnnDataTransform("sc.pp.log1p"),
+        ]
+        if mask:
+            transforms.append(CellwiseMaskData(distr=distr, mask_rate=mask_rate, seed=seed))
+        transforms.append(SetConfig({
+            "feature_channel": [None, "train_mask"] if mask else [None],
+            "feature_channel_type": ["X", "layers"] if mask else ["X"],
+            "label_channel": [None, None],
+            "label_channel_type": ["X", "raw_X"]}))
+        return Compose(*transforms, log_level=log_level)
 
     def _make_nets(self, in_dim: int) -> Tuple[_FeatureAE, _GraphAE]:
         feature = _FeatureAE(in_dim, self.hidden, self.reference_protocol,

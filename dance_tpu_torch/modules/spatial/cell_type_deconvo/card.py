@@ -24,7 +24,8 @@ Where this differs from the JAX package:
   of ``(V - 1bᵀ) * L (V - 1bᵀ)``: the same values as JAX's dense products, in
   float32 sums of another order.
 - ``Card`` takes the basis as a (genes x types) array, not a DataFrame.
-  :func:`card_preprocess` is the array form of ``preprocessing_pipeline``.
+  :func:`card_preprocess` is the array front of ``preprocessing_pipeline``:
+  it runs the pipeline on a container of reference cells and spots.
 - ``obj_func`` and ``CARDref`` are the JAX package's host numpy.
 """
 
@@ -34,9 +35,11 @@ import numpy as np
 import torch
 
 from dance_tpu_torch.modules.base import BaseRegressionMethod, resolve_score_func
+from dance_tpu_torch.modules.spatial.cell_type_deconvo.dstg import deconvo_container
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.transforms.filter import (FilterGenesCommon, FilterGenesMarker,
                                                FilterGenesMatch, FilterGenesPercentile)
+from dance_tpu_torch.transforms.misc import Compose, SetConfig
 from dance_tpu_torch.transforms.pseudobulk import CellTopicProfile
 from dance_tpu_torch.utils import as_numpy, resolve_device
 from dance_tpu_torch.utils.matrix import normalize
@@ -132,28 +135,16 @@ class CardInputs(NamedTuple):
 
 
 def card_preprocess(x_ref, ref_annot, x_spots, spatial, gene_names: Sequence) -> CardInputs:
-    """``Card.preprocessing_pipeline`` on arrays (card.py:101-116): the
-    reference's mean profile per type, then the genes not starting with
-    ``"mt-"`` (any case), those expressed in both the reference and the
-    spots (sorted by name), the types' marker genes (log fold change above
-    1.25) and the genes between the 1st and 99th percentile of their
-    variance over mean on the reference and the spots together (sorted by
-    name). The JAX pipeline subsets one container holding both; here the two
-    matrices share ``gene_names``."""
-    x_ref, x_spots = np.asarray(x_ref), np.asarray(x_spots)
-    names = np.asarray(gene_names)
-    profile, cell_types = CellTopicProfile(ct_select="auto", method="mean")(x_ref, ref_annot)
-    keep = np.nonzero(FilterGenesMatch(prefixes=["mt-"], case_sensitive=False).select(names))[0]
-    x_ref, x_spots, profile, names = x_ref[:, keep], x_spots[:, keep], profile[keep], names[keep]
-    col = {g: j for j, g in enumerate(names.tolist())}
-    keep = np.asarray([col[g] for g in FilterGenesCommon.select(
-        [(x_ref, names), (x_spots, names)]).tolist()], dtype=np.int64)
-    x_ref, x_spots, profile, names = x_ref[:, keep], x_spots[:, keep], profile[keep], names[keep]
-    keep = np.nonzero(FilterGenesMarker(threshold=1.25)(profile, cell_types))[0]
-    x_ref, x_spots, profile, names = x_ref[:, keep], x_spots[:, keep], profile[keep], names[keep]
-    keep = FilterGenesPercentile(1, 99, mode="rv").select(np.vstack([x_ref, x_spots]), names)
-    return CardInputs(x_spots[:, keep], np.asarray(spatial), profile[keep], names[keep],
-                      cell_types)
+    """:meth:`Card.preprocessing_pipeline` on the reference cells ``x_ref``
+    typed ``ref_annot`` and the spots ``x_spots`` at ``spatial``, both
+    (cells x genes) named ``gene_names``, wrapped in one container
+    (:func:`deconvo_container`), for a caller that holds the matrices."""
+    data = deconvo_container(x_ref, ref_annot, x_spots, spatial, gene_names)
+    Card.preprocessing_pipeline(log_level="WARNING")(data)
+    x, xy = data.get_x("test")
+    profile = data.data.varm["CellTopicProfile"]
+    return CardInputs(x, xy, profile.to_numpy(), np.asarray(data.data.var_names),
+                      list(profile.columns))
 
 
 class Card(BaseRegressionMethod):
@@ -170,7 +161,26 @@ class Card(BaseRegressionMethod):
         self.device = resolve_device(device)
         self.history: List[dict] = []
 
-    preprocessing_pipeline = staticmethod(card_preprocess)
+    @staticmethod
+    def preprocessing_pipeline(log_level: str = "INFO") -> Compose:
+        """The mean profile of each type over split ``"ref"``, then the genes
+        not starting with ``"mt-"`` (any case), those expressed in both the
+        reference and the spots (sorted by name), the types' marker genes
+        (log fold change above 1.25) and the genes between the 1st and 99th
+        percentile of their variance over mean on every cell (sorted by
+        name); the spots' features are ``X`` and ``obsm["spatial"]``
+        (counterpart: card.py:104-116)."""
+        return Compose(
+            CellTopicProfile(ct_select="auto", batch_key=None, split_name="ref", method="mean"),
+            FilterGenesMatch(prefixes=["mt-"], case_sensitive=False),
+            FilterGenesCommon(split_keys=["ref", "test"]),
+            FilterGenesMarker(threshold=1.25),
+            FilterGenesPercentile(min_val=1, max_val=99, mode="rv"),
+            SetConfig({"feature_channel": [None, "spatial"],
+                       "feature_channel_type": ["X", "obsm"],
+                       "label_channel": "cell_type_portion"}),
+            log_level=log_level,
+        )
 
     def fit(self, inputs: Tuple[np.ndarray, np.ndarray], y: Optional[Any] = None,
             max_iter: int = 100, epsilon: float = 1e-4, sigma: float = 0.1,

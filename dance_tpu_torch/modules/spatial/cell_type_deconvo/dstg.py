@@ -124,7 +124,7 @@ class DSTG(BaseRegressionMethod):
         device = resolve_device(device)
         return Compose(
             PseudoMixture(n_pseudo=n_pseudo, random_state=random_state),
-            CellTopicProfile(ct_select="auto"),
+            CellTopicProfile(ct_select="auto", split_name="ref"),
             FilterGenesMarker(threshold=1.25),
             RemoveSplit(split_name="ref"),
             CellPCA(n_components=min(num_cc, 50), device=device),
@@ -236,21 +236,26 @@ class DSTGInputs(NamedTuple):
     seconds: Dict[str, float]
 
 
-def deconvo_container(x_ref, ref_labels, x_spots, coords=None) -> Data:
+def deconvo_container(x_ref, ref_labels, x_spots=None, coords=None, gene_names=None) -> Data:
     """A container of reference cells and spots, as the deconvolution
     pipelines take it: the cells of ``x_ref`` (cells x genes, genes named
-    ``g0``, ``g1``, ...) as split ``"ref"`` with their types in
-    ``obs["cellType"]``, then the spots of ``x_spots`` as split ``"test"``,
-    both as float32; with ``coords``, the spots' coordinates in
-    ``obsm["spatial"]`` (zeros for the reference cells)."""
+    ``gene_names``, or ``g0``, ``g1``, ... when None) as split ``"ref"``
+    with their types in ``obs["cellType"]``, then the spots of ``x_spots``
+    (none when None) as split ``"test"``, both as float32; with ``coords``,
+    the spots' coordinates in ``obsm["spatial"]`` (zeros for the reference
+    cells)."""
     def dense(x):
         return np.asarray(x.toarray() if sp.issparse(x) else x, np.float32)
 
-    genes = Frame(index=[f"g{i}" for i in range(x_ref.shape[1])])
+    names = (gene_names if gene_names is not None else
+             [f"g{i}" for i in range(x_ref.shape[1])])
+    genes = Frame(index=[str(g) for g in names])
     ref = AnnData(dense(x_ref), obs=Frame({"cellType": np.asarray(ref_labels).astype(str)},
                                           index=[f"c{i}" for i in range(x_ref.shape[0])]),
                   var=genes)
     data = Data(ref, full_split_name="ref")
+    if x_spots is None:
+        return data
     spots = AnnData(dense(x_spots), obs=Frame(index=[f"s{i}" for i in range(x_spots.shape[0])]),
                     var=genes.copy())
     data.append(Data(spots), mode="new_split", new_split_name="test", join="outer")

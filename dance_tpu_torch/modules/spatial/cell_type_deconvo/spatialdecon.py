@@ -8,8 +8,9 @@ minimises the mean squared log error, the weights clamped at 0 after every
 step (the loss reads ``max(w, 0)``, whose gradient at 0 is halved, as JAX's
 ``maximum`` and torch's give it). The portions are the row-normalised
 weights. SpatialDecon runs no TPU kernel: a small GEMM, its gradient and
-elementwise passes a step. :func:`spatialdecon_preprocess` is the array form
-of ``preprocessing_pipeline`` (``CellTopicProfile`` of the reference).
+elementwise passes a step. :func:`spatialdecon_preprocess` is the array front
+of ``preprocessing_pipeline`` (``CellTopicProfile`` of the reference): it
+runs the pipeline on the reference wrapped in a ``Data``.
 """
 
 from typing import Any, List, Optional, Sequence, Tuple
@@ -18,7 +19,9 @@ import numpy as np
 import torch
 
 from dance_tpu_torch.modules.base import BaseRegressionMethod, resolve_score_func
+from dance_tpu_torch.modules.spatial.cell_type_deconvo.dstg import deconvo_container
 from dance_tpu_torch.settings import logger
+from dance_tpu_torch.transforms.misc import Compose, SetConfig
 from dance_tpu_torch.transforms.pseudobulk import CellTopicProfile
 from dance_tpu_torch.utils import as_numpy, resolve_device
 
@@ -28,11 +31,15 @@ def msle(pred: torch.Tensor, true: torch.Tensor) -> torch.Tensor:
     return torch.mean((torch.log1p(pred) - torch.log1p(true)) ** 2)
 
 
-def spatialdecon_preprocess(x_ref, ref_annot, ct_select="auto",
-                            method: str = "median") -> Tuple[np.ndarray, List[str]]:
-    """``SpatialDecon.preprocessing_pipeline`` on arrays: the reference's
-    (genes x types) profile and its type names (``CellTopicProfile``)."""
-    return CellTopicProfile(ct_select=ct_select, method=method)(x_ref, ref_annot)
+def spatialdecon_preprocess(x_ref, ref_annot, ct_select="auto") -> Tuple[np.ndarray, List[str]]:
+    """:meth:`SpatialDecon.preprocessing_pipeline` on the reference cells
+    ``x_ref`` (cells x genes) typed ``ref_annot``, wrapped in a ``Data`` as
+    split ``"ref"`` (:func:`deconvo_container`), for a caller that holds a
+    matrix. Returns the (genes x types) median profile and its type names."""
+    data = deconvo_container(x_ref, ref_annot)
+    SpatialDecon.preprocessing_pipeline(ct_select, log_level="WARNING")(data)
+    profile = data.data.varm["CellTopicProfile"]
+    return profile.to_numpy(), list(profile.columns)
 
 
 class SpatialDecon(BaseRegressionMethod):
@@ -49,7 +56,17 @@ class SpatialDecon(BaseRegressionMethod):
         self.bias = bias
         self.history: List[float] = []
 
-    preprocessing_pipeline = staticmethod(spatialdecon_preprocess)
+    @staticmethod
+    def preprocessing_pipeline(ct_select="auto", ct_profile_split: str = "ref",
+                               log_level: str = "INFO") -> Compose:
+        """The median profile of each type over the cells of split
+        ``ct_profile_split`` into ``varm["CellTopicProfile"]``, the portions
+        in ``obsm["cell_type_portion"]`` (counterpart: spatialdecon.py:37-43)."""
+        return Compose(
+            CellTopicProfile(ct_select=ct_select, split_name=ct_profile_split),
+            SetConfig({"label_channel": "cell_type_portion"}),
+            log_level=log_level,
+        )
 
     def _loss(self, w: torch.Tensor, b: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
         pred = self.ct_profile @ torch.maximum(w, torch.zeros((), device=w.device)).T

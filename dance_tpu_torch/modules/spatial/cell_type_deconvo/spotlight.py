@@ -23,6 +23,7 @@ import torch
 from dance_tpu_torch.modules.base import BaseRegressionMethod, resolve_score_func
 from dance_tpu_torch.ops.nmf import nmf
 from dance_tpu_torch.settings import logger
+from dance_tpu_torch.transforms.misc import SetConfig
 from dance_tpu_torch.transforms.pseudobulk import get_ct_profile
 from dance_tpu_torch.utils import as_numpy, resolve_device
 
@@ -40,6 +41,12 @@ class SPOTlight(BaseRegressionMethod):
         self.rank = rank
         self.bias = bias
         self.device = resolve_device(device)
+
+    @staticmethod
+    def preprocessing_pipeline(log_level: str = "INFO") -> SetConfig:
+        """The portions in ``obsm["cell_type_portion"]``; the reference is
+        the model's own (counterpart: spotlight.py:35-36)."""
+        return SetConfig({"label_channel": "cell_type_portion"}, log_level=log_level)
 
     def fit(self, x, lr: float = 1e-3, max_iter: int = 1000):
         """``max_iter`` iterations of each of the three NMFs; ``lr`` is the

@@ -369,7 +369,7 @@ class StdGCN(BaseRegressionMethod):
         notes). Nothing here runs on the card."""
         return Compose(
             PseudoMixture(n_pseudo=n_pseudo),
-            CellTopicProfile(ct_select="auto"),
+            CellTopicProfile(ct_select="auto", split_name="ref"),
             FilterGenesMarker(threshold=1.25),
             SetConfig({"feature_channel": [None, "spatial"],
                        "feature_channel_type": ["X", "obsm"],

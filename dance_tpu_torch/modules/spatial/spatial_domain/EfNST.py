@@ -30,7 +30,8 @@ Where this differs from the JAX package:
   decides which spots enter, and its off-by-one slice.
 - The four transforms are the array fronts :func:`efnst_image_feature`,
   :func:`efnst_augment`, :func:`efnst_graph` and :func:`efnst_concat`;
-  :func:`efnst_preprocess` is ``preprocessing_pipeline``'s.
+  :func:`efnst_preprocess` is ``preprocessing_pipeline``'s: it runs the
+  pipeline on a matrix wrapped in a ``Data``.
 """
 
 import time
@@ -41,7 +42,7 @@ import scipy.sparse as sp
 import torch
 from torch import nn
 
-from dance_tpu_torch.modules.base import BaseClusteringMethod
+from dance_tpu_torch.modules.base import BaseClusteringMethod, row_positions, wrap_matrix
 from dance_tpu_torch.nn.gnn import flax_dense_init_
 from dance_tpu_torch.ops.cluster import kmeans
 from dance_tpu_torch.ops.linalg import pca
@@ -49,9 +50,11 @@ from dance_tpu_torch.ops.neighbors import knn, knn_graph
 from dance_tpu_torch.ops.segment import spmm
 from dance_tpu_torch.ops.sparse import csr_from_scipy
 from dance_tpu_torch.sc.pp import filter_genes, highly_variable_genes, log1p, normalize_total, scale
-from dance_tpu_torch.transforms.cell_feature import cell_pca
-from dance_tpu_torch.transforms.graph.spatial_graph import stagate_graph
-from dance_tpu_torch.transforms.spatial_feature import morphology_feature_cnn
+from dance_tpu_torch.transforms.cell_feature import CellPCA, cell_pca
+from dance_tpu_torch.transforms.graph.spatial_graph import StagateGraph
+from dance_tpu_torch.transforms.interface import AnnDataTransform
+from dance_tpu_torch.transforms.misc import Compose, SetConfig
+from dance_tpu_torch.transforms.spatial_feature import MorphologyFeatureCNN, morphology_feature_cnn
 from dance_tpu_torch.utils import resolve_device
 from dance_tpu_torch.utils.loss import (binary_ce_logits, cluster_kl_loss, soft_assign,
                                         target_distribution)
@@ -135,19 +138,18 @@ class EfNSTInputs(NamedTuple):
 
 def efnst_preprocess(counts, xy, xy_pixel, image, *, pca_n_comps: int = 200, k: int = 12,
                      min_cells: int = 3, device="auto") -> EfNSTInputs:
-    """The array form of ``EfNsSTRunner.preprocessing_pipeline`` (EfNST.py:
-    72-91): genes in at least ``min_cells`` spots, ``normalize_total`` to
-    1e4, ``log1p``; the morphology features and the cell PCA at
-    ``min(pca_n_comps, 50)`` components, and STAGATE's ``k``-NN graph of
-    ``xy``."""
-    dev = resolve_device(device)
-    genes = np.nonzero(filter_genes(counts, min_cells=min_cells)[0])[0]
-    x = log1p(normalize_total(counts[:, genes], target_sum=1e4))
-    x = x.toarray() if sp.issparse(x) else x
-    dim = min(pca_n_comps, 50)
-    morph = morphology_feature_cnn(xy_pixel, image, n_components=dim, device=dev)
-    return EfNSTInputs(cell_pca(x, dim, device=dev), morph,
-                       stagate_graph(xy, "knn", n_neighbors=k), genes)
+    """:meth:`EfNsSTRunner.preprocessing_pipeline` on raw ``counts`` (spots x
+    genes) wrapped in a ``Data`` with the coordinates ``xy`` in
+    ``obsm["spatial"]``, the pixels ``xy_pixel`` in ``obsm["spatial_pixel"]``
+    and the HWC ``image`` in ``uns["image"]``, for a caller that holds the
+    arrays."""
+    data = wrap_matrix(counts, uns={"image": image}, spatial=np.asarray(xy),
+                       spatial_pixel=np.asarray(xy_pixel))
+    EfNsSTRunner.preprocessing_pipeline(pca_n_comps=pca_n_comps, k=k, min_cells=min_cells,
+                                        log_level="WARNING", device=device)(data)
+    adata = data.data
+    return EfNSTInputs(adata.obsm["CellPCA"], adata.obsm["MorphologyFeatureCNN"],
+                       adata.obsp["StagateGraph"], row_positions(adata.var_names))
 
 
 class EfNsSTRunner(BaseClusteringMethod):
@@ -167,7 +169,29 @@ class EfNsSTRunner(BaseClusteringMethod):
         self.device = resolve_device(device)
         self.net: Optional[_EfNSTNet] = None
 
-    preprocessing_pipeline = staticmethod(efnst_preprocess)
+    @staticmethod
+    def preprocessing_pipeline(pca_n_comps: int = 200, k: int = 12, min_cells: int = 3,
+                               log_level: str = "INFO", device="auto") -> Compose:
+        """Genes in at least ``min_cells`` spots, ``normalize_total`` to 1e4,
+        ``log1p``; the morphology features and the cell PCA at
+        ``min(pca_n_comps, 50)`` components on ``device``, and STAGATE's
+        ``k``-NN graph of the pixels (counterpart: EfNST.py:79-97). JAX's
+        ``data_name``, ``verbose``, ``cnnType``, ``distType``,
+        ``dim_reduction`` and ``platform`` change nothing there and have no
+        port."""
+        dim = min(pca_n_comps, 50)
+        return Compose(
+            AnnDataTransform("sc.pp.filter_genes", min_cells=min_cells),
+            AnnDataTransform("sc.pp.normalize_total", target_sum=1e4),
+            AnnDataTransform("sc.pp.log1p"),
+            MorphologyFeatureCNN(n_components=dim, device=device),
+            CellPCA(n_components=dim, device=device),
+            StagateGraph("knn", n_neighbors=k),
+            SetConfig({"feature_channel": ["CellPCA", "MorphologyFeatureCNN", "StagateGraph"],
+                       "feature_channel_type": ["obsm", "obsm", "obsp"],
+                       "label_channel": "label", "label_channel_type": "obs"}),
+            log_level=log_level,
+        )
 
     def _make_net(self, in_dim: int) -> _EfNSTNet:
         return _EfNSTNet(in_dim, self.z_dim, torch.Generator().manual_seed(self.seed))

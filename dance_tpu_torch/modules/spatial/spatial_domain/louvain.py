@@ -4,9 +4,8 @@ reference vendors, on adjacency matrices.
 
 Counterpart: dance_tpu/modules/spatial/spatial_domain/louvain.py
 (``Louvain`` :17, its ``preprocessing_pipeline`` :26, the module API
-:52-128). The JAX pipeline is a ``Compose`` of transforms on a ``Data``
-container; the port's front, :func:`louvain_preprocess`, runs the same
-steps on arrays. Louvain runs on the host in C++
+:52-128). The port's front, :func:`louvain_preprocess`, runs the pipeline
+on a matrix wrapped in a ``Data``. Louvain runs on the host in C++
 (:func:`~dance_tpu_torch.ops.cluster.louvain`); the PCA on the device. No
 TPU kernel is on this path.
 """
@@ -16,22 +15,21 @@ from typing import Optional
 import numpy as np
 import scipy.sparse as sp
 
-from dance_tpu_torch.modules.base import BaseClusteringMethod
+from dance_tpu_torch.modules.base import BaseClusteringMethod, wrap_matrix
 from dance_tpu_torch.ops.cluster import louvain
-from dance_tpu_torch.sc.pp import log1p, normalize_total
-from dance_tpu_torch.transforms.cell_feature import cell_pca
-from dance_tpu_torch.transforms.graph.neighbor_graph import neighbor_graph
+from dance_tpu_torch.transforms.cell_feature import CellPCA
+from dance_tpu_torch.transforms.graph.neighbor_graph import NeighborGraph
+from dance_tpu_torch.transforms.interface import AnnDataTransform
+from dance_tpu_torch.transforms.misc import Compose, SetConfig
 
 
 def louvain_preprocess(x, dim: int = 50, n_neighbors: int = 17, device="auto") -> sp.csr_matrix:
-    """The array counterpart of ``Louvain.preprocessing_pipeline`` on raw
-    counts ``x`` (spots x genes): ``normalize_total`` to 1e4, ``log1p``, the
-    ``dim``-component cell PCA (on ``device``: the card unless the CPU is
-    named) and the Gaussian-weighted, symmetric ``n_neighbors``-NN graph
-    without self-loops. Returns the graph, the method's input."""
-    x = sp.csr_matrix(x, dtype=np.float32) if sp.issparse(x) else np.asarray(x, np.float32)
-    return neighbor_graph(cell_pca(log1p(normalize_total(x, target_sum=1e4)), dim,
-                                   device=device), n_neighbors)
+    """:meth:`Louvain.preprocessing_pipeline` on raw counts ``x`` (spots x
+    genes, numpy or scipy, taken as float32) wrapped in a ``Data``, for a
+    caller that holds a matrix. Returns the graph, the method's input."""
+    data = wrap_matrix(x)
+    Louvain.preprocessing_pipeline(dim, n_neighbors, log_level="WARNING", device=device)(data)
+    return data.data.obsp["NeighborGraph"]
 
 
 class Louvain(BaseClusteringMethod):
@@ -43,6 +41,24 @@ class Louvain(BaseClusteringMethod):
     def __init__(self, resolution: float = 1.0, seed: int = 0):
         self.resolution = resolution
         self.seed = seed
+
+    @staticmethod
+    def preprocessing_pipeline(dim: int = 50, n_neighbors: int = 17, log_level: str = "INFO",
+                               device="auto") -> Compose:
+        """``normalize_total`` to 1e4, ``log1p``, the ``dim``-component cell
+        PCA on ``device`` and the Gaussian-weighted, symmetric
+        ``n_neighbors``-NN graph without self-loops into
+        ``obsp["NeighborGraph"]``, the domains in ``obs["label"]``
+        (counterpart: louvain.py:26-37)."""
+        return Compose(
+            AnnDataTransform("sc.pp.normalize_total", target_sum=1e4),
+            AnnDataTransform("sc.pp.log1p"),
+            CellPCA(n_components=dim, device=device),
+            NeighborGraph(n_neighbors=n_neighbors),
+            SetConfig({"feature_channel": "NeighborGraph", "feature_channel_type": "obsp",
+                       "label_channel": "label", "label_channel_type": "obs"}),
+            log_level=log_level,
+        )
 
     def fit(self, adj, partition=None, weight="weight", randomize=None,
             random_state: Optional[int] = None):

@@ -23,7 +23,8 @@ Where this differs from the JAX package:
   (:func:`~dance_tpu_torch.ops.cluster.kmeans`), not JAX's keys.
 - ``history`` records each epoch's loss and seconds, ``epochs_run`` the
   epochs taken before the ``tol`` stop.
-- :func:`spagcn_preprocess` is the array form of ``preprocessing_pipeline``.
+- :func:`spagcn_preprocess` is the array front of ``preprocessing_pipeline``:
+  it runs the pipeline on a matrix wrapped in a ``Data``.
 """
 
 import time
@@ -32,14 +33,15 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from dance_tpu_torch.modules.base import BaseClusteringMethod
+from dance_tpu_torch.modules.base import BaseClusteringMethod, row_positions, wrap_matrix
 from dance_tpu_torch.ops.cluster import kmeans, louvain
 from dance_tpu_torch.ops.neighbors import knn_graph
-from dance_tpu_torch.sc.pp import log1p, normalize_total
 from dance_tpu_torch.settings import logger
-from dance_tpu_torch.transforms.cell_feature import cell_pca
+from dance_tpu_torch.transforms.cell_feature import CellPCA
 from dance_tpu_torch.transforms.filter import FilterGenesMatch
-from dance_tpu_torch.transforms.graph.spatial_graph import spagcn_graph, spagcn_graph_2d
+from dance_tpu_torch.transforms.graph.spatial_graph import SpaGCNGraph, SpaGCNGraph2D
+from dance_tpu_torch.transforms.interface import AnnDataTransform
+from dance_tpu_torch.transforms.misc import Compose, SetConfig
 from dance_tpu_torch.utils import resolve_device
 from dance_tpu_torch.utils.loss import cluster_kl_loss, target_distribution
 from dance_tpu_torch.utils.optim import adamw
@@ -256,6 +258,27 @@ class SpaGCN(BaseClusteringMethod):
         self.seed = seed
         self.device = resolve_device(device)
 
+    @staticmethod
+    def preprocessing_pipeline(alpha: float = 1, beta: int = 49, dim: int = 50,
+                               log_level: str = "INFO", device="auto") -> Compose:
+        """Drop the ``ERCC`` and ``MT-`` genes, ``normalize_total`` to 1e4,
+        ``log1p``, the histology-aware and the pixel distance matrices into
+        ``obsp["SpaGCNGraph"]`` and ``obsp["SpaGCNGraph2D"]``, and the
+        ``dim``-component cell PCA, on ``device`` (counterpart:
+        spagcn.py:264-277)."""
+        return Compose(
+            FilterGenesMatch(prefixes=["ERCC", "MT-"]),
+            AnnDataTransform("sc.pp.normalize_total", target_sum=1e4),
+            AnnDataTransform("sc.pp.log1p"),
+            SpaGCNGraph(alpha=alpha, beta=beta, device=device),
+            SpaGCNGraph2D(device=device),
+            CellPCA(n_components=dim, device=device),
+            SetConfig({"feature_channel": ["CellPCA", "SpaGCNGraph", "SpaGCNGraph2D"],
+                       "feature_channel_type": ["obsm", "obsp", "obsp"],
+                       "label_channel": "label", "label_channel_type": "obs"}),
+            log_level=log_level,
+        )
+
     def search_l(self, p, adj, start=0.01, end=1000, tol=0.01, max_run=100) -> float:
         return search_l(p, adj, start, end, tol, max_run, device=self.device)
 
@@ -423,17 +446,17 @@ class SpaGCNInputs(NamedTuple):
 
 def spagcn_preprocess(counts, gene_names: Sequence, xy, xy_pixel, image, *, alpha: float = 1,
                       beta: int = 49, dim: int = 50, device="auto") -> SpaGCNInputs:
-    """The array form of ``SpaGCN.preprocessing_pipeline`` (spagcn.py:264-277):
-    drop the ``ERCC`` and ``MT-`` genes, ``normalize_total`` to 1e4,
-    ``log1p``, the histology-aware and the pixel distance matrices, and the
-    ``dim``-component cell PCA."""
-    keep = np.nonzero(FilterGenesMatch(prefixes=["ERCC", "MT-"]).select(gene_names))[0]
-    x = log1p(normalize_total(counts[:, keep], target_sum=1e4))
-    x = x.toarray() if hasattr(x, "toarray") else x
-    dev = resolve_device(device)
-    return SpaGCNInputs(cell_pca(x, dim, device=dev),
-                        spagcn_graph(xy, xy_pixel, image, alpha, beta, device=dev),
-                        spagcn_graph_2d(xy_pixel, device=dev), keep)
+    """:meth:`SpaGCN.preprocessing_pipeline` on raw ``counts`` (spots x genes)
+    named ``gene_names``, wrapped in a ``Data`` with the coordinates ``xy``
+    in ``obsm["spatial"]``, the pixels ``xy_pixel`` in
+    ``obsm["spatial_pixel"]`` and the HWC ``image`` in ``uns["image"]``,
+    for a caller that holds the arrays."""
+    data = wrap_matrix(counts, gene_names, uns={"image": image}, spatial=np.asarray(xy),
+                       spatial_pixel=np.asarray(xy_pixel))
+    SpaGCN.preprocessing_pipeline(alpha, beta, dim, log_level="WARNING", device=device)(data)
+    adata = data.data
+    return SpaGCNInputs(adata.obsm["CellPCA"], adata.obsp["SpaGCNGraph"],
+                        adata.obsp["SpaGCNGraph2D"], row_positions(adata.var_names, gene_names))
 
 
 __all__ = ["Geary_C", "Moran_I", "SpaGCN", "SpaGCNInputs", "calculate_adj_matrix", "calculate_p",

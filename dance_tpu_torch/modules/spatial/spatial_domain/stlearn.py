@@ -3,9 +3,11 @@ Louvain.
 
 Counterpart: dance_tpu/modules/spatial/spatial_domain/stlearn.py
 (``_sme_pipeline`` :16-29, ``StKmeans`` :32, ``StLouvain`` :67). The SME
-features come from :func:`sme_preprocess`: the scaled expression's PCA, the
-morphology CNN's features of the H&E tiles, the SME graph of the two and
-the spots' pixel distances, and the SME average of the expression. Neither
+features come from the heads' shared ``preprocessing_pipeline``: the scaled
+expression's PCA, the morphology CNN's features of the H&E tiles, the SME
+graph of the two and the spots' pixel distances, and the SME average of the
+expression. :func:`sme_preprocess` is its array front: it runs the
+pipeline on a matrix wrapped in a ``Data``. Neither
 head runs a TPU kernel: k-means is a loop of distance GEMMs and one-hot
 sums on the device, Louvain runs on the host in C++.
 
@@ -19,13 +21,14 @@ from typing import NamedTuple
 
 import numpy as np
 
-from dance_tpu_torch.modules.base import BaseClusteringMethod
+from dance_tpu_torch.modules.base import BaseClusteringMethod, row_positions, wrap_matrix
 from dance_tpu_torch.ops.cluster import kmeans, louvain
 from dance_tpu_torch.ops.neighbors import knn_graph
-from dance_tpu_torch.sc.pp import filter_genes, log1p, normalize_total, scale
-from dance_tpu_torch.transforms.cell_feature import cell_pca
-from dance_tpu_torch.transforms.graph.spatial_graph import sme_graph
-from dance_tpu_torch.transforms.spatial_feature import morphology_feature_cnn, sme_feature
+from dance_tpu_torch.transforms.cell_feature import CellPCA
+from dance_tpu_torch.transforms.graph.spatial_graph import SMEGraph
+from dance_tpu_torch.transforms.interface import AnnDataTransform
+from dance_tpu_torch.transforms.misc import Compose, SetConfig
+from dance_tpu_torch.transforms.spatial_feature import MorphologyFeatureCNN, SMEFeature
 from dance_tpu_torch.utils import resolve_device
 
 
@@ -40,21 +43,47 @@ class SMEInputs(NamedTuple):
 
 def sme_preprocess(counts, xy, xy_pixel, image, *, n_components: int = 50,
                    device="auto") -> SMEInputs:
-    """The array form of ``_sme_pipeline`` (stlearn.py:16-29): genes in at
-    least one spot, ``normalize_total`` to 1e4, ``log1p``, ``scale``; the
-    cell PCA, :func:`morphology_feature_cnn`, :func:`sme_graph` (radius 3)
-    and :func:`sme_feature`, each at ``n_components``."""
-    dev = resolve_device(device)
-    genes = np.nonzero(filter_genes(counts, min_cells=1)[0])[0]
-    x, _, _ = scale(log1p(normalize_total(counts[:, genes], target_sum=1e4)))
-    pcs = cell_pca(x, n_components, device=dev)
-    morph = morphology_feature_cnn(xy_pixel, image, n_components=n_components, device=dev)
-    adj = sme_graph(xy, xy_pixel, morph, pcs, device=dev)
-    feature = sme_feature(x, adj, n_components=n_components, device=dev)
-    return SMEInputs(feature, x, pcs, morph, adj, genes)
+    """The heads' ``preprocessing_pipeline`` on raw ``counts`` (spots x
+    genes) wrapped in a ``Data`` with the coordinates ``xy`` in
+    ``obsm["spatial"]``, the pixels ``xy_pixel`` in ``obsm["spatial_pixel"]``
+    and the HWC ``image`` in ``uns["image"]``, for a caller that holds the
+    arrays."""
+    data = wrap_matrix(counts, uns={"image": image}, spatial=np.asarray(xy),
+                       spatial_pixel=np.asarray(xy_pixel))
+    SMEMethod.preprocessing_pipeline(n_components, log_level="WARNING", device=device)(data)
+    adata = data.data
+    return SMEInputs(adata.obsm["SMEFeature"], np.asarray(adata.X), adata.obsm["CellPCA"],
+                     adata.obsm["MorphologyFeatureCNN"], adata.obsp["SMEGraph"],
+                     row_positions(adata.var_names))
 
 
-class StKmeans(BaseClusteringMethod):
+class SMEMethod(BaseClusteringMethod):
+    """The pipeline stLearn's two heads share (counterpart: ``_sme_pipeline``,
+    stlearn.py:16-29)."""
+
+    @staticmethod
+    def preprocessing_pipeline(n_components: int = 50, log_level: str = "INFO",
+                               device="auto") -> Compose:
+        """Genes in at least one spot, ``normalize_total`` to 1e4, ``log1p``,
+        ``scale``; the cell PCA and the morphology CNN's features at
+        ``n_components``, the SME graph (radius 3) and the SME feature at
+        ``n_components`` into ``obsm["SMEFeature"]``, on ``device``."""
+        return Compose(
+            AnnDataTransform("sc.pp.filter_genes", min_cells=1),
+            AnnDataTransform("sc.pp.normalize_total", target_sum=1e4),
+            AnnDataTransform("sc.pp.log1p"),
+            AnnDataTransform("sc.pp.scale"),
+            CellPCA(n_components=n_components, device=device),
+            MorphologyFeatureCNN(n_components=n_components, device=device),
+            SMEGraph(device=device),
+            SMEFeature(n_components=n_components, device=device),
+            SetConfig({"feature_channel": "SMEFeature", "feature_channel_type": "obsm",
+                       "label_channel": "label", "label_channel_type": "obs"}),
+            log_level=log_level,
+        )
+
+
+class StKmeans(SMEMethod):
     """k-means over the SME features (counterpart: stlearn.py:32): the best
     of ``n_init`` k-means++ restarts, each up to ``max_iter`` Lloyd steps
     until the squared centre shift is ``tol`` of the mean variance. The
@@ -73,8 +102,6 @@ class StKmeans(BaseClusteringMethod):
         self.random_state = random_state
         self.device = resolve_device(device)
 
-    preprocessing_pipeline = staticmethod(sme_preprocess)
-
     def fit(self, x, y=None):
         self.pred = kmeans(x, self.n_clusters, n_init=self.n_init, n_iter=self.max_iter,
                            seed=self.random_state, tol=self.tol,
@@ -85,7 +112,7 @@ class StKmeans(BaseClusteringMethod):
         return self.pred
 
 
-class StLouvain(BaseClusteringMethod):
+class StLouvain(SMEMethod):
     """Louvain over the ``n_neighbors`` graph of the SME features, or over
     ``adj`` when given (counterpart: stlearn.py:67)."""
 
@@ -95,8 +122,6 @@ class StLouvain(BaseClusteringMethod):
         self.resolution = resolution
         self.n_neighbors = n_neighbors
         self.seed = seed
-
-    preprocessing_pipeline = staticmethod(sme_preprocess)
 
     def fit(self, x, y=None, *, adj=None):
         if adj is None:
@@ -109,4 +134,4 @@ class StLouvain(BaseClusteringMethod):
         return self.pred
 
 
-__all__ = ["SMEInputs", "StKmeans", "StLouvain", "sme_preprocess"]
+__all__ = ["SMEInputs", "SMEMethod", "StKmeans", "StLouvain", "sme_preprocess"]

@@ -13,7 +13,9 @@ AdaptiveSAGE has two branches, as in the JAX package:
 - an :class:`~dance_tpu_torch.ops.sparse.AdaptiveBSR` adjacency runs the
   whole edge gather as one block-sparse SpMM (:func:`bsr_spmm_ad`, the CUDA
   kernel on the card), or one dense product when its off-diagonal is a
-  :class:`~dance_tpu_torch.ops.sparse.DenseAdj`, plus per-node terms;
+  :class:`~dance_tpu_torch.ops.sparse.DenseAdj`, plus per-node terms; only
+  the gene nodes gather their alpha, by a gather whose gradient is a
+  fixed-order sum (:func:`_node_scales`);
 - a :class:`~dance_tpu_torch.ops.sparse.CSRMatrix` gathers per-edge messages
   and mean-aggregates them by the fixed-order segment sum
   (:func:`~dance_tpu_torch.ops.segment.aggregate`); the alpha gather's
@@ -221,9 +223,7 @@ class AdaptiveSAGE(nn.Module):
         n_genes = alpha.shape[0] - 2
         if isinstance(adj, AdaptiveBSR):
             gidx = adj.gene_idx
-            # index_select: its backward is an index_add_, where advanced
-            # indexing's backward walks the 12k duplicate cell indices serially
-            s = torch.where(gidx >= 0, alpha.index_select(0, gidx.clamp(min=0)), 1.0)
+            s = _node_scales(adj, alpha)
             self_alpha = torch.where(gidx >= 0, alpha[n_genes], alpha[n_genes + 1])
             n = h.shape[0]
             if isinstance(adj.bsr, DenseAdj):
@@ -256,6 +256,21 @@ def _alpha_gather(adj, alpha: torch.Tensor, alpha_idx: torch.Tensor) -> torch.Te
     order = kept(adj, "alpha_order", (alpha_idx,),
                  lambda: index_order(alpha_idx, alpha.shape[0]))
     return gather(alpha, alpha_idx, order)
+
+
+def _node_scales(adj: AdaptiveBSR, alpha: torch.Tensor) -> torch.Tensor:
+    """``s[v] = alpha[gene_idx[v]]`` for a gene node and 1 for a cell. Only
+    the gene nodes gather, so alpha's gradient is a fixed-order sum over
+    their own nodes and the cells add nothing to it; the gene nodes and the
+    sort of their indices are kept on ``adj``, built once per graph."""
+    def build():
+        nodes = torch.nonzero(adj.gene_idx >= 0).squeeze(1)
+        genes = adj.gene_idx.index_select(0, nodes)
+        return nodes, genes, index_order(genes, alpha.shape[0])
+
+    nodes, genes, order = kept(adj, "gene_nodes", (adj.gene_idx,), build)
+    s = torch.ones(adj.gene_idx.shape[0], dtype=alpha.dtype, device=alpha.device)
+    return s.index_copy(0, nodes, gather(alpha, genes, order))
 
 
 class GATConv(nn.Module):

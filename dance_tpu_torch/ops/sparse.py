@@ -226,6 +226,8 @@ class AdaptiveBSR:
     gene_idx: torch.Tensor  # (n,) int64 gene index per node, -1 for cells
     deg: torch.Tensor       # (n,) incoming edge counts incl. self-loops
     n_genes: int
+    # the gene nodes and the sort of their gene indices, stamped as on a CSRMatrix
+    _kept: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def shape(self) -> Tuple[int, int]:

@@ -5,7 +5,8 @@ repository's ``__graft_entry__.py:83-140``, its first two passes).
 and in each runs (1) ACTINN's distributed fit for one epoch on a pure-dp
 mesh and (2) one dp x tp step of a ``VanillaMLP`` whose hidden layers are
 column-sharded over ``tp = 2`` where ``n_ranks`` is even (else ``tp = 1``),
-asserting finite outputs. Run it as ``python -m
+asserting finite outputs. :func:`dryrun_rank` is one rank's part, for a
+caller whose ranks are already up. Run it as ``python -m
 dance_tpu_torch.parallel.dryrun N [gloo|nccl] [cpu]``.
 """
 
@@ -21,7 +22,9 @@ from dance_tpu_torch.parallel.mesh import get_mesh, launch, shard_batch
 from dance_tpu_torch.parallel.train import init_sharded, make_sharded_train_step
 
 
-def _dryrun_rank(rank: int, n_ranks: int, report: str):
+def dryrun_rank(rank: int, n_ranks: int, report: str):
+    """Both passes on this rank of an ``n_ranks`` process group; rank 0
+    writes the summary line to the file ``report``."""
     from dance_tpu_torch.modules.single_modality.cell_type_annotation import ACTINN
     from dance_tpu_torch.nn.mlp import VanillaMLP
 
@@ -65,7 +68,7 @@ def dryrun_multichip(n_ranks: int, backend: str = "nccl", device="auto",
     returns rank 0's summary line (raises when a rank fails)."""
     with tempfile.TemporaryDirectory(prefix="dtt_dryrun_") as tmp:
         report = os.path.join(tmp, "report.txt")
-        launch(_dryrun_rank, n_ranks, backend, device, args=(n_ranks, report),
+        launch(dryrun_rank, n_ranks, backend, device, args=(n_ranks, report),
                rendezvous_dir=tmp, timeout=timeout)
         with open(report) as f:
             line = f.read().strip()

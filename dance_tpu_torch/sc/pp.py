@@ -210,13 +210,23 @@ def _loess(x: np.ndarray, y: np.ndarray, *, span: float = 0.3, degree: int = 2,
 
 
 def _group_median(values: np.ndarray, groups: np.ndarray) -> np.ndarray:
-    """Each element's group median (pandas ``groupby(...).transform("median")``
-    over the observed groups; every value here is finite)."""
-    out = np.empty_like(values)
+    """Each element's group median as pandas' ``groupby(...).transform(
+    "median")`` gives it over the observed groups: the median of the group's
+    non-NaN values in float64 (NaN for a group without any), cast back to
+    float32 for float32 values only where the cast moves no median by more
+    than 5e-4 (pandas' ``maybe_downcast_numeric``), else left float64."""
+    med = np.empty(values.shape, np.float64)
     for grp in np.unique(groups):
         sel = groups == grp
-        out[sel] = np.median(values[sel])
-    return out
+        vals = values[sel].astype(np.float64)
+        vals = vals[~np.isnan(vals)]
+        med[sel] = np.median(vals) if vals.size else np.nan
+    if values.dtype == np.float32:
+        with np.errstate(over="ignore"):
+            cast = med.astype(np.float32)
+        if np.allclose(cast, med, rtol=0.0, atol=5e-4, equal_nan=True):
+            return cast
+    return med
 
 
 def _dispersions(x) -> Tuple[np.ndarray, np.ndarray]:
@@ -255,7 +265,10 @@ def _cell_ranger(x, n_top_genes: Optional[int], min_mean: float, max_mean: float
     """cell_ranger dispersions of log data (counterpart: pp.py:298-346): the
     dispersion var/mean of ``expm1(x)`` is normalised by the median and MAD
     of its bin of means; the bins are the 10th, 15th, ..., 100th percentiles
-    with -inf and +inf at the ends, right-closed as ``pd.cut`` cuts them."""
+    with -inf and +inf at the ends, right-closed as ``pd.cut`` cuts them. The
+    medians and the normalised dispersions take pandas' dtypes
+    (:func:`_group_median`): float32 for a float32 matrix unless a median is
+    too large for float32 to hold within 5e-4."""
     mean, dispersion = _dispersions(x)
     edges = np.r_[-np.inf, np.percentile(mean, np.arange(10, 105, 5)), np.inf]
     if not (np.diff(edges) > 0).all():
@@ -265,7 +278,7 @@ def _cell_ranger(x, n_top_genes: Optional[int], min_mean: float, max_mean: float
     bin_mad = _group_median(np.abs(dispersion - bin_median), bins)
     with np.errstate(divide="ignore", invalid="ignore"):
         disp_norm = (dispersion - bin_median) / np.where(bin_mad == 0, np.nan, bin_mad)
-    disp_norm = np.where(np.isnan(disp_norm), 0.0, disp_norm).astype(dispersion.dtype)
+    disp_norm = np.where(np.isnan(disp_norm), 0.0, disp_norm)
     hv = _select(disp_norm, mean, n_top_genes, min_mean, max_mean, min_disp, max_disp)
     return {"highly_variable": hv, "means": mean, "dispersions": dispersion,
             "dispersions_norm": disp_norm}

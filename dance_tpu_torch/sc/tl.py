@@ -29,6 +29,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from dance_tpu_torch.ops.segment import segment_sum_csr
+from dance_tpu_torch.ops.sparse import index_order
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.utils import resolve_device
 
@@ -84,13 +86,25 @@ def _fit_ab(min_dist: float, spread: float):
     return float(a), float(b)
 
 
+def _umap_order(src: torch.Tensor, dst: torch.Tensor, n: int):
+    """The update's summation order: each node's terms as a source in edge
+    order, then its terms as a destination, the order of JAX's two
+    scatter-adds on its CPU (:func:`~dance_tpu_torch.ops.sparse.index_order`
+    of ``src`` then ``dst``). The edges stay the same in every epoch, so it
+    is built once a layout."""
+    return index_order(torch.cat([src, dst]), n)
+
+
 def _umap_epoch(emb: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
-                neg: torch.Tensor, alpha: torch.Tensor, a: float, b: float) -> torch.Tensor:
+                neg: torch.Tensor, alpha: torch.Tensor, a: float, b: float,
+                order=None) -> torch.Tensor:
     """One epoch of the layout (counterpart: tl.py:86-105): the attractive
     gradient over every edge and the repulsive one of a negative sample per
-    edge, each clipped at ±4, summed into the nodes by two ``index_add_``
-    and stepped by ``alpha``. A pair at distance 0 with ``b < 1`` gives
-    ``0 ** (b - 1) = inf`` times 0, a NaN, as in JAX."""
+    edge, each clipped at ±4, summed into the nodes in the fixed order
+    ``order`` (:func:`_umap_order`, built here when None) by one segment
+    sum, the same bits on every run, and stepped by ``alpha``. A pair at
+    distance 0 with ``b < 1`` gives ``0 ** (b - 1) = inf`` times 0, a NaN,
+    as in JAX."""
     d_pos = emb[src] - emb[dst]
     dist2 = (d_pos ** 2).sum(1)
     grad_coef = (-2.0 * a * b * dist2 ** (b - 1.0) / (1.0 + a * dist2 ** b))[:, None] * w[:, None]
@@ -99,10 +113,9 @@ def _umap_epoch(emb: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, w: torc
     nd2 = (d_neg ** 2).sum(1)
     rep_coef = (2.0 * b / ((0.001 + nd2) * (1.0 + a * nd2 ** b)))[:, None]
     g_neg = torch.clamp(rep_coef * d_neg, -4.0, 4.0) * w[:, None]
-    upd = torch.zeros_like(emb)
-    upd.index_add_(0, src, alpha * (g_pos + g_neg))
-    upd.index_add_(0, dst, -alpha * g_pos)
-    return emb + upd
+    perm, offsets = _umap_order(src, dst, emb.shape[0]) if order is None else order
+    terms = torch.cat([alpha * (g_pos + g_neg), -alpha * g_pos])
+    return emb + segment_sum_csr(terms.index_select(0, perm), offsets)
 
 
 def umap(conn, *, n_components: int = 2, random_state: int = 0, n_epochs: int = 200,
@@ -136,10 +149,11 @@ def umap(conn, *, n_components: int = 2, random_state: int = 0, n_epochs: int = 
                              f"{(n_epochs, len(src))}")
     gen = torch.Generator(device=device).manual_seed(random_state)
     emb = torch.from_numpy(emb0).to(device)
+    order = _umap_order(src, dst, n)
     for epoch in range(n_epochs):
         neg = (negatives[epoch] if negatives is not None
                else torch.randint(0, n, src.shape, generator=gen, device=device))
-        emb = _umap_epoch(emb, src, dst, w, neg, alphas[epoch], a, b)
+        emb = _umap_epoch(emb, src, dst, w, neg, alphas[epoch], a, b, order)
     return emb.cpu().numpy()
 
 

@@ -23,11 +23,13 @@ from dance_tpu_torch.transforms.filter import (FilterCellsCommonMod, FilterCells
                                                get_count)
 from dance_tpu_torch.transforms.gene_holdout import GeneHoldout
 from dance_tpu_torch.transforms.graph import (CellFeatureBipartiteGraph, CellFeatureGraph,
-                                              DSTGraph, HeteronetGraph, NeighborGraph,
-                                              PCACellFeatureGraph, RESEPTGraph, StagateGraph,
-                                              dstg_link_graph, feature_feature_graph,
-                                              heteronet_graph, neighbor_graph, sme_graph,
-                                              spagcn_graph, spagcn_graph_2d, stagate_graph)
+                                              DSTGraph, FeatureFeatureGraph, HeteronetGraph,
+                                              NeighborGraph, PCACellFeatureGraph, RESEPTGraph,
+                                              SMEGraph, SpaGCNGraph, SpaGCNGraph2D,
+                                              StagateGraph, dstg_link_graph,
+                                              feature_feature_graph, heteronet_graph,
+                                              neighbor_graph, sme_graph, spagcn_graph,
+                                              spagcn_graph_2d, stagate_graph)
 from dance_tpu_torch.transforms.interface import AnnDataTransform
 from dance_tpu_torch.transforms.mask import CellwiseMaskData, MaskData
 from dance_tpu_torch.transforms.misc import (AlignMod, Compose, RemoveSplit, SaveRaw, SetConfig,
@@ -44,14 +46,16 @@ from dance_tpu_torch.transforms.pseudobulk import (CellGiottoTopicProfile, CellT
                                                    CellTypeNums, PseudoMixture, get_giotto_dt)
 from dance_tpu_torch.transforms.sc3_feature import SC3Feature
 from dance_tpu_torch.transforms.scn_feature import SCNFeature
-from dance_tpu_torch.transforms.spatial_feature import morphology_feature_cnn, sme_feature
+from dance_tpu_torch.transforms.spatial_feature import (MorphologyFeatureCNN, SMEFeature,
+                                                        morphology_feature_cnn, sme_feature)
 from dance_tpu_torch.transforms.stats import GeneStats
 
 __all__ = ["AlignMod", "AnnDataAdaptor", "AnnDataTransform", "BaseTransform", "BatchFeature",
            "CellFeatureBipartiteGraph", "CellFeatureGraph", "CellGiottoTopicProfile", "CellPCA",
-           "CellSVD", "CellSparsePCA", "Compose", "DSTGraph", "HeteronetGraph", "NeighborGraph",
-           "PCACellFeatureGraph", "RemoveSplit", "SaveRaw",
-           "SetConfig", "StagateGraph", "UpdateRaw",
+           "CellSVD", "CellSparsePCA", "Compose", "DSTGraph", "FeatureFeatureGraph",
+           "HeteronetGraph", "MorphologyFeatureCNN", "NeighborGraph", "PCACellFeatureGraph",
+           "RemoveSplit", "SMEFeature", "SMEGraph", "SaveRaw", "SetConfig", "SpaGCNGraph",
+           "SpaGCNGraph2D", "StagateGraph", "UpdateRaw",
            "CellTopicProfile", "CellTypeNums", "CellwiseMaskData", "ColumnSumNormalize",
            "FeatureCellPlaceHolder", "FilterCellTransform", "FilterCellsCommonMod",
            "FilterCellsPlaceHolder", "FilterCellsScanpy", "FilterCellsScanpyOrder",

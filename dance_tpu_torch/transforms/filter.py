@@ -280,17 +280,21 @@ class FilterGenesMarker(BaseTransform):
         return data
 
 
-class FilterGenesMatch:
+@register_preprocessor("filter", "gene")
+class FilterGenesMatch(BaseTransform):
     """Drop the genes whose names start with one of ``prefixes`` or end with
     one of ``suffixes`` (counterpart: filter.py:212). With ``case_sensitive``
     the patterns and the names are upper-cased before matching, as the JAX
     transform does (the flag's name says the opposite of what it does).
-    ``select(gene_names)`` is the boolean mask of the genes kept, and
+    ``select(gene_names)`` is the boolean mask of the genes kept,
     ``__call__(x, gene_names)`` returns the kept columns and names in gene
-    order."""
+    order, and ``__call__(data)`` keeps those genes of a port ``Data``."""
+
+    _DISPLAY_ATTRS = ("prefixes", "suffixes")
 
     def __init__(self, prefixes: Optional[List[str]] = None,
-                 suffixes: Optional[List[str]] = None, case_sensitive: bool = False):
+                 suffixes: Optional[List[str]] = None, case_sensitive: bool = False, **kwargs):
+        super().__init__(**kwargs)
         self.prefixes = list(prefixes or [])
         self.suffixes = list(suffixes or [])
         self.case_sensitive = case_sensitive
@@ -303,22 +307,36 @@ class FilterGenesMatch:
         check = [n.upper() for n in names] if self.case_sensitive else names
         remove = np.array([n.startswith(tuple(self.prefixes)) or n.endswith(tuple(self.suffixes))
                            for n in check], dtype=bool).reshape(len(names))
-        logger.info("Removing %d genes by name match", int(remove.sum()))
+        self.logger.info("Removing %d genes by name match", int(remove.sum()))
         return ~remove
 
-    def __call__(self, x, gene_names: Sequence) -> Tuple[np.ndarray, np.ndarray]:
+    def __call__(self, x, gene_names: Sequence = None):
+        if isinstance(x, BaseData):
+            x.data._inplace_subset_var(self.select(x.data.var_names))
+            return x
         keep = np.nonzero(self.select(gene_names))[0]
         return x[:, keep], np.asarray(gene_names)[keep]
 
 
-class FilterGenesCommon:
+@register_preprocessor("filter", "gene")
+class FilterGenesCommon(BaseTransform):
     """The genes expressed in every group of cells (counterpart:
-    filter.py:178). The JAX transform groups one container's cells by split
-    or batch; here each group is a ``(matrix, gene_names)`` pair, so the
-    groups may name different genes. ``select(groups)`` returns the names
-    with a nonzero absolute sum in every group, in sorted-name order as the
-    JAX transform subsets by them; ``__call__(groups)`` returns each group's
-    ``(columns, names)`` of those genes in that order."""
+    filter.py:178). ``select(groups)`` takes each group as a ``(matrix,
+    gene_names)`` pair, so the groups may name different genes, and returns
+    the names with a nonzero absolute sum in every group, in sorted-name
+    order as the JAX transform subsets by them; ``__call__(groups)``
+    returns each group's ``(columns, names)`` of those genes in that order.
+    ``__call__(data)`` groups a port ``Data``'s cells by the splits
+    ``split_keys`` and keeps the common genes in that order. JAX's
+    ``batch_key`` grouping has no port (no pipeline sets it): it is a class
+    constant, printed in the digest."""
+
+    _DISPLAY_ATTRS = ("batch_key", "split_keys")
+    batch_key = None
+
+    def __init__(self, split_keys: Optional[List[str]] = None, **kwargs):
+        super().__init__(**kwargs)
+        self.split_keys = split_keys
 
     @staticmethod
     def select(groups: Sequence[Tuple[object, Sequence]]) -> np.ndarray:
@@ -332,8 +350,9 @@ class FilterGenesCommon:
         logger.info("Found %d common genes", len(common))
         return np.asarray(common)
 
-    def __call__(self, groups: Sequence[Tuple[object, Sequence]]) -> List[Tuple[object,
-                                                                               np.ndarray]]:
+    def __call__(self, groups):
+        if isinstance(groups, BaseData):
+            return self._filter_data(groups)
         common = self.select(groups)
         out = []
         for x, names in groups:
@@ -341,6 +360,16 @@ class FilterGenesCommon:
             idx = np.asarray([col[g] for g in common.tolist()], dtype=np.int64)
             out.append((x[:, idx], common))
         return out
+
+    def _filter_data(self, data):
+        """Counterpart: filter.py:192-208, the ``split_keys`` branch."""
+        if self.split_keys is None:
+            raise ValueError("FilterGenesCommon on a Data needs split_keys")
+        adata = data.data
+        groups = [(adata.X[np.asarray(data.get_split_idx(k, error_on_miss=True))],
+                   adata.var_names) for k in self.split_keys]
+        data.data._inplace_subset_var(self.select(groups))
+        return data
 
 
 GENE_SUMMARY_MODES = ("sum", "var", "cv", "rv")

@@ -1,19 +1,24 @@
-"""The gene-gene similarity graph on arrays (counterpart:
+"""The gene-gene similarity graph (counterpart:
 dance_tpu/transforms/graph/feature_feature_graph.py:15-67,
 ``FeatureFeatureGraph``).
 
-The JAX transform reads the feature channel of a ``Data`` container and
-writes the graph into ``uns``; the port takes the cells x genes matrix and
-returns the :class:`~dance_tpu_torch.graph.Graph`. The host arithmetic is the
-JAX package's numpy and scipy, so the edges and their weights are the same;
-the ``rbf`` affinity is computed in float32 by torch where JAX uses XLA.
+:func:`feature_feature_graph` takes the cells x genes matrix and returns the
+:class:`~dance_tpu_torch.graph.Graph`; the :class:`FeatureFeatureGraph`
+transform does the same on an array, and on a port ``Data`` reads the
+feature channel and writes the graph into ``uns[out]``, as JAX's does. The
+host arithmetic is the JAX package's numpy and scipy, so the edges and
+their weights are the same; the ``rbf`` affinity is computed in float32 by
+torch where JAX uses XLA.
 """
 
 import numpy as np
 import scipy.sparse as sp
 from scipy.stats import spearmanr
 
+from dance_tpu_torch.data.base import BaseData
 from dance_tpu_torch.graph import Graph
+from dance_tpu_torch.registry import register_preprocessor
+from dance_tpu_torch.transforms.base import BaseTransform
 from dance_tpu_torch.utils.matrix import dist_to_rbf
 
 SCORE_FUNCS = ("pearson", "spearman", "rbf")
@@ -53,4 +58,28 @@ def feature_feature_graph(x, threshold: float = 0.3, *, positive_only: bool = Fa
     return g
 
 
-__all__ = ["SCORE_FUNCS", "feature_feature_graph"]
+@register_preprocessor("graph", "feature")
+class FeatureFeatureGraph(BaseTransform):
+    """:func:`feature_feature_graph` as a transform (counterpart:
+    feature_feature_graph.py:15): ``__call__(x)`` returns the graph,
+    ``__call__(data)`` writes the graph of the feature channel (float64)
+    into ``uns[out]``. The Pearson score and the normalised edges are class
+    constants, printed in the digest: no pipeline sets another (the function
+    takes every option)."""
+
+    _DISPLAY_ATTRS = ("threshold", "positive_only", "normalize_edges", "score_func")
+    normalize_edges, score_func = True, "pearson"
+
+    def __init__(self, threshold: float = 0.3, *, positive_only: bool = False, **kwargs):
+        super().__init__(**kwargs)
+        self.threshold = threshold
+        self.positive_only = positive_only
+
+    def __call__(self, x):
+        if isinstance(x, BaseData):
+            x.data.uns[self.out] = self(x.get_feature(return_type="numpy"))
+            return x
+        return feature_feature_graph(x, self.threshold, positive_only=self.positive_only)
+
+
+__all__ = ["FeatureFeatureGraph", "SCORE_FUNCS", "feature_feature_graph"]

@@ -2,11 +2,14 @@
 ``SpaGCNGraph``, ``SpaGCNGraph2D``, ``SMEGraph`` and ``StagateGraph``,
 dance_tpu/transforms/graph/spatial_graph.py:13-148).
 
-The JAX transforms read coordinates, images and features from a ``Data``
-container and write the graph into ``obsp``; the port's functions take the
-arrays and return the graph. :class:`StagateGraph`, which STAGATE's
-container pipeline runs, is also JAX's transform on a port ``Data``,
-registered under JAX's key in the port's own registry.
+The functions take the arrays and return the graph. The transforms
+(:class:`SpaGCNGraph`, :class:`SpaGCNGraph2D`, :class:`SMEGraph`,
+:class:`StagateGraph`) are JAX's on a port ``Data``: they read the
+coordinates (``obsm["spatial"]``, ``obsm["spatial_pixel"]``), the image
+(``uns["image"]``) and the features from the channels JAX reads and write
+the graph into ``obsp[out]``; they are registered under JAX's keys in the
+port's own registry. The channels are class constants: no pipeline sets
+another.
 The dense matrices are returned as numpy; the distances are
 :func:`~dance_tpu_torch.utils.matrix.pairwise_distance`'s, computed on
 ``device`` (the card unless the caller names the CPU).
@@ -64,6 +67,12 @@ class StagateGraph(BaseTransform):
         return data
 
 
+def _channel(data, channel: str, channel_type: str = "obsm", dtype=None):
+    feat = data.get_feature(return_type="default" if channel_type == "uns" else "numpy",
+                            channel=channel, channel_type=channel_type)
+    return np.asarray(feat, dtype=dtype)
+
+
 def spagcn_graph(xy, xy_pixel, image, alpha: float, beta: int, *, device="auto") -> np.ndarray:
     """SpaGCN's histology-aware (n, n) float32 distance matrix (counterpart:
     ``SpaGCNGraph``, spatial_graph.py:13): each spot's colour is the mean of
@@ -89,11 +98,46 @@ def spagcn_graph(xy, xy_pixel, image, alpha: float, beta: int, *, device="auto")
     return pairwise_distance(xyz, dist_func="euclidean", device=resolve_device(device))
 
 
+@register_preprocessor("graph", "spatial")
+class SpaGCNGraph(BaseTransform):
+    """:func:`spagcn_graph` of ``obsm["spatial"]``, ``obsm["spatial_pixel"]``
+    and ``uns["image"]`` into ``obsp[out]`` (counterpart: spatial_graph.py:13)."""
+
+    _DISPLAY_ATTRS = ("alpha", "beta")
+
+    def __init__(self, alpha, beta, *, device="auto", **kwargs):
+        super().__init__(**kwargs)
+        self.alpha = alpha
+        self.beta = beta
+        self.device = device
+
+    def __call__(self, data):
+        data.data.obsp[self.out] = spagcn_graph(
+            _channel(data, "spatial"), _channel(data, "spatial_pixel", dtype=int),
+            _channel(data, "image", "uns"), self.alpha, self.beta, device=self.device)
+        return data
+
+
 def spagcn_graph_2d(xy_pixel, *, device="auto") -> np.ndarray:
     """The plain (n, n) float32 pixel distance matrix (counterpart:
     ``SpaGCNGraph2D``, spatial_graph.py:58)."""
     return pairwise_distance(np.asarray(xy_pixel, np.float32), dist_func="euclidean",
                              device=resolve_device(device))
+
+
+@register_preprocessor("graph", "spatial")
+class SpaGCNGraph2D(BaseTransform):
+    """:func:`spagcn_graph_2d` of ``obsm["spatial_pixel"]`` into ``obsp[out]``
+    (counterpart: spatial_graph.py:58)."""
+
+    def __init__(self, *, device="auto", **kwargs):
+        super().__init__(**kwargs)
+        self.device = device
+
+    def __call__(self, data):
+        data.data.obsp[self.out] = spagcn_graph_2d(_channel(data, "spatial_pixel"),
+                                                   device=self.device)
+        return data
 
 
 def sme_graph(xy, xy_pixel, morph, gene, radius: float = 3, *, device="auto") -> np.ndarray:
@@ -120,4 +164,24 @@ def sme_graph(xy, xy_pixel, morph, gene, radius: float = 3, *, device="auto") ->
     return adj
 
 
-__all__ = ["StagateGraph", "sme_graph", "spagcn_graph", "spagcn_graph_2d", "stagate_graph"]
+@register_preprocessor("graph", "spatial")
+class SMEGraph(BaseTransform):
+    """:func:`sme_graph` of ``obsm["spatial"]``, ``obsm["spatial_pixel"]``,
+    the morphology features ``obsm["MorphologyFeatureCNN"]`` and the
+    expression PCA ``obsm["CellPCA"]`` into ``obsp[out]`` (counterpart:
+    spatial_graph.py:74), at the function's radius of 3: no pipeline sets
+    another."""
+
+    def __init__(self, *, device="auto", **kwargs):
+        super().__init__(**kwargs)
+        self.device = device
+
+    def __call__(self, data):
+        xy, xy_pixel, morph, gene = (_channel(data, c) for c in (
+            "spatial", "spatial_pixel", "MorphologyFeatureCNN", "CellPCA"))
+        data.data.obsp[self.out] = sme_graph(xy, xy_pixel, morph, gene, device=self.device)
+        return data
+
+
+__all__ = ["SMEGraph", "SpaGCNGraph", "SpaGCNGraph2D", "StagateGraph", "sme_graph",
+           "spagcn_graph", "spagcn_graph_2d", "stagate_graph"]

@@ -1,10 +1,10 @@
-"""Entry masks for imputation on arrays (counterpart:
-dance_tpu/transforms/mask.py, ``CellwiseMaskData`` :12-84 and ``MaskData``
-:87-111).
+"""Entry masks for imputation (counterpart: dance_tpu/transforms/mask.py,
+``CellwiseMaskData`` :12-84 and ``MaskData`` :87-111).
 
-The JAX transforms read the feature channel of a ``Data`` container and
-write the masks into its ``layers``; the port takes the cells x genes
-matrix and returns the masks. Both draw from ``np.random.default_rng(seed)``
+Handed the cells x genes matrix, the transforms return the masks. Handed a
+port ``Data``, ``CellwiseMaskData`` reads its feature channel and writes the
+masks into its ``layers``, as JAX's does; it is registered under JAX's key
+in the port's own registry. Both draw from ``np.random.default_rng(seed)``
 (with ``scipy.stats.expon`` weights for ``CellwiseMaskData``) in the same
 order, so the masks are the JAX package's bit for bit.
 """
@@ -15,21 +15,29 @@ import numpy as np
 import scipy.sparse as sp
 from scipy.stats import expon
 
-from dance_tpu_torch.settings import logger
+from dance_tpu_torch.data.base import BaseData
+from dance_tpu_torch.registry import register_preprocessor
+from dance_tpu_torch.transforms.base import BaseTransform
 
 
-class CellwiseMaskData:
+@register_preprocessor("split", "entry")
+class CellwiseMaskData(BaseTransform):
     """Per-cell masking of positive entries (counterpart: mask.py:13). In
     each cell with more than ``min_gene_counts`` positive entries,
     ``floor(mask_rate x`` that count``)`` of them leave the train mask,
     drawn without replacement with weights ``expon.pdf(value, 0, 20)``
     (``"exp"``) or uniform; they go to the valid mask, or with
     ``add_test_mask`` a tenth (at least one) to valid and the rest to test.
-    ``__call__(x)`` returns ``(train_mask, valid_mask, test_mask)``."""
+    ``__call__(x)`` returns ``(train_mask, valid_mask, test_mask)``;
+    ``__call__(data)`` masks the entries of ``X`` and writes the three into
+    ``layers["train_mask"]``, ``["valid_mask"]`` and ``["test_mask"]``."""
+
+    _DISPLAY_ATTRS = ("distr", "mask_rate", "seed", "min_gene_counts", "add_test_mask")
 
     def __init__(self, distr: Optional[str] = "exp", mask_rate: float = 0.1,
                  seed: Optional[int] = None, min_gene_counts: int = 5,
-                 add_test_mask: bool = False):
+                 add_test_mask: bool = False, **kwargs):
+        super().__init__(**kwargs)
         if not 0.0 <= mask_rate <= 1.0:
             raise ValueError(f"mask_rate must be in [0, 1], got {mask_rate}")
         self.distr = distr
@@ -49,6 +57,11 @@ class CellwiseMaskData:
         return prob / s if s > 1e-9 else np.full(len(vec), 1.0 / max(len(vec), 1))
 
     def __call__(self, x) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        if isinstance(x, BaseData):
+            masks = self(x.get_feature(return_type="sparse"))
+            for name, mask in zip(("train_mask", "valid_mask", "test_mask"), masks):
+                x.data.layers[name] = mask
+            return x
         rng = np.random.default_rng(self.seed)
         feat = sp.csr_matrix(x)
         n_cells, n_genes = feat.shape
@@ -65,7 +78,7 @@ class CellwiseMaskData:
             if n_masked <= 0:
                 continue
             if n_masked >= len(ind_pos):
-                logger.warning("Too many genes masked for cell %d (%d/%d)", c, n_masked,
+                self.logger.warning("Too many genes masked for cell %d (%d/%d)", c, n_masked,
                                len(ind_pos))
                 n_masked = 1 + int(np.floor(0.5 * len(ind_pos)))
             chosen = rng.choice(len(ind_pos), n_masked, p=self._get_probs(vals), replace=False)
@@ -80,6 +93,17 @@ class CellwiseMaskData:
             else:
                 valid_mask[c, cols] = True
         return train_mask, valid_mask, test_mask
+
+
+def entry_masks(data) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The train, valid and test masks that :class:`CellwiseMaskData` wrote
+    into a ``Data``'s ``layers``; without them (a pipeline run without
+    ``mask``) an all-ones train mask and empty others."""
+    layers = data.data.layers
+    if "train_mask" in layers:
+        return tuple(np.asarray(layers[k]) for k in ("train_mask", "valid_mask", "test_mask"))
+    shape = data.data.shape
+    return np.ones(shape, bool), np.zeros(shape, bool), np.zeros(shape, bool)
 
 
 class MaskData:
@@ -104,4 +128,4 @@ class MaskData:
         return train_mask, ~train_mask
 
 
-__all__ = ["CellwiseMaskData", "MaskData"]
+__all__ = ["CellwiseMaskData", "MaskData", "entry_masks"]

@@ -56,7 +56,8 @@ import torch
 from scipy.stats import expon
 
 from dance_tpu_torch.ops.linalg import randomized_svd
-from dance_tpu_torch.ops.sparse import CSRMatrix, csr_from_scipy
+from dance_tpu_torch.ops.segment import segment_sum_csr
+from dance_tpu_torch.ops.sparse import CSRMatrix, csr_from_scipy, index_order
 from dance_tpu_torch.settings import logger
 from dance_tpu_torch.utils import resolve_device
 
@@ -108,18 +109,24 @@ class lsiTransformer:
     def _normalized(self, counts) -> torch.Tensor:
         """TF-IDF, each row over its L1 norm (at least 1e-12), ``log1p(1e4
         x)``, in float64 on the stored entries, as JAX's sparse path does (an
-        entry that is 0 stays 0); returned as a sparse COO tensor."""
+        entry that is 0 stays 0); returned as a sparse COO tensor. Every sum
+        runs in a fixed order, the same bits on every run: the row sums over
+        the CSR's ``indptr``, the column sums over the sort of the column
+        indices."""
         device = resolve_device(self.device)
-        coo = sp.coo_matrix(counts)
-        n, m = coo.shape
-        rows = torch.from_numpy(coo.row.astype(np.int64)).to(device)
-        cols = torch.from_numpy(coo.col.astype(np.int64)).to(device)
-        v = torch.from_numpy(coo.data.astype(np.float64)).to(device)
+        csr = sp.csr_matrix(counts)
+        n, m = csr.shape
+        indptr = torch.from_numpy(csr.indptr.astype(np.int64)).to(device)
+        cols = torch.from_numpy(csr.indices.astype(np.int64)).to(device)
+        v = torch.from_numpy(csr.data.astype(np.float64)).to(device)
+        rows = torch.repeat_interleave(torch.arange(n, device=device), indptr.diff(),
+                                       output_size=v.shape[0])
         if self.idf is None:
-            self.idf = n / torch.zeros(m, dtype=torch.float64, device=device).index_add_(0, cols, v)
-        tf = v / torch.zeros(n, dtype=torch.float64, device=device).index_add_(0, rows, v)[rows]
+            perm, offsets = index_order(cols, m)
+            self.idf = n / segment_sum_csr(v.index_select(0, perm), offsets)
+        tf = v / segment_sum_csr(v, indptr)[rows]
         tfidf = tf * self.idf[cols]
-        l1 = torch.zeros(n, dtype=torch.float64, device=device).index_add_(0, rows, tfidf.abs())
+        l1 = segment_sum_csr(tfidf.abs(), indptr)
         vals = torch.log1p(tfidf / l1.clamp(min=1e-12)[rows] * 1e4)
         return torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, (n, m),
                                        check_invariants=False).coalesce()

@@ -183,29 +183,35 @@ class CellTopicProfile(BaseTransform):
     ``__call__(x, annot, batch=None)`` returns ``(profile, cell_types)``, the
     (genes x types) float32 :func:`get_ct_profile` and its column names (the
     JAX transform's ``varm`` DataFrame). ``__call__(data)`` profiles the
-    cells of split ``"ref"`` (their ``X``, labels in ``obs["cellType"]``,
-    one batch) into ``varm[out]``, a ``Frame`` over the genes with a column
-    per type. The key and the split are class constants, printed in the
-    digest as JAX prints the arguments its pipelines give (the port's
-    pipelines profile the reference split: see the deconvolution models'
-    notes)."""
+    cells of split ``split_name`` (every cell when None; their ``X``, labels
+    in ``obs["cellType"]``, batches in ``obs[batch_key]`` when it is set)
+    into ``varm[out]``, a ``Frame`` over the genes with a column per type.
+    The label key is a class constant, printed in the digest as JAX prints
+    it: no pipeline sets another."""
 
     _DISPLAY_ATTRS = ("ct_select", "ct_key", "split_name", "method")
-    ct_key, split_name = "cellType", "ref"
+    ct_key = "cellType"
 
-    def __init__(self, *, ct_select: Union[str, List[str]] = "auto", method: str = "median",
-                 **kwargs):
+    def __init__(self, *, ct_select: Union[str, List[str]] = "auto",
+                 batch_key: Optional[str] = None, split_name: Optional[str] = None,
+                 method: str = "median", **kwargs):
         super().__init__(**kwargs)
         self.ct_select = ct_select
+        self.batch_key = batch_key
+        self.split_name = split_name
         self.method = method
 
     def __call__(self, x, annot=None, batch=None):
         if isinstance(x, BaseData):
             data = x
-            x, annot = (data.get_feature(split_name=self.split_name, channel=channel,
-                                         channel_type=channel_type, return_type="numpy")
-                        for channel, channel_type in ((None, "X"), (self.ct_key, "obs")))
-            profile, ct_select = self._profile(x, annot, None)
+
+            def get(channel, channel_type):
+                return data.get_feature(split_name=self.split_name, channel=channel,
+                                        channel_type=channel_type, return_type="numpy")
+
+            x, annot = get(None, "X"), get(self.ct_key, "obs")
+            batch = None if self.batch_key is None else get(self.batch_key, "obs")
+            profile, ct_select = self._profile(x, annot, batch)
             data.data.varm[self.out] = Frame(profile, index=data.data.var_names,
                                              columns=ct_select)
             return data

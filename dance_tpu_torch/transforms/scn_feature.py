@@ -7,9 +7,10 @@ pairs of those genes, binarised as ``g1 > g2`` and ranked the same way, at
 most ``max_gene_per_ct`` pairs per gene. The union of the types' pairs, as
 sorted name tuples, gives one binary feature per pair. The JAX functions
 take DataFrames; these take the matrix and its gene names, and the host
-arithmetic is the same numpy. :class:`SCNFeature` returns the pair matrix
-and its ``"g1&g2"`` column names, where the JAX transform writes a
-DataFrame into ``obsm``.
+arithmetic is the same numpy. :class:`SCNFeature` on arrays returns the
+pair matrix and its ``"g1&g2"`` column names; on a port ``Data`` it writes
+them into ``obsm[out]`` as a ``Frame``, where the JAX transform writes a
+DataFrame, and it is registered under JAX's key in the port's own registry.
 """
 
 import itertools
@@ -19,7 +20,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import scipy.sparse as sp
 
+from dance_tpu_torch.data import Frame
+from dance_tpu_torch.data.base import BaseData
+from dance_tpu_torch.registry import register_preprocessor
 from dance_tpu_torch.settings import logger
+from dance_tpu_torch.transforms.base import BaseTransform
 from dance_tpu_torch.transforms.stats import genestats_alpha, genestats_mu
 
 
@@ -122,15 +127,26 @@ def query_transform(exp, gene_names: Sequence,
     return (exp[:, g1] > exp[:, g2]).astype(float), ["&".join(p) for p in gene_pairs]
 
 
-class SCNFeature:
+@register_preprocessor("feature", "cell")
+class SCNFeature(BaseTransform):
     """Gene-pair features (counterpart: scn_feature.py:99).
     ``__call__(x, gene_names, cell_types, split_idx=None)`` selects the
     pairs on the cells ``split_idx`` (all when None) of the (cells x genes)
     ``x``, whose per-cell type names are ``cell_types``, and returns the
-    pair features of every cell and their names."""
+    pair features of every cell and their names. ``__call__(data)`` selects
+    them on the cells of split ``"train"`` of ``X`` (a class constant,
+    printed in the digest: no pipeline names another), their types the
+    columns of the one-hot ``obsm["cell_type"]``, and writes every cell's
+    features into ``obsm[out]``."""
+
+    _DISPLAY_ATTRS = ("num_top_genes", "alpha1", "alpha2", "mu", "num_top_gene_pairs",
+                      "max_gene_per_ct", "split_name")
+    split_name = "train"
 
     def __init__(self, num_top_genes: int = 10, alpha1: float = 0.05, alpha2: float = 0.001,
-                 mu: float = 2, num_top_gene_pairs: int = 25, max_gene_per_ct: int = 3):
+                 mu: float = 2, num_top_gene_pairs: int = 25, max_gene_per_ct: int = 3,
+                 **kwargs):
+        super().__init__(**kwargs)
         self.num_top_genes = num_top_genes
         self.alpha1 = alpha1
         self.alpha2 = alpha2
@@ -138,8 +154,10 @@ class SCNFeature:
         self.num_top_gene_pairs = num_top_gene_pairs
         self.max_gene_per_ct = max_gene_per_ct
 
-    def __call__(self, x, gene_names: Sequence, cell_types,
+    def __call__(self, x, gene_names: Sequence = None, cell_types=None,
                  split_idx: Optional[Sequence[int]] = None) -> Tuple[np.ndarray, List[str]]:
+        if isinstance(x, BaseData):
+            return self._transform_data(x)
         x = np.asarray(x.toarray() if sp.issparse(x) else x)
         names = [str(g) for g in gene_names]
         idx = np.arange(x.shape[0]) if split_idx is None else np.asarray(split_idx)
@@ -150,6 +168,16 @@ class SCNFeature:
                                    num_top_pairs=self.num_top_gene_pairs,
                                    max_gene_per_ct=self.max_gene_per_ct)
         return query_transform(x, names, pairs)
+
+    def _transform_data(self, data):
+        """Counterpart: scn_feature.py:121-138."""
+        onehot = data.get_feature(return_type="default", channel="cell_type",
+                                  channel_type="obsm")
+        types = np.asarray(onehot.columns)[np.asarray(onehot.to_numpy()).argmax(1)]
+        feat, names = self(data.get_feature(return_type="numpy", channel_type="X"),
+                           data.data.var_names, types, data.get_split_idx(self.split_name))
+        data.data.obsm[self.out] = Frame(feat, index=data.data.obs_names, columns=names)
+        return data
 
 
 __all__ = ["SCNFeature", "get_diff_exp_genes", "get_top_gene_pairs", "query_transform"]

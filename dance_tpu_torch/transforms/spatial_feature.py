@@ -22,8 +22,13 @@ Where this differs from the JAX package:
   ``jax.random``; parity tests copy JAX's in
   (:func:`dance_tpu_torch.utils.params.morphology_flax_to_torch`).
 - ``morphology_feature_cnn`` returns the features; ``sme_feature`` takes the
-  SME graph as an array and returns the features. Neither registers a
-  transform.
+  SME graph as an array and returns the features. The transforms
+  :class:`MorphologyFeatureCNN` and :class:`SMEFeature` run them on a port
+  ``Data`` as JAX's do: the pixels from ``obsm["spatial_pixel"]`` and the
+  image from ``uns["image"]``, the expression from ``X`` and the graph from
+  ``obsp["SMEGraph"]``, the features into ``obsm[out]``. They are
+  registered under JAX's keys in the port's own registry; the channels are
+  class constants (no pipeline sets another).
 """
 
 import math
@@ -34,7 +39,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from dance_tpu_torch.ops.linalg import pca
+from dance_tpu_torch.registry import register_preprocessor
 from dance_tpu_torch.settings import logger
+from dance_tpu_torch.transforms.base import BaseTransform
 from dance_tpu_torch.utils import resolve_device
 from dance_tpu_torch.utils.matrix import normalize
 
@@ -145,6 +152,30 @@ def morphology_feature_cnn(xy_pixel, image, *, model_name: str = "resnet50",
     return feat.cpu().numpy()
 
 
+@register_preprocessor("feature", "spatial")
+class MorphologyFeatureCNN(BaseTransform):
+    """:func:`morphology_feature_cnn` of the tiles at ``obsm["spatial_pixel"]``
+    of ``uns["image"]`` into ``obsm[out]`` (counterpart:
+    spatial_feature.py:14). The options no pipeline sets are the function's
+    defaults, kept as class constants (those JAX prints, in the digest)."""
+
+    _DISPLAY_ATTRS = ("model_name", "n_components", "crop_size", "target_size")
+    model_name, crop_size, target_size = "resnet50", 20, 64
+
+    def __init__(self, *, n_components: int = 50, device="auto", **kwargs):
+        super().__init__(**kwargs)
+        self.n_components = n_components
+        self.device = device
+
+    def __call__(self, data):
+        xy_pixel = data.get_feature(return_type="numpy", channel="spatial_pixel",
+                                    channel_type="obsm")
+        image = data.get_feature(return_type="default", channel="image", channel_type="uns")
+        data.data.obsm[self.out] = morphology_feature_cnn(
+            xy_pixel, image, n_components=self.n_components, device=self.device)
+        return data
+
+
 def sme_feature(x, adj, *, n_neighbors: int = 3, n_components: int = 50,
                 device="auto") -> np.ndarray:
     """stLearn's SME-normalised expression (counterpart: ``SMEFeature.
@@ -173,5 +204,25 @@ def sme_feature(x, adj, *, n_neighbors: int = 3, n_components: int = 50,
     return pca(sme, min(n_components, min(sme.shape) - 1)).embedding.cpu().numpy()
 
 
-__all__ = ["MORPHOLOGY_MODELS", "MorphologyEncoder", "crop_tile", "morphology_feature_cnn",
-           "morphology_init", "same_pad", "sme_feature", "train_encoder"]
+@register_preprocessor("feature", "spatial")
+class SMEFeature(BaseTransform):
+    """:func:`sme_feature` of ``X`` over ``obsp["SMEGraph"]`` into
+    ``obsm[out]`` (counterpart: spatial_feature.py:143), its 3 neighbours the
+    function's default: no pipeline sets another."""
+
+    def __init__(self, n_components: int = 50, *, device="auto", **kwargs):
+        super().__init__(**kwargs)
+        self.n_components = n_components
+        self.device = device
+
+    def __call__(self, data):
+        x = data.get_feature(return_type="numpy", channel_type="X")
+        adj = data.get_feature(return_type="numpy", channel="SMEGraph", channel_type="obsp")
+        data.data.obsm[self.out] = sme_feature(x, adj, n_components=self.n_components,
+                                               device=self.device)
+        return data
+
+
+__all__ = ["MORPHOLOGY_MODELS", "MorphologyEncoder", "MorphologyFeatureCNN", "SMEFeature",
+           "crop_tile", "morphology_feature_cnn", "morphology_init", "same_pad", "sme_feature",
+           "train_encoder"]

@@ -1207,3 +1207,73 @@ def test_csr_spmm_reruns_bit_equal(cuda):
             assert torch.equal(_bits(x), _bits(y))
     dense = torch.from_numpy(adj.toarray()).to(cuda)
     torch.testing.assert_close(runs[0][0], dense @ h0, rtol=1e-4, atol=1e-4)
+
+
+
+def test_adaptive_sage_bsr_reruns_bit_equal(cuda):
+    """Eight runs of scDeepSort's BSR ``AdaptiveSAGE`` layer, forward and
+    backward, give equal bits in its output, dh, dα and dW on the card: only
+    the gene nodes gather their alpha, and its gradient is a fixed-order
+    sum. The card's dα within 1e-4 of the CPU's."""
+    import copy
+
+    from dance_tpu_torch.nn.gnn import AdaptiveSAGE
+
+    rng = np.random.default_rng(35)
+    expr = sp.random(3000, 500, density=0.05, random_state=35, dtype=np.float32, format="csr")
+    graph = Graph.from_cell_feature_matrix(expr, rng.random((3000, 8), dtype=np.float32),
+                                           rng.random((500, 8), dtype=np.float32))
+    gen = torch.Generator().manual_seed(35)
+    layer = AdaptiveSAGE(64, 64)
+    n = graph.num_nodes
+    h0, g = torch.randn((n, 64), generator=gen), torch.randn((n, 64), generator=gen)
+    alpha0 = 1.0 + 0.1 * torch.randn(502, generator=gen)
+    runs = {}
+    for dev, reruns in ((cuda, 8), (torch.device("cpu"), 1)):
+        adj = graph.to_adaptive_bsr(device=dev)
+        net = copy.deepcopy(layer).to(dev).eval()
+        runs[dev.type] = []
+        for _ in range(reruns):
+            h = h0.to(dev).requires_grad_(True)
+            alpha = alpha0.to(dev).requires_grad_(True)
+            net.zero_grad(set_to_none=True)
+            out = net(adj, h, adj.gene_idx, alpha)
+            out.backward(g.to(dev))
+            runs[dev.type].append([out.detach(), h.grad, alpha.grad, net.linear.weight.grad])
+    card = runs[cuda.type]
+    for run in card[1:]:
+        for x, y in zip(run, card[0]):
+            assert torch.equal(_bits(x), _bits(y))
+    dalpha, ref = card[0][2].cpu(), runs["cpu"][0][2]
+    assert ref[:500].abs().min() > 0  # every gene's alpha takes a gradient
+    torch.testing.assert_close(dalpha, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+
+
+def test_umap_and_tfidf_reruns_bit_equal(cuda):
+    """Eight UMAP layouts (50 epochs from one spectral start and one draw of
+    negatives) and eight LSI TF-IDF normalisations give equal bits on the
+    card: the layout's update and the TF-IDF's row and column sums run in a
+    fixed order. The TF-IDF within 1e-12 of the CPU's (float64)."""
+    from dance_tpu_torch.sc import pp as tpp
+    from dance_tpu_torch.sc import tl as ttl
+    from dance_tpu_torch.transforms.preprocess import lsiTransformer
+
+    rng = np.random.default_rng(36)
+    rep = (rng.standard_normal((3, 8)) * 4)[rng.integers(0, 3, 500)] + rng.standard_normal(
+        (500, 8))
+    _, conn = tpp.neighbors((rep - rep.mean(0)).astype(np.float32), n_neighbors=10,
+                            device="cpu")
+    n_edges = sp.triu(conn.maximum(conn.T), k=1).nnz
+    negs = rng.integers(0, 500, (50, n_edges))
+    layouts = [ttl.umap(conn, n_epochs=50, negatives=negs, device=cuda) for _ in range(8)]
+    assert np.isfinite(layouts[0]).all()
+    for layout in layouts[1:]:
+        np.testing.assert_array_equal(layout.view(np.int32), layouts[0].view(np.int32))
+    peaks = sp.random(400, 3000, density=0.05, random_state=36, dtype=np.float32, format="csr")
+    peaks.data = 1.0 + (peaks.data > 0.8).astype(np.float32)
+    runs = [lsiTransformer(device=cuda)._normalized(peaks) for _ in range(8)]
+    for run in runs[1:]:
+        assert torch.equal(run.indices(), runs[0].indices())
+        assert torch.equal(_bits(run.values()), _bits(runs[0].values()))
+    ref = lsiTransformer(device=torch.device("cpu"))._normalized(peaks)
+    torch.testing.assert_close(runs[0].values().cpu(), ref.values(), rtol=1e-12, atol=0)

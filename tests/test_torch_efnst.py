@@ -33,6 +33,7 @@ from dance_tpu.utils.loss import soft_assign as jsoft, target_distribution as jt
 from dance_tpu_torch.ops.cluster import KMeansResult
 from dance_tpu_torch.ops.neighbors import knn_graph
 from dance_tpu_torch.ops.sparse import csr_from_scipy
+from dance_tpu_torch.transforms import spatial_feature as S
 from dance_tpu_torch.utils.params import efnst_flax_to_torch
 from test_torch_dcca import random_flax_params
 from test_torch_vae_babel import _grads_close, _np
@@ -252,7 +253,7 @@ def test_fronts_match_jax(monkeypatch):
     # the preprocessing front, the morphology features stubbed on both sides
     monkeypatch.setattr(jsf.MorphologyFeatureCNN, "__call__", lambda self, data: (
         data.data.obsm.__setitem__(self.out, feat[:, :5]), data)[1])
-    monkeypatch.setattr(T, "morphology_feature_cnn", lambda *a, **k: feat[:, :5])
+    monkeypatch.setattr(S, "morphology_feature_cnn", lambda *a, **k: feat[:, :5])
     d = Data(AnnData(counts.copy(), var={"gid": np.arange(counts.shape[1])}))
     d.data.obsm["spatial_pixel"] = xy_pixel
     d.data.obsm["spatial"] = xy.astype(np.float32)

@@ -126,8 +126,9 @@ def test_magic_preprocess_matches_jax(mask):
         assert inp.train_mask.all() and not inp.valid_mask.any()
     sparse = T.magic_preprocess(sp.csr_matrix(counts), seed=3, mask=mask)
     np.testing.assert_array_equal(sparse.x, inp.x)
-    with pytest.raises(NotImplementedError, match="magic_preprocess"):
-        T.MAGIC.preprocessing_pipeline()
+    # the front is the container pipeline, which prints JAX's digest
+    assert T.MAGIC.preprocessing_pipeline(seed=3, mask=mask).hexdigest() == \
+        J.MAGIC.preprocessing_pipeline(seed=3, mask=mask).hexdigest()
 
 
 def test_device_default(monkeypatch):

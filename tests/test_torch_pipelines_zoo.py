@@ -269,10 +269,9 @@ def test_scheteronet_pipeline_matches_jax_and_the_array_front(sparse):
     for col in ("n_counts", "size_factors"):
         np.testing.assert_array_equal(td.data.obs[col], jd.data.obs[col].to_numpy())
     for col in jd.data.var.columns:
-        # the normalised dispersions of a sparse matrix part at ~4e-6 relative
         want = jd.data.var[col].to_numpy()
-        np.testing.assert_allclose(td.data.var[col], want, err_msg=col,
-                                   **({} if want.dtype == bool else _host_tol(False)))
+        assert td.data.var[col].dtype == want.dtype, col
+        np.testing.assert_allclose(td.data.var[col], want, rtol=0, atol=0, err_msg=col)
     tg, jg = td.data.uns["HeteronetGraph"], jd.data.uns["HeteronetGraph"]
     np.testing.assert_array_equal(tg.ndata["feat"], jg.ndata["feat"])
     assert (tg.adj != jg.adj).nnz == 0
@@ -336,7 +335,11 @@ def test_the_new_container_transforms_are_registered_under_jax_keys():
     names = {"CellPCA", "NeighborGraph", "PseudoMixture", "CellTopicProfile",
              "FilterGenesMarker", "DSTGraph", "FilterCellsScanpy", "FilterGenesScanpy",
              "HighlyVariableGenesLogarithmizedByTopGenes", "FilterCellsType", "Log1P",
-             "NormalizeTotal", "UpdateSizeFactors", "HeteronetGraph"}
+             "NormalizeTotal", "UpdateSizeFactors", "HeteronetGraph",
+             # the last sixteen pipelines' classes
+             "CellwiseMaskData", "GeneHoldout", "FeatureFeatureGraph", "SCNFeature",
+             "FilterGenesMatch", "FilterGenesCommon", "SpaGCNGraph", "SpaGCNGraph2D",
+             "SMEGraph", "MorphologyFeatureCNN", "SMEFeature"}
 
     def keys(registry):
         return {k for k in registry.children("preprocessor", non_leaf_node=False)
@@ -344,3 +347,4 @@ def test_the_new_container_transforms_are_registered_under_jax_keys():
 
     got = keys(REGISTRY)
     assert len(got) == len(names) and got == keys(jreg.REGISTRY)
+    assert len(list(REGISTRY.children("", non_leaf_node=False))) == 39

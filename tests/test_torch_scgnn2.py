@@ -232,4 +232,6 @@ def test_device_defaults(monkeypatch):
         T.ScGNN2()
     assert isinstance(T.ScGNN2(device="cpu").device, torch.device)
     assert sp.issparse(T.feature2adj(np.eye(4), 2, False)[0])
-    assert T.scgnn2_preprocess is T.ScGNN2.preprocessing_pipeline
+    # the container pipeline builds on the CPU: no step of it takes a device
+    assert T.ScGNN2.preprocessing_pipeline(seed=3).hexdigest() == \
+        J.ScGNN2.preprocessing_pipeline(seed=3).hexdigest()

@@ -30,6 +30,7 @@ from dance_tpu.transforms.graph import SMEGraph
 from dance_tpu_torch.modules.spatial.spatial_domain import stlearn as T
 from dance_tpu_torch.ops import cluster as tcluster
 from dance_tpu_torch.transforms import spatial_feature as S
+from dance_tpu_torch.transforms.graph import spatial_graph as G
 from dance_tpu_torch.utils.params import morphology_flax_to_torch
 from torch_cases import spatial_slide
 
@@ -128,7 +129,7 @@ def test_sme_graph_and_feature_match_jax():
     data.data.obsm["CellPCA"] = pcs
     data.data.X = x
     SMEGraph()(data)
-    adj = T.sme_graph(xy, xy_pixel, morph, pcs, device=CPU)
+    adj = G.sme_graph(xy, xy_pixel, morph, pcs, device=CPU)
     np.testing.assert_allclose(adj, data.data.obsp["SMEGraph"], rtol=1e-10, atol=1e-12)
     assert (adj > 0).sum(1).min() >= 1 and (adj < 0).any()
     SMEFeature(n_components=8)(data)
@@ -171,7 +172,7 @@ def test_device_defaults(monkeypatch):
         T.StKmeans()
     xy = np.arange(6.0).reshape(3, 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        T.sme_graph(xy, xy, np.ones((3, 2)), np.ones((3, 2)))
+        G.sme_graph(xy, xy, np.ones((3, 2)), np.ones((3, 2)))
     with pytest.raises(ValueError, match="Unsupported model"):
         S.morphology_feature_cnn(np.zeros((1, 2)), np.zeros((4, 4, 3)), model_name="x",
                                  device=CPU)

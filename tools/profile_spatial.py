@@ -4,8 +4,9 @@ the untraced epoch and a torch.profiler breakdown by kernel and by class
 
 Run from the root of the checkout on a machine with a CUDA card; it uses
 ``chip_smoke.py``'s data makers and sizes (phases 47 and 49: 10,000 spots,
-SpaGCN on the 50-d PCA and the 10,000² pixel distances, EfNST on 232
-columns and the 8-NN graph, z 16, 6 clusters):
+SpaGCN on the 50-d PCA and the 10,000² pixel distances, EfNST on its
+pipeline's inputs through ``Data`` (the 50-d PCA beside the 50
+morphology features, the 8-NN graph of the pixels), z 16, 6 clusters):
 
     python3 tools/profile_spatial.py
 
@@ -15,8 +16,8 @@ epochs and 1; set-up cancels; copies left out), with
 the idle share is 1 - that time over the untraced median epoch of a 30-epoch
 fit. SpaGCN runs with ``tol=0`` (no early stop); EfNST's pretrain fits run
 no DEC epoch, its DEC fits one pretrain epoch. ``chip_smoke.py``'s phases 47
-and 49 call :func:`spagcn_profile` and :func:`efnst_profile` with their own
-fits' untraced epochs. Imports no JAX.
+and 49 print the untraced epochs and leave their traces to this script.
+Imports no JAX.
 """
 import statistics
 import sys
@@ -32,7 +33,6 @@ import chip_smoke as cs
 import dance_tpu_torch.modules.spatial.spatial_domain.EfNST as efnst
 import profile_scmogcn as ps
 from dance_tpu_torch.modules.spatial.spatial_domain import SpaGCN
-from dance_tpu_torch.ops.neighbors import knn_graph
 from dance_tpu_torch.transforms import cell_pca, spagcn_graph_2d
 
 
@@ -78,7 +78,7 @@ def main(device: str = "cuda"):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cuda = torch.device(device)
-    counts, xy, xy_pixel, _, _ = cs.spatial_slide_inputs(cs.N_SPOTS, cs.LV_GENES, seed=47)
+    counts, xy, xy_pixel, image, _ = cs.spatial_slide_inputs(cs.N_SPOTS, cs.LV_GENES, seed=47)
     x = np.log1p(counts)
     lines = [cs.card_line()]
 
@@ -88,9 +88,7 @@ def main(device: str = "cuda"):
     model.fit((emb, dist), epochs=30, tol=0.0)
     lines += spagcn_profile(emb, dist, model.l, cuda, untraced_ms(model.history))[0]
 
-    concat = np.concatenate([x[:, :cs.EF_COLS - 32], np.random.default_rng(4).random(
-        (cs.N_SPOTS, 32), dtype=np.float32)], 1)
-    graph = knn_graph(xy, cs.EF_NEIGHBORS, symmetrize=False)
+    concat, graph, _ = cs.efnst_inputs(cs.slide_data(counts, xy, xy_pixel, image), cuda)
     ef = efnst.EfNsSTRunner(n_clusters=6, z_dim=16, seed=0, device=cuda)
     ef.fit(concat_X=concat, graph_dict=graph, epochs=30, dec_epochs=30)
     for phase in ("pretrain", "dec"):
