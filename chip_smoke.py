@@ -15,9 +15,11 @@ marker genes, the scanpy surface (``sc.pp`` and ``sc.tl``), ScTransform,
 GCNConv on #1, the rest of the transform surface, the data-parallel
 path (ranks sharing the card), the Data-container path (``Data``,
 ``Compose`` and the models' ``preprocessing_pipeline``) of scDeepSort,
-graph-sc, STAGATE and ACTINN, the fixed-order CSR sums, and the container
+graph-sc, STAGATE and ACTINN, the fixed-order CSR sums, the container
 pipelines of scTAG, scDSC, DSTG, stdGCN, scHeteroNet and the nine
-multimodal models.
+multimodal models, and DANCE 2.0's search path (the scDeepSort sweep from
+CSV files through the dataset cache, ACTINN's vmapped model-parameter
+grid, the atlas similarity).
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -432,11 +434,11 @@ printed only when every phase passed):
    embeddings within 8e-3 (test_parallel.py:320).
 69. ``vmapped_trials``: 8 trials (per-trial rates and an ``l2`` term) of
    ACTINN's network on its training cells, 120 full-batch steps, on one rank
-   and with the trial axis over 2 ranks, against the sequential loop of
-   ``torch.optim.Adam`` per trial: losses within 1e-3 relative over the
-   first 5 steps and 5e-2 over all 120 (Adam grows float32 gaps on
-   gradients at rounding level), the same for 2 ranks against one, the 2
-   ranks' parameters within 5e-3 of one rank's, the same winner.
+   and with the trial axis over 2 ranks: the 2 ranks' losses within 1e-3 of
+   one rank's relative over the first 5 steps and 5e-2 over all 120 (Adam
+   grows float32 gaps on gradients at rounding level), their parameters
+   within 5e-3, the same winner. (Phase 85 holds the one-rank trials, through
+   ``SweepRunner.run_vmapped``, against a sequential loop of optax's Adam.)
 70. ``dryrun_multichip(2)``'s passes (``dryrun_rank``) over gloo on the
    card (dp 1 x tp 2), on the two ranks of phases 66-69 (started once), a
    checkpoint round trip of phase 67's weights (rank 0 writes, every rank
@@ -509,6 +511,36 @@ printed only when every phase passed):
    8 runs, the gap, the times): scDeepSort's BSR ``AdaptiveSAGE`` layer at
    bench width, forward and backward (dα among its outputs), UMAP's 200
    epochs on phase 61's graph, LSI's TF-IDF on phase 65's peaks.
+84. The scDeepSort sweep at full width (``sweep_phase``; counts set to 0
+   before it): 12,000 x 2,000 typed counts (phase 2's size; phase 2's labels
+   are random), 70 % train, written as the scDeepSort CSV pairs and loaded
+   through ``CellTypeAnnotationDataset`` (X, names, labels and splits held
+   against the arrays; write and load seconds); ``load_data`` with
+   ``ScDeepSort.preprocessing_pipeline`` and ``cache=True``, then again from
+   the cache (equal ``Data``); ``PipelinePlaner`` on ``cta_scdeepsort``'s
+   config, ``sweep_agent`` for 4 random trials (seed 0), each a copy of the
+   raw ``Data``, the generated pipeline, ``ScDeepSort.preprocess`` at d =
+   256 and a 20-epoch BSR fit (#1) and prediction; the step-3 protocol
+   (``get_step3_yaml`` top 1, ``run_step3`` 2 trials); a runner resumed from
+   the summary CSV proposes no recorded config (random and grid). Fails on
+   any ``"error"`` record, a step-3 config without a runner, or a best
+   accuracy not above the majority share.
+85. ACTINN's model-parameter stage (``vmapped_sweep_phase``;
+   examples/tuning/cta_actinn/main.py:66-113) at its width, hidden (100,
+   50, 25), on phase 27's cells and split: ``SweepRunner.run_vmapped`` over
+   lr {0.03, 0.01, 0.003} x lambd {0, 0.005, 0.05}, 120 full-batch steps,
+   against the 9 trials one by one under optax's Adam written out from the
+   same weights: losses within 1e-3 relative over the first 5 steps and
+   5e-2 over all 120 (10 x the loop's own drift on its cells permuted where
+   that drift is larger), the same winner, the test accuracies of the
+   trials within 5e-2 equal to 0.005.
+86. The atlas similarity (``similarity_phase``): two count datasets of
+   10,000 and 8,000 cells x 5,000 genes with shared and private types ->
+   ``AnnDataSimilarity(init_random_state=0, n_runs=2)`` (JAX's default
+   10): the seurat_v3 HVG intersection, every method with Bures, each
+   metric's seconds, the peak device memory; each card metric against the
+   same function on the CPU on 2,000 sampled cells a side (rtol 1e-4 in
+   float32, 1e-6 in float64).
 
 Each kernel's bound is the larger of its operations over a compute peak and
 the bytes of its inputs and outputs, each counted once, over 3.35 TB/s, for
@@ -547,7 +579,7 @@ the other paths' tilings beside scDeepSort's (``graphsc``, ``sctag``,
 instantiation (``bf16``, with its own launches) and its launches by path
 (the container flows' as ``scdeepsort_data``, ``graphsc_data``,
 ``sctag_data``, ``scdsc_data``, ``dstg_data``, ``stdgcn_data`` and
-``scheteronet_data``); the
+``scheteronet_data``, and phase 84's sweep as ``scdeepsort_sweep``); the
 GAT entries carry theirs by path (``stagate``, ``stagate_data``); the
 SDDMM's carries ``f32`` and ``bf16`` results, its launches those of
 phase 3b.
@@ -690,6 +722,26 @@ PEAK_FLOPS, PEAK_TF32, PEAK_BF16, PEAK_BYTES = 67e12, 495e12, 989e12, 3.35e12
 AD_STEPS = 3
 # phase 82: the first cells or spots of the four costly pipelines compared with their fronts
 REST_SLICE = 1000
+# phase 84: the scDeepSort sweep's random trials, each fit's epochs and rate (the tuning
+# example's, examples/tuning/cta_scdeepsort/main.py:27), the step-3 trials; the
+# cta_scdeepsort tuning config (examples/tuning/cta_scdeepsort/pipeline_params_tuning_config.yaml
+# without its wandb block)
+SW_TRIALS, SW_EPOCHS, SW_LR, SW_STEP3 = 4, 20, 1e-2, 2
+SDS_TUNING = {
+    "type": "preprocessor", "tune_mode": "pipeline_params",
+    "pipeline": [
+        {"type": "filter.gene", "include": ["FilterGenesPercentile", "FilterGenesPlaceHolder"]},
+        {"type": "normalize",
+         "include": ["Log1P", "NormalizeTotal", "NormalizeTotalLog1P", "NormalizePlaceHolder"],
+         "params_to_tune": {"NormalizeTotal": {"target_sum": {"values": [1000, 10000, None]}}}},
+    ],
+}
+# phase 85: ACTINN's model-parameter grid (examples/tuning/cta_actinn/main.py:112-113); the
+# test accuracies of the vmapped and the one-by-one trials within VM_ACC_GAP
+VM_LRS, VM_LAMBDS, VM_ACC_GAP = [0.03, 0.01, 0.003], [0, 0.005, 0.05], 0.005
+# phase 86: the two datasets' cells, their genes, the HVGs each keeps, the sampling runs (cut
+# from JAX's 10), the cells a side of the card-against-CPU check
+SIM_CELLS, SIM_GENES, SIM_HVG, SIM_RUNS, SIM_CPU_CELLS = (10000, 8000), 5000, 3000, 2, 2000
 PALLAS = "dance_tpu/ops/pallas_kernels.py"
 KERNELS = ("bsr_spmm", "bsr_sddmm", "bsr_gat", "bsr_gat_stats", "bsr_gat_grads",
            "bsr_spmm_max")
@@ -5138,15 +5190,16 @@ SO_TIMEOUT, SO_JOIN = 300.0, 900.0
 # theirs), weights relative to the largest, after all SO_ACTINN_EPOCHS epochs;
 # scDeepSort's probabilities and graph-sc's embeddings against the single-card fit
 # (JAX's own bounds, test_parallel.py:289, :320), the single fit's SO_SDS_RERUNS reruns
-# bit-equal to it (its CSR sums run in a fixed order); the trials' losses, relative,
-# against a sequential loop of optax's Adam written out and against torch.optim.Adam
-# over the first SO_TRIAL_EARLY_STEPS steps, and over all steps within SO_TRIAL_DRIFT
-# times a control's float32 drift (the loop on its cells permuted: the same sums in
-# another order; the loop against torch.optim.Adam: Adam's constants rounded
-# otherwise) or SO_TRIAL_EARLY, whichever is larger; 2 ranks' against 1 rank's
+# bit-equal to it (its CSR sums run in a fixed order); the trials' losses, relative, on 2
+# ranks against 1 rank (phase 69) and vmapped against a sequential loop of optax's Adam
+# written out (phase 85): SO_TRIAL_EARLY over the first SO_TRIAL_EARLY_STEPS steps,
+# SO_TRIAL_ALL over all (Adam grows float32 gaps on gradients at rounding level); 2
+# ranks' parameters against 1 rank's; where a trial's losses part by more than
+# SO_TRIAL_ALL in phase 85, SO_TRIAL_DRIFT x the loop's own drift on its cells permuted
 SO_ACTINN_W = 1e-5
 SO_SDS_PROB, SO_GSC_Z, SO_SDS_RERUNS = 2e-3, 8e-3, 8
-SO_TRIAL_EARLY_STEPS, SO_TRIAL_EARLY, SO_TRIAL_DRIFT, SO_TRIAL_SPLIT = 5, 1e-3, 10.0, 5e-3
+SO_TRIAL_EARLY_STEPS, SO_TRIAL_EARLY, SO_TRIAL_ALL, SO_TRIAL_SPLIT = 5, 1e-3, 5e-2, 5e-3
+SO_TRIAL_DRIFT = 10.0
 
 
 def actinn_plain_fit(x, y, epochs: int, parts: int, device):
@@ -5197,10 +5250,10 @@ def weight_gap(a: dict, b: dict) -> float:
     return max(float(np.abs(a[k] - b[k]).max()) for k in b) / scale
 
 
-def trial_problem(x, y, n_out: int, device):
-    """Phase 69's trials: ACTINN's network on its training cells, full batch,
-    cross-entropy plus ``l2`` x every squared parameter; ``init_fn(seed)``
-    draws flax's init from ``seed``."""
+def trial_problem(x, y, n_out: int, device, key: str = "l2"):
+    """Phase 69's and 85's trials: ACTINN's network on its training cells,
+    full batch, cross-entropy plus the hyperparameter ``key`` x every squared
+    parameter; ``init_fn(seed)`` draws flax's init from ``seed``."""
     import torch
     import torch.nn.functional as F
 
@@ -5218,7 +5271,7 @@ def trial_problem(x, y, n_out: int, device):
         bx, by = batch
         logits = torch.func.functional_call(model, params, (bx,))
         l2 = sum((p ** 2).sum() for p in params.values())
-        return F.cross_entropy(logits, by) + hyper["l2"] * l2
+        return F.cross_entropy(logits, by) + hyper[key] * l2
 
     return model, init_fn, loss_fn, data
 
@@ -5461,7 +5514,9 @@ def scale_out_phases(cuda, sds, gsc_graph) -> None:
     if not zgap <= SO_GSC_Z:
         raise AssertionError(f"graph-sc: sharded embeddings part by {zgap}")
 
-    # -- 69. vmapped trials: one rank, two ranks, the sequential loop ------
+    # -- 69. vmapped trials: one rank against two -------------------------
+    # (the one-rank trials against a sequential loop of optax's Adam are phase 85's,
+    # through SweepRunner.run_vmapped)
     reset_launches()
     xt, yt = x[train], types[train]
     model, init_fn, loss_fn, data = trial_problem(xt, yt, HN_TYPES, cuda)
@@ -5472,93 +5527,26 @@ def scale_out_phases(cuda, sds, gsc_graph) -> None:
                                     num_steps=SO_STEPS, device=cuda)
     torch.cuda.synchronize()
     t_vm = time.perf_counter() - t0
-
-    def torch_adam(batch):
-        # each trial alone under torch.optim.Adam: the losses
-        seq = np.zeros_like(losses)
-        for i in range(SO_TRIALS):
-            p = {k: torch.nn.Parameter(v.clone()) for k, v in init_fn(i).items()}
-            opt = torch.optim.Adam(p.values(), lr=SO_TRIAL_LRS[i])
-            hyper = {"l2": torch.tensor(SO_TRIAL_L2[i], device=cuda)}
-            for s in range(SO_STEPS):
-                opt.zero_grad(set_to_none=True)
-                loss = loss_fn(p, batch, hyper)
-                loss.backward()
-                opt.step()
-                seq[s, i] = float(loss.detach())
-        return seq
-
-    def optax_adam(batch):
-        # each trial alone under optax's adam(1.0) written out (its bias
-        # corrections in float32), the update scaled by the trial's rate
-        seq = np.zeros_like(losses)
-        for i in range(SO_TRIALS):
-            p = dict(init_fn(i))
-            mu = {k: torch.zeros_like(v) for k, v in p.items()}
-            nu = {k: torch.zeros_like(v) for k, v in p.items()}
-            hyper = {"l2": torch.tensor(SO_TRIAL_L2[i], device=cuda)}
-            rate = torch.tensor(SO_TRIAL_LRS[i], dtype=torch.float32, device=cuda)
-            for t in range(1, SO_STEPS + 1):
-                grads, loss = torch.func.grad_and_value(loss_fn)(p, batch, hyper)
-                c1 = (1.0 - torch.tensor(0.9, dtype=torch.float32) ** t).to(cuda)
-                c2 = (1.0 - torch.tensor(0.999, dtype=torch.float32) ** t).to(cuda)
-                for k, g in grads.items():
-                    mu[k] = 0.1 * g + 0.9 * mu[k]
-                    nu[k] = 0.001 * g * g + 0.999 * nu[k]
-                    p[k] = p[k] + -((mu[k] / c1) / (torch.sqrt(nu[k] / c2) + 1e-8)) * rate
-                seq[t - 1, i] = float(loss)
-        return seq
-
-    t0 = time.perf_counter()
-    seq = optax_adam(data)
-    t_seq = time.perf_counter() - t0
-    # the controls: the same loop on the cells in another order (the same
-    # sums in another float32 order), and torch.optim.Adam (Adam's constants
-    # rounded otherwise)
-    shuffled = torch.from_numpy(np.random.default_rng(5).permutation(len(xt))).to(cuda)
-    ctrl = optax_adam(tuple(t[shuffled] for t in data))
-    tseq = torch_adam(data)
     no_launches("the vmapped trials (phase 69)")
     best = select_best_trial(params, -losses[-1])[1]
     tr = ranks[0]["trials"]
     k = SO_TRIAL_EARLY_STEPS
-
-    def gaps(a, b):
-        return np.max(np.abs(a - b) / np.abs(b), axis=1)  # each step, over the trials
-
-    g = {"vmapped-loop": gaps(losses, seq), "order": gaps(ctrl, seq),
-         "2 ranks-1 rank": gaps(tr["losses"], losses), "vmapped-torch": gaps(losses, tseq),
-         "loop-torch": gaps(seq, tseq)}
-    bound = max(SO_TRIAL_EARLY, SO_TRIAL_DRIFT * float(g["order"].max()))
-    bound_torch = max(SO_TRIAL_EARLY, SO_TRIAL_DRIFT * float(g["loop-torch"].max()))
+    gap = np.max(np.abs(tr["losses"] - losses) / np.abs(losses), axis=1)
     split = max(float(np.max(np.abs(r["trials"]["params"][name] - v.cpu().numpy())))
                 for r in ranks for name, v in params.items())
-    winners = [best, int(np.argmin(seq[-1])), int(np.argmin(tseq[-1])),
-               int(np.argmin(tr["losses"][-1]))]
-    early = max(float(g[n][:k].max()) for n in ("vmapped-loop", "2 ranks-1 rank",
-                                                 "vmapped-torch"))
+    winners = [best, int(np.argmin(tr["losses"][-1]))]
     marks = [s for s in (1, 2, 5, 10, 20, 40, 80, 120) if s <= SO_STEPS]
     print(f"vmapped trials: {SO_TRIALS} trials x {SO_STEPS} full-batch steps on "
           f"{len(train)} cells: 1 rank {t_vm:.3f} s, {SO_RANKS} gloo ranks {tr['seconds']:.3f} s "
-          f"(trial axis split), the loop of optax's Adam {t_seq:.3f} s; losses' max relative "
-          f"gaps over the first {k} steps {early!r} (bound {SO_TRIAL_EARLY}); over all: "
-          f"against the loop {float(g['vmapped-loop'].max())!r}, {SO_RANKS} ranks' against 1 "
-          f"rank's {float(g['2 ranks-1 rank'].max())!r} (bound {bound!r}: {SO_TRIAL_DRIFT} x "
-          f"the loop's own drift over its cells permuted {float(g['order'].max())!r}, at least "
-          f"{SO_TRIAL_EARLY}), against torch.optim.Adam "
-          f"{float(g['vmapped-torch'].max())!r} (bound {bound_torch!r}: {SO_TRIAL_DRIFT} x "
-          f"the loop's against torch.optim.Adam {float(g['loop-torch'].max())!r}); "
-          f"{SO_RANKS} ranks' parameters max gap {split!r} (bound {SO_TRIAL_SPLIT}); winners "
-          f"(vmapped, loop, torch.optim.Adam, {SO_RANKS} ranks) {winners}; final losses "
-          f"{losses[-1].tolist()}", flush=True)
-    print("vmapped trials, relative loss gaps after steps " + "; ".join(
-        f"{s}: " + ", ".join(f"{n} {float(v[s - 1])!r}" for n, v in g.items())
-        for s in marks), flush=True)
-    if not (early <= SO_TRIAL_EARLY
-            and max(g["vmapped-loop"].max(), g["2 ranks-1 rank"].max()) <= bound
-            and g["vmapped-torch"].max() <= bound_torch and split <= SO_TRIAL_SPLIT
-            and len(set(winners)) == 1):
-        raise AssertionError("vmapped trials disagree with the sequential loop")
+          f"(trial axis split); {SO_RANKS} ranks' losses against 1 rank's: max relative gap "
+          f"over the first {k} steps {float(gap[:k].max())!r} (bound {SO_TRIAL_EARLY}), over "
+          f"all {float(gap.max())!r} (bound {SO_TRIAL_ALL}); after steps "
+          + ", ".join(f"{s}: {float(gap[s - 1])!r}" for s in marks)
+          + f"; parameters max gap {split!r} (bound {SO_TRIAL_SPLIT}); winners (1 rank, "
+          f"{SO_RANKS} ranks) {winners}; final losses {losses[-1].tolist()}", flush=True)
+    if not (gap[:k].max() <= SO_TRIAL_EARLY and gap.max() <= SO_TRIAL_ALL
+            and split <= SO_TRIAL_SPLIT and len(set(winners)) == 1):
+        raise AssertionError(f"vmapped trials: {SO_RANKS} ranks disagree with one")
 
     # -- 70. the dry run (on the ranks of 66-69), a checkpoint, a trace ------
     reset_launches()
@@ -5608,11 +5596,11 @@ def graph_same(name: str, a, b) -> None:
 
 
 def scdeepsort_data_flow(name: str, data, cuda, front: bool = False,
-                         epochs: int = EPOCHS) -> dict:
+                         epochs: int = EPOCHS, lr: float = 1e-3) -> dict:
     """scDeepSort's example flow (examples/single_modality/cell_type_annotation/
     scdeepsort.py:17-31) at bench width on the card: ``preprocess`` (the gene
     PCA of the training cells, the cell-gene graph), the train and test
-    subgraphs, ``epochs`` epochs on BSR, the test predictions. With ``front`` the
+    subgraphs, ``epochs`` epochs on BSR at rate ``lr``, the test predictions. With ``front`` the
     same steps through the array front (``weighted_feature_pca`` on the
     training rows, ``Graph.from_cell_feature_matrix``) on the same data.
     Returns the seconds by stage, the graph, the fit's losses, the test
@@ -5649,7 +5637,7 @@ def scdeepsort_data_flow(name: str, data, cuda, front: bool = False,
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model.fit(g_train, y_train, epochs=epochs, val_ratio=0.2, use_bsr=True)
+    model.fit(g_train, y_train, epochs=epochs, lr=lr, val_ratio=0.2, use_bsr=True)
     torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -6650,6 +6638,411 @@ def repair_phase(cuda, sds_graph, conn, peaks) -> None:
     print(f"phase 83: {time.perf_counter() - t_phase:.3f} s", flush=True)
 
 
+def write_scdeepsort_pair(folder: str, ds_id: int, counts, genes, cells, labels) -> None:
+    """``mouse_Spleen{ds_id}_data.csv`` (genes x cells, integer counts) and
+    ``..._celltype.csv`` under ``folder``, in the scDeepSort benchmark's
+    layout (what pandas' ``to_csv`` writes)."""
+    import os
+
+    import numpy as np
+
+    os.makedirs(folder, exist_ok=True)
+    stem = os.path.join(folder, f"mouse_Spleen{ds_id}")
+    ints = counts.astype(np.int64)
+    text = np.array([str(i) for i in range(int(ints.max()) + 1)], dtype=object)
+    with open(f"{stem}_data.csv", "w") as f:
+        f.write("," + ",".join(cells) + "\n")
+        for g, name in enumerate(genes):
+            f.write(name + "," + ",".join(text[ints[:, g]]) + "\n")
+    with open(f"{stem}_celltype.csv", "w") as f:
+        f.write(",Cell,Cell_type\n")
+        f.writelines(f"{i},{c},{t}\n" for i, (c, t) in enumerate(zip(cells, labels)))
+
+
+def same_data(name: str, got, want) -> None:
+    """Two ``Data`` of one dataset equal: X, the names, the labels, the
+    splits, the config and, where there is one, the cell-gene graph."""
+    import numpy as np
+
+    checks = {"X": np.array_equal(got.data.X, want.data.X),
+              "names": np.array_equal(got.data.obs_names, want.data.obs_names)
+              and np.array_equal(got.data.var_names, want.data.var_names),
+              "labels": np.array_equal(got.data.obsm["cell_type"].to_numpy(),
+                                       want.data.obsm["cell_type"].to_numpy()),
+              "splits": all(list(got.get_split_idx(s) or []) == list(want.get_split_idx(s) or [])
+                            for s in ("train", "val", "test")),
+              "config": got.config == want.config}
+    if "PCACellFeatureGraph" in want.data.uns:
+        a, b = got.data.uns["PCACellFeatureGraph"], want.data.uns["PCACellFeatureGraph"]
+        checks["graph"] = (a.info == b.info and (a.adj != b.adj).nnz == 0
+                           and all(np.array_equal(a.ndata[k], b.ndata[k]) for k in b.ndata))
+    print(f"{name}: equal {checks}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"{name}: the two Data differ: {checks}")
+
+
+def sweep_phase(cuda) -> int:
+    """Phase 84: the scDeepSort sweep at full width, through the entry points
+    a user calls: ``CellTypeAnnotationDataset`` on CSVs in the benchmark's
+    layout, ``load_data`` with the processed-data cache, ``PipelinePlaner``
+    on ``cta_scdeepsort``'s tuning config, ``sweep_agent``, the step-3
+    protocol and a resumed runner. Returns #1's launches in the sweep."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.datasets import CellTypeAnnotationDataset
+    from dance_tpu_torch.modules.single_modality.cell_type_annotation import ScDeepSort
+    from dance_tpu_torch.pipeline import (PipelinePlaner, SweepRunner, get_step3_yaml,
+                                          read_records_csv, run_step3)
+
+    t_phase = time.perf_counter()
+    folder = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
+    counts, types = annotation_counts(N_CELLS, N_GENES, N_LABELS, 1 / N_LABELS, seed=84)
+    genes = gene_names(N_GENES)
+    perm = np.random.default_rng(84).permutation(N_CELLS)
+    n_train = int(0.7 * N_CELLS)
+    parts = {1: np.sort(perm[:n_train]), 2: np.sort(perm[n_train:])}
+    t0 = time.perf_counter()
+    for ds_id, subdir in ((1, "train"), (2, "test")):
+        rows = parts[ds_id]
+        write_scdeepsort_pair(os.path.join(folder, subdir, "mouse"), ds_id, counts[rows], genes,
+                              [f"c{i}" for i in rows], [f"type{t}" for t in types[rows]])
+    t_write = time.perf_counter() - t0
+    mib = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(folder)
+              for f in fs) / 2**20
+    kw = dict(train_dataset=[1], test_dataset=[2], species="mouse", tissue="Spleen",
+              data_dir=folder)
+    t0 = time.perf_counter()
+    raw = CellTypeAnnotationDataset(**kw).load_data()
+    t_load = time.perf_counter() - t0
+    order = np.concatenate([parts[1], parts[2]])
+    checks = {"X": np.array_equal(raw.data.X, counts[order]),
+              "genes": list(raw.data.var_names) == list(genes),
+              "cells": list(raw.data.obs_names) == [f"mouse_Spleen{1 if j < n_train else 2}_c{i}"
+                                                    for j, i in enumerate(order)],
+              "labels": np.array_equal(raw.data.obsm["cell_type"].to_numpy().argmax(1),
+                                       types[order]),
+              "splits": list(raw.train_idx) == list(range(n_train))
+              and list(raw.test_idx) == list(range(n_train, N_CELLS))}
+    print(f"phase 84, CellTypeAnnotationDataset: {N_CELLS} cells x {N_GENES} genes "
+          f"({n_train} train, {float((counts > 0).mean()):.3f} nonzero) written as the "
+          f"scDeepSort CSV pairs ({mib:.1f} MiB) in {t_write:.3f} s, loaded in {t_load:.3f} s; "
+          f"against the arrays {checks}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"phase 84: the loaded Data differs from its arrays: {checks}")
+
+    def pipeline():
+        return ScDeepSort.preprocessing_pipeline(n_components=DIM, log_level="WARNING",
+                                                 device=cuda)
+
+    t0 = time.perf_counter()
+    first = CellTypeAnnotationDataset(**kw).load_data(transform=pipeline(), cache=True)
+    t_first = time.perf_counter() - t0
+    path = CellTypeAnnotationDataset(**kw).cache_path(pipeline())
+    t0 = time.perf_counter()
+    again = CellTypeAnnotationDataset(**kw).load_data(transform=pipeline(), cache=True)
+    t_again = time.perf_counter() - t0
+    print(f"phase 84, the processed-data cache: load_data(ScDeepSort.preprocessing_pipeline, "
+          f"cache=True) {t_first:.3f} s (the PCA and the graph, then the pickle, "
+          f"{os.path.getsize(path) / 2**20:.1f} MiB at {os.path.relpath(path, folder)}), "
+          f"again from the cache {t_again:.3f} s", flush=True)
+    same_data("phase 84, the cached Data against the processed one", again, first)
+    del first, again
+
+    planer = PipelinePlaner(SDS_TUNING)
+    space = planer.search_space()
+    launched, flows = [], []
+
+    def evaluate(planer_, trial, params_mode):
+        data = raw.copy()
+        planer_.generate(**({"params": trial} if params_mode else {"pipeline": trial})
+                         ).functional(data)
+        flow = scdeepsort_data_flow(f"phase 84 trial {len(flows)} {trial}", data, cuda,
+                                    epochs=SW_EPOCHS, lr=SW_LR)
+        launched.append(flow["launches"])
+        flows.append(flow)
+        return {"acc": flow["acc"], "test_acc": flow["acc"]}
+
+    summary = os.path.join(folder, "results", "pipeline", "summary.csv")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner = planer.sweep_agent(lambda trial: evaluate(planer, trial, False), count=SW_TRIALS,
+                                method="random", seed=0, summary_file_path=summary)
+    t_sweep = time.perf_counter() - t0
+    conf_dir = os.path.join(folder, "results", "config_yamls", "params")
+    t0 = time.perf_counter()
+    paths = get_step3_yaml(summary, planer, conf_save_path=conf_dir, metric="test_acc", top_k=1)
+    runners = run_step3(conf_dir, lambda planer3, trial: evaluate(planer3, trial, True),
+                        count=SW_STEP3, result_dir=os.path.join(folder, "results", "params"))
+    torch.cuda.synchronize()
+    t_step3 = time.perf_counter() - t0
+    launches = sum(launched)
+    records = runner.records + [r for run in runners for r in run.records]
+    for i, rec in enumerate(records):
+        stage = "step 2" if i < len(runner.records) else "step 3"
+        print(f"phase 84 {stage} trial {rec['_trial']}: "
+              f"{ {k: v for k, v in rec.items() if k not in ('_trial', '_runtime')} }, "
+              f"{rec['_runtime']:.3f} s", flush=True)
+    errors = [r for r in records if "error" in r]
+    majority = flows[0]["majority"] if flows else float("nan")
+    best = runner.best("test_acc")
+    print(f"phase 84, the sweep: search space {space}; {len(runner.records)} random trials "
+          f"(seed 0) in {t_sweep:.3f} s, each {SW_EPOCHS} epochs of ScDeepSort(d = {DIM}, 2 "
+          f"layers, BSR); best {best['test_acc']!r} against the majority share {majority!r}; "
+          f"step 3: {len(paths)} config(s) {[os.path.basename(p) for p in paths]} -> "
+          f"{len(runners)} runner(s), {sum(len(r.records) for r in runners)} trials in "
+          f"{t_step3:.3f} s; bsr_spmm launches {launches} ({launched})", flush=True)
+    if errors:
+        raise AssertionError(f"phase 84: {len(errors)} trial(s) failed: {errors}")
+    if len(runners) != len(paths) or not all(len(r.records) == SW_STEP3 for r in runners):
+        raise AssertionError("phase 84: a step-3 config produced no runner or too few trials")
+    if not (best["test_acc"] > majority and launches > 0):
+        raise AssertionError(f"phase 84: best accuracy {best['test_acc']} against the majority "
+                             f"share {majority}, launches {launches}")
+
+    # the summary back through load_records: a resumed runner skips every recorded config
+    recorded = read_records_csv(summary)
+    resumed = {}
+    for method, count in (("random", SW_TRIALS), ("grid", None)):
+        fresh = SweepRunner(space, method=method, seed=0)
+        fresh.load_records(summary)
+        seen = {fresh._signature(r) for r in recorded}
+        configs = list(fresh._trial_configs(count))
+        resumed[method] = (len(configs), sum(fresh._signature(c) in seen for c in configs))
+    combos = int(np.prod([len(spec["values"]) for spec in space.values()]))
+    print(f"phase 84, resumed from the summary ({len(recorded)} records, {len(seen)} distinct "
+          f"configs): trial configs (count, of them recorded) {resumed}; the grid has "
+          f"{combos}", flush=True)
+    if len(recorded) != SW_TRIALS or any(rerun for _, rerun in resumed.values()) \
+            or resumed["grid"][0] != combos - len(seen):
+        raise AssertionError(f"phase 84: a resumed runner reruns recorded configs: {resumed}")
+    shutil.rmtree(folder, ignore_errors=True)
+    print(f"phase 84: {time.perf_counter() - t_phase:.3f} s", flush=True)
+    return launches
+
+
+def optax_adam_trials(init_fn, loss_fn, data, lrs, hypers, seeds, steps: int, device,
+                      score_fn=None):
+    """Each trial alone under optax's ``adam(1.0)`` written out (its bias
+    corrections in float32), the update scaled by the trial's rate, from
+    ``init_fn(seed)``: the (steps, trials) losses and each trial's final
+    score."""
+    import numpy as np
+    import torch
+
+    losses, scores = np.zeros((steps, len(lrs))), []
+    for i, (lr, hyper, seed) in enumerate(zip(lrs, hypers, seeds)):
+        p = dict(init_fn(seed))
+        mu = {k: torch.zeros_like(v) for k, v in p.items()}
+        nu = {k: torch.zeros_like(v) for k, v in p.items()}
+        hyper = {k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in hyper.items()}
+        rate = torch.tensor(lr, dtype=torch.float32, device=device)
+        for t in range(1, steps + 1):
+            grads, loss = torch.func.grad_and_value(loss_fn)(p, data, hyper)
+            c1 = (1.0 - torch.tensor(0.9, dtype=torch.float32) ** t).to(device)
+            c2 = (1.0 - torch.tensor(0.999, dtype=torch.float32) ** t).to(device)
+            for k, g in grads.items():
+                mu[k] = 0.1 * g + 0.9 * mu[k]
+                nu[k] = 0.001 * g * g + 0.999 * nu[k]
+                p[k] = p[k] + -((mu[k] / c1) / (torch.sqrt(nu[k] / c2) + 1e-8)) * rate
+            losses[t - 1, i] = float(loss)
+        if score_fn is not None:
+            with torch.no_grad():
+                scores.append(float(score_fn(p, data)))
+    return losses, scores
+
+
+def vmapped_sweep_phase(cuda) -> None:
+    """Phase 85: ACTINN's model-parameter stage (examples/tuning/cta_actinn/
+    main.py:66-113) at its width through ``SweepRunner.run_vmapped``,
+    against the trials one by one. No TPU kernel is on it."""
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.modules.single_modality.cell_type_annotation import actinn_preprocess
+    from dance_tpu_torch.pipeline import SweepRunner
+
+    t_phase = time.perf_counter()
+    counts, types = annotation_counts(HN_CELLS, HN_GENES, HN_TYPES, HN_RARE, seed=13)
+    x, _ = actinn_preprocess(counts, gene_names(HN_GENES))
+    perm = np.random.default_rng(21).permutation(len(types))
+    a, b = int(0.6 * len(perm)), int(0.8 * len(perm))
+    train, test = np.sort(perm[:a]), np.sort(perm[b:])
+    model, init_fn, loss_fn, data = trial_problem(x[train], types[train], HN_TYPES, cuda,
+                                                  key="lambd")
+    x_test = torch.from_numpy(x[test]).to(cuda)
+    y_test = torch.from_numpy(types[test].astype(np.int64)).to(cuda)
+
+    def score_fn(params, _):
+        logits = torch.func.functional_call(model, params, (x_test,))
+        return (logits.argmax(-1) == y_test).float().mean()
+
+    space = {"lr": {"values": VM_LRS}, "lambd": {"values": VM_LAMBDS}}
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner = SweepRunner(space, method="grid").run_vmapped(
+        lambda configs: (init_fn, loss_fn, data, score_fn), num_steps=SO_STEPS,
+        metric="test_acc", device=cuda)
+    torch.cuda.synchronize()
+    t_vm = time.perf_counter() - t0
+    no_launches("the vmapped sweep (phase 85)")
+    losses = runner._last_losses
+    lrs = [r["lr"] for r in runner.records]
+    hypers = [{"lambd": r["lambd"]} for r in runner.records]
+    n = len(runner.records)
+    t0 = time.perf_counter()
+    seq, seq_acc = optax_adam_trials(init_fn, loss_fn, data, lrs, hypers, range(n), SO_STEPS,
+                                     cuda, score_fn)
+    t_seq = time.perf_counter() - t0
+    acc = [r["test_acc"] for r in runner.records]
+    gap = np.abs(losses - seq) / np.abs(seq)  # (steps, trials)
+    k = SO_TRIAL_EARLY_STEPS
+    # a trial whose losses part by more than SO_TRIAL_ALL: the same loop on the cells
+    # permuted (the same sums in another float32 order) measures how far rounding alone
+    # moves that trajectory; the bound is SO_TRIAL_DRIFT x that drift
+    bound = np.full(n, SO_TRIAL_ALL)
+    loose = [i for i in range(n) if gap[:, i].max() > SO_TRIAL_ALL]
+    drift = {}
+    if loose:
+        order = torch.from_numpy(np.random.default_rng(5).permutation(len(train))).to(cuda)
+        ctrl, _ = optax_adam_trials(init_fn, loss_fn, tuple(t[order] for t in data),
+                                    [lrs[i] for i in loose], [hypers[i] for i in loose], loose,
+                                    SO_STEPS, cuda)
+        for j, i in enumerate(loose):
+            drift[i] = float((np.abs(ctrl[:, j] - seq[:, i]) / np.abs(seq[:, i])).max())
+            bound[i] = max(SO_TRIAL_ALL, SO_TRIAL_DRIFT * drift[i])
+    winners = [int(np.argmin(losses[-1])), int(np.argmin(seq[-1]))]
+    acc_gap = max([abs(acc[i] - seq_acc[i]) for i in range(n) if i not in loose] or [0.0])
+    best = runner.best("test_acc")
+    print(f"phase 85, run_vmapped: {n} trials (lr {VM_LRS} x lambd {VM_LAMBDS}, grid) of "
+          f"ACTINN's network {model.layers[0].in_features} -> (100, 50, 25) -> {HN_TYPES} on "
+          f"{len(train)} cells, {SO_STEPS} full-batch Adam steps: vmapped {t_vm:.3f} s, one by "
+          f"one (optax's Adam written out) {t_seq:.3f} s; losses' max relative gap over the "
+          f"first {k} steps {float(gap[:k].max())!r} (bound {SO_TRIAL_EARLY}), over all, by "
+          f"trial {gap.max(0).tolist()} (bounds {bound.tolist()}: {SO_TRIAL_ALL}, or for the "
+          f"trials {loose} {SO_TRIAL_DRIFT} x the loop's own drift over its cells permuted "
+          f"{drift}); winners by final loss (vmapped, one by one) {winners}; test accuracies "
+          f"{acc} against {seq_acc} (max gap on the trials within {SO_TRIAL_ALL}: {acc_gap!r}, "
+          f"bound {VM_ACC_GAP}); best {best['test_acc']!r} at lr {best['lr']}, lambd "
+          f"{best['lambd']}", flush=True)
+    if not (gap[:k].max() <= SO_TRIAL_EARLY and (gap.max(0) <= bound).all()
+            and len(set(winners)) == 1 and acc_gap <= VM_ACC_GAP
+            and np.isfinite(losses).all()):
+        raise AssertionError("phase 85: the vmapped trials disagree with the trials one by one")
+    print(f"phase 85: {time.perf_counter() - t_phase:.3f} s", flush=True)
+
+
+def atlas_counts(n_cells: int, types, programs, seed: int):
+    """Counts of ``n_cells`` cells drawn from ``types`` (rows of
+    ``programs``, gene rates), gamma depths, Poisson; ``obs`` with the type
+    and the total."""
+    import numpy as np
+
+    from dance_tpu_torch.data import AnnData, Frame
+
+    rng = np.random.default_rng(seed)
+    labels = rng.choice(types, n_cells)
+    depth = rng.gamma(4.0, 0.5, (n_cells, 1))
+    x = rng.poisson(programs[labels] * depth).astype(np.float32)
+    adata = AnnData(x, obs=Frame({"cell_type": np.array([f"type{t}" for t in labels]),
+                                  "n_counts": x.sum(1)}))
+    adata.var_names = gene_names(programs.shape[1])
+    return adata
+
+
+def similarity_phase(cuda) -> None:
+    """Phase 86: the atlas similarity (``AnnDataSimilarity``) of two count
+    datasets that share some cell types, every method, on the card; each
+    card metric against the same function on the CPU."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from dance_tpu_torch.atlas import AnnDataSimilarity
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(86)
+    base = rng.gamma(0.5, 0.4, SIM_GENES)
+    fold = np.exp(rng.normal(0, 1.0, (9, SIM_GENES)) * (rng.random((9, SIM_GENES)) < 0.15))
+    programs = fold * base
+    a1 = atlas_counts(SIM_CELLS[0], range(0, 6), programs, seed=1)
+    a2 = atlas_counts(SIM_CELLS[1], range(3, 9), programs, seed=2)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = AnnDataSimilarity(a1, a2, init_random_state=0, n_runs=SIM_RUNS, device=cuda)
+    t_filter = time.perf_counter() - t0
+    names = {"cosine": "cosine_sim_sampled", "pearson": "pearson_corr_sampled",
+             "jaccard": "jaccard_sim_sampled", "js_distance": "js_divergence_sampled",
+             "mmd": "compute_mmd", "wasserstein": "wasserstein_dist",
+             "hausdorff": "get_Hausdorff", "chamfer": "chamfer_distance",
+             "energy": "energy_distance_metric", "sinkhorn2": "get_sinkhorn2",
+             "bures": "bures_distance", "spectral": "spectral_distance"}
+    seconds = dict.fromkeys(names, 0.0)
+
+    def timed(metric, fn):
+        def run(x1, x2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(x1, x2)
+            torch.cuda.synchronize()
+            seconds[metric] += time.perf_counter() - t
+            return out
+        return run
+
+    cpu = copy.copy(sim)
+    cpu.device = torch.device("cpu")
+    for metric, attr in names.items():
+        setattr(sim, attr, timed(metric, getattr(sim, attr)))
+    methods = list(names) + ["metadata_sim", "common_genes_num"]
+    t0 = time.perf_counter()
+    results = sim.compute_similarity(methods)
+    t_all = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    size = min(SIM_CELLS)
+    print(f"phase 86, AnnDataSimilarity: {SIM_CELLS[0]} and {SIM_CELLS[1]} cells x {SIM_GENES} "
+          f"genes (types 0-5 and 3-8) -> {len(sim.common_genes)} common seurat_v3 HVGs of "
+          f"{SIM_HVG} each in {t_filter:.3f} s; {SIM_RUNS} runs (JAX's default 10) of {size} "
+          f"sampled cells a side, every method in {t_all:.3f} s; peak device memory "
+          f"{peak:.1f} MiB ({size}² float32 distances: {size ** 2 * 4 / 2**20:.1f} MiB each); "
+          f"results {results}; seconds by metric "
+          f"{ {m: round(v, 4) for m, v in seconds.items()} }", flush=True)
+    if not (all(np.isfinite(v) for v in results.values()) and 0 < len(sim.common_genes) < SIM_HVG
+            and results["common_genes_num"] == len(sim.common_genes)):
+        raise AssertionError(f"phase 86: non-finite results or no common genes: {results}")
+
+    # the card against the CPU on the first SIM_CPU_CELLS sampled cells of run 0
+    x1, x2 = (x[:SIM_CPU_CELLS] for x in sim.sample_cells(0))
+    gaps = {}
+    for metric, attr in names.items():
+        if metric in ("cosine", "pearson", "jaccard", "js_distance"):
+            continue  # host numpy in both
+        got, want = getattr(sim, attr)(x1, x2), getattr(cpu, attr)(x1, x2)
+        bound = 1e-6 if metric in ("bures", "spectral") else 1e-4
+        gaps[metric] = (abs(got - want) / abs(want), bound)
+    print(f"phase 86, card against CPU on {SIM_CPU_CELLS} cells a side (relative gap, bound): "
+          f"{gaps}", flush=True)
+    if not all(g <= b for g, b in gaps.values()):
+        raise AssertionError(f"phase 86: the card's metrics differ from the CPU's: {gaps}")
+    print(f"phase 86: {time.perf_counter() - t_phase:.3f} s", flush=True)
+
+
+def search_phases(cuda) -> int:
+    """Phases 84-86, DANCE 2.0's search path; returns phase 84's #1 launches."""
+    t_phases = time.perf_counter()
+    launches = sweep_phase(cuda)
+    vmapped_sweep_phase(cuda)
+    similarity_phase(cuda)
+    print(f"phases 84-86: {time.perf_counter() - t_phases:.3f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -6709,6 +7102,7 @@ def main() -> int:
     data_path.update(zoo_phases(cuda, clu, dc, hn))
     rest_phase(cuda, fronts)
     repair_phase(cuda, sds[0], conn, peaks)
+    sweep_launches = search_phases(cuda)
     # STAGATE's container fit runs the GAT kernels too (phase 73)
     for name, n in data_path["stagate_data_launches"].items():
         if name in ("bsr_gat", "bsr_gat_stats", "bsr_gat_grads"):
@@ -6723,7 +7117,8 @@ def main() -> int:
                 "launches": launched, **result}
 
     entries = {name: entry(name) for name in KERNELS}
-    # the SpMM runs on ten array paths and seven container paths (``*_data``):
+    # the SpMM runs on ten array paths, seven container paths (``*_data``) and the
+    # scDeepSort sweep (``scdeepsort_sweep``, phase 84):
     # its times are scDeepSort's tiling at d = 256; graph-sc's tiling at d = 200,
     # scTAG's at d = 3000 and 128,
     # scDSC's at d = 512 and 8, scMoGNN's, DSTG's at d = 32 and 8, stdGCN's
@@ -6747,7 +7142,8 @@ def main() -> int:
                                 "graphsc_data": data_path["graphsc_data_launches"],
                                 **{f"{m}_data": data_path[f"{m}_data"]
                                    for m in ("sctag", "scdsc", "dstg", "stdgcn",
-                                             "scheteronet")}}
+                                             "scheteronet")},
+                                "scdeepsort_sweep": sweep_launches}
     spmm["launches"] = sum(spmm["launches_by_path"].values())
     spmm["graphsc"] = gsc["graphsc_spmm"]
     spmm["sctag"] = {f"d{d}": res for d, res in clu["sctag"].items()}

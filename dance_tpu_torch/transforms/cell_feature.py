@@ -11,12 +11,13 @@ The JAX transforms read and write a ``Data`` container. Here each class's
 ``__call__`` takes the cells x features matrix (and the batch labels where
 JAX reads ``obs["batch"]``) and returns what JAX writes to ``obsm``/``varm``;
 with ``save_info`` the components JAX writes to ``uns`` are kept in the
-instance's ``info``. :class:`WeightedFeaturePCA`, which the container
-pipelines run, also takes a port ``Data`` and then acts on it as JAX's does
-(``split_name``, ``obsm``/``varm[out]``, ``uns`` under ``save_info``, a
-modality by ``mod``); it is registered under JAX's key in the port's own
-registry. The matrix work runs on ``device`` (the CUDA card unless the CPU
-is named); the batch statistics (percentiles) are host numpy, as in JAX.
+instance's ``info``. :class:`WeightedFeaturePCA`, :class:`CellSVD` and
+:class:`FeatureCellPlaceHolder`, which the container pipelines and the
+tuning configs name, also take a port ``Data`` and then act on it as JAX's
+do (``split_name``, ``obsm``/``varm[out]``, ``uns`` under ``save_info``);
+they are registered under JAX's keys in the port's own registry. The
+matrix work runs on ``device`` (the CUDA card unless the CPU is named);
+the batch statistics (percentiles) are host numpy, as in JAX.
 
 Where this differs from the JAX package: the randomized SVD (above 1,024 on
 both sides) and the Gaussian projection draw from torch generators, not
@@ -244,20 +245,31 @@ class CellSparsePCA:
         return (xc @ comps.T).cpu().numpy(), comps.T.cpu().numpy()
 
 
-class CellSVD:
+@register_preprocessor("feature", "cell")
+class CellSVD(BaseTransform):
     """The truncated SVD of the cells, ``U S`` (counterpart:
     cell_feature.py:193); a float ``n_components`` as in
     :class:`WeightedFeatureSVD`. ``__call__(x)`` returns the embedding; with
-    ``save_info`` (the default, as in JAX) ``info`` holds the components."""
+    ``save_info`` (the default, as in JAX) ``info`` holds the components.
+    On a port ``Data``, the SVD is of ``X``; the embedding goes to
+    ``obsm[out]`` and, with ``save_info``, the components to ``uns``."""
+
+    _DISPLAY_ATTRS = ("n_components",)
 
     def __init__(self, n_components: Union[float, int] = 400, *, save_info: bool = True,
-                 device="auto"):
+                 device="auto", **kwargs):
+        super().__init__(**kwargs)
         self.n_components = n_components
         self.save_info = save_info
         self.device = device
         self.info: Dict[str, np.ndarray] = {}
 
-    def __call__(self, x) -> np.ndarray:
+    def __call__(self, x):
+        if isinstance(x, BaseData):
+            data = x
+            data.data.obsm[self.out] = self(data.get_feature(return_type="numpy"))
+            data.data.uns.update(self.info)
+            return data
         feat = _dense(x, resolve_device(self.device))
         if isinstance(self.n_components, float):
             self.n_components = _evr_components(feat, self.n_components)
@@ -267,11 +279,18 @@ class CellSVD:
         return emb.cpu().numpy()
 
 
-class FeatureCellPlaceHolder:
+@register_preprocessor("feature", "cell")
+class FeatureCellPlaceHolder(BaseTransform):
     """The features as they are: ``(x, x.T)`` for ``obsm`` and ``varm``
-    (counterpart: cell_feature.py:224)."""
+    (counterpart: cell_feature.py:224); on a port ``Data``, written to
+    ``obsm[out]`` and ``varm[out]``."""
 
-    def __call__(self, x) -> Tuple[np.ndarray, np.ndarray]:
+    def __call__(self, x):
+        if isinstance(x, BaseData):
+            data = x
+            data.data.obsm[self.out], data.data.varm[self.out] = self(
+                data.get_feature(return_type="numpy"))
+            return data
         feat = np.asarray(x.toarray() if sp.issparse(x) else x)
         return feat, feat.T
 

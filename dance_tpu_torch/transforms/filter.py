@@ -21,7 +21,9 @@ columns JAX writes. The summary filters return the kept genes in
 by ``sorted(selected names)`` (filter.py:291-297), so "g10" comes before
 "g2". They take the gene names beside the matrix for that reason. Handed
 a port ``Data`` instead, they act on it as JAX's do, and they are
-registered under JAX's keys in the port's own registry.
+registered under JAX's keys in the port's own registry; so are
+``FilterGenesScanpyOrder``, ``HighlyVariableGenesRawCount`` and the two
+gene placeholders, which the tuning configs name.
 
 A gene is a marker of a type when its log fold change against the mean of
 the other types' profiles passes ``threshold``; the filter keeps the genes
@@ -165,12 +167,17 @@ def _in_order(filters, x, axis: int):
     return idx, cols
 
 
-class FilterGenesScanpyOrder:
+@register_preprocessor("filter", "gene")
+class FilterGenesScanpyOrder(BaseTransform):
     """The gene thresholds applied one at a time in ``order`` (counterpart:
-    filter.py:569). ``__call__(x)`` returns the kept genes' indices."""
+    filter.py:569). ``__call__(x)`` returns the kept genes' indices; on a
+    port ``Data``, each step filters its genes in place, as JAX's."""
+
+    _DISPLAY_ATTRS = ("order",)
 
     def __init__(self, order: Optional[List[str]] = None, min_counts=None, min_cells=None,
-                 max_counts=None, max_cells=None):
+                 max_counts=None, max_cells=None, **kwargs):
+        super().__init__(**kwargs)
         self.order = order if order is not None else ["min_counts", "min_cells", "max_counts",
                                                       "max_cells"]
         params = {"min_counts": min_counts, "min_cells": min_cells, "max_counts": max_counts,
@@ -179,7 +186,11 @@ class FilterGenesScanpyOrder:
             raise KeyError(f"Order entries must be in {sorted(params)}")
         self.steps = [FilterGenesScanpy(**{key: params[key]}) for key in self.order]
 
-    def __call__(self, x) -> np.ndarray:
+    def __call__(self, x):
+        if isinstance(x, BaseData):
+            for step in self.steps:
+                step(x)
+            return x
         return _in_order(self.steps, x, axis=1)[0]
 
 
@@ -644,17 +655,24 @@ def get_marker_genes_giotto(group1, group2, group_detection_1, group_detection_2
                        rank_score=rank_score, min_genes=min_genes)
 
 
-class HighlyVariableGenesRawCount:
+@register_preprocessor("filter", "gene")
+class HighlyVariableGenesRawCount(AnnDataTransform):
     """seurat_v3 HVGs of raw counts (counterpart: filter.py:625):
     ``__call__(x)`` returns :func:`~dance_tpu_torch.sc.pp.
     highly_variable_genes`' dict; its ``highly_variable`` is what JAX
-    subsets by."""
+    subsets by. On a port ``Data`` it is JAX's ``AnnDataTransform`` of
+    ``sc.pp.highly_variable_genes`` (the ``var`` columns, then the genes
+    kept)."""
 
-    def __init__(self, n_top_genes: Optional[int] = 1000, span: float = 0.3):
+    def __init__(self, n_top_genes: Optional[int] = 1000, span: float = 0.3, **kwargs):
+        super().__init__("sc.pp.highly_variable_genes", n_top_genes=n_top_genes, span=span,
+                         subset=True, inplace=True, flavor="seurat_v3", **kwargs)
         self.n_top_genes = n_top_genes
         self.span = span
 
-    def __call__(self, x) -> Dict[str, np.ndarray]:
+    def __call__(self, x):
+        if isinstance(x, BaseData):
+            return super().__call__(x)
         from dance_tpu_torch.sc import pp
 
         return pp.highly_variable_genes(x, flavor="seurat_v3", n_top_genes=self.n_top_genes,
@@ -704,16 +722,24 @@ class HighlyVariableGenesLogarithmizedByMeanAndDisp:
                                         n_bins=self.n_bins)
 
 
-class FilterGenesPlaceHolder:
+@register_preprocessor("filter", "gene")
+class FilterGenesPlaceHolder(BaseTransform):
     """No filter: ``(n_counts, n_cells)`` of each gene, the ``var`` columns
-    JAX writes (counterpart: filter.py:662)."""
+    JAX writes (counterpart: filter.py:662); on a port ``Data``, written to
+    ``var``."""
 
-    def __call__(self, x) -> Tuple[np.ndarray, np.ndarray]:
+    def __call__(self, x):
+        if isinstance(x, BaseData):
+            x.data.var["n_counts"], x.data.var["n_cells"] = self(
+                x.get_feature(return_type="numpy", channel_type="X"))
+            return x
         return np.asarray(x.sum(0)).ravel(), np.asarray((x > 0).sum(0)).ravel()
 
 
-class FilterGenesNumberPlaceHolder:
-    """The identity (counterpart: filter.py:682)."""
+@register_preprocessor("filter", "gene")
+class FilterGenesNumberPlaceHolder(BaseTransform):
+    """The identity (counterpart: filter.py:682), of an array or a port
+    ``Data``."""
 
     def __call__(self, x):
         return x

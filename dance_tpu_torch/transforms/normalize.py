@@ -12,9 +12,14 @@ The JAX transforms read and write a ``Data`` container. Here each takes the
 cells x genes matrix and returns what JAX writes: :class:`ScTransform`
 returns a dict with the residual matrix under ``"X"`` and dicts of the
 ``var`` and ``obs`` columns under their JAX names. :class:`Log1P`,
-:class:`NormalizeTotal` and :class:`UpdateSizeFactors`, which the container
-pipelines run, also take a port ``Data`` and then act on it as JAX's do;
-they are registered under JAX's keys in the port's own registry.
+:class:`NormalizeTotal`, :class:`UpdateSizeFactors`,
+:class:`ColumnSumNormalize`, :class:`NormalizePlaceHolder` and
+:class:`NormalizeTotalLog1P`, which the container pipelines and the tuning
+configs name, also take a port ``Data`` and then act on it as JAX's do;
+they are registered under JAX's keys in the port's own registry. All but
+``UpdateSizeFactors`` and ``ColumnSumNormalize`` take JAX's ``mod``, which
+the tuning configs set (:func:`~dance_tpu_torch.utils.wrappers.
+add_mod_and_transform`).
 
 ScTransform's ``"glm"`` flavour in stages, each on ``device`` (the CUDA card
 unless the CPU is named):
@@ -40,8 +45,9 @@ Where this differs from the JAX package:
 - ``ScTransformR`` drives R through rpy2, which the card's machine lacks: it
   raises ``NotImplementedError``.
 - ``NormalizeTotal``'s ``key_added`` is not taken: the port returns the
-  matrix, or normalises a ``Data`` in place. ScTransform's ``n_cells``, ``bin_size`` and ``processes_num``,
-  which JAX stores and never reads, are not taken.
+  matrix, or normalises a ``Data`` in place. ScTransform's ``n_cells``,
+  ``bin_size`` and ``processes_num``, which JAX stores and never reads, are
+  not taken.
 """
 
 import time
@@ -58,27 +64,40 @@ from dance_tpu_torch.transforms.base import BaseTransform
 from dance_tpu_torch.transforms.interface import AnnDataTransform
 from dance_tpu_torch.utils import resolve_device
 from dance_tpu_torch.utils.matrix import normalize as matrix_normalize
+from dance_tpu_torch.utils.wrappers import add_mod_and_transform
 
 
 def _dense64(x) -> np.ndarray:
     return np.asarray(x.toarray() if sp.issparse(x) else x, np.float64)
 
 
-class ColumnSumNormalize:
+@register_preprocessor("normalize")
+class ColumnSumNormalize(BaseTransform):
     """Axis-wise scaling of each group of cells on its own (counterpart:
     normalize.py:22), :func:`~dance_tpu_torch.utils.matrix.normalize` in
     float32 on ``device``. ``__call__(x, groups=None)`` takes the groups as
     index arrays (JAX's splits) or as one label per cell (JAX's
-    ``batch_key``); without them the matrix is one group."""
+    ``batch_key``); without them the matrix is one group. On a port
+    ``Data``, ``X`` is scaled as one group, as JAX's default does; JAX's
+    ``split_names`` and ``batch_key`` stay None (class constants printed in
+    the digest): no caller sets them."""
+
+    _DISPLAY_ATTRS = ("axis", "mode", "eps", "split_names", "batch_key")
+    split_names = None
+    batch_key = None
 
     def __init__(self, *, axis: int = 0, mode: str = "normalize", eps: float = -1.0,
-                 device="auto"):
+                 device="auto", **kwargs):
+        super().__init__(**kwargs)
         self.axis = axis
         self.mode = mode
         self.eps = eps
         self.device = device
 
-    def __call__(self, x, groups=None) -> np.ndarray:
+    def __call__(self, x, groups=None):
+        if isinstance(x, BaseData):
+            x.data.X = self(x.data.X)
+            return x
         device = resolve_device(self.device)
         xt = torch.from_numpy(np.asarray(x.toarray() if sp.issparse(x) else x,
                                          np.float32)).to(device)
@@ -431,6 +450,7 @@ class ScTransformR:
 
 
 @register_preprocessor("normalize")
+@add_mod_and_transform
 class Log1P(AnnDataTransform):
     """``log(1 + x)`` (counterpart: normalize.py:462, ``sc.pp.log1p``): of an
     array, returned; of a port ``Data``, in place, as JAX's
@@ -447,6 +467,7 @@ class Log1P(AnnDataTransform):
 
 
 @register_preprocessor("normalize")
+@add_mod_and_transform
 class NormalizeTotal(AnnDataTransform):
     """Each cell scaled to ``target_sum`` counts; ``max_fraction < 1``
     leaves the genes above that share of a cell out of the size factors
@@ -470,8 +491,11 @@ class NormalizeTotal(AnnDataTransform):
                                   max_fraction=self.max_fraction)
 
 
-class NormalizePlaceHolder:
-    """The identity (counterpart: normalize.py:486)."""
+@register_preprocessor("normalize")
+@add_mod_and_transform
+class NormalizePlaceHolder(BaseTransform):
+    """The identity (counterpart: normalize.py:486), of an array or a port
+    ``Data``."""
 
     def __call__(self, x):
         return x
@@ -492,12 +516,20 @@ class UpdateSizeFactors(BaseTransform):
         return counts, counts / np.median(counts)
 
 
-class NormalizeTotalLog1P:
+@register_preprocessor("normalize")
+@add_mod_and_transform
+class NormalizeTotalLog1P(BaseTransform):
     """:class:`NormalizeTotal` then :class:`Log1P` (counterpart:
-    normalize.py:514)."""
+    normalize.py:514), of an array or, in place, of a port ``Data``."""
+
+    _DISPLAY_ATTRS = ("base", "target_sum", "max_fraction")
 
     def __init__(self, base: Optional[float] = None, target_sum: Optional[float] = None,
-                 max_fraction: float = 0.05):
+                 max_fraction: float = 0.05, **kwargs):
+        super().__init__(**kwargs)
+        self.base = base
+        self.target_sum = target_sum
+        self.max_fraction = max_fraction
         self._normalize = NormalizeTotal(target_sum=target_sum, max_fraction=max_fraction)
         self._log1p = Log1P(base=base)
 

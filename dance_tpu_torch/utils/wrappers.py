@@ -1,8 +1,6 @@
 """Function and class wrappers (counterpart: dance_tpu/utils/wrappers.py):
-``TimeIt``, ``as_1d_array`` and ``CastOutputType``. ``as_numpy`` is in
-:mod:`dance_tpu_torch.utils`. JAX's ``add_mod_and_transform`` (a ``mod``
-option that runs a transform on one modality of a MuData) has no port yet:
-no ported pipeline sets ``mod``.
+``TimeIt``, ``as_1d_array``, ``CastOutputType`` and
+``add_mod_and_transform``. ``as_numpy`` is in :mod:`dance_tpu_torch.utils`.
 """
 
 import functools
@@ -21,6 +19,38 @@ def as_1d_array(func):
         return np.asarray(func(*args, **kwargs)).ravel()
 
     return wrapped
+
+
+def add_mod_and_transform(cls):
+    """Class decorator giving a container transform a ``mod`` option: with
+    ``mod`` set, the transform runs on that modality of a ``MuData`` as a
+    ``Data`` of its own, and the result is written back (counterpart:
+    wrappers.py:84). The tuning configs of the joint-embedding and BABEL
+    models set it on their normalize step."""
+    orig_init = cls.__init__
+    orig_call = cls.__call__
+
+    @functools.wraps(orig_init)
+    def __init__(self, *args, mod=None, **kwargs):
+        self.mod = mod
+        orig_init(self, *args, **kwargs)
+
+    @functools.wraps(orig_call)
+    def __call__(self, data, *args, **kwargs):
+        from dance_tpu_torch.data.base import BaseData
+
+        if self.mod is None or not isinstance(data, BaseData):
+            return orig_call(self, data, *args, **kwargs)
+        from dance_tpu_torch.data import Data
+
+        sub = Data(data.data.mod[self.mod])
+        out = orig_call(self, sub, *args, **kwargs)
+        data.data.mod[self.mod] = sub.data
+        return data if out is not None else None
+
+    cls.__init__ = __init__
+    cls.__call__ = __call__
+    return cls
 
 
 class CastOutputType:
@@ -56,4 +86,4 @@ class TimeIt:
         return wrapped
 
 
-__all__ = ["CastOutputType", "TimeIt", "as_1d_array"]
+__all__ = ["CastOutputType", "TimeIt", "add_mod_and_transform", "as_1d_array"]

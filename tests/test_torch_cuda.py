@@ -3,7 +3,8 @@ plain PyTorch versions, the scDeepSort, STAGATE, graph-sc, scTAG, scDSC,
 scMoGNN, DSTG and stdGCN fits on the card against the CPU, scHeteroNet's
 hop tilings and HetConv steps, the dense single-modality models
 (ACTINN, scDeepCluster, scDCC, DeepImpute) and optax's AMSGrad, the scanpy
-surface, ScTransform and GCNConv on the card against the CPU.
+surface, ScTransform, GCNConv, the atlas similarity's metrics and the
+vmapped sweep on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips where ``torch.cuda.is_available()``
 is False. This file imports no JAX, so it runs on a machine with only
@@ -1277,3 +1278,78 @@ def test_umap_and_tfidf_reruns_bit_equal(cuda):
         assert torch.equal(_bits(run.values()), _bits(runs[0].values()))
     ref = lsiTransformer(device=torch.device("cpu"))._normalized(peaks)
     torch.testing.assert_close(runs[0].values().cpu(), ref.values(), rtol=1e-12, atol=0)
+
+
+def test_atlas_metrics_match_cpu(cuda):
+    """The atlas similarity's pairwise metrics on the card against the CPU:
+    float32 at rtol 1e-4 (sums in another order), the float64 Bures and
+    spectral distances at rtol 1e-6; the squared distances are full float32
+    even with TF32 on."""
+    from dance_tpu_torch.atlas.sc_similarity import anndata_similarity as A
+    from dance_tpu_torch.data import AnnData
+
+    rng = np.random.default_rng(37)
+    names = np.array([f"G{k}" for k in range(300)])
+    pair = []
+    for n, seed in ((400, 0), (300, 1)):
+        x = rng.poisson(rng.gamma(0.6, 1.0, (3, 300))[rng.integers(0, 3, n)] * 2.0)
+        a = AnnData(x.astype(np.float32))
+        a.var_names = names
+        pair.append(a)
+    sims = {dev: A.AnnDataSimilarity(*pair, init_random_state=0, n_runs=1, device=dev)
+            for dev in (cuda, torch.device("cpu"))}
+    x1, x2 = sims[cuda].sample_cells(0)
+    for name, rtol in (("compute_mmd", 1e-4), ("wasserstein_dist", 1e-4),
+                       ("get_Hausdorff", 1e-4), ("chamfer_distance", 1e-4),
+                       ("energy_distance_metric", 1e-4), ("get_sinkhorn2", 1e-4),
+                       ("bures_distance", 1e-6), ("spectral_distance", 1e-6)):
+        got = getattr(sims[cuda], name)(x1, x2)
+        want = getattr(sims[torch.device("cpu")], name)(x1, x2)
+        np.testing.assert_allclose(got, want, rtol=rtol, err_msg=name)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        d = A.pdist2(torch.from_numpy(x1).float().to(cuda), torch.from_numpy(x2).float().to(cuda))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    want = A.pdist2(torch.from_numpy(x1).float(), torch.from_numpy(x2).float())
+    np.testing.assert_allclose(d.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-5 * float(want.max()))
+
+
+def test_run_vmapped_matches_cpu(cuda):
+    """``SweepRunner.run_vmapped`` on a tiny MLP from the same weights in
+    every trial, on the card against the CPU: scores and final losses at
+    rtol 1e-4."""
+    from dance_tpu_torch.pipeline import SweepRunner
+
+    rng = np.random.default_rng(38)
+    x = torch.from_numpy(rng.standard_normal((64, 6)).astype(np.float32))
+    y = torch.from_numpy((x[:, :3].sum(1) > 0).numpy().astype(np.int64))
+    w = {"w1": rng.standard_normal((6, 8)).astype(np.float32) * 0.5,
+         "b1": np.zeros(8, np.float32),
+         "w2": rng.standard_normal((8, 2)).astype(np.float32) * 0.5,
+         "b2": np.zeros(2, np.float32)}
+
+    def make_trial(device, with_score):
+        def nll(p, bx, by):
+            logp = torch.log_softmax(torch.tanh(bx @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"], -1)
+            return -torch.gather(logp, 1, by[:, None]).mean()
+
+        def loss_fn(p, batch, hyper):
+            return nll(p, *batch) + hyper["lambd"] * sum((v ** 2).sum() for v in p.values())
+
+        def make(configs):
+            return (lambda seed: {k: torch.from_numpy(v.copy()) for k, v in w.items()}, loss_fn,
+                    (x.to(device), y.to(device)),
+                    (lambda p, batch: nll(p, *batch)) if with_score else None)
+
+        return make
+
+    space = {"lr": {"values": [0.03, 0.01]}, "lambd": {"values": [0.0, 0.05]}}
+    for with_score in (False, True):
+        runs = [SweepRunner(space, method="grid").run_vmapped(
+            make_trial(dev, with_score), num_steps=15, metric="m", device=dev)
+            for dev in (cuda, torch.device("cpu"))]
+        got, want = ([r["m"] for r in run.records] for run in runs)
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+        assert runs[0]._last_stacked_params["w1"].device.type == "cuda"

@@ -347,4 +347,6 @@ def test_the_new_container_transforms_are_registered_under_jax_keys():
 
     got = keys(REGISTRY)
     assert len(got) == len(names) and got == keys(jreg.REGISTRY)
-    assert len(list(REGISTRY.children("", non_leaf_node=False))) == 39
+    # 39, then the nine transforms the tuning configs name and the two
+    # single-modality datasets (tests/test_torch_pipeline.py, test_torch_datasets.py)
+    assert len(list(REGISTRY.children("", non_leaf_node=False))) == 50

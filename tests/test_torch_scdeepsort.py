@@ -419,6 +419,9 @@ def test_port_imports_no_jax():
         "        'dance_tpu_torch.transforms.graph.cell_feature_graph',\n"
         "        'dance_tpu_torch.datasets', 'dance_tpu_torch.datasets.synthetic',\n"
         "        'dance_tpu_torch.datasets.singlemodality',\n"
+        "        'dance_tpu_torch.datasets.base', 'dance_tpu_torch.pipeline',\n"
+        "        'dance_tpu_torch.exceptions', 'dance_tpu_torch.atlas',\n"
+        "        'dance_tpu_torch.atlas.sc_similarity.anndata_similarity',\n"
         "        'dance_tpu_torch.utils.wrappers', 'dance_tpu_torch.utils.status'} <= set(names)\n"
         "from dance_tpu_torch.modules.multi_modality.predict_modality import (\n"
         "    BabelWrapper, CMAE, MMVAE, ScMoGCNWrapper)\n"
@@ -448,7 +451,8 @@ def test_port_imports_no_jax():
         "    filter_edge, mnn, preprocess_adj, query_knn)\n"
         "from dance_tpu_torch.transforms.preprocess import ccaEmbed, l2norm, selectTopGenes\n"
         "from dance_tpu_torch.ops.linalg import gram_schmidt_gauss_proj, pca_transform\n"
-        "bad = {'jax', 'flax', 'optax', 'sklearn', 'pandas', 'h5py', 'yaml', 'dance_tpu'}\n"
+        "bad = {'jax', 'flax', 'optax', 'sklearn', 'pandas', 'h5py', 'yaml', 'wandb', 'openpyxl',\n"
+        "       'dance_tpu'}\n"
         "print(len(names), sorted(m for m in sys.modules if m.split('.')[0] in bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, check=True, env={**os.environ, "PYTHONPATH": REPO})
